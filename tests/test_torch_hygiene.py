@@ -1,0 +1,68 @@
+"""The port stands alone: neither ``tt_sketch_torch`` nor ``chip_smoke.py``
+imports JAX or the JAX package, and the CUDA toolchain is touched only when
+a kernel is first launched."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "tt_sketch_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "tt_sketch_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, tt_sketch_torch\n"
+        "from tt_sketch_torch import stream_sketch, TensorTrainDRM\n"
+        "import tt_sketch_torch.kernels.dense_engine\n"
+        "import tt_sketch_torch.interop\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "from tt_sketch_torch.kernels import cuda_build\n"
+        "assert not cuda_build.build_info\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_kernel_source_is_in_the_package():
+    from tt_sketch_torch.kernels.cuda_build import BUILD_DIR, CSRC
+
+    assert (CSRC / "dual_project.cu").is_file()
+    # builds land under build/, which .gitignore lists
+    assert BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()

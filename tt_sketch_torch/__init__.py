@@ -1,0 +1,43 @@
+"""tt_sketch_torch — the PyTorch/CUDA port of ``tt_sketch_tpu``.
+
+Streaming tensor-train sketching (STTA) of dense and TT tensors with
+TT-DRMs, and recovery of the TT cores.  The dense slab stream's one-pass
+projection runs a hand-written Hopper kernel (``csrc/dual_project.cu``).
+Public names mirror ``tt_sketch_tpu``::
+
+    from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
+
+Entry points run on ``"cuda"`` unless given ``device=`` or after
+``tt_sketch_torch.config.set_default_device("cpu")``.
+"""
+from tt_sketch_torch.utils import (  # noqa: F401
+    dematricize,
+    matricize,
+    process_tt_rank,
+    trim_ranks,
+)
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Lazy imports keep `import tt_sketch_torch` light.
+    from importlib import import_module
+
+    _API = {
+        "Tensor": "tt_sketch_torch.formats.base",
+        "DenseTensor": "tt_sketch_torch.formats.dense",
+        "TensorTrain": "tt_sketch_torch.formats.tensor_train",
+        "stream_sketch": "tt_sketch_torch.engine.sketch",
+        "assemble_sketched_tt": "tt_sketch_torch.engine.sketch",
+        "SketchedTensorTrain": "tt_sketch_torch.engine.sketch",
+        "SketchContainer": "tt_sketch_torch.engine.sketch_container",
+        "general_sketch": "tt_sketch_torch.engine.dispatch",
+        "SketchMethod": "tt_sketch_torch.engine.dispatch",
+        "TensorTrainDRM": "tt_sketch_torch.drm",
+        "dense_stream_sketch_bisect": "tt_sketch_torch.kernels.dense_engine",
+        "slab_stream_sketch": "tt_sketch_torch.kernels.dense_engine",
+    }
+    if name in _API:
+        return getattr(import_module(_API[name]), name)
+    raise AttributeError(f"module 'tt_sketch_torch' has no attribute '{name}'")

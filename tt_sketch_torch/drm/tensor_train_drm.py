@@ -1,0 +1,136 @@
+"""Tensor-train DRM: sketches with partial contractions of a fixed random TT.
+
+Counterpart of ``tt_sketch_tpu/drm/tensor_train_drm.py`` for dense and TT
+input.  Chain-state conventions (state after absorbing cores 0..mu):
+
+- tt:     ``(tensor_rank, r)``
+- dense:  ``(prod(shape[:mu+1]), r)`` — explicit prefix contraction
+
+The sparse, CP and Tucker sketches come with later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+from tt_sketch_torch.drm.base import (
+    CanSlice,
+    CansketchCP,
+    CansketchDense,
+    CansketchSparse,
+    CansketchTT,
+    CansketchTucker,
+    handle_transpose,
+)
+from tt_sketch_torch.formats.tensor_train import TensorTrain
+
+
+def chain_step_tt(state, core, tensor_core):
+    if state is None:
+        return torch.einsum("ijk,ijl->kl", tensor_core, core)
+    tmp = torch.einsum("ij,ikl->jkl", state, tensor_core)  # (r_drm, n, r_t2)
+    return torch.einsum("jkl,jkm->lm", tmp, core)
+
+
+def chain_step_dense(state, core):
+    if state is None:
+        return core.reshape(-1, core.shape[-1])
+    nxt = torch.einsum("ij,jkl->ikl", state, core)
+    return nxt.reshape(-1, nxt.shape[-1])
+
+
+class TensorTrainDRM(
+    CansketchSparse,
+    CansketchTT,
+    CansketchCP,
+    CansketchDense,
+    CansketchTucker,
+    CanSlice,
+):
+    """DRM whose μ-th sketching matrix is the prefix contraction of a fixed
+    norm-preserving random TT (last core dropped).
+
+    The cores are drawn on the host exactly as the JAX package draws them
+    (bit-identical for equal seed and dtype) and then moved to ``device``.
+    Given ``cores``, the DRM lives on their device.
+    """
+
+    cores: List[torch.Tensor]
+
+    def __init__(
+        self,
+        rank: Union[Tuple[int, ...], int],
+        shape: Tuple[int, ...],
+        transpose: bool,
+        seed: Optional[int] = None,
+        cores: Optional[List[torch.Tensor]] = None,
+        device=None,
+        **kwargs,
+    ) -> None:
+        if cores is not None:
+            device = cores[0].device
+        super().__init__(rank, shape, transpose, seed=seed, device=device,
+                         **kwargs)
+        if cores is not None:
+            self.cores = list(cores)
+        else:
+            tt_shape = self.shape[::-1] if transpose else self.shape
+            tt = TensorTrain.random(
+                tt_shape,
+                self.true_rank,
+                self.seed,
+                norm_goal="norm-preserve",
+                dtype=self.dtype,
+                device=self.device,
+            )
+            self.cores = tt.cores[:-1]
+
+    def _slice(self, mat, mu: int):
+        return mat[:, self.rank_min[mu]: self.rank_max[mu]]
+
+    def sketch_sparse(self, tensor) -> List[torch.Tensor]:
+        raise NotImplementedError(
+            "sparse input comes with the sparse STTA slice of the port"
+        )
+
+    def sketch_cp(self, tensor) -> List[torch.Tensor]:
+        raise NotImplementedError(
+            "CP input comes with the formats-and-DRMs slice of the port"
+        )
+
+    def sketch_tucker(self, tensor) -> List[torch.Tensor]:
+        raise NotImplementedError(
+            "Tucker input comes with the formats-and-DRMs slice of the port"
+        )
+
+    @handle_transpose
+    def sketch_tt(self, tensor) -> List[torch.Tensor]:
+        out, state = [], None
+        for mu, core in enumerate(self.cores):
+            state = chain_step_tt(state, core, tensor.cores[mu])
+            out.append(self._slice(state, mu))
+        return out
+
+    @handle_transpose
+    def sketch_dense(self, tensor) -> List[torch.Tensor]:
+        """Per-mode DRM matrices ``(rank, n_1⋯n_{μ+1})``.
+
+        For the transposed (right) DRM the chain runs over the reversed
+        tensor, so its natural row enumeration is reversed-mode-major; it is
+        re-enumerated to pair index-for-index with the *original* tensor's
+        C-order suffix flattening, as in the JAX package.  This path
+        materializes O(N·r) matrices and suits small tensors only; large
+        dense tensors go through ``kernels.dense_engine``.
+        """
+        out, state = [], None
+        for mu, core in enumerate(self.cores):
+            state = chain_step_dense(state, core)
+            mat = self._slice(state, mu)  # (ñ_0⋯ñ_mu, r)
+            if self.transpose:
+                dims = tuple(tensor.shape[: mu + 1])
+                mat = mat.reshape(dims + (-1,))
+                mat = mat.permute(tuple(range(mu, -1, -1)) + (mu + 1,))
+                mat = mat.reshape(-1, mat.shape[-1])
+            out.append(mat.T)
+        return out

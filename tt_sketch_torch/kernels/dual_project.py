@@ -1,0 +1,143 @@
+"""Both bisect projections, ``T = X2d @ R`` and ``U = Lᵀ @ X2d``, in one
+pass over ``X2d``.
+
+Counterpart of ``tt_sketch_tpu/kernels/pallas_project.py``.  On a CUDA
+tensor ``dual_project`` launches the hand-written Hopper kernel of
+``tt_sketch_torch/csrc/dual_project.cu`` (built at first use, see
+``cuda_build``) or raises; on CPU tensors it computes the plain version
+``dual_project_reference``.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_COMPUTE = ("f32", "bf16")
+
+
+def fits_dual_project(P: int, S: int, r: int, rho: int, itemsize: int = 4,
+                      block_m: int = 128, block_n: int = 4096) -> bool:
+    """The TPU kernel's divisibility gate, kept for parity with
+    ``tt_sketch_tpu``.  The CUDA kernel masks ragged edges and takes any
+    shape, so nothing in the port consults this."""
+    if P % block_m or S % block_n:
+        return False
+    return P >= block_m and S >= block_n and r >= 1 and rho >= 1
+
+
+def dual_project_reference(X2d: torch.Tensor, R: torch.Tensor,
+                           L: torch.Tensor, compute: str = "f32"):
+    """Plain PyTorch version: ``(X2d @ R, L.T @ X2d)`` in the inputs' dtype.
+
+    ``compute="bf16"`` first rounds X2d, R and L to bfloat16 (products then
+    accumulate in the inputs' dtype), as the kernel's bf16 mode does.
+    """
+    if compute not in _COMPUTE:
+        raise ValueError(f"compute must be one of {_COMPUTE}, got {compute!r}")
+    if compute == "bf16":
+        X2d, R, L = (t.to(torch.bfloat16).to(t.dtype) for t in (X2d, R, L))
+    return X2d @ R, L.T @ X2d
+
+
+def _check_cuda_operands(X2d, R, L) -> None:
+    named = (("X2d", X2d), ("R", R), ("L", L))
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != X2d.device:
+            raise ValueError(
+                f"dual_project: {name} lies on {t.device}; all operands must "
+                f"lie on one CUDA device (X2d is on {X2d.device})"
+            )
+        if t.dtype != torch.float32:
+            raise ValueError(
+                f"dual_project: the kernel takes float32, {name} is {t.dtype}"
+            )
+        if t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(
+                f"dual_project: {name} must be a contiguous 2-D tensor, got "
+                f"shape {tuple(t.shape)} with strides {t.stride()}"
+            )
+    P, S = X2d.shape
+    if R.shape[0] != S or L.shape[0] != P:
+        raise ValueError(
+            f"dual_project: shapes X2d {tuple(X2d.shape)}, R {tuple(R.shape)}, "
+            f"L {tuple(L.shape)} do not chain"
+        )
+    if P == 0 or S == 0:
+        raise ValueError("dual_project: X2d is empty")
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    from tt_sketch_torch.kernels.cuda_build import load_library
+
+    lib = load_library("dual_project")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tt_dual_project.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.tt_dual_project.restype = i32
+    for fn in ("row_block", "col_tile", "max_r", "max_rho"):
+        getattr(lib, f"tt_dual_project_{fn}").argtypes = []
+        getattr(lib, f"tt_dual_project_{fn}").restype = i32
+    lib.tt_cuda_error_string.argtypes = [i32]
+    lib.tt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
+                 compute: str = "f32"):
+    """Return ``(X2d @ R, Lᵀ @ X2d)`` with one pass over ``X2d``.
+
+    X2d: (P, S); R: (S, ρ); L: (P, r).  On CUDA all three are contiguous
+    float32 on one device, and the kernel accumulates in fp32;
+    ``compute="bf16"`` rounds the operands to bfloat16 first.  Ranks above
+    the kernel's per-launch limit (r ≤ 32, ρ ≤ 64) are split into several
+    launches, each reading X once.  CPU tensors take
+    ``dual_project_reference``.  ``dual_project.launches`` counts kernel
+    launches.
+    """
+    if compute not in _COMPUTE:
+        raise ValueError(f"compute must be one of {_COMPUTE}, got {compute!r}")
+    if all(t.device.type == "cpu" for t in (X2d, R, L)):
+        return dual_project_reference(X2d, R, L, compute)
+    _check_cuda_operands(X2d, R, L)
+    lib = _library()
+    P, S = X2d.shape
+    r, rho = L.shape[1], R.shape[1]
+    max_r, max_rho = lib.tt_dual_project_max_r(), lib.tt_dual_project_max_rho()
+    row_block, col_tile = (
+        lib.tt_dual_project_row_block(), lib.tt_dual_project_col_tile()
+    )
+    n_blocks = -(-P // row_block)
+    s_pad = -(-S // col_tile) * col_tile
+    n_launch = max(1, -(-r // max_r), -(-rho // max_rho))
+    T_parts, U_parts = [], []
+    with torch.cuda.device(X2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for c in range(n_launch):
+            Lc = L[:, c * max_r:(c + 1) * max_r].contiguous()
+            Rc = R[:, c * max_rho:(c + 1) * max_rho].contiguous()
+            rc, rhoc = Lc.shape[1], Rc.shape[1]
+            Tc = torch.empty((P, rhoc), dtype=torch.float32, device=X2d.device)
+            Uc = torch.empty((rc, S), dtype=torch.float32, device=X2d.device)
+            Upart = torch.empty(
+                (n_blocks, rc, s_pad), dtype=torch.float32, device=X2d.device
+            )
+            err = lib.tt_dual_project(
+                X2d.data_ptr(), Rc.data_ptr(), Lc.data_ptr(), Tc.data_ptr(),
+                Uc.data_ptr(), Upart.data_ptr(), P, S, rc, rhoc,
+                int(compute == "bf16"), stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"dual_project kernel failed to launch: CUDA error {err} "
+                    f"({lib.tt_cuda_error_string(err).decode()})"
+                )
+            dual_project.launches += 1
+            T_parts.append(Tc)
+            U_parts.append(Uc)
+    if n_launch == 1:
+        return T_parts[0], U_parts[0]
+    return torch.cat(T_parts, dim=1), torch.cat(U_parts, dim=0)
+
+
+dual_project.launches = 0
