@@ -6,8 +6,10 @@ Run from the repo root on a machine with one CUDA card::
 
 Phases (the first failure raises and exits non-zero):
 
-1. Build the ``dual_project`` CUDA kernel from ``tt_sketch_torch/csrc``
-   (nvcc, sm_90a) and print the card's name and power limit.
+1. Build the CUDA libraries ``dual_project``, ``lazy_gaussian`` and
+   ``sparse_psi`` from ``tt_sketch_torch/csrc`` (nvcc, sm_90a, one process
+   per source, all at once), print each ptxas report and the card's name
+   and power limit.
 2. Hold the kernel against its plain PyTorch version, ``f32`` and ``bf16``
    modes, at the main-path shape, a ragged shape and a rank-split shape;
    time kernel, plain version and the two-``torch.matmul`` yardstick.
@@ -19,10 +21,23 @@ Phases (the first failure raises and exits non-zero):
    launch count; then time one resident slab streamed 19 x 10 times.
 4. ``stream_sketch`` on dense and TT input in float64 at a small shape:
    exact recovery and linearity of ``+``.
-5. Print the ``{"kernels": [...]}`` line, then the device line last.
+5. The sparse kernels against their plain versions: the 64-bit hash bit for
+   bit; ``lazy_gaussian``, ``omega_fused``, ``psi_fused_slabs`` (three
+   variants) and ``psi_omega_merged_slabs`` (two variants) at the
+   FROSTT-uber main path's shapes (3,309,696 nnz, ranks 10/20, the mode-2/3
+   plans), at a ragged shape (nnz not a multiple of the chunk, odd ranks)
+   and with flat indices above 2^63; time each kernel's main-path launches
+   and their plain versions.
+6. The sparse main path at full size: ``uber-synthetic`` with its default
+   plan, ``stream_sketch`` rank 10/20 with ``SparseGaussianDRM`` in f32;
+   launch counts 3/2/1/1; every Ψ/Ω against the same sketch with each
+   kernel replaced by its plain version on the card; ``sample_error`` of
+   ``to_tt()``; median sketch time over fresh seeds (CUDA events).
+7. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Requires CUDA; exits non-zero without it.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -32,8 +47,31 @@ import numpy as np
 
 F32_TOL = 2e-5   # relative Frobenius: fp32 sums of 16384/32768 terms in another order
 BF16_TOL = 1e-2  # the same operands rounded to bf16 on both sides, fp32 accumulate
+ROWS_TOL = 2e-6  # absolute: FMA-contracted erfinv polynomial vs separate ops, a few f32 ulps at |g| <= 5.5
+PSI_TOL = 2e-5   # relative Frobenius: fp32 sums over up to 3.3M nnz in another order
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside the tensor cores
+# Lane instructions per second of the CUDA cores: the fp32 peak counts an
+# FMA as two flops; integer instructions share the same dispatch slots.
+H100_LANE_OPS_PER_S = H100_FP32_FLOP_PER_S / 2
+OPS_PER_SAMPLE = 58  # hash64 + erfinv per DRM sample (csrc/hash_rng.cuh)
+LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_psi")
+SPARSE_KERNELS = ("lazy_gaussian", "omega_fused", "psi_omega_merged_slabs",
+                  "psi_fused_slabs")
+EXPECTED_LAUNCHES = {"lazy_gaussian": 3, "omega_fused": 2,
+                     "psi_omega_merged_slabs": 1, "psi_fused_slabs": 1}
+REPLACES = {
+    "lazy_gaussian": "tt_sketch_tpu/kernels/pallas_rng.py:191",
+    "omega_fused": "tt_sketch_tpu/kernels/pallas_psi.py:396",
+    "psi_omega_merged_slabs": "tt_sketch_tpu/kernels/pallas_psi.py:498",
+    "psi_fused_slabs": "tt_sketch_tpu/kernels/pallas_psi.py:270",
+}
+SOURCES = {
+    "lazy_gaussian": "tt_sketch_torch/csrc/lazy_gaussian.cu",
+    "omega_fused": "tt_sketch_torch/csrc/sparse_psi.cu",
+    "psi_omega_merged_slabs": "tt_sketch_torch/csrc/sparse_psi.cu",
+    "psi_fused_slabs": "tt_sketch_torch/csrc/sparse_psi.cu",
+}
 
 MAIN = (32768, 16384, 32, 64)   # (P, S, r, rho) of one slab's pivot-1 view
 SHAPES = {"main": MAIN, "ragged": (1000, 3000, 7, 13),
@@ -69,14 +107,17 @@ def phase_build():
     from tt_sketch_torch.kernels import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.load_library("dual_project")
-    print(f"# phase 1: dual_project built and loaded in "
+    cuda_build.build_libraries(LIBRARIES)
+    for name in LIBRARIES:
+        cuda_build.load_library(name)
+    print(f"# phase 1: {', '.join(LIBRARIES)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    if "dual_project" in cuda_build.build_info:
-        secs, log = cuda_build.build_info["dual_project"]
-        print(f"# nvcc {secs:.2f} s:")
-        for line in log.splitlines():
-            print(f"#   {line.strip()}")
+    for name in LIBRARIES:
+        if name in cuda_build.build_info:
+            secs, log = cuda_build.build_info[name]
+            print(f"# nvcc {name} {secs:.2f} s:")
+            for line in log.splitlines():
+                print(f"#   {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -289,6 +330,439 @@ def phase_stream_sketch():
         raise AssertionError("phase 4 did not run in float64 on the card")
 
 
+# -- sparse slice --------------------------------------------------------------
+
+def _kernel_fns():
+    from tt_sketch_torch.kernels import lazy_gaussian as LG
+    from tt_sketch_torch.kernels import sparse_psi as SP
+
+    return {
+        "lazy_gaussian": (LG.lazy_gaussian, LG.lazy_gaussian_reference),
+        "omega_fused": (SP.omega_fused, SP.omega_fused_reference),
+        "psi_omega_merged_slabs": (SP.psi_omega_merged_slabs,
+                                   SP.psi_omega_merged_slabs_reference),
+        "psi_fused_slabs": (SP.psi_fused_slabs,
+                            SP.psi_fused_slabs_reference),
+    }
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the fused sparse sketch through every kernel's plain version
+    (on the same device) instead of the kernel."""
+    from tt_sketch_torch.kernels import sketch_kernels as K
+
+    saved = {name: getattr(K, name) for name in SPARSE_KERNELS}
+    for name, (_, plain) in _kernel_fns().items():
+        setattr(K, name, plain)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+
+
+def sparse_main_calls(tensor, ldrm, rdrm):
+    """The arguments of every kernel launch of one fused sketch of
+    ``tensor`` (the derivation of ``sparse_streaming_sketch_fused``)."""
+    from tt_sketch_torch.rng.hash_rng import flat_index
+
+    d, shp = len(tensor.shape), tensor.shape
+    idx, rev = tensor.indices, tensor.indices.flip(0)
+    calls = {name: [] for name in SPARSE_KERNELS}
+    merged = set()
+    for mu, p in enumerate(tensor.psi_plan):
+        lsalts = ldrm.salts(mu - 1) if mu > 0 else None
+        rsalts = rdrm.salts(d - 2 - mu) if mu < d - 1 else None
+        if p is None:
+            if mu > 0:
+                calls["lazy_gaussian"].append(
+                    (flat_index(idx[:mu], shp[:mu]), lsalts))
+            if mu < d - 1:
+                kt = d - 2 - mu
+                calls["lazy_gaussian"].append(
+                    (flat_index(rev[:kt + 1], shp[::-1][:kt + 1]), rsalts))
+        elif mu < d - 1 and p.flat_left_om is not None:
+            merged.add(mu)
+            calls["psi_omega_merged_slabs"].append((
+                p.local_idx, p.sorted_entries, p.flat_left, p.flat_right,
+                p.flat_left_om, lsalts, rsalts, ldrm.salts(mu), p.n_chunks,
+                p.span, p.chunk))
+        else:
+            calls["psi_fused_slabs"].append((
+                p.local_idx, p.sorted_entries, p.flat_left, p.flat_right,
+                lsalts, rsalts, p.n_chunks, p.span, p.chunk))
+    for mu in range(d - 1):
+        if mu not in merged:
+            calls["omega_fused"].append((
+                tensor.entries, flat_index(idx[:mu + 1], shp[:mu + 1]),
+                flat_index(rev[:d - 1 - mu], shp[::-1][:d - 1 - mu]),
+                ldrm.salts(mu), rdrm.salts(d - 2 - mu)))
+    return calls
+
+
+def sparse_bound(name, args):
+    """(bound ms, bound_by) of one kernel call: each input read once, each
+    output written once, over 3.35 TB/s; OPS_PER_SAMPLE per hashed sample
+    plus one multiply per weighted sample and one FMA per contracted
+    product, over the CUDA cores' lane-instruction rate."""
+    if name == "lazy_gaussian":
+        flat, salts = args
+        N, R = flat.shape[0], salts.shape[0]
+        nbytes = 8 * N + 8 * R + 4 * R * N
+        ops = OPS_PER_SAMPLE * R * N
+    elif name == "omega_fused":
+        e, lflat, rflat, lsalts, rsalts = args
+        N, r1, r2 = e.shape[0], lsalts.shape[0], rsalts.shape[0]
+        nbytes = 20 * N + 8 * (r1 + r2) + 4 * r1 * r2
+        ops = OPS_PER_SAMPLE * (r1 + r2) * N + r1 * N + r1 * r2 * N
+    else:
+        loc, se, lflat, rflat = args[:4]
+        if name == "psi_fused_slabs":
+            lsalts, rsalts, nc, span, chunk = args[4:]
+            osalts = oflat = None
+        else:
+            oflat, lsalts, rsalts, osalts, nc, span, chunk = args[4:]
+        N = se.shape[0]
+        r1 = lsalts.shape[0] if lflat is not None else 1
+        r2 = rsalts.shape[0] if rflat is not None else 1
+        hashed = (r1 if lflat is not None else 0) + (
+            r2 if rflat is not None else 0)
+        n_flat = (lflat is not None) + (rflat is not None)
+        nbytes = (4 * loc.shape[0] + 4 * N + 8 * n_flat * N + 8 * hashed
+                  + 4 * nc * span * r1 * r2)
+        ops = OPS_PER_SAMPLE * hashed * N + r1 * N + r1 * r2 * N
+        if oflat is not None:
+            r1o = osalts.shape[0]
+            nbytes += 8 * N + 8 * r1o + 4 * r1o * r2
+            ops += OPS_PER_SAMPLE * r1o * N + r1o * N + r1o * r2 * N
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / H100_LANE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _compare(name, label, got, ref):
+    """(max abs err, rel err) of a kernel's outputs against its plain
+    version's; raises past the tolerance."""
+    import torch
+
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    rel = max(_rel(g, r) for g, r in zip(got, ref))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    if name == "lazy_gaussian":
+        ok, tol = abs_err <= ROWS_TOL, f"abs tol {ROWS_TOL:g}"
+    else:
+        ok, tol = rel <= PSI_TOL, f"rel tol {PSI_TOL:g}"
+    print(f"# phase 5: {name} {label}: max abs err {abs_err:.3e}, rel err "
+          f"{rel:.3e} ({tol}), finite {finite}")
+    if not (ok and finite):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{label}")
+    return abs_err, rel
+
+
+def _high_flats(args, offset):
+    """The same call with every flat index stream shifted by ``offset``
+    (mod 2^64), which puts them above 2^63."""
+    import torch
+
+    def shift(a):
+        if isinstance(a, torch.Tensor) and a.dtype == torch.int64 \
+                and a.ndim == 1 and a.shape[0] > 1 << 16:
+            return a + offset
+        return a
+
+    return tuple(shift(a) for a in args)
+
+
+def _ragged_case():
+    """A small tensor whose nnz is not a multiple of the chunk, with a
+    chunk that is not a multiple of the kernels' tile, odd ranks, and one
+    unplanned mode (so all four kernels run)."""
+    from tt_sketch_torch import SparseGaussianDRM
+    from tt_sketch_torch.formats import SparseTensor
+
+    rng = np.random.default_rng(3)
+    shape = (13, 7, 150, 101)
+    nnz = 40_009
+    idx = np.stack([rng.integers(0, n, nnz) for n in shape])
+    ent = rng.standard_normal(nnz).astype(np.float32)
+    t = SparseTensor(shape, idx, ent, device="cuda").with_psi_plan(
+        indices=idx, entries=ent, threshold=10, chunk=1000)
+    import torch
+
+    ldrm = SparseGaussianDRM(7, shape, transpose=False, seed=11,
+                             dtype=torch.float32, device="cuda")
+    rdrm = SparseGaussianDRM(13, shape, transpose=True, seed=12,
+                             dtype=torch.float32, device="cuda")
+    return t, ldrm, rdrm
+
+
+def phase_sparse_kernels(tensor, ldrm, rdrm):
+    """Each sparse kernel against its plain version; returns per-kernel
+    measurements at the main path's calls."""
+    import torch
+
+    from tt_sketch_torch.kernels.lazy_gaussian import hash_bits
+    from tt_sketch_torch.rng.hash_rng import hash_int, hash_int_np
+
+    # the bare 64-bit hash, bit for bit, including values above 2^63
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randint(-(1 << 62), 1 << 62, (1 << 20,), generator=g,
+                      device="cuda", dtype=torch.int64) * 2 + 1
+    x[:4] = torch.tensor([0, -1, 30787972, -(1 << 63)], device="cuda")
+    hb = hash_bits(x)
+    same_dev = bool((hb == hash_int(x)).all())
+    xs = x[:4096].cpu().numpy()
+    same_host = bool((hb[:4096].cpu().numpy().view(np.uint64)
+                      == hash_int_np(xs.view(np.uint64))).all())
+    print(f"# phase 5: hash64 kernel vs plain int64 hash on the card: "
+          f"{'equal' if same_dev else 'DIFFERENT'} over {x.shape[0]} "
+          f"values; vs numpy uint64 on the host: "
+          f"{'equal' if same_host else 'DIFFERENT'}")
+    if not (same_dev and same_host):
+        raise AssertionError("the 64-bit hash kernel disagrees bit for bit")
+
+    fns = _kernel_fns()
+    main_calls = sparse_main_calls(tensor, ldrm, rdrm)
+    cases = [("uber", main_calls)]
+    rt, rl, rr = _ragged_case()
+    cases.append(("ragged", sparse_main_calls(rt, rl, rr)))
+    high = {n: [_high_flats(a, -(1 << 63) + 12345) for a in c]
+            for n, c in main_calls.items()}
+    cases.append(("flats>2^63", high))
+    # the u24 = 2^24-1 input: salt + flat == 30787972 hashes to the top
+    # quantile (the extreme is finite only if x is formed in int32)
+    salts = ldrm.salts(0)
+    top = torch.full((1,), 30787972, dtype=torch.int64, device="cuda") - \
+        salts[:1]
+    cases.append(("u24=2^24-1", {"lazy_gaussian": [(top, salts[:1])]}))
+
+    res = {}
+    for label, calls in cases:
+        for name in SPARSE_KERNELS:
+            kern, plain = fns[name]
+            for i, args in enumerate(calls.get(name, [])):
+                got = _as_tuple(kern(*args))
+                ref = _as_tuple(plain(*args))
+                torch.cuda.synchronize()
+                a, r = _compare(name, f"{label} call {i}", got, ref)
+                if label == "uber":
+                    m = res.setdefault(name, {"max_abs_err": 0.0,
+                                              "rel_err": 0.0})
+                    m["max_abs_err"] = max(m["max_abs_err"], a)
+                    m["rel_err"] = max(m["rel_err"], r)
+        if label == "ragged":
+            # the variants the main path does not launch: Ψ with both
+            # sides and without a left side, merged without a left side
+            p = rt.psi_plan[2]
+            d = len(rt.shape)
+            lsalts, rsalts = rl.salts(1), rr.salts(d - 2 - 2)
+            extra = [
+                ("psi_fused_slabs", (p.local_idx, p.sorted_entries,
+                                     p.flat_left, p.flat_right, lsalts,
+                                     rsalts, p.n_chunks, p.span, p.chunk)),
+                ("psi_fused_slabs", (p.local_idx, p.sorted_entries, None,
+                                     p.flat_right, None, rsalts, p.n_chunks,
+                                     p.span, p.chunk)),
+                ("psi_omega_merged_slabs", (
+                    p.local_idx, p.sorted_entries, None, p.flat_right,
+                    p.flat_left_om, None, rsalts, rl.salts(2), p.n_chunks,
+                    p.span, p.chunk)),
+            ]
+            for name, args in extra:
+                kern, plain = fns[name]
+                got, ref = _as_tuple(kern(*args)), _as_tuple(plain(*args))
+                torch.cuda.synchronize()
+                _compare(name, "ragged variant", got, ref)
+
+    # times of each kernel's main-path launches (one sketch's worth)
+    for name in SPARSE_KERNELS:
+        kern, plain = fns[name]
+        calls = main_calls[name]
+        res[name]["ms"] = time_ms(lambda: [kern(*a) for a in calls])
+        res[name]["plain_ms"] = time_ms(
+            lambda: [plain(*a) for a in calls], reps=3, warmup=1)
+        bounds = [sparse_bound(name, a) for a in calls]
+        res[name]["bound_ms"] = sum(b for b, _ in bounds)
+        res[name]["bound_by"] = max(bounds)[1]
+        res[name]["calls"] = len(calls)
+        print(f"# phase 5: {name}: {len(calls)} main-path launch(es) in "
+              f"{res[name]['ms']:.3f} ms (bound {res[name]['bound_ms']:.3f} "
+              f"ms by {res[name]['bound_by']}), plain version "
+              f"{res[name]['plain_ms']:.3f} ms")
+    return res
+
+
+def profile_sketch(run, n=3):
+    """Device time by kernel over ``n`` sketches (``torch.profiler``) and
+    the device's busy share of the window (kernel time over the CUDA-event
+    time of the window; one stream, so kernels do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for s in range(n):
+            run(s + 1)
+        end.record()
+        end.synchronize()
+    window_us = start.elapsed_time(end) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only (kernels, copies, memsets): an operator's CPU
+    # event repeats the time of the kernels it launched
+    rows = sorted(((device_us(e), e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and device_us(e) > 0), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    print(f"# phase 6: profiler over {n} sketches: device busy "
+          f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
+          f"({100 * busy_us / window_us:.1f} % busy); per sketch, by "
+          f"device time:")
+    for us, count, key in rows[:14]:
+        print(f"#   {us / 1e3 / n:9.3f} ms  {count // n:4d} x  {key[:90]}")
+    return busy_us / window_us
+
+
+def load_uber():
+    """uber-synthetic with its default plans, on the card in f32, and the
+    DRM pair that ``stream_sketch(tensor, 10, 20, seed=0)`` builds."""
+    import torch
+
+    from tt_sketch_torch import SparseGaussianDRM
+    from tt_sketch_torch.data.frostt import load_frostt
+    from tt_sketch_torch.engine.sketch import _derive_right_seed
+
+    t0 = time.perf_counter()
+    tensor = load_frostt("uber-synthetic", psi_plan=True,
+                         device="cuda").astype(torch.float32)
+    torch.cuda.synchronize()
+    print(f"# uber-synthetic {tensor.shape}, {tensor.nnz} nnz, plans "
+          f"{tensor.psi_plan}, loaded, planned and moved to the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(dtype=torch.float32, device="cuda")
+    ldrm = SparseGaussianDRM(10, tensor.shape, transpose=False, seed=0, **kw)
+    rdrm = SparseGaussianDRM(20, tensor.shape, transpose=True,
+                             seed=_derive_right_seed(0, tensor.ndim), **kw)
+    return tensor, ldrm, rdrm
+
+
+def phase_sparse_main(tensor):
+    """uber-synthetic through stream_sketch and the sparse kernels."""
+    import torch
+
+    from tt_sketch_torch import SparseGaussianDRM, stream_sketch
+    from tt_sketch_torch.data.frostt import sample_error
+    from tt_sketch_torch.kernels import sketch_kernels as K
+
+    kw = dict(left_drm_type=SparseGaussianDRM,
+              right_drm_type=SparseGaussianDRM, dtype=torch.float32)
+    fns = _kernel_fns()
+
+    torch.cuda.synchronize()
+    for kern, _ in fns.values():
+        kern.launches = 0
+    sk, ldrm, rdrm = stream_sketch(tensor, 10, 20, seed=0, return_drm=True,
+                                   **kw)
+    torch.cuda.synchronize()
+    launches = {name: fns[name][0].launches for name in SPARSE_KERNELS}
+    print(f"# phase 6: kernel launches in one sketch: {launches}")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"launch counts {launches} != "
+                             f"{EXPECTED_LAUNCHES}")
+    with plain_kernels():
+        ref = stream_sketch(tensor, 10, 20, left_drm=ldrm, right_drm=rdrm,
+                            **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(sk.Psi_cores + sk.Omega_mats,
+                                   ref.Psi_cores + ref.Omega_mats)):
+        if not (bool(torch.isfinite(a).all())
+                and bool(torch.isfinite(b).all())):
+            raise AssertionError(f"non-finite sketch part {i}")
+        worst = max(worst, _rel(a, b))
+    print(f"# phase 6: every Psi/Omega vs the plain-version sketch on the "
+          f"card: worst rel err {worst:.3e} (tol {PSI_TOL:g})")
+    if not worst <= PSI_TOL:
+        raise AssertionError(f"sketch disagrees with its plain version: "
+                             f"{worst:.3e}")
+    err = sample_error(sk.to_tt(), tensor)
+    print(f"# phase 6: sample_error(to_tt()) = {err:.4f} (limit 1.0)")
+    if not err <= 1.0:
+        raise AssertionError(f"sample error {err:.4f} > 1.0")
+
+    def run(seed):
+        return stream_sketch(tensor, 10, 20, seed=seed, **kw)
+
+    run(1)
+    torch.cuda.synchronize()
+    times, inner = [], 5
+    for i in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for j in range(inner):
+            run(100 + inner * i + j)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    med = float(np.median(times))
+    # host enqueue of one sketch (no synchronization inside the sketch)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    run(7)
+    enqueue_ms = (time.perf_counter() - t_host) * 1e3
+    torch.cuda.synchronize()
+    with plain_kernels():
+        plain_ms = time_ms(lambda: run(3), reps=3, warmup=1)
+    # the parts outside the kernels: segment reductions of modes 0 and 1,
+    # the slab combines of modes 2 and 3
+    calls = sparse_main_calls(tensor, ldrm, rdrm)
+    lg = fns["lazy_gaussian"][0]
+    r2s, l0, r1s = (lg(*a) for a in calls["lazy_gaussian"])
+    seg_ms = time_ms(lambda: (
+        K._psi_sparse_segment(None, r2s, tensor.entries, tensor.indices[0],
+                              tensor.shape[0]),
+        K._psi_sparse_segment(l0, r1s, tensor.entries, tensor.indices[1],
+                              tensor.shape[1])))
+    slabs = [fns["psi_omega_merged_slabs"][0](
+        *calls["psi_omega_merged_slabs"][0])[0],
+        fns["psi_fused_slabs"][0](*calls["psi_fused_slabs"][0])]
+    plans = [tensor.psi_plan[2], tensor.psi_plan[3]]
+    comb_ms = time_ms(lambda: [
+        K._psi_from_slabs(s, p, n, torch.float32)
+        for s, p, n in zip(slabs, plans, tensor.shape[2:])])
+    del r2s, l0, r1s, slabs
+    busy = profile_sketch(lambda s: run(200 + s))
+    nnz_per_s = tensor.nnz / (med / 1e3)
+    print(f"# phase 6: sketch median {med:.3f} ms over fresh seeds "
+          f"({', '.join(f'{t:.3f}' for t in times)}), "
+          f"sparse_stta_nnz_per_s {nnz_per_s:.6e}; host enqueue of one "
+          f"sketch {enqueue_ms:.3f} ms; plain-version sketch {plain_ms:.3f} "
+          f"ms; segment reductions (modes 0, 1) {seg_ms:.3f} ms; slab "
+          f"combines (modes 2, 3) {comb_ms:.3f} ms; device busy "
+          f"{100 * busy:.1f} %")
+    return {"launches": launches, "busy": busy, "ms": med, "times": times,
+            "nnz_per_s": nnz_per_s, "sample_error": err, "worst_rel": worst,
+            "plain_ms": plain_ms, "enqueue_ms": enqueue_ms, "seg_ms": seg_ms,
+            "comb_ms": comb_ms}
+
+
 def bound_ms(P, S, r, rho):
     nbytes = 4 * (P * S + S * rho + P * r + P * rho + r * S)
     flops = 2 * P * S * (r + rho)
@@ -314,6 +788,9 @@ def main():
     kern = phase_kernel_check()
     path = phase_main_path()
     phase_stream_sketch()
+    uber, ldrm, rdrm = load_uber()
+    skern = phase_sparse_kernels(uber, ldrm, rdrm)
+    sparse = phase_sparse_main(uber)
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     entry = {
@@ -337,10 +814,34 @@ def main():
         "shape": dict(zip(("P", "S", "r", "rho"), MAIN)),
         "card": smi,
     }
+    entries = [entry]
+    for name in SPARSE_KERNELS:
+        m = skern[name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": sparse["launches"][name],
+            "max_abs_err": m["max_abs_err"],
+            "max_rel_err": m["rel_err"],
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "library_ms": None,
+            "shape": "FROSTT-uber main path, 3309696 nnz, rank 10/20; ms "
+                     "and bound cover all launches of one sketch",
+            "card": smi,
+        })
     print(f"# main path: {path['gbps']:.2f} GB/s, {path['ms_per_slab']:.3f} "
-          f"ms/slab, recovery error {path['rel_err']:.3e}; total "
+          f"ms/slab, recovery error {path['rel_err']:.3e}")
+    print(f"# sparse main path: {sparse['ms']:.3f} ms per uber sketch, "
+          f"sparse_stta_nnz_per_s {sparse['nnz_per_s']:.6e}, sample error "
+          f"{sparse['sample_error']:.4f}; total "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(smi)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,9 @@ def test_import_leaves_jax_out():
         "from tt_sketch_torch import stream_sketch, TensorTrainDRM\n"
         "import tt_sketch_torch.kernels.dense_engine\n"
         "import tt_sketch_torch.interop\n"
+        "import tt_sketch_torch.data.frostt\n"
+        "import tt_sketch_torch.kernels.sketch_kernels\n"
+        "from tt_sketch_torch import SparseTensor, SparseGaussianDRM\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"
@@ -62,7 +65,32 @@ def test_import_leaves_jax_out():
 def test_kernel_source_is_in_the_package():
     from tt_sketch_torch.kernels.cuda_build import BUILD_DIR, CSRC
 
-    assert (CSRC / "dual_project.cu").is_file()
+    for name in ("dual_project.cu", "lazy_gaussian.cu", "sparse_psi.cu",
+                 "hash_rng.cuh"):
+        assert (CSRC / name).is_file()
     # builds land under build/, which .gitignore lists
     assert BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_digest_follows_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh changes every library's digest, so no stale
+    build is reused."""
+    import shutil
+
+    from tt_sketch_torch.kernels import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    names = ("lazy_gaussian", "sparse_psi", "dual_project")
+    before = {n: cuda_build.source_digest(n) for n in names}
+    assert before == {n: cuda_build.source_digest(n) for n in names}
+    header = csrc / "hash_rng.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: cuda_build.source_digest(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    (csrc / "lazy_gaussian.cu").write_text(
+        (csrc / "lazy_gaussian.cu").read_text() + "\n")
+    assert cuda_build.source_digest("lazy_gaussian") != after["lazy_gaussian"]
+    assert cuda_build.source_digest("sparse_psi") == after["sparse_psi"]

@@ -1,8 +1,11 @@
 """tt_sketch_torch — the PyTorch/CUDA port of ``tt_sketch_tpu``.
 
 Streaming tensor-train sketching (STTA) of dense and TT tensors with
-TT-DRMs, and recovery of the TT cores.  The dense slab stream's one-pass
-projection runs a hand-written Hopper kernel (``csrc/dual_project.cu``).
+TT-DRMs and of sparse COO tensors with lazy-Gaussian DRMs, and recovery of
+the TT cores.  The dense slab stream's one-pass projection runs a
+hand-written Hopper kernel (``csrc/dual_project.cu``); the sparse sketch
+runs the lazy-Gaussian row generator (``csrc/lazy_gaussian.cu``) and the
+fused Ψ/Ω kernels (``csrc/sparse_psi.cu``).
 Public names mirror ``tt_sketch_tpu``::
 
     from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
@@ -28,6 +31,7 @@ def __getattr__(name):
         "Tensor": "tt_sketch_torch.formats.base",
         "DenseTensor": "tt_sketch_torch.formats.dense",
         "TensorTrain": "tt_sketch_torch.formats.tensor_train",
+        "SparseTensor": "tt_sketch_torch.formats.sparse",
         "stream_sketch": "tt_sketch_torch.engine.sketch",
         "assemble_sketched_tt": "tt_sketch_torch.engine.sketch",
         "SketchedTensorTrain": "tt_sketch_torch.engine.sketch",
@@ -35,6 +39,10 @@ def __getattr__(name):
         "general_sketch": "tt_sketch_torch.engine.dispatch",
         "SketchMethod": "tt_sketch_torch.engine.dispatch",
         "TensorTrainDRM": "tt_sketch_torch.drm",
+        "SparseGaussianDRM": "tt_sketch_torch.drm",
+        "build_psi_plan": "tt_sketch_torch.kernels.sparse_plan",
+        "load_frostt": "tt_sketch_torch.data.frostt",
+        "sample_error": "tt_sketch_torch.data.frostt",
         "dense_stream_sketch_bisect": "tt_sketch_torch.kernels.dense_engine",
         "slab_stream_sketch": "tt_sketch_torch.kernels.dense_engine",
     }

@@ -7,6 +7,8 @@ from tt_sketch_torch.drm.base import (  # noqa: F401
     CansketchSparse,
     CansketchTT,
     CansketchTucker,
+    LazyModeList,
     handle_transpose,
 )
 from tt_sketch_torch.drm.tensor_train_drm import TensorTrainDRM  # noqa: F401
+from tt_sketch_torch.drm.sparse_gaussian_drm import SparseGaussianDRM  # noqa: F401

@@ -3,7 +3,8 @@
 Counterpart of ``tt_sketch_tpu/drm/base.py``: rank-slice bookkeeping
 (``rank_min``/``rank_max``/``true_rank``), transpose semantics (a right DRM
 is a left DRM of the reversed tensor), the ``CanSlice`` /
-``CanIncreaseRank`` capabilities and the ``handle_transpose`` wrapper.
+``CanIncreaseRank`` capabilities, the lazy per-mode ``LazyModeList`` and the
+``handle_transpose`` wrapper.
 The JAX pytree registration has no counterpart: a DRM is a plain object.
 """
 from __future__ import annotations
@@ -115,9 +116,45 @@ class CanIncreaseRank(CanSlice):
         )
 
 
+class LazyModeList:
+    """A per-mode contraction list that computes mode ``k`` on first access
+    (cached).
+
+    Hash-family DRMs return this from ``sketch_sparse``: the fused sparse
+    kernels hash the rows they need themselves, so modes that no consumer
+    reads are never generated."""
+
+    def __init__(self, fn: Callable, n: int, reverse: bool = False) -> None:
+        self._fn = fn
+        self._n = n
+        self._rev = reverse
+        self._cache: dict = {}
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i: int):
+        if not (-self._n <= i < self._n):
+            raise IndexError(i)
+        i %= self._n
+        j = self._n - 1 - i if self._rev else i
+        if j not in self._cache:
+            self._cache[j] = self._fn(j)
+        return self._cache[j]
+
+    def __iter__(self):
+        return (self[i] for i in range(self._n))
+
+    def reversed(self) -> "LazyModeList":
+        out = LazyModeList(self._fn, self._n, reverse=not self._rev)
+        out._cache = self._cache  # the same underlying modes
+        return out
+
+
 def handle_transpose(sketch: Callable) -> Callable:
     """Right-sketches are left-sketches of the reversed tensor: transpose the
-    input and reverse the output list."""
+    input and reverse the output list (a ``LazyModeList`` is reversed
+    lazily)."""
 
     def wrapper(self, tensor) -> List[torch.Tensor]:
         if self.shape != tensor.shape:
@@ -127,7 +164,10 @@ def handle_transpose(sketch: Callable) -> Callable:
             )
         if self.transpose:
             tensor = tensor.T
-        mats = list(sketch(self, tensor))
+        out = sketch(self, tensor)
+        if isinstance(out, LazyModeList):
+            return out.reversed() if self.transpose else out
+        mats = list(out)
         if self.transpose:
             mats = mats[::-1]
         return mats

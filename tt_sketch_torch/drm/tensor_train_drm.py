@@ -6,7 +6,8 @@ input.  Chain-state conventions (state after absorbing cores 0..mu):
 - tt:     ``(tensor_rank, r)``
 - dense:  ``(prod(shape[:mu+1]), r)`` — explicit prefix contraction
 
-The sparse, CP and Tucker sketches come with later slices of the port.
+The sparse (HMT/OTTS slice), CP and Tucker sketches come with later slices
+of the port.
 """
 from __future__ import annotations
 
@@ -91,7 +92,9 @@ class TensorTrainDRM(
 
     def sketch_sparse(self, tensor) -> List[torch.Tensor]:
         raise NotImplementedError(
-            "sparse input comes with the sparse STTA slice of the port"
+            "TensorTrainDRM.sketch_sparse (the sparse TT chain, "
+            "chain_step_sparse) comes with the HMT/OTTS slice of the port; "
+            "sketch sparse tensors with SparseGaussianDRM"
         )
 
     def sketch_cp(self, tensor) -> List[torch.Tensor]:

@@ -1,7 +1,8 @@
 """Streaming (STTA) sketch API: ``stream_sketch``, ``SketchedTensorTrain``
 and the recovery ``assemble_sketched_tt``.
 
-Counterpart of ``tt_sketch_tpu/engine/sketch.py`` for the streaming method.
+Counterpart of ``tt_sketch_tpu/engine/sketch.py`` for the streaming method,
+on dense, TT and sparse input (sparse with ``SparseGaussianDRM``).
 The right seed is derived as in the JAX package,
 ``(seed + splitmix_hash(d)) mod 2^32``, so equal seeds give equal DRMs.
 The orthogonal/HMT sketches, blocked sketches and rank growth come with

@@ -1,3 +1,4 @@
 from tt_sketch_torch.formats.base import Tensor  # noqa: F401
 from tt_sketch_torch.formats.dense import DenseTensor  # noqa: F401
 from tt_sketch_torch.formats.tensor_train import TensorTrain  # noqa: F401
+from tt_sketch_torch.formats.sparse import SparseTensor  # noqa: F401

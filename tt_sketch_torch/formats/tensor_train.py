@@ -40,6 +40,10 @@ class TensorTrain(Tensor):
     def to_dense(self) -> torch.Tensor:
         return tt_ops.tt_to_dense(self.cores)
 
+    def gather(self, idx) -> torch.Tensor:
+        """Entries at the (d, N) multi-indices ``idx``."""
+        return tt_ops.tt_gather(self.cores, idx)
+
     def partial_dense(self, dir: str = "lr") -> List[torch.Tensor]:
         return tt_ops.tt_partial_dense(self.cores, dir)
 

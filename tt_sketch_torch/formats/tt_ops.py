@@ -2,8 +2,8 @@
 
 Counterpart of ``tt_sketch_tpu/formats/tt_ops.py`` for what this slice
 needs: dense contraction, partial contractions, left-orthogonalization,
-norm, direct-sum addition and TT-TT inner products.  Rounding, singular
-values and entry gathers come with a later slice.
+norm, direct-sum addition, TT-TT inner products and entry gathers.
+Rounding and singular values come with a later slice.
 """
 from __future__ import annotations
 
@@ -88,3 +88,13 @@ def tt_dot(
         result = torch.einsum("ij,ika->jka", result, C1)
         result = torch.einsum("jka,jkb->ab", result, C2)
     return torch.sum(result)
+
+
+def tt_gather(cores: Sequence[torch.Tensor], idx) -> torch.Tensor:
+    """Entries at the (d, N) multi-indices ``idx``: one core-slice gather
+    and batched contraction per mode."""
+    result = cores[0][0, idx[0], :]  # (N, r1)
+    for i in range(1, len(cores)):
+        sl = cores[i][:, idx[i], :]  # (r1, N, r2)
+        result = torch.einsum("nr,rns->ns", result, sl)
+    return result.reshape(-1)

@@ -1,8 +1,9 @@
-"""Hand numpy arrays (e.g. the JAX package's DRM cores and sketches, read
-back with ``np.asarray``) to the port, keeping their dtype."""
+"""Hand numpy arrays (e.g. the JAX package's DRM cores, sketches, sparse
+data and sort/chunk plans, read back with ``np.asarray``) to the port,
+keeping their dtype."""
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,4 +26,51 @@ def container_from_numpy(psi_list: Sequence[np.ndarray],
     """A ``SketchContainer`` from numpy Ψ cores and Ω matrices."""
     return SketchContainer(
         from_numpy_cores(psi_list, device), from_numpy_cores(omega_list, device)
+    )
+
+
+def sparse_tensor_from_numpy(shape, indices, entries, device=None):
+    """A ``SparseTensor`` on ``device`` from numpy (d, nnz) indices and
+    (nnz,) entries."""
+    from tt_sketch_torch.formats.sparse import SparseTensor
+
+    return SparseTensor(shape, np.asarray(indices), np.asarray(entries),
+                        device=resolve_device(device))
+
+
+def _packed_u64(flat) -> Optional[np.ndarray]:
+    """A flat index stream as int64 bit patterns: a (hi, lo) uint32 pair
+    (the JAX plan's layout) is packed, a uint64/int64 array is viewed."""
+    if flat is None:
+        return None
+    if isinstance(flat, (tuple, list)):
+        hi, lo = (np.asarray(x).astype(np.uint64) for x in flat)
+        flat = (hi << np.uint64(32)) | lo
+    return np.asarray(flat).astype(np.uint64).view(np.int64)
+
+
+def mode_plan_from_numpy(perm, local_idx, slot_rows, n_chunks: int,
+                         span: int, chunk: int, sorted_entries=None,
+                         flat_left=None, flat_right=None, flat_left_om=None,
+                         gather_slots=None, device=None):
+    """The port's ``ModePlan`` from a JAX ``ModePlan``'s arrays (as numpy);
+    the flat index streams may be (hi, lo) uint32 pairs."""
+    from tt_sketch_torch.kernels.sparse_plan import ModePlan
+
+    device = resolve_device(device)
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+
+    return ModePlan(
+        dev(np.asarray(perm)), dev(np.asarray(local_idx)),
+        dev(np.asarray(slot_rows)), n_chunks, span, chunk,
+        sorted_entries=dev(None if sorted_entries is None
+                           else np.asarray(sorted_entries)),
+        flat_left=dev(_packed_u64(flat_left)),
+        flat_right=dev(_packed_u64(flat_right)),
+        flat_left_om=dev(_packed_u64(flat_left_om)),
+        gather_slots=dev(None if gather_slots is None
+                         else np.asarray(gather_slots)),
     )

@@ -3,8 +3,10 @@
 Each ``tt_sketch_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/tt_sketch_torch/<name>-<hash>.so`` at the repo root
 (``build/`` is git-ignored) and loaded with ``ctypes``.  The hash covers the
-source and the flags, so an edited source is rebuilt and nothing else is.
-Nothing here runs at import time.
+source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and nothing else is.  ``build_libraries``
+starts one ``nvcc`` per source, all at once.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -45,34 +47,61 @@ def _nvcc() -> str:
     )
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_digest(name)}.so"
+
+
+def build_libraries(names) -> None:
+    """Build every library of ``names`` that is not built yet, one ``nvcc``
+    process per source, all started together."""
+    pending = [n for n in dict.fromkeys(names) if not _target(n).exists()]
+    if not pending:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    try:
+        for name in pending:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            jobs.append((name, tmp, proc, time.perf_counter()))
+        failed = []
+        for name, tmp, proc, t0 in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build csrc/{name}.cu:\n{out}")
+                continue
+            os.replace(tmp, _target(name))
+            build_info[name] = (time.perf_counter() - t0, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for name, tmp, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     if name in _libraries:
         return _libraries[name]
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    target = BUILD_DIR / f"{name}-{digest}.so"
-    if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {source}:\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        build_info[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(str(target))
+    build_libraries([name])
+    lib = ctypes.CDLL(str(_target(name)))
     _libraries[name] = lib
     return lib

@@ -1,15 +1,40 @@
-"""Ψ/Ω sketch contractions for dense and TT input.
+"""Ψ/Ω sketch contractions for dense, TT and sparse input.
 
 Ω_μ = Y_μᵀ X^{<μ>} Z_μ (small matrix) and Ψ_μ = Y_{μ-1}ᵀ X^{(μ)} Z_μ
 (order-3 core), from the DRMs' per-mode contraction outputs.  Counterpart
-of the dense and TT functions of ``tt_sketch_tpu/kernels/sketch_kernels.py``;
-the sparse, CP and Tucker functions come with later slices.
+of the dense, TT and sparse functions of
+``tt_sketch_tpu/kernels/sketch_kernels.py``; the CP and Tucker functions
+come with a later slice.
+
+Sparse input takes two routes.  With a ``SparseGaussianDRM`` pair in
+float32/bfloat16, ``sparse_streaming_sketch_fused`` computes every Ψ and Ω
+through the fused kernels of ``kernels/sparse_psi.py`` (DRM rows hashed
+inside the kernel, per the tensor's sort/chunk plans) and
+``kernels/lazy_gaussian.py`` (rows of unplanned modes).  Otherwise (the
+float64 parity path) the DRM rows are materialized and reduced by the
+segment sum.  The JAX package's grouped, hash-sorted, half-fused and window
+Ψ paths serve DRM pairs and modes this slice does not take yet.
 """
 from __future__ import annotations
 
 import torch
 
+from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian
+from tt_sketch_torch.kernels.sparse_psi import (
+    omega_fused,
+    psi_fused_slabs,
+    psi_omega_merged_slabs,
+)
+from tt_sketch_torch.rng.hash_rng import flat_index
 from tt_sketch_torch.utils import matricize
+
+#: Mode-size cap for the one-hot ``torch.matmul`` segment reduction; above
+#: it the reduction is an ``index_add_``.
+_SPARSE_PSI_ONEHOT_MAX = 4096
+
+#: nnz per step of the segment reduction (bounds the one-hot and outer
+#: product temporaries to a few hundred MB at rank 10 x 20).
+_SEGMENT_CHUNK = 1 << 19
 
 
 # -- dense -------------------------------------------------------------------
@@ -53,3 +78,215 @@ def sketch_psi_tt(left_sketch, right_sketch, *, tensor, mu, **kwargs):
         return torch.einsum("ij,jkl->ikl", left_sketch.T, core)
     tmp = torch.einsum("ij,jkl->ikl", left_sketch.T, core)
     return torch.einsum("ikl,lm->ikm", tmp, right_sketch)
+
+
+# -- sparse ------------------------------------------------------------------
+
+def _is_kernel_gaussian(drm) -> bool:
+    from tt_sketch_torch.drm.sparse_gaussian_drm import SparseGaussianDRM
+
+    return isinstance(drm, SparseGaussianDRM) and drm.uses_kernel_contract
+
+
+def _can_fuse_omega(tensor, left_drm, right_drm) -> bool:
+    from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES
+
+    return (tensor.dtype in KERNEL_DTYPES and _is_kernel_gaussian(left_drm)
+            and _is_kernel_gaussian(right_drm))
+
+
+def _can_fuse_psi(mp, tensor, mu, left_drm, right_drm) -> bool:
+    """The fused Ψ kernel applies when the plan carries the sorted streams
+    and every consumed side is a kernel-contract Gaussian DRM."""
+    from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES
+
+    if mp.sorted_entries is None or tensor.dtype not in KERNEL_DTYPES:
+        return False
+    d = len(tensor.shape)
+    if mu > 0 and not _is_kernel_gaussian(left_drm):
+        return False
+    return mu == d - 1 or _is_kernel_gaussian(right_drm)
+
+
+def _segment_sum_onehot(outer, idx, n_mu):
+    """``segment_sum(outer, idx, n_mu)`` as a one-hot ``torch.matmul``."""
+    chunk = outer.shape[0]
+    iota = torch.arange(n_mu, dtype=idx.dtype, device=idx.device)
+    onehot = (iota[:, None] == idx[None, :]).to(outer.dtype)  # (n, chunk)
+    return (onehot @ outer.reshape(chunk, -1)).reshape(
+        (n_mu,) + outer.shape[1:])
+
+
+def _psi_sparse_segment(left, right, entries, indices_mu, n_mu):
+    """Σ_k  e_{ind[k]} ⊗ (left[:,k]·entries[k]) ⊗ right[:,k], chunked over
+    nnz: a one-hot product for modes of at most 4096 rows, ``index_add_``
+    above.  Returns (r1, n_mu, r2)."""
+    r1 = left.shape[0] if left is not None else 1
+    r2 = right.shape[0] if right is not None else 1
+    dtype = entries.dtype
+    for side in (left, right):
+        if side is not None:
+            dtype = torch.promote_types(dtype, side.dtype)
+    psi = torch.zeros((n_mu, r1, r2), dtype=dtype, device=entries.device)
+    nnz = entries.shape[0]
+    for k0 in range(0, nnz, _SEGMENT_CHUNK):
+        sl = slice(k0, k0 + _SEGMENT_CHUNK)
+        ent = entries[sl].to(dtype)
+        weighted = (ent[None, :] if left is None
+                    else left[:, sl].to(dtype) * ent)
+        if right is None:
+            outer = weighted.T[:, :, None]
+        else:
+            rows = right[:, sl].to(dtype)
+            outer = weighted.T[:, :, None] * rows.T[:, None, :]
+        if n_mu <= _SPARSE_PSI_ONEHOT_MAX:
+            psi += _segment_sum_onehot(outer, indices_mu[sl], n_mu)
+        else:
+            psi.index_add_(0, indices_mu[sl], outer)
+    return psi.permute(1, 0, 2)
+
+
+def _combine_slabs(flat, plan, n_mu):
+    """Slab-slot combine into the (n_mu, w) Ψ matrix: the plan's
+    ``gather_slots`` row gathers (an appended zero row serves the sentinel
+    slot) or an ``index_add_`` over ``slot_rows``, whose unused slots
+    (``n_mu``) land in a dump row that is sliced off."""
+    if plan.gather_slots is not None:
+        flat_pad = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
+        gs = plan.gather_slots
+        psi = flat_pad[gs[:, 0]]
+        for k in range(1, gs.shape[1]):
+            psi = psi + flat_pad[gs[:, k]]
+        return psi
+    out = flat.new_zeros((n_mu + 1, flat.shape[1]))
+    out.index_add_(0, plan.slot_rows, flat)
+    return out[:n_mu]
+
+
+def _psi_from_slabs(slabs, plan, n_mu, dtype):
+    nc, S, r1, r2 = slabs.shape
+    psi = _combine_slabs(slabs.reshape(nc * S, r1 * r2), plan, n_mu)
+    return psi.reshape(n_mu, r1, r2).permute(1, 0, 2).to(dtype)
+
+
+def _psi_sides(tensor, mu, plan, left_drm, right_drm):
+    """Flat streams and salts of Ψ_μ's sides: left rows are generator step
+    μ-1 of the left DRM; right rows the transposed generator's step d-2-μ
+    with the right DRM's (reversed) rank slice."""
+    d = len(tensor.shape)
+    lflat = lsalts = rflat = rsalts = None
+    if mu > 0:
+        lflat, lsalts = plan.flat_left, left_drm.salts(mu - 1)
+    if mu < d - 1:
+        rflat, rsalts = plan.flat_right, right_drm.salts(d - 2 - mu)
+    return lflat, lsalts, rflat, rsalts
+
+
+def _psi_sparse_fused(tensor, mu, plan, n_mu, left_drm, right_drm):
+    """Ψ_μ from the fused slab kernel at the plan's sorted order."""
+    lflat, lsalts, rflat, rsalts = _psi_sides(tensor, mu, plan, left_drm,
+                                              right_drm)
+    slabs = psi_fused_slabs(
+        plan.local_idx, plan.sorted_entries, lflat, rflat, lsalts, rsalts,
+        plan.n_chunks, plan.span, plan.chunk,
+    )
+    return _psi_from_slabs(slabs, plan, n_mu, tensor.dtype)
+
+
+def _psi_omega_sparse_merged(tensor, mu, plan, n_mu, left_drm, right_drm):
+    """Ψ_μ and Ω_μ from the merged kernel: one pass over the mode-sorted
+    stream, R_μ hashed once for both; Ω's left rows are generator step μ
+    over the inclusive prefix (``plan.flat_left_om``)."""
+    lflat, lsalts, rflat, rsalts = _psi_sides(tensor, mu, plan, left_drm,
+                                              right_drm)
+    slabs, om = psi_omega_merged_slabs(
+        plan.local_idx, plan.sorted_entries, lflat, rflat,
+        plan.flat_left_om, lsalts, rsalts, left_drm.salts(mu),
+        plan.n_chunks, plan.span, plan.chunk,
+    )
+    return (_psi_from_slabs(slabs, plan, n_mu, tensor.dtype),
+            om.to(tensor.dtype))
+
+
+def _omega_sparse_fused(tensor, mu, left_drm, right_drm):
+    """Ω_μ with both row families hashed inside the kernel, in nnz order."""
+    d = len(tensor.shape)
+    lflat = flat_index(tensor.indices[: mu + 1], tensor.shape[: mu + 1])
+    rflat = flat_index(tensor.indices.flip(0)[: d - 1 - mu],
+                       tensor.shape[::-1][: d - 1 - mu])
+    om = omega_fused(tensor.entries, lflat, rflat, left_drm.salts(mu),
+                     right_drm.salts(d - 2 - mu))
+    return om.to(tensor.dtype)
+
+
+def _hash_rows_from_pairs(drm, k: int, flat, dtype):
+    """(rank, N) rows of generator step ``k`` at int64 flat indices (the
+    JAX package passes them as uint32 pairs, hence the name)."""
+    return lazy_gaussian(flat, drm.salts(k)).to(dtype)
+
+
+def sketch_omega_sparse(left_sketch, right_sketch, *, tensor, mu=None,
+                        left_drm=None, right_drm=None, **kwargs):
+    """Ω = Σ_k entries[k] · left[:,k] ⊗ right[:,k]: the fused kernel for a
+    kernel-contract Gaussian pair, one product of materialized rows
+    otherwise."""
+    if mu is not None and _can_fuse_omega(tensor, left_drm, right_drm):
+        return _omega_sparse_fused(tensor, mu, left_drm, right_drm)
+    return (left_sketch * tensor.entries) @ right_sketch.T
+
+
+def sketch_psi_sparse(left_sketch, right_sketch, *, tensor, mu, psi_shape,
+                      left_drm=None, right_drm=None, **kwargs):
+    """Ψ_μ: the fused slab kernel where the plan and the DRMs allow it, the
+    segment reduction over materialized rows otherwise."""
+    plan = tensor.psi_plan
+    mp = plan[mu] if plan is not None else None
+    if mp is not None and _can_fuse_psi(mp, tensor, mu, left_drm, right_drm):
+        return _psi_sparse_fused(tensor, mu, mp, psi_shape[1], left_drm,
+                                 right_drm)
+    return _psi_sparse_segment(left_sketch, right_sketch, tensor.entries,
+                               tensor.indices[mu], psi_shape[1])
+
+
+def sparse_streaming_sketch_fused(tensor, left_drm, right_drm):
+    """Every Ψ and Ω of a SparseTensor with a kernel-contract Gaussian DRM
+    pair, through the fused kernels and no materialized contraction lists.
+
+    Per mode: the merged Ψ+Ω kernel where the plan carries the inclusive
+    prefix; the fused Ψ kernel (and later the fused Ω kernel) where it does
+    not; the segment reduction over lazily generated rows for modes
+    without a plan.  Ω of modes not merged comes from the fused Ω kernel."""
+    d = len(tensor.shape)
+    dtype = tensor.dtype
+    plans = tensor.psi_plan or (None,) * d
+
+    def _lrows(k):
+        flat = flat_index(tensor.indices[: k + 1], tensor.shape[: k + 1])
+        return _hash_rows_from_pairs(left_drm, k, flat, dtype)
+
+    def _rrows(kt):
+        flat = flat_index(tensor.indices.flip(0)[: kt + 1],
+                          tensor.shape[::-1][: kt + 1])
+        return _hash_rows_from_pairs(right_drm, kt, flat, dtype)
+
+    Psi = []
+    Om = [None] * (d - 1)
+    for mu in range(d):
+        p = plans[mu]
+        fused_psi = p is not None and p.sorted_entries is not None
+        if fused_psi and mu < d - 1 and p.flat_left_om is not None:
+            psi_mu, Om[mu] = _psi_omega_sparse_merged(
+                tensor, mu, p, tensor.shape[mu], left_drm, right_drm)
+        elif fused_psi:
+            psi_mu = _psi_sparse_fused(tensor, mu, p, tensor.shape[mu],
+                                       left_drm, right_drm)
+        else:
+            ls = _lrows(mu - 1) if mu > 0 else None
+            rs = _rrows(d - 2 - mu) if mu < d - 1 else None
+            psi_mu = _psi_sparse_segment(ls, rs, tensor.entries,
+                                         tensor.indices[mu], tensor.shape[mu])
+        Psi.append(psi_mu)
+    for mu in range(d - 1):
+        if Om[mu] is None:
+            Om[mu] = _omega_sparse_fused(tensor, mu, left_drm, right_drm)
+    return Psi, Om
