@@ -9,7 +9,8 @@ Phases (the first failure raises and exits non-zero):
 1. Build the CUDA libraries ``dual_project``, ``lazy_gaussian`` and
    ``sparse_psi`` from ``tt_sketch_torch/csrc`` (nvcc, sm_90a, one process
    per source, all at once), print each ptxas report and the card's name
-   and power limit.
+   and power limit; count the instructions per DRM sample in the built
+   ``lazy_gaussian`` kernel's SASS (the sparse bounds use that count).
 2. Hold the kernel against its plain PyTorch version, ``f32`` and ``bf16``
    modes, at the main-path shape, a ragged shape and a rank-split shape;
    time kernel, plain version and the two-``torch.matmul`` yardstick.
@@ -21,18 +22,20 @@ Phases (the first failure raises and exits non-zero):
    launch count; then time one resident slab streamed 19 x 10 times.
 4. ``stream_sketch`` on dense and TT input in float64 at a small shape:
    exact recovery and linearity of ``+``.
-5. The sparse kernels against their plain versions: the 64-bit hash bit for
+5. The sparse main path at full size: ``uber-synthetic`` with its default
+   plan, ``stream_sketch`` rank 10/20 with ``SparseGaussianDRM`` in f32,
+   recording the arguments of every kernel call; launch counts 3/2/1/1;
+   every Ψ/Ω against the same sketch with each kernel replaced by its plain
+   version on the card; ``sample_error`` of ``to_tt()``; median sketch time
+   over fresh seeds (CUDA events); the recorded segment reductions and slab
+   combines replayed and timed; a profiler breakdown.
+6. The sparse kernels against their plain versions: the 64-bit hash bit for
    bit; ``lazy_gaussian``, ``omega_fused``, ``psi_fused_slabs`` (three
-   variants) and ``psi_omega_merged_slabs`` (two variants) at the
-   FROSTT-uber main path's shapes (3,309,696 nnz, ranks 10/20, the mode-2/3
-   plans), at a ragged shape (nnz not a multiple of the chunk, odd ranks)
-   and with flat indices above 2^63; time each kernel's main-path launches
-   and their plain versions.
-6. The sparse main path at full size: ``uber-synthetic`` with its default
-   plan, ``stream_sketch`` rank 10/20 with ``SparseGaussianDRM`` in f32;
-   launch counts 3/2/1/1; every Ψ/Ω against the same sketch with each
-   kernel replaced by its plain version on the card; ``sample_error`` of
-   ``to_tt()``; median sketch time over fresh seeds (CUDA events).
+   variants) and ``psi_omega_merged_slabs`` (two variants) at the calls
+   phase 5 recorded (3,309,696 nnz, ranks 10/20, the mode-2/3 plans), at
+   the calls of a ragged sketch (nnz not a multiple of the chunk, odd
+   ranks) and with flat indices above 2^63; time the recorded calls and
+   their plain versions, and bound them.
 7. Print the ``{"kernels": [...]}`` line, then the device line last.
 
 Requires CUDA; exits non-zero without it.
@@ -54,10 +57,10 @@ H100_FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside the tensor c
 # Lane instructions per second of the CUDA cores: the fp32 peak counts an
 # FMA as two flops; integer instructions share the same dispatch slots.
 H100_LANE_OPS_PER_S = H100_FP32_FLOP_PER_S / 2
-OPS_PER_SAMPLE = 58  # hash64 + erfinv per DRM sample (csrc/hash_rng.cuh)
 LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_psi")
 SPARSE_KERNELS = ("lazy_gaussian", "omega_fused", "psi_omega_merged_slabs",
                   "psi_fused_slabs")
+RECORDED = SPARSE_KERNELS + ("_psi_sparse_segment", "_psi_from_slabs")
 EXPECTED_LAUNCHES = {"lazy_gaussian": 3, "omega_fused": 2,
                      "psi_omega_merged_slabs": 1, "psi_fused_slabs": 1}
 REPLACES = {
@@ -347,14 +350,14 @@ def _kernel_fns():
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route the fused sparse sketch through every kernel's plain version
-    (on the same device) instead of the kernel."""
+def _patched(mapping):
+    """Replace names of ``sketch_kernels`` by ``mapping``'s functions for
+    the duration of the block."""
     from tt_sketch_torch.kernels import sketch_kernels as K
 
-    saved = {name: getattr(K, name) for name in SPARSE_KERNELS}
-    for name, (_, plain) in _kernel_fns().items():
-        setattr(K, name, plain)
+    saved = {name: getattr(K, name) for name in mapping}
+    for name, fn in mapping.items():
+        setattr(K, name, fn)
     try:
         yield
     finally:
@@ -362,60 +365,103 @@ def plain_kernels():
             setattr(K, name, fn)
 
 
-def sparse_main_calls(tensor, ldrm, rdrm):
-    """The arguments of every kernel launch of one fused sketch of
-    ``tensor`` (the derivation of ``sparse_streaming_sketch_fused``)."""
-    from tt_sketch_torch.rng.hash_rng import flat_index
-
-    d, shp = len(tensor.shape), tensor.shape
-    idx, rev = tensor.indices, tensor.indices.flip(0)
-    calls = {name: [] for name in SPARSE_KERNELS}
-    merged = set()
-    for mu, p in enumerate(tensor.psi_plan):
-        lsalts = ldrm.salts(mu - 1) if mu > 0 else None
-        rsalts = rdrm.salts(d - 2 - mu) if mu < d - 1 else None
-        if p is None:
-            if mu > 0:
-                calls["lazy_gaussian"].append(
-                    (flat_index(idx[:mu], shp[:mu]), lsalts))
-            if mu < d - 1:
-                kt = d - 2 - mu
-                calls["lazy_gaussian"].append(
-                    (flat_index(rev[:kt + 1], shp[::-1][:kt + 1]), rsalts))
-        elif mu < d - 1 and p.flat_left_om is not None:
-            merged.add(mu)
-            calls["psi_omega_merged_slabs"].append((
-                p.local_idx, p.sorted_entries, p.flat_left, p.flat_right,
-                p.flat_left_om, lsalts, rsalts, ldrm.salts(mu), p.n_chunks,
-                p.span, p.chunk))
-        else:
-            calls["psi_fused_slabs"].append((
-                p.local_idx, p.sorted_entries, p.flat_left, p.flat_right,
-                lsalts, rsalts, p.n_chunks, p.span, p.chunk))
-    for mu in range(d - 1):
-        if mu not in merged:
-            calls["omega_fused"].append((
-                tensor.entries, flat_index(idx[:mu + 1], shp[:mu + 1]),
-                flat_index(rev[:d - 1 - mu], shp[::-1][:d - 1 - mu]),
-                ldrm.salts(mu), rdrm.salts(d - 2 - mu)))
-    return calls
+def plain_kernels():
+    """Route the fused sparse sketch through every kernel's plain version
+    (on the same device) instead of the kernel."""
+    return _patched({name: plain for name, (_, plain)
+                     in _kernel_fns().items()})
 
 
-def sparse_bound(name, args):
+def recording(calls):
+    """Record into ``calls`` (name -> list of argument tuples) every call
+    the fused sparse sketch makes to the four kernels, to the segment
+    reduction and to the slab combine; each call runs as it would."""
+    from tt_sketch_torch.kernels import sketch_kernels as K
+
+    def recorder(name, fn):
+        def call(*args):
+            calls.setdefault(name, []).append(args)
+            return fn(*args)
+        return call
+
+    return _patched({name: recorder(name, getattr(K, name))
+                     for name in RECORDED})
+
+
+def sass_ops_per_sample():
+    """Instructions the built ``lazy_gaussian`` kernel issues per DRM
+    sample, counted in its SASS (``cuobjdump -sass``): one walk of the
+    sample loop from its head to its back branch that skips the erfinv
+    tail block (the one computing sqrtf, ``MUFU.RSQ``; ~0.3 % of samples),
+    divided by the stores it passed.  The count includes the loop's own
+    bookkeeping and the store."""
+    import re
+    from pathlib import Path
+
+    from tt_sketch_torch.kernels import cuda_build
+
+    cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(cuda_build._target("lazy_gaussian"))],
+        capture_output=True, text=True, check=True).stdout
+    body = next(f for f in sass.split("Function : ")
+                if "lazy_gaussian_kernel" in f.splitlines()[0])
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+
+    def op(t):
+        return t.split()[1] if t.startswith("@") else t.split()[0]
+
+    def target(t):
+        return at[int(t.split("0x")[-1], 16)]
+
+    def stores(lo, hi):
+        return sum(op(t).startswith("STG") for _, t in ins[lo:hi])
+
+    loops = [(i, target(t)) for i, (_, t) in enumerate(ins)
+             if op(t) == "BRA" and target(t) < i]
+    back, head = max(loops, key=lambda bh: stores(bh[1], bh[0] + 1))
+    i, n, n_st = head, 0, 0
+    while True:
+        n += 1
+        n_st += stores(i, i + 1)
+        t = ins[i][1]
+        if i == back:
+            break
+        if op(t) == "BRA":
+            j = target(t)
+            if j <= i:
+                raise AssertionError(f"unexpected back branch in the sample "
+                                     f"loop at {ins[i][0]:#x}")
+            if not t.startswith("@") or any(
+                    op(u) == "MUFU.RSQ" for _, u in ins[i + 1:j]):
+                i = j
+                continue
+        i += 1
+    if n_st == 0:
+        raise AssertionError("no store in the lazy_gaussian sample loop")
+    print(f"# phase 1: lazy_gaussian SASS: {n} instructions for {n_st} "
+          f"samples per loop trip on the common path = {n / n_st:g} per "
+          f"sample")
+    return n / n_st
+
+
+def sparse_bound(name, args, ops_per_sample):
     """(bound ms, bound_by) of one kernel call: each input read once, each
-    output written once, over 3.35 TB/s; OPS_PER_SAMPLE per hashed sample
-    plus one multiply per weighted sample and one FMA per contracted
+    output written once, over 3.35 TB/s; ``ops_per_sample`` per hashed
+    sample plus one multiply per weighted sample and one FMA per contracted
     product, over the CUDA cores' lane-instruction rate."""
     if name == "lazy_gaussian":
         flat, salts = args
         N, R = flat.shape[0], salts.shape[0]
         nbytes = 8 * N + 8 * R + 4 * R * N
-        ops = OPS_PER_SAMPLE * R * N
+        ops = ops_per_sample * R * N
     elif name == "omega_fused":
         e, lflat, rflat, lsalts, rsalts = args
         N, r1, r2 = e.shape[0], lsalts.shape[0], rsalts.shape[0]
         nbytes = 20 * N + 8 * (r1 + r2) + 4 * r1 * r2
-        ops = OPS_PER_SAMPLE * (r1 + r2) * N + r1 * N + r1 * r2 * N
+        ops = ops_per_sample * (r1 + r2) * N + r1 * N + r1 * r2 * N
     else:
         loc, se, lflat, rflat = args[:4]
         if name == "psi_fused_slabs":
@@ -431,11 +477,11 @@ def sparse_bound(name, args):
         n_flat = (lflat is not None) + (rflat is not None)
         nbytes = (4 * loc.shape[0] + 4 * N + 8 * n_flat * N + 8 * hashed
                   + 4 * nc * span * r1 * r2)
-        ops = OPS_PER_SAMPLE * hashed * N + r1 * N + r1 * r2 * N
+        ops = ops_per_sample * hashed * N + r1 * N + r1 * r2 * N
         if oflat is not None:
             r1o = osalts.shape[0]
             nbytes += 8 * N + 8 * r1o + 4 * r1o * r2
-            ops += OPS_PER_SAMPLE * r1o * N + r1o * N + r1o * r2 * N
+            ops += ops_per_sample * r1o * N + r1o * N + r1o * r2 * N
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / H100_LANE_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -458,7 +504,7 @@ def _compare(name, label, got, ref):
         ok, tol = abs_err <= ROWS_TOL, f"abs tol {ROWS_TOL:g}"
     else:
         ok, tol = rel <= PSI_TOL, f"rel tol {PSI_TOL:g}"
-    print(f"# phase 5: {name} {label}: max abs err {abs_err:.3e}, rel err "
+    print(f"# phase 6: {name} {label}: max abs err {abs_err:.3e}, rel err "
           f"{rel:.3e} ({tol}), finite {finite}")
     if not (ok and finite):
         raise AssertionError(f"{name} disagrees with its plain version at "
@@ -503,11 +549,14 @@ def _ragged_case():
     return t, ldrm, rdrm
 
 
-def phase_sparse_kernels(tensor, ldrm, rdrm):
-    """Each sparse kernel against its plain version; returns per-kernel
-    measurements at the main path's calls."""
+def phase_sparse_kernels(main_calls, ops_per_sample):
+    """Each sparse kernel against its plain version at the calls the main
+    path made (``main_calls``, recorded in phase 5), at a ragged sketch's
+    calls and with flat indices above 2^63; times and bounds of the main
+    path's calls."""
     import torch
 
+    from tt_sketch_torch import stream_sketch
     from tt_sketch_torch.kernels.lazy_gaussian import hash_bits
     from tt_sketch_torch.rng.hash_rng import hash_int, hash_int_np
 
@@ -521,7 +570,7 @@ def phase_sparse_kernels(tensor, ldrm, rdrm):
     xs = x[:4096].cpu().numpy()
     same_host = bool((hb[:4096].cpu().numpy().view(np.uint64)
                       == hash_int_np(xs.view(np.uint64))).all())
-    print(f"# phase 5: hash64 kernel vs plain int64 hash on the card: "
+    print(f"# phase 6: hash64 kernel vs plain int64 hash on the card: "
           f"{'equal' if same_dev else 'DIFFERENT'} over {x.shape[0]} "
           f"values; vs numpy uint64 on the host: "
           f"{'equal' if same_host else 'DIFFERENT'}")
@@ -529,16 +578,19 @@ def phase_sparse_kernels(tensor, ldrm, rdrm):
         raise AssertionError("the 64-bit hash kernel disagrees bit for bit")
 
     fns = _kernel_fns()
-    main_calls = sparse_main_calls(tensor, ldrm, rdrm)
     cases = [("uber", main_calls)]
     rt, rl, rr = _ragged_case()
-    cases.append(("ragged", sparse_main_calls(rt, rl, rr)))
-    high = {n: [_high_flats(a, -(1 << 63) + 12345) for a in c]
-            for n, c in main_calls.items()}
+    ragged_calls = {}
+    with recording(ragged_calls):
+        stream_sketch(rt, rl.rank, rr.rank, left_drm=rl, right_drm=rr,
+                      dtype=torch.float32)
+    cases.append(("ragged", ragged_calls))
+    high = {n: [_high_flats(a, -(1 << 63) + 12345) for a in main_calls[n]]
+            for n in SPARSE_KERNELS}
     cases.append(("flats>2^63", high))
     # the u24 = 2^24-1 input: salt + flat == 30787972 hashes to the top
     # quantile (the extreme is finite only if x is formed in int32)
-    salts = ldrm.salts(0)
+    salts = main_calls["lazy_gaussian"][0][1]
     top = torch.full((1,), 30787972, dtype=torch.int64, device="cuda") - \
         salts[:1]
     cases.append(("u24=2^24-1", {"lazy_gaussian": [(top, salts[:1])]}))
@@ -588,11 +640,11 @@ def phase_sparse_kernels(tensor, ldrm, rdrm):
         res[name]["ms"] = time_ms(lambda: [kern(*a) for a in calls])
         res[name]["plain_ms"] = time_ms(
             lambda: [plain(*a) for a in calls], reps=3, warmup=1)
-        bounds = [sparse_bound(name, a) for a in calls]
+        bounds = [sparse_bound(name, a, ops_per_sample) for a in calls]
         res[name]["bound_ms"] = sum(b for b, _ in bounds)
         res[name]["bound_by"] = max(bounds)[1]
         res[name]["calls"] = len(calls)
-        print(f"# phase 5: {name}: {len(calls)} main-path launch(es) in "
+        print(f"# phase 6: {name}: {len(calls)} main-path launch(es) in "
               f"{res[name]['ms']:.3f} ms (bound {res[name]['bound_ms']:.3f} "
               f"ms by {res[name]['bound_by']}), plain version "
               f"{res[name]['plain_ms']:.3f} ms")
@@ -630,7 +682,7 @@ def profile_sketch(run, n=3):
                    if str(e.device_type).endswith("CUDA")
                    and device_us(e) > 0), reverse=True)
     busy_us = sum(r[0] for r in rows)
-    print(f"# phase 6: profiler over {n} sketches: device busy "
+    print(f"# phase 5: profiler over {n} sketches: device busy "
           f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
           f"({100 * busy_us / window_us:.1f} % busy); per sketch, by "
           f"device time:")
@@ -640,13 +692,10 @@ def profile_sketch(run, n=3):
 
 
 def load_uber():
-    """uber-synthetic with its default plans, on the card in f32, and the
-    DRM pair that ``stream_sketch(tensor, 10, 20, seed=0)`` builds."""
+    """uber-synthetic with its default plans, on the card in f32."""
     import torch
 
-    from tt_sketch_torch import SparseGaussianDRM
     from tt_sketch_torch.data.frostt import load_frostt
-    from tt_sketch_torch.engine.sketch import _derive_right_seed
 
     t0 = time.perf_counter()
     tensor = load_frostt("uber-synthetic", psi_plan=True,
@@ -655,15 +704,13 @@ def load_uber():
     print(f"# uber-synthetic {tensor.shape}, {tensor.nnz} nnz, plans "
           f"{tensor.psi_plan}, loaded, planned and moved to the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    kw = dict(dtype=torch.float32, device="cuda")
-    ldrm = SparseGaussianDRM(10, tensor.shape, transpose=False, seed=0, **kw)
-    rdrm = SparseGaussianDRM(20, tensor.shape, transpose=True,
-                             seed=_derive_right_seed(0, tensor.ndim), **kw)
-    return tensor, ldrm, rdrm
+    return tensor
 
 
 def phase_sparse_main(tensor):
-    """uber-synthetic through stream_sketch and the sparse kernels."""
+    """uber-synthetic through stream_sketch and the sparse kernels; returns
+    the measurements and the arguments of every kernel, segment-reduction
+    and slab-combine call of the counted sketch."""
     import torch
 
     from tt_sketch_torch import SparseGaussianDRM, stream_sketch
@@ -674,14 +721,16 @@ def phase_sparse_main(tensor):
               right_drm_type=SparseGaussianDRM, dtype=torch.float32)
     fns = _kernel_fns()
 
+    calls = {}
     torch.cuda.synchronize()
     for kern, _ in fns.values():
         kern.launches = 0
-    sk, ldrm, rdrm = stream_sketch(tensor, 10, 20, seed=0, return_drm=True,
-                                   **kw)
+    with recording(calls):
+        sk, ldrm, rdrm = stream_sketch(tensor, 10, 20, seed=0,
+                                       return_drm=True, **kw)
     torch.cuda.synchronize()
     launches = {name: fns[name][0].launches for name in SPARSE_KERNELS}
-    print(f"# phase 6: kernel launches in one sketch: {launches}")
+    print(f"# phase 5: kernel launches in one sketch: {launches}")
     if launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"launch counts {launches} != "
                              f"{EXPECTED_LAUNCHES}")
@@ -696,13 +745,13 @@ def phase_sparse_main(tensor):
                 and bool(torch.isfinite(b).all())):
             raise AssertionError(f"non-finite sketch part {i}")
         worst = max(worst, _rel(a, b))
-    print(f"# phase 6: every Psi/Omega vs the plain-version sketch on the "
+    print(f"# phase 5: every Psi/Omega vs the plain-version sketch on the "
           f"card: worst rel err {worst:.3e} (tol {PSI_TOL:g})")
     if not worst <= PSI_TOL:
         raise AssertionError(f"sketch disagrees with its plain version: "
                              f"{worst:.3e}")
     err = sample_error(sk.to_tt(), tensor)
-    print(f"# phase 6: sample_error(to_tt()) = {err:.4f} (limit 1.0)")
+    print(f"# phase 5: sample_error(to_tt()) = {err:.4f} (limit 1.0)")
     if not err <= 1.0:
         raise AssertionError(f"sample error {err:.4f} > 1.0")
 
@@ -730,37 +779,27 @@ def phase_sparse_main(tensor):
     torch.cuda.synchronize()
     with plain_kernels():
         plain_ms = time_ms(lambda: run(3), reps=3, warmup=1)
-    # the parts outside the kernels: segment reductions of modes 0 and 1,
-    # the slab combines of modes 2 and 3
-    calls = sparse_main_calls(tensor, ldrm, rdrm)
-    lg = fns["lazy_gaussian"][0]
-    r2s, l0, r1s = (lg(*a) for a in calls["lazy_gaussian"])
-    seg_ms = time_ms(lambda: (
-        K._psi_sparse_segment(None, r2s, tensor.entries, tensor.indices[0],
-                              tensor.shape[0]),
-        K._psi_sparse_segment(l0, r1s, tensor.entries, tensor.indices[1],
-                              tensor.shape[1])))
-    slabs = [fns["psi_omega_merged_slabs"][0](
-        *calls["psi_omega_merged_slabs"][0])[0],
-        fns["psi_fused_slabs"][0](*calls["psi_fused_slabs"][0])]
-    plans = [tensor.psi_plan[2], tensor.psi_plan[3]]
-    comb_ms = time_ms(lambda: [
-        K._psi_from_slabs(s, p, n, torch.float32)
-        for s, p, n in zip(slabs, plans, tensor.shape[2:])])
-    del r2s, l0, r1s, slabs
+    # the parts outside the kernels, replayed from the counted sketch: the
+    # segment reductions of unplanned modes, the slab combines of planned
+    # ones
+    seg_ms = time_ms(lambda: [K._psi_sparse_segment(*a)
+                              for a in calls["_psi_sparse_segment"]])
+    comb_ms = time_ms(lambda: [K._psi_from_slabs(*a)
+                               for a in calls["_psi_from_slabs"]])
     busy = profile_sketch(lambda s: run(200 + s))
     nnz_per_s = tensor.nnz / (med / 1e3)
-    print(f"# phase 6: sketch median {med:.3f} ms over fresh seeds "
+    print(f"# phase 5: sketch median {med:.3f} ms over fresh seeds "
           f"({', '.join(f'{t:.3f}' for t in times)}), "
           f"sparse_stta_nnz_per_s {nnz_per_s:.6e}; host enqueue of one "
           f"sketch {enqueue_ms:.3f} ms; plain-version sketch {plain_ms:.3f} "
-          f"ms; segment reductions (modes 0, 1) {seg_ms:.3f} ms; slab "
-          f"combines (modes 2, 3) {comb_ms:.3f} ms; device busy "
-          f"{100 * busy:.1f} %")
+          f"ms; segment reductions "
+          f"({len(calls['_psi_sparse_segment'])} modes) {seg_ms:.3f} ms; "
+          f"slab combines ({len(calls['_psi_from_slabs'])} modes) "
+          f"{comb_ms:.3f} ms; device busy {100 * busy:.1f} %")
     return {"launches": launches, "busy": busy, "ms": med, "times": times,
             "nnz_per_s": nnz_per_s, "sample_error": err, "worst_rel": worst,
             "plain_ms": plain_ms, "enqueue_ms": enqueue_ms, "seg_ms": seg_ms,
-            "comb_ms": comb_ms}
+            "comb_ms": comb_ms, "calls": calls}
 
 
 def bound_ms(P, S, r, rho):
@@ -785,12 +824,12 @@ def main():
     t_start = time.perf_counter()
 
     smi = phase_build()
+    ops_per_sample = sass_ops_per_sample()
     kern = phase_kernel_check()
     path = phase_main_path()
     phase_stream_sketch()
-    uber, ldrm, rdrm = load_uber()
-    skern = phase_sparse_kernels(uber, ldrm, rdrm)
-    sparse = phase_sparse_main(uber)
+    sparse = phase_sparse_main(load_uber())
+    skern = phase_sparse_kernels(sparse["calls"], ops_per_sample)
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     entry = {
@@ -830,6 +869,7 @@ def main():
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"],
             "library_ms": None,
+            "bound_ops_per_sample": ops_per_sample,
             "shape": "FROSTT-uber main path, 3309696 nnz, rank 10/20; ms "
                      "and bound cover all launches of one sketch",
             "card": smi,

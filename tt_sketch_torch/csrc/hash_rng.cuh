@@ -19,19 +19,15 @@
 // can differ from a CPU evaluation of the same formula by a few float32
 // ulps (<= 2e-6 absolute at |g| <= 5.5).
 //
-// Instructions per sample, counted from this code (SASS-level estimate):
-// 64-bit add 2, three xor-shifts 3 x 4 = 12, two 64x64 low multiplies
-// 2 x 4 = 8 (integer); bit field 2, int32 multiply-add 1, I2F 1, scale 1,
-// (1-x)(1+x) 3, logf ~16, central polynomial 8 FMAs, compare/select 2,
-// final two multiplies 2 (float); the rare tail branch (|x| > 0.9966,
-// ~0.3 % of samples) adds sqrtf ~8 and 8 FMAs.  About 58 per sample.
+// Instructions per sample: chip_smoke.py counts them in the built
+// lazy_gaussian kernel (cuobjdump -sass), along the path a sample takes
+// when it misses the rare erfinv tail (|x| > 0.9966, ~0.3 % of samples,
+// which adds sqrtf and its own constants).
 #pragma once
 
 #include <stdint.h>
 
 namespace tt_rng {
-
-constexpr int OPS_PER_SAMPLE = 58;
 
 __device__ __forceinline__ uint64_t hash64(uint64_t x) {
   x += 0x4BE98134A5976FD3ull;

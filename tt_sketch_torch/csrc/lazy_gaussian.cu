@@ -11,11 +11,12 @@
 //
 // What bounds it.  Per output sample the kernel reads nothing new (the flat
 // index is reused across the R rows, the salts sit in shared memory) and
-// writes 4 bytes, while hash64 + erfinv cost about 58 instructions
-// (hash_rng.cuh).  At 58 lane-instructions per 4 bytes the H100's CUDA
-// cores (33.5e12 lane-instructions/s at the 67 TFLOP/s fp32 peak) need
-// 1.7e-12 s per sample against 1.2e-12 s for its 4 bytes at 3.35 TB/s: the
-// kernel is bound by operations, slightly, and by bytes almost as much.
+// writes 4 bytes, while it issues 96 instructions (hash64, erfinv, the
+// loop and the store; chip_smoke.py counts them in this kernel's sm_90a
+// SASS).  At 96 lane-instructions per 4 bytes the H100's CUDA cores
+// (33.5e12 lane-instructions/s at the 67 TFLOP/s fp32 peak) need 2.9e-12 s
+// per sample against 1.2e-12 s for its 4 bytes at 3.35 TB/s: the kernel is
+// bound by operations.
 //
 // What the design does about it.  One thread per column n: the flat index
 // is loaded once into a register and the thread walks the R salts, so the
@@ -62,8 +63,6 @@ __global__ void hash_bits_kernel(const uint64_t* __restrict__ x,
 extern "C" {
 
 int tt_lazy_gaussian_max_rows(void) { return MAX_ROWS; }
-
-int tt_lazy_gaussian_ops_per_sample(void) { return tt_rng::OPS_PER_SAMPLE; }
 
 // Returns the cudaError_t of the launch (0 on success).
 int tt_lazy_gaussian(const uint64_t* flat, const uint64_t* salts, float* out,

@@ -22,12 +22,13 @@
 //
 // What bounds it.  Per nnz the kernels read 8 bytes per flat index stream,
 // 4 for the entry and 4 for the local row, and hash (r1 + r2 [+ r1o])
-// samples at about 58 instructions each (hash_rng.cuh), then spend r1*r2
-// [+ r1o*r2] FMAs on the contraction.  At FROSTT-uber's mode 2 (ranks
-// 10/20, merged) that is 40 samples = ~2300 instructions plus 400 FMAs for
-// 32 bytes: ~85 instructions per byte against the CUDA cores' ridge of
-// 33.5e12 / 3.35e12 = 10.  The kernels are bound by operations, and the
-// hash and erfinv are ~85 % of them.
+// samples at about 96 instructions each (the count chip_smoke.py takes from
+// the lazy_gaussian kernel's SASS, which runs the same generator), then
+// spend r1*r2 [+ r1o*r2] FMAs on the contraction.  At FROSTT-uber's mode 2
+// (ranks 10/20, merged) that is 40 samples = ~3840 instructions plus 400
+// FMAs for 32 bytes: ~130 instructions per byte against the CUDA cores'
+// ridge of 33.5e12 / 3.35e12 = 10.  The kernels are bound by operations,
+// and the hash and erfinv are ~90 % of them.
 //
 // What the design does about it.  One block per chunk of the mode-sorted
 // nnz stream (per plan chunk for Ψ; per OMEGA_CHUNK nnz for Ω).  The block

@@ -84,7 +84,7 @@ def general_sketch(
         raise ValueError(f"left_drm must be provided for method '{method}'")
     for drm in (left_drm, right_drm):
         _check_placement(tensor, drm)
-    if isinstance(tensor, SparseTensor) and K._can_fuse_omega(
+    if isinstance(tensor, SparseTensor) and K.sparse_fused_applies(
         tensor, left_drm, right_drm
     ):
         Psi_cores, Omega_mats = K.sparse_streaming_sketch_fused(
@@ -95,29 +95,23 @@ def general_sketch(
     n_dims = len(tensor.shape)
     left_contractions = get_sketch_method(tensor, left_drm)(tensor)
     right_contractions = get_sketch_method(tensor, right_drm)(tensor)
-    right_rank_rev = right_drm.rank[::-1]
-    drm_kwargs = {"left_drm": left_drm, "right_drm": right_drm}
 
     omega_method = OMEGA_METHODS[type(tensor)]
     Omega_mats: List[torch.Tensor] = [
         omega_method(
-            left_contractions[mu], right_contractions[mu], tensor=tensor,
-            mu=mu, **drm_kwargs,
+            left_contractions[mu], right_contractions[mu], tensor=tensor, mu=mu
         )
         for mu in range(n_dims - 1)
     ]
 
     psi_method = PSI_METHODS[type(tensor)]
-    Psi_cores: List[torch.Tensor] = []
-    for mu in range(n_dims):
-        r1 = left_drm.rank[mu - 1] if mu > 0 else 1
-        r2 = right_rank_rev[mu] if mu < n_dims - 1 else 1
-        Psi_cores.append(psi_method(
+    Psi_cores: List[torch.Tensor] = [
+        psi_method(
             left_contractions[mu - 1] if mu > 0 else None,
             right_contractions[mu] if mu < n_dims - 1 else None,
             tensor=tensor,
             mu=mu,
-            psi_shape=(r1, tensor.shape[mu], r2),
-            **drm_kwargs,
-        ))
+        )
+        for mu in range(n_dims)
+    ]
     return SketchContainer(Psi_cores, Omega_mats)

@@ -10,6 +10,7 @@ tensor ``dual_project`` launches the hand-written Hopper kernel of
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -67,8 +68,10 @@ def _check_cuda_operands(X2d, R, L) -> None:
         raise ValueError("dual_project: X2d is empty")
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+    """The built kernel library with its C signatures declared (once per
+    process)."""
     from tt_sketch_torch.kernels.cuda_build import load_library
 
     lib = load_library("dual_project")

@@ -13,6 +13,7 @@ holding the device's integer arithmetic against ``hash_rng.hash_int``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,8 +46,10 @@ def _check_int64(name: str, t: torch.Tensor, device) -> None:
             f"of shape {tuple(t.shape)}")
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+    """The built kernel library with its C signatures declared (once per
+    process)."""
     from tt_sketch_torch.kernels.cuda_build import load_library
 
     lib = load_library("lazy_gaussian")
@@ -55,9 +58,8 @@ def _library() -> ctypes.CDLL:
     lib.tt_lazy_gaussian.restype = i32
     lib.tt_hash_bits.argtypes = [ptr, ptr, i64, ptr]
     lib.tt_hash_bits.restype = i32
-    for fn in ("tt_lazy_gaussian_max_rows", "tt_lazy_gaussian_ops_per_sample"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = i32
+    lib.tt_lazy_gaussian_max_rows.argtypes = []
+    lib.tt_lazy_gaussian_max_rows.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
     lib.tt_cuda_error_string.restype = ctypes.c_char_p
     return lib

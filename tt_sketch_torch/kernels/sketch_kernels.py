@@ -88,24 +88,14 @@ def _is_kernel_gaussian(drm) -> bool:
     return isinstance(drm, SparseGaussianDRM) and drm.uses_kernel_contract
 
 
-def _can_fuse_omega(tensor, left_drm, right_drm) -> bool:
+def sparse_fused_applies(tensor, left_drm, right_drm) -> bool:
+    """Whether ``sparse_streaming_sketch_fused`` sketches ``tensor``: both
+    DRMs are kernel-contract Gaussian DRMs and the tensor is float32 or
+    bfloat16."""
     from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES
 
     return (tensor.dtype in KERNEL_DTYPES and _is_kernel_gaussian(left_drm)
             and _is_kernel_gaussian(right_drm))
-
-
-def _can_fuse_psi(mp, tensor, mu, left_drm, right_drm) -> bool:
-    """The fused Ψ kernel applies when the plan carries the sorted streams
-    and every consumed side is a kernel-contract Gaussian DRM."""
-    from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES
-
-    if mp.sorted_entries is None or tensor.dtype not in KERNEL_DTYPES:
-        return False
-    d = len(tensor.shape)
-    if mu > 0 and not _is_kernel_gaussian(left_drm):
-        return False
-    return mu == d - 1 or _is_kernel_gaussian(right_drm)
 
 
 def _segment_sum_onehot(outer, idx, n_mu):
@@ -225,27 +215,15 @@ def _hash_rows_from_pairs(drm, k: int, flat, dtype):
     return lazy_gaussian(flat, drm.salts(k)).to(dtype)
 
 
-def sketch_omega_sparse(left_sketch, right_sketch, *, tensor, mu=None,
-                        left_drm=None, right_drm=None, **kwargs):
-    """Ω = Σ_k entries[k] · left[:,k] ⊗ right[:,k]: the fused kernel for a
-    kernel-contract Gaussian pair, one product of materialized rows
-    otherwise."""
-    if mu is not None and _can_fuse_omega(tensor, left_drm, right_drm):
-        return _omega_sparse_fused(tensor, mu, left_drm, right_drm)
+def sketch_omega_sparse(left_sketch, right_sketch, *, tensor, **kwargs):
+    """Ω = Σ_k entries[k] · left[:,k] ⊗ right[:,k] over materialized rows."""
     return (left_sketch * tensor.entries) @ right_sketch.T
 
 
-def sketch_psi_sparse(left_sketch, right_sketch, *, tensor, mu, psi_shape,
-                      left_drm=None, right_drm=None, **kwargs):
-    """Ψ_μ: the fused slab kernel where the plan and the DRMs allow it, the
-    segment reduction over materialized rows otherwise."""
-    plan = tensor.psi_plan
-    mp = plan[mu] if plan is not None else None
-    if mp is not None and _can_fuse_psi(mp, tensor, mu, left_drm, right_drm):
-        return _psi_sparse_fused(tensor, mu, mp, psi_shape[1], left_drm,
-                                 right_drm)
+def sketch_psi_sparse(left_sketch, right_sketch, *, tensor, mu, **kwargs):
+    """Ψ_μ by the segment reduction over materialized rows."""
     return _psi_sparse_segment(left_sketch, right_sketch, tensor.entries,
-                               tensor.indices[mu], psi_shape[1])
+                               tensor.indices[mu], tensor.shape[mu])
 
 
 def sparse_streaming_sketch_fused(tensor, left_drm, right_drm):

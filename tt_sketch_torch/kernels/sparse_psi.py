@@ -18,6 +18,7 @@ its int64 column salts (``hash_rng.drm_salts``).  The sparse-sign side spec
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -103,8 +104,10 @@ def psi_omega_merged_slabs_reference(loc, se, lflat, rflat, oflat, lsalts,
 
 # -- kernels -----------------------------------------------------------------
 
+@functools.cache
 def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+    """The built kernel library with its C signatures declared (once per
+    process)."""
     from tt_sketch_torch.kernels.cuda_build import load_library
 
     lib = load_library("sparse_psi")
