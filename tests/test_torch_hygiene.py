@@ -47,6 +47,8 @@ def test_import_leaves_jax_out():
         "import tt_sketch_torch.data.frostt\n"
         "import tt_sketch_torch.kernels.sketch_kernels\n"
         "from tt_sketch_torch import SparseTensor, SparseGaussianDRM\n"
+        "from tt_sketch_torch import SparseSignDRM\n"
+        "import tt_sketch_torch.kernels.sparse_sign\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"
@@ -65,8 +67,8 @@ def test_import_leaves_jax_out():
 def test_kernel_source_is_in_the_package():
     from tt_sketch_torch.kernels.cuda_build import BUILD_DIR, CSRC
 
-    for name in ("dual_project.cu", "lazy_gaussian.cu", "sparse_psi.cu",
-                 "hash_rng.cuh"):
+    for name in ("dual_project.cu", "lazy_gaussian.cu", "sparse_sign.cu",
+                 "sparse_psi.cu", "hash_rng.cuh"):
         assert (CSRC / name).is_file()
     # builds land under build/, which .gitignore lists
     assert BUILD_DIR.relative_to(ROOT).parts[0] == "build"
@@ -83,7 +85,7 @@ def test_digest_follows_shared_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC, csrc)
     monkeypatch.setattr(cuda_build, "CSRC", csrc)
-    names = ("lazy_gaussian", "sparse_psi", "dual_project")
+    names = ("lazy_gaussian", "sparse_sign", "sparse_psi", "dual_project")
     before = {n: cuda_build.source_digest(n) for n in names}
     assert before == {n: cuda_build.source_digest(n) for n in names}
     header = csrc / "hash_rng.cuh"
@@ -94,3 +96,8 @@ def test_digest_follows_shared_headers(tmp_path, monkeypatch):
         (csrc / "lazy_gaussian.cu").read_text() + "\n")
     assert cuda_build.source_digest("lazy_gaussian") != after["lazy_gaussian"]
     assert cuda_build.source_digest("sparse_psi") == after["sparse_psi"]
+    # the sign generator lives in the shared header: both libraries that
+    # run it include it, so the digest above is what rebuilds them
+    assert "sign_column" in header.read_text()
+    for name in ("sparse_sign", "sparse_psi"):
+        assert '#include "hash_rng.cuh"' in (csrc / f"{name}.cu").read_text()

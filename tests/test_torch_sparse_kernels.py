@@ -168,10 +168,23 @@ def test_plan_matches_jax(case):
 
 
 def test_window_sized_mode_raises():
+    # a mode above window_threshold no longer raises: it gets a WindowPlan
+    # (tests/test_torch_window_plan.py holds it against the JAX package);
+    # what raises is a window kernel call whose streams do not fit the plan
+    from tt_sketch_torch.kernels.sparse_plan import ModePlan, WindowPlan
+
     idx, ent = _data()
-    with pytest.raises(NotImplementedError, match="psi_window_direct"):
-        build_psi_plan(idx, SHAPE, entries=ent, threshold=8,
-                       window_threshold=20, device="cpu")
+    plans = build_psi_plan(idx, SHAPE, entries=ent, threshold=8,
+                           window_threshold=20, device="cpu")
+    assert [type(p) for p in plans] == [ModePlan, ModePlan, WindowPlan,
+                                        WindowPlan]
+    p = plans[2]
+    with pytest.raises(ValueError, match="window plan"):
+        SP.psi_window_direct(
+            p.chunk_window, p.chunk_first, p.local_idx,
+            p.sorted_entries[:-1], p.flat_left, p.flat_right,
+            H.drm_salts(0, R1, 1), H.drm_salts(0, R2, 2), p.n_chunks, p.span,
+            p.chunk, p.n_windows)
 
 
 # -- kernels' plain versions against the Pallas kernels ------------------------
@@ -286,9 +299,22 @@ def test_slabs_unpadded_layout(jax_plan):
 
 
 def test_sign_side_spec_is_not_ported(jax_plan):
+    # the sign side spec is ported (tests/test_torch_sparse_sign.py holds
+    # it against the Pallas kernels): a well-formed one runs, and what
+    # raises now is a malformed spec or salts of another range than [0, nnz)
     _, _, jp = jax_plan
     p = _port_plan(jp)
-    with pytest.raises(NotImplementedError, match="sparse-sign"):
-        SP.psi_fused_slabs(p.local_idx, p.sorted_entries, p.flat_left, None,
-                           H.drm_salts(0, 4, 1), None, p.n_chunks, p.span,
-                           p.chunk, lspec=("s", 4, 2, 0, 4))
+
+    def call(salts, spec):
+        return SP.psi_fused_slabs(p.local_idx, p.sorted_entries, p.flat_left,
+                                  None, salts, None, p.n_chunks, p.span,
+                                  p.chunk, lspec=spec)
+
+    assert call(H.drm_salts(0, 2, 1), ("s", 4, 2, 0, 4)).shape == (
+        p.n_chunks, p.span, 4, 1)
+    with pytest.raises(ValueError, match=r"columns \[0, nnz\)"):
+        call(H.drm_salts(0, 4, 1), ("s", 4, 2, 0, 4))
+    with pytest.raises(ValueError, match="rank slice"):
+        call(H.drm_salts(0, 2, 1), ("s", 4, 2, 2, 4))
+    with pytest.raises(ValueError, match="side spec"):
+        call(H.drm_salts(0, 2, 1), ("s", 4, 2))

@@ -1,11 +1,12 @@
 """tt_sketch_torch — the PyTorch/CUDA port of ``tt_sketch_tpu``.
 
 Streaming tensor-train sketching (STTA) of dense and TT tensors with
-TT-DRMs and of sparse COO tensors with lazy-Gaussian DRMs, and recovery of
-the TT cores.  The dense slab stream's one-pass projection runs a
-hand-written Hopper kernel (``csrc/dual_project.cu``); the sparse sketch
-runs the lazy-Gaussian row generator (``csrc/lazy_gaussian.cu``) and the
-fused Ψ/Ω kernels (``csrc/sparse_psi.cu``).
+TT-DRMs and of sparse COO tensors with lazy-Gaussian and sparse-sign DRMs,
+and recovery of the TT cores.  The dense slab stream's one-pass projection
+runs a hand-written Hopper kernel (``csrc/dual_project.cu``); the sparse
+sketch runs the row generators (``csrc/lazy_gaussian.cu``,
+``csrc/sparse_sign.cu``) and the fused Ψ/Ω kernels, among them the
+aligned-window kernel of giant modes (``csrc/sparse_psi.cu``).
 Public names mirror ``tt_sketch_tpu``::
 
     from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
@@ -40,6 +41,7 @@ def __getattr__(name):
         "SketchMethod": "tt_sketch_torch.engine.dispatch",
         "TensorTrainDRM": "tt_sketch_torch.drm",
         "SparseGaussianDRM": "tt_sketch_torch.drm",
+        "SparseSignDRM": "tt_sketch_torch.drm",
         "build_psi_plan": "tt_sketch_torch.kernels.sparse_plan",
         "load_frostt": "tt_sketch_torch.data.frostt",
         "sample_error": "tt_sketch_torch.data.frostt",

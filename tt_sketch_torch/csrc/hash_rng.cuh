@@ -1,5 +1,5 @@
-// The lazy-Gaussian DRM generator on the device, shared by lazy_gaussian.cu
-// and sparse_psi.cu.
+// The DRM generators on the device: lazy-Gaussian samples (lazy_gaussian.cu,
+// sparse_psi.cu) and sparse-sign columns (sparse_sign.cu, sparse_psi.cu).
 //
 // One DRM entry is a pure function of (flat index, column salt):
 //   h = splitmix64(flat + salt)            (uint64, wraps mod 2^64)
@@ -23,6 +23,17 @@
 // lazy_gaussian kernel (cuobjdump -sass), along the path a sample takes
 // when it misses the rare erfinv tail (|x| > 0.9966, ~0.3 % of samples,
 // which adds sqrtf and its own constants).
+//
+// A sparse-sign column (sign_column below) is nnz hashed +-1 shuffled over
+// `rank` slots, the contract of pallas_rng.py (_gen_sign_rows,
+// _swap_position): for draw j < nnz, h_j = splitmix64(flat + salt_j) with
+// the salts of columns [0, nnz); the sign is bit 52 of h_j, placed at slot
+// j; then a Fisher-Yates pass swaps slot j with slot
+//   floor(u52_j * (rank - j) / 2^52) + j,   u52_j = low 52 bits of h_j,
+// an exact integer.  The TPU code splits the product into uint32 limbs and
+// runs each swap as a masked select over the whole block; here one thread
+// owns one column, __umul64hi gives the high half of the 128-bit product,
+// and a swap touches two slots.  Values are exactly -1, 0 or +1.
 #pragma once
 
 #include <stdint.h>
@@ -80,6 +91,45 @@ __device__ __forceinline__ float normal_from_hash(uint64_t h) {
 // The N(0,1) sample of DRM column `salt` at flat index `flat`.
 __device__ __forceinline__ float sample(uint64_t flat, uint64_t salt) {
   return normal_from_hash(hash64(flat + salt));
+}
+
+// Bit 52 of the hash as +-1.
+__device__ __forceinline__ int sign_from_hash(uint64_t h) {
+  return (int)((h >> 52) & 1ull) * 2 - 1;
+}
+
+// floor(u52 * m / 2^52) + j, exact for any m < 2^31: u52 * m < 2^83, its
+// bits 52.. are (hi << 12) | (lo >> 52).
+__device__ __forceinline__ int swap_position(uint64_t h, int m, int j) {
+  const uint64_t u52 = h & 0xFFFFFFFFFFFFFull;
+  const uint64_t lo = u52 * (uint64_t)m;
+  const uint64_t hi = __umul64hi(u52, (uint64_t)m);
+  return (int)((hi << 12) | (lo >> 52)) + j;
+}
+
+// One sparse-sign column into slots[s * stride], s in [0, rank): the
+// caller's thread owns these slots (registers, shared or local memory; Slot
+// is any type holding -1, 0, +1).  salts are those of columns [0, nnz),
+// nnz <= rank.  Each draw is hashed twice (once for its sign, once for its
+// swap) so that no per-draw state is kept.
+template <typename Slot>
+__device__ __forceinline__ void sign_column(uint64_t flat,
+                                            const uint64_t* salts, int rank,
+                                            int nnz, Slot* slots,
+                                            int stride) {
+#pragma unroll 1
+  for (int s = nnz; s < rank; ++s) slots[s * stride] = (Slot)0;
+#pragma unroll 1
+  for (int j = 0; j < nnz; ++j) {
+    slots[j * stride] = (Slot)sign_from_hash(hash64(flat + salts[j]));
+  }
+#pragma unroll 1
+  for (int j = 0; j < nnz; ++j) {
+    const int rp = swap_position(hash64(flat + salts[j]), rank - j, j);
+    const Slot vj = slots[j * stride];
+    slots[j * stride] = slots[rp * stride];
+    slots[rp * stride] = vj;
+  }
 }
 
 }  // namespace tt_rng

@@ -1,21 +1,28 @@
-// Fused sparse Ψ / Ω kernels for Hopper: lazy-Gaussian DRM rows hashed
-// inside the kernel and contracted against the sparse tensor's entries.
+// Fused sparse Ψ / Ω kernels for Hopper: DRM rows (lazy-Gaussian or
+// sparse-sign, per side) hashed inside the kernel and contracted against
+// the sparse tensor's entries.
 //
 //   psi_fused_slabs      slab[c, s, a, b] = Σ_{k in chunk c, loc[k] = s}
 //                                             L[a,k] e[k] R[b,k]
 //   omega_fused          om[g, a, b]      = Σ_{k in block g} Lo[a,k] e[k] R[b,k]
 //   psi_omega_merged     both from one pass, R hashed once
+//   psi_window_direct    psi[w*span + s, a, b] = Σ_{k in window w, loc[k] = s}
+//                                             L[a,k] e[k] R[b,k]
 //
-// L[a,k] = sample(lflat[k], lsalts[a]) and likewise for R and Lo
-// (hash_rng.cuh).  A missing side (Ψ_0 has no left DRM, Ψ_{d-1} no right
-// one) is a single row of ones, so the slab is (span, 1, r2) or
-// (span, r1, 1).
+// A Gaussian side has L[a,k] = sample(lflat[k], lsalts[a]); a sign side
+// has L[:,k] = rows [rank_min, rank_min + r) of the sparse-sign column of
+// lflat[k] over `rank` slots, from the nnz salts of columns [0, nnz)
+// (hash_rng.cuh); likewise for R and Lo.  A missing side (Ψ_0 has no left
+// DRM, Ψ_{d-1} no right one) is a single row of ones, so the slab is
+// (span, 1, r2) or (span, r1, 1).
 //
 // Replaces, in tt_sketch_tpu/kernels/pallas_psi.py:
 //   _fused_kernel, _fused_kernel_noleft, _fused_kernel_noright
 //       (entry psi_fused_slabs)
 //   _omega_kernel (entry omega_fused)
 //   _merged_kernel, _merged_kernel_noleft (entry psi_omega_merged_slabs)
+//   _window_kernel, _window_kernel_oneside (entry psi_window_direct)
+//   _gen_spec_rows (the per-side dispatch between the two generators)
 // Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded by tt_sketch_torch/kernels/sparse_psi.py through ctypes.
@@ -43,6 +50,23 @@
 // written.  Every output element belongs to one thread of one block and is
 // written without atomics: the slabs and the per-block Ω partials are
 // deterministic, and the wrapper sums the Ω partials in a fixed order.
+//
+// A sign side cannot be hashed one sample per thread-step: its column is
+// one shuffle over `rank` slots.  One thread per tile column runs
+// sign_column in place on the side's rows in shared memory (T of the 256
+// threads per sign side, before they join the Gaussian samples' loop); a
+// sliced side (r < rank) allocates `rank` rows and contracts rows
+// [rank_min, rank_min + r).
+//
+// The window kernel is the same block program over another range.  The TPU
+// kernel revisits one output block over adjacent grid steps (init on a
+// window's first chunk, accumulate after); blocks here run in parallel, so
+// one block owns one window: it finds its chunks in the non-decreasing
+// chunk_window (binary search, then chunk_first marks the next window),
+// zeroes the window's span rows and walks the chunks with the same run
+// trick, since loc is non-decreasing over a window's whole run with the
+// pads (sentinel span, entry 0) at its end.  A tile that starts on a pad
+// ends the walk.  Ψ leaves the kernel finished: no atomics, no combine.
 // Making it fast (sharing samples across warps, wider per-thread tiles,
 // persistent blocks) is later work.
 
@@ -58,6 +82,18 @@ constexpr int T = 64;       // nnz per tile
 constexpr int TS = T + 1;   // padded row stride in shared memory
 constexpr int OMEGA_CHUNK = 4096;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
+static_assert(THREADS >= 3 * T,
+              "one tile column per thread for up to three sign sides");
+
+// One side's generator: sign == 0 is lazy-Gaussian (one row per salt);
+// otherwise a sparse-sign column over `rank` slots from `nnz` salts, rows
+// [rank_min, rank_min + rows out) contracted.
+struct Side {
+  int sign;
+  int rank;
+  int nnz;
+  int rank_min;
+};
 
 struct Args {
   const int* loc;
@@ -76,36 +112,100 @@ struct Args {
   int r1;   // rows of the Ψ left side (1 when absent)
   int r2;   // rows of the right side (1 when absent)
   int r1o;  // rows of Ω's left side (0 without Ω)
+  Side ls, rs, os;
+  const int* win;    // window kernel: window id per chunk, non-decreasing
+  const int* first;  // window kernel: 1 on a window's first chunk
+  int n_chunks;
 };
 
-template <bool HAS_L, bool HAS_R, bool PSI, bool OM>
-size_t smem_bytes(int r1, int r2, int r1o) {
-  const int n_salts = (HAS_L ? r1 : 0) + (HAS_R ? r2 : 0) + (OM ? r1o : 0);
-  const int n_rows = r1 + r2 + (OM ? r1o : 0);
-  return n_salts * sizeof(uint64_t) + (size_t)n_rows * TS * sizeof(float) +
-         T * sizeof(int);
+// Shared-memory layout: salts [L | R | O], rows L | R | O, then loc.
+struct Layout {
+  int nsl, nsr, nso;  // salts per side
+  int al, ar, ao;     // rows allocated per side
+  int gl, gr, go;     // rows hashed sample by sample (Gaussian or ones)
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(nsl + nsr + nso) * sizeof(uint64_t) +
+           (size_t)(al + ar + ao) * TS * sizeof(float) + T * sizeof(int);
+  }
+};
+
+template <bool HAS_L, bool HAS_R, bool OM>
+__host__ __device__ Layout layout(const Args& a) {
+  Layout y;
+  const bool sl = HAS_L && a.ls.sign, sr = HAS_R && a.rs.sign;
+  const bool so = OM && a.os.sign;
+  y.nsl = !HAS_L ? 0 : sl ? a.ls.nnz : a.r1;
+  y.nsr = !HAS_R ? 0 : sr ? a.rs.nnz : a.r2;
+  y.nso = !OM ? 0 : so ? a.os.nnz : a.r1o;
+  y.al = sl ? a.ls.rank : a.r1;
+  y.ar = sr ? a.rs.rank : a.r2;
+  y.ao = !OM ? 0 : so ? a.os.rank : a.r1o;
+  y.gl = sl ? 0 : a.r1;
+  y.gr = sr ? 0 : a.r2;
+  y.go = so ? 0 : (OM ? a.r1o : 0);
+  return y;
 }
 
-template <bool HAS_L, bool HAS_R, bool PSI, bool OM>
+// One tile column of a sign side, in place on the side's rows; a left side
+// carries the entry.
+__device__ __forceinline__ void sign_side(float* rows, const uint64_t* flat,
+                                          const uint64_t* salts,
+                                          const Side& sd, int r_out,
+                                          const float* e, int64_t k0, int t,
+                                          int tn) {
+  if (t >= tn) return;
+  float* col = rows + t;
+  tt_rng::sign_column(flat[k0 + t], salts, sd.rank, sd.nnz, col, TS);
+  if (e) {
+    const float ek = e[k0 + t];
+    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * TS] *= ek;
+  }
+}
+
+template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN>
 __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
   extern __shared__ uint64_t smem[];
   const int r1 = a.r1, r2 = a.r2, r1o = OM ? a.r1o : 0;
-  // salts: [L | R | O], then rows: L (r1) | R (r2) | O (r1o), then loc
+  const Layout y = layout<HAS_L, HAS_R, OM>(a);
   uint64_t* salts = smem;
-  const int nl = HAS_L ? r1 : 0, nr = HAS_R ? r2 : 0;
-  const int n_salts = nl + nr + r1o;
-  float* rows = reinterpret_cast<float*>(salts + n_salts);
-  float* Ls = rows;
-  float* Rs = Ls + r1 * TS;
-  float* Os = Rs + r2 * TS;
-  int* loc_s = reinterpret_cast<int*>(Os + r1o * TS);
+  const uint64_t* salts_l = salts;
+  const uint64_t* salts_r = salts + y.nsl;
+  const uint64_t* salts_o = salts_r + y.nsr;
+  const int n_salts = y.nsl + y.nsr + y.nso;
+  float* Ls = reinterpret_cast<float*>(salts + n_salts);
+  float* Rs = Ls + y.al * TS;
+  float* Os = Rs + y.ar * TS;
+  int* loc_s = reinterpret_cast<int*>(Os + y.ao * TS);
+  // the rows the contraction reads: a sign side's slice starts at rank_min
+  const float* Lc = Ls + (y.gl ? 0 : a.ls.rank_min * TS);
+  const float* Rc = Rs + (y.gr ? 0 : a.rs.rank_min * TS);
+  const float* Oc = Os + (y.go || !OM ? 0 : a.os.rank_min * TS);
 
   const int tid = threadIdx.x;
   for (int i = tid; i < n_salts; i += THREADS) {
-    salts[i] = i < nl ? a.lsalts[i]
-             : i < nl + nr ? a.rsalts[i - nl] : a.osalts[i - nl - nr];
+    salts[i] = i < y.nsl ? a.lsalts[i]
+             : i < y.nsl + y.nsr ? a.rsalts[i - y.nsl]
+                                 : a.osalts[i - y.nsl - y.nsr];
   }
   const int64_t g = blockIdx.x;
+  int64_t start = g * a.chunk;
+  int64_t end = start + a.chunk;
+  if (WIN) {
+    // this window's chunks: [first chunk with win >= g, next first chunk)
+    int lo = 0, hi = a.n_chunks;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (a.win[mid] < (int)g) lo = mid + 1; else hi = mid;
+    }
+    int c1 = lo;
+    if (lo < a.n_chunks && a.win[lo] == (int)g) {
+      c1 = lo + 1;
+      while (c1 < a.n_chunks && a.first[c1] == 0) ++c1;
+    }
+    start = (int64_t)lo * a.chunk;
+    end = (int64_t)c1 * a.chunk;
+  }
+  if (end > a.nnz) end = a.nnz;
   if (PSI) {
     float* slab = a.slabs + g * a.span * r1 * r2;
     for (int i = tid; i < a.span * r1 * r2; i += THREADS) slab[i] = 0.f;
@@ -116,30 +216,52 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
   }
   __syncthreads();
 
-  const int64_t start = g * a.chunk;
-  int64_t end = start + a.chunk;
-  if (end > a.nnz) end = a.nnz;
-  const int n_rows = r1 + r2 + r1o;
+  const int n_hashed = y.gl + y.gr + y.go;
   for (int64_t k0 = start; k0 < end; k0 += T) {
+    // a window's pads sit at the end of its run: a tile that starts on one
+    // holds nothing more (the same address for every thread: no divergence)
+    if (WIN && a.loc[k0] >= a.span) break;
     const int tn = (int)(end - k0 < T ? end - k0 : T);
-    // 1. hash the tile's rows into shared memory; left rows carry e[k]
-    for (int i = tid; i < n_rows * T; i += THREADS) {
-      const int row = i / T, t = i - row * T;
-      float v = 0.f;
-      if (t < tn) {
-        const int64_t k = k0 + t;
-        if (row < r1) {
-          const float ek = a.e[k];
-          v = HAS_L ? tt_rng::sample(a.lflat[k], salts[row]) * ek : ek;
-        } else if (row < r1 + r2) {
-          v = HAS_R ? tt_rng::sample(a.rflat[k], salts[nl + row - r1])
-                    : 1.f;
-        } else {
-          v = tt_rng::sample(a.oflat[k], salts[nl + nr + row - r1 - r2]) *
-              a.e[k];
+    // 1a. sign sides: one thread per tile column shuffles the column
+    {
+      const int job = tid / T, t = tid - job * T;
+      int q = 0;
+      if (HAS_L && a.ls.sign) {
+        if (job == q) {
+          sign_side(Ls, a.lflat, salts_l, a.ls, r1, a.e, k0, t, tn);
+        }
+        ++q;
+      }
+      if (HAS_R && a.rs.sign) {
+        if (job == q) {
+          sign_side(Rs, a.rflat, salts_r, a.rs, r2, nullptr, k0, t, tn);
+        }
+        ++q;
+      }
+      if (OM && a.os.sign) {
+        if (job == q) {
+          sign_side(Os, a.oflat, salts_o, a.os, r1o, a.e, k0, t, tn);
         }
       }
-      rows[row * TS + t] = v;
+    }
+    // 1b. Gaussian (and missing) sides: one sample per thread-step; left
+    // rows carry e[k]
+    for (int i = tid; i < n_hashed * T; i += THREADS) {
+      const int row = i / T, t = i - row * T;
+      if (t >= tn) continue;
+      const int64_t k = k0 + t;
+      if (row < y.gl) {
+        const float ek = a.e[k];
+        Ls[row * TS + t] =
+            HAS_L ? tt_rng::sample(a.lflat[k], salts_l[row]) * ek : ek;
+      } else if (row < y.gl + y.gr) {
+        const int b = row - y.gl;
+        Rs[b * TS + t] =
+            HAS_R ? tt_rng::sample(a.rflat[k], salts_r[b]) : 1.f;
+      } else {
+        const int b = row - y.gl - y.gr;
+        Os[b * TS + t] = tt_rng::sample(a.oflat[k], salts_o[b]) * a.e[k];
+      }
     }
     if (PSI) {
       for (int t = tid; t < T; t += THREADS) {
@@ -153,8 +275,8 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
       float* slab = a.slabs + g * a.span * r1 * r2;
       for (int el = tid; el < r1 * r2; el += THREADS) {
         const int i = el / r2, j = el - i * r2;
-        const float* li = Ls + i * TS;
-        const float* rj = Rs + j * TS;
+        const float* li = Lc + i * TS;
+        const float* rj = Rc + j * TS;
         int s = loc_s[0];
         float acc = 0.f;
         for (int t = 0; t < tn; ++t) {
@@ -173,8 +295,8 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
       float* om = a.om + g * r1o * r2;
       for (int el = tid; el < r1o * r2; el += THREADS) {
         const int i = el / r2, j = el - i * r2;
-        const float* oi = Os + i * TS;
-        const float* rj = Rs + j * TS;
+        const float* oi = Oc + i * TS;
+        const float* rj = Rc + j * TS;
         float acc = 0.f;
         for (int t = 0; t < tn; ++t) acc = fmaf(oi[t], rj[t], acc);
         om[el] += acc;
@@ -184,21 +306,35 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
   }
 }
 
-template <bool HAS_L, bool HAS_R, bool PSI, bool OM>
+bool bad_side(const Side& sd, int r_out) {
+  return sd.sign && (sd.rank <= 0 || sd.nnz < 0 || sd.nnz > sd.rank ||
+                     sd.rank_min < 0 || sd.rank_min + r_out > sd.rank);
+}
+
+template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN = false>
 cudaError_t launch(const Args& a, int64_t n_blocks, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<HAS_L, HAS_R, PSI, OM>(a.r1, a.r2, a.r1o);
-  if (bytes > SMEM_LIMIT || n_blocks <= 0 || n_blocks > 0x7FFFFFFF) {
+  const size_t bytes = layout<HAS_L, HAS_R, OM>(a).bytes();
+  if (bytes > SMEM_LIMIT || n_blocks <= 0 || n_blocks > 0x7FFFFFFF ||
+      (HAS_L && bad_side(a.ls, a.r1)) || (HAS_R && bad_side(a.rs, a.r2)) ||
+      (OM && bad_side(a.os, a.r1o))) {
     return cudaErrorInvalidValue;
   }
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        sparse_psi_kernel<HAS_L, HAS_R, PSI, OM>,
+        sparse_psi_kernel<HAS_L, HAS_R, PSI, OM, WIN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  sparse_psi_kernel<HAS_L, HAS_R, PSI, OM>
+  sparse_psi_kernel<HAS_L, HAS_R, PSI, OM, WIN>
       <<<(unsigned)n_blocks, THREADS, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// A side's generator from the caller's int[4] {sign, rank, nnz, rank_min}
+// (NULL: lazy-Gaussian).
+Side side_of(const int* spec) {
+  if (!spec) return Side{0, 0, 0, 0};
+  return Side{spec[0], spec[1], spec[2], spec[3]};
 }
 
 bool bad_geometry(int64_t nnz, int n_chunks, int span, int chunk) {
@@ -210,25 +346,27 @@ bool bad_geometry(int64_t nnz, int n_chunks, int span, int chunk) {
 
 extern "C" {
 
-int tt_sparse_psi_tile(void) { return T; }
-
 int tt_omega_chunk(void) { return OMEGA_CHUNK; }
 
-int tt_sparse_psi_smem_limit(void) { return (int)SMEM_LIMIT; }
+// Every entry returns a cudaError_t.  lflat == NULL: no left side (r1 must
+// be 1), rflat == NULL: no right side (r2 must be 1).  A spec is NULL for
+// a lazy-Gaussian side (r salts) or int[4] {1, rank, nnz, rank_min} for a
+// sparse-sign side (nnz salts, r rows from rank_min).
 
-// Ψ slabs (n_chunks, span, r1, r2); lflat == NULL: no left side (r1 must be
-// 1), rflat == NULL: no right side (r2 must be 1).  Returns a cudaError_t.
+// Ψ slabs (n_chunks, span, r1, r2).
 int tt_psi_fused_slabs(const int* loc, const float* e, const uint64_t* lflat,
                        const uint64_t* rflat, const uint64_t* lsalts,
                        const uint64_t* rsalts, float* slabs, int64_t nnz,
                        int n_chunks, int span, int chunk, int r1, int r2,
-                       void* stream) {
+                       const int* lspec, const int* rspec, void* stream) {
   if (bad_geometry(nnz, n_chunks, span, chunk) || r1 <= 0 || r2 <= 0 ||
       (!lflat && r1 != 1) || (!rflat && r2 != 1) || (!lflat && !rflat)) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{loc, e, lflat, rflat, nullptr, lsalts, rsalts, nullptr,
-         slabs, nullptr, nnz, chunk, span, r1, r2, 0};
+         slabs, nullptr, nnz, chunk, span, r1, r2, 0,
+         side_of(lspec), side_of(rspec), side_of(nullptr),
+         nullptr, nullptr, n_chunks};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (lflat && rflat) {
@@ -241,33 +379,70 @@ int tt_psi_fused_slabs(const int* loc, const float* e, const uint64_t* lflat,
   return (int)err;
 }
 
+// Finished Ψ rows (n_windows * span, r1, r2) of an aligned-window plan: the
+// streams are padded per window to n_chunks * chunk slots (pads: loc ==
+// span, e == 0), win (n_chunks,) is the non-decreasing window id per chunk
+// and first (n_chunks,) is 1 on a window's first chunk.
+int tt_psi_window_direct(const int* win, const int* first, const int* loc,
+                         const float* e, const uint64_t* lflat,
+                         const uint64_t* rflat, const uint64_t* lsalts,
+                         const uint64_t* rsalts, float* psi, int n_chunks,
+                         int span, int chunk, int n_windows, int r1, int r2,
+                         const int* lspec, const int* rspec, void* stream) {
+  if (n_chunks <= 0 || span <= 0 || chunk <= 0 || n_windows <= 0 ||
+      r1 <= 0 || r2 <= 0 || !win || !first || (!lflat && r1 != 1) ||
+      (!rflat && r2 != 1) || (!lflat && !rflat)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args a{loc, e, lflat, rflat, nullptr, lsalts, rsalts, nullptr,
+         psi, nullptr, (int64_t)n_chunks * chunk, chunk, span, r1, r2, 0,
+         side_of(lspec), side_of(rspec), side_of(nullptr),
+         win, first, n_chunks};
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (lflat && rflat) {
+    err = launch<true, true, true, false, true>(a, n_windows, st);
+  } else if (rflat) {
+    err = launch<false, true, true, false, true>(a, n_windows, st);
+  } else {
+    err = launch<true, false, true, false, true>(a, n_windows, st);
+  }
+  return (int)err;
+}
+
 // Ω partials (ceil(nnz / OMEGA_CHUNK), r1, r2) in nnz order.
 int tt_omega_fused(const float* e, const uint64_t* lflat,
                    const uint64_t* rflat, const uint64_t* lsalts,
                    const uint64_t* rsalts, float* om_part, int64_t nnz,
-                   int r1, int r2, void* stream) {
+                   int r1, int r2, const int* lspec, const int* rspec,
+                   void* stream) {
   if (nnz <= 0 || r1 <= 0 || r2 <= 0) return (int)cudaErrorInvalidValue;
   Args a{nullptr, e, nullptr, rflat, lflat, nullptr, rsalts, lsalts,
-         nullptr, om_part, nnz, OMEGA_CHUNK, 1, 1, r2, r1};
+         nullptr, om_part, nnz, OMEGA_CHUNK, 1, 1, r2, r1,
+         side_of(nullptr), side_of(rspec), side_of(lspec),
+         nullptr, nullptr, 0};
   const int64_t n_blocks = (nnz + OMEGA_CHUNK - 1) / OMEGA_CHUNK;
   return (int)launch<false, true, false, true>(
       a, n_blocks, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Ψ slabs (n_chunks, span, r1, r2) and Ω partials (n_chunks, r1o, r2) in one
-// pass; lflat == NULL: Ψ has no left side (r1 must be 1).
+// pass.
 int tt_psi_omega_merged(const int* loc, const float* e, const uint64_t* lflat,
                         const uint64_t* rflat, const uint64_t* oflat,
                         const uint64_t* lsalts, const uint64_t* rsalts,
                         const uint64_t* osalts, float* slabs, float* om_part,
                         int64_t nnz, int n_chunks, int span, int chunk,
-                        int r1, int r2, int r1o, void* stream) {
+                        int r1, int r2, int r1o, const int* lspec,
+                        const int* rspec, const int* ospec, void* stream) {
   if (bad_geometry(nnz, n_chunks, span, chunk) || r1 <= 0 || r2 <= 0 ||
       r1o <= 0 || !rflat || !oflat || (!lflat && r1 != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{loc, e, lflat, rflat, oflat, lsalts, rsalts, osalts,
-         slabs, om_part, nnz, chunk, span, r1, r2, r1o};
+         slabs, om_part, nnz, chunk, span, r1, r2, r1o,
+         side_of(lspec), side_of(rspec), side_of(ospec),
+         nullptr, nullptr, n_chunks};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err = lflat ? launch<true, true, true, true>(a, n_chunks, st)
                           : launch<false, true, true, true>(a, n_chunks, st);

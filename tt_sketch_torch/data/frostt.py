@@ -52,8 +52,10 @@ def load_frostt(name: str, cache_dir: Union[str, Path] = DEFAULT_CACHE,
     """Load a synthetic FROSTT stand-in from ``<cache_dir>/<name>.npz``.
 
     ``psi_plan=True`` attaches the sort/chunk plans (``build_psi_plan``
-    with ``plan_kwargs``), built from the host arrays before the one copy
-    to ``device`` (default: the package default).  Entries stay float64
+    with ``plan_kwargs``: ``threshold``, ``chunk``, ``window_threshold``,
+    ``window_span``), built from the host arrays before the one copy to
+    ``device`` (default: the package default); a mode above 65536 rows
+    (lbnl's last) gets a ``WindowPlan``.  Entries stay float64
     as stored; ``astype`` casts them."""
     if name not in FROSTT_TENSORS:
         raise KeyError(f"unknown FROSTT tensor {name!r}; available: "

@@ -12,3 +12,4 @@ from tt_sketch_torch.drm.base import (  # noqa: F401
 )
 from tt_sketch_torch.drm.tensor_train_drm import TensorTrainDRM  # noqa: F401
 from tt_sketch_torch.drm.sparse_gaussian_drm import SparseGaussianDRM  # noqa: F401
+from tt_sketch_torch.drm.sparse_sign_drm import SparseSignDRM  # noqa: F401

@@ -59,6 +59,11 @@ class SparseGaussianDRM(CansketchSparse, CanIncreaseRank):
         return drm_salts(self.rank_min[mu], self.rank_max[mu],
                          step_seed(self.seed, mu), device=self.device)
 
+    def side_spec(self, mu: int) -> tuple:
+        """The fused kernels' description of step ``mu``: ``("g",)``, one
+        row per salt."""
+        return ("g",)
+
     @handle_transpose
     def sketch_sparse(self, tensor) -> List[torch.Tensor]:
         """Per-mode ``(rank[mu], nnz)`` rows at the nnz prefix indices,

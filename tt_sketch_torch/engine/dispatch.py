@@ -3,8 +3,9 @@
 Counterpart of ``tt_sketch_tpu/engine/dispatch.py``, streaming branch only:
 for the streaming method the left/right contractions of every μ are
 independent and the result is a linear function of the tensor.  A sparse
-tensor with a float32/bfloat16 ``SparseGaussianDRM`` pair runs entirely
-through the fused sparse kernels (``sparse_streaming_sketch_fused``).  The
+tensor with a float32/bfloat16 pair of hash-family DRMs
+(``SparseGaussianDRM``, ``SparseSignDRM``) runs entirely through the fused
+sparse kernels (``sparse_streaming_sketch_fused``).  The
 orthogonal and HMT methods come with the sequential-methods slice.
 """
 from __future__ import annotations

@@ -3,8 +3,9 @@
 
 ``indices`` is a ``(d, nnz)`` int64 tensor, ``entries`` an ``(nnz,)`` float
 tensor, both on one device.  ``psi_plan`` optionally carries the per-mode
-sort/chunk plans of ``kernels/sparse_plan.py`` that the fused Ψ kernels run
-on.  ``split`` (and with it ``TensorSum``) comes with a later slice.
+sort/chunk plans of ``kernels/sparse_plan.py`` (``ModePlan``, or
+``WindowPlan`` for a giant mode) that the fused Ψ kernels run on.  ``split``
+(and with it ``TensorSum``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ class SparseTensor(Tensor):
                 f"indices lie on {self.indices.device}, entries on "
                 f"{self.entries.device}"
             )
-        #: per-mode ``ModePlan`` or None (kernels/sparse_plan.py)
+        #: per-mode ``ModePlan``, ``WindowPlan`` or None
+        #: (kernels/sparse_plan.py)
         self.psi_plan = psi_plan
 
     @property
@@ -65,7 +67,9 @@ class SparseTensor(Tensor):
         """Copy with sort/chunk Ψ plans attached, built on the host.
 
         ``indices``/``entries`` may pass host numpy arrays to skip the copy
-        of the tensor's own arrays to the host."""
+        of the tensor's own arrays to the host.  ``plan_kwargs`` reach
+        ``build_psi_plan`` (``chunk``, ``window_threshold``,
+        ``window_span``)."""
         from tt_sketch_torch.kernels.sparse_plan import build_psi_plan
 
         host_indices = (self.indices.cpu().numpy() if indices is None

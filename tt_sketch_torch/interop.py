@@ -3,6 +3,7 @@ data and sort/chunk plans, read back with ``np.asarray``) to the port,
 keeping their dtype."""
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -49,6 +50,11 @@ def _packed_u64(flat) -> Optional[np.ndarray]:
     return np.asarray(flat).astype(np.uint64).view(np.int64)
 
 
+def _plan_array(a, device) -> Optional[torch.Tensor]:
+    return None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a)).to(device)
+
+
 def mode_plan_from_numpy(perm, local_idx, slot_rows, n_chunks: int,
                          span: int, chunk: int, sorted_entries=None,
                          flat_left=None, flat_right=None, flat_left_om=None,
@@ -57,12 +63,7 @@ def mode_plan_from_numpy(perm, local_idx, slot_rows, n_chunks: int,
     the flat index streams may be (hi, lo) uint32 pairs."""
     from tt_sketch_torch.kernels.sparse_plan import ModePlan
 
-    device = resolve_device(device)
-
-    def dev(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(device)
-
+    dev = functools.partial(_plan_array, device=resolve_device(device))
     return ModePlan(
         dev(np.asarray(perm)), dev(np.asarray(local_idx)),
         dev(np.asarray(slot_rows)), n_chunks, span, chunk,
@@ -73,4 +74,23 @@ def mode_plan_from_numpy(perm, local_idx, slot_rows, n_chunks: int,
         flat_left_om=dev(_packed_u64(flat_left_om)),
         gather_slots=dev(None if gather_slots is None
                          else np.asarray(gather_slots)),
+    )
+
+
+def window_plan_from_numpy(local_idx, chunk_window, chunk_first,
+                           n_chunks: int, span: int, chunk: int,
+                           n_windows: int, sorted_entries=None,
+                           flat_left=None, flat_right=None, device=None):
+    """The port's ``WindowPlan`` from a JAX ``WindowPlan``'s arrays (as
+    numpy); the flat index streams may be (hi, lo) uint32 pairs."""
+    from tt_sketch_torch.kernels.sparse_plan import WindowPlan
+
+    dev = functools.partial(_plan_array, device=resolve_device(device))
+    return WindowPlan(
+        dev(np.asarray(local_idx)), dev(np.asarray(chunk_window)),
+        dev(np.asarray(chunk_first)), n_chunks, span, chunk, n_windows,
+        sorted_entries=dev(None if sorted_entries is None
+                           else np.asarray(sorted_entries)),
+        flat_left=dev(_packed_u64(flat_left)),
+        flat_right=dev(_packed_u64(flat_right)),
     )

@@ -6,25 +6,31 @@ of the dense, TT and sparse functions of
 ``tt_sketch_tpu/kernels/sketch_kernels.py``; the CP and Tucker functions
 come with a later slice.
 
-Sparse input takes two routes.  With a ``SparseGaussianDRM`` pair in
+Sparse input takes two routes.  With a pair of hash-family DRMs
+(``SparseGaussianDRM``, ``SparseSignDRM`` or one of each) in
 float32/bfloat16, ``sparse_streaming_sketch_fused`` computes every Ψ and Ω
 through the fused kernels of ``kernels/sparse_psi.py`` (DRM rows hashed
-inside the kernel, per the tensor's sort/chunk plans) and
-``kernels/lazy_gaussian.py`` (rows of unplanned modes).  Otherwise (the
-float64 parity path) the DRM rows are materialized and reduced by the
-segment sum.  The JAX package's grouped, hash-sorted, half-fused and window
-Ψ paths serve DRM pairs and modes this slice does not take yet.
+inside the kernel, per the tensor's sort/chunk plans; a giant mode's
+``WindowPlan`` goes to ``psi_window_direct``) and the row generators
+``kernels/lazy_gaussian.py`` / ``kernels/sparse_sign.py`` (rows of unplanned
+modes).  Otherwise (the float64 parity path) the DRM rows are materialized
+and reduced by the segment sum.  The JAX package's grouped, hash-sorted and
+half-fused Ψ paths serve the sequential methods, which come with a later
+slice.
 """
 from __future__ import annotations
 
 import torch
 
 from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian
+from tt_sketch_torch.kernels.sparse_plan import WindowPlan
 from tt_sketch_torch.kernels.sparse_psi import (
     omega_fused,
     psi_fused_slabs,
     psi_omega_merged_slabs,
+    psi_window_direct,
 )
+from tt_sketch_torch.kernels.sparse_sign import sparse_sign_rows
 from tt_sketch_torch.rng.hash_rng import flat_index
 from tt_sketch_torch.utils import matricize
 
@@ -82,20 +88,22 @@ def sketch_psi_tt(left_sketch, right_sketch, *, tensor, mu, **kwargs):
 
 # -- sparse ------------------------------------------------------------------
 
-def _is_kernel_gaussian(drm) -> bool:
+def _is_kernel_hash_drm(drm) -> bool:
     from tt_sketch_torch.drm.sparse_gaussian_drm import SparseGaussianDRM
+    from tt_sketch_torch.drm.sparse_sign_drm import SparseSignDRM
 
-    return isinstance(drm, SparseGaussianDRM) and drm.uses_kernel_contract
+    return (isinstance(drm, (SparseGaussianDRM, SparseSignDRM))
+            and drm.uses_kernel_contract)
 
 
 def sparse_fused_applies(tensor, left_drm, right_drm) -> bool:
     """Whether ``sparse_streaming_sketch_fused`` sketches ``tensor``: both
-    DRMs are kernel-contract Gaussian DRMs and the tensor is float32 or
-    bfloat16."""
+    DRMs are kernel-contract hash-family DRMs (Gaussian, sign or one of
+    each) and the tensor is float32 or bfloat16."""
     from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES
 
-    return (tensor.dtype in KERNEL_DTYPES and _is_kernel_gaussian(left_drm)
-            and _is_kernel_gaussian(right_drm))
+    return (tensor.dtype in KERNEL_DTYPES and _is_kernel_hash_drm(left_drm)
+            and _is_kernel_hash_drm(right_drm))
 
 
 def _segment_sum_onehot(outer, idx, n_mu):
@@ -160,39 +168,60 @@ def _psi_from_slabs(slabs, plan, n_mu, dtype):
 
 
 def _psi_sides(tensor, mu, plan, left_drm, right_drm):
-    """Flat streams and salts of Ψ_μ's sides: left rows are generator step
-    μ-1 of the left DRM; right rows the transposed generator's step d-2-μ
-    with the right DRM's (reversed) rank slice."""
+    """Flat streams, salts and specs of Ψ_μ's sides: left rows are generator
+    step μ-1 of the left DRM; right rows the transposed generator's step
+    d-2-μ with the right DRM's (reversed) rank slice.  A missing side is
+    (None, None) with the Gaussian spec."""
     d = len(tensor.shape)
     lflat = lsalts = rflat = rsalts = None
+    lspec = rspec = ("g",)
     if mu > 0:
         lflat, lsalts = plan.flat_left, left_drm.salts(mu - 1)
+        lspec = left_drm.side_spec(mu - 1)
     if mu < d - 1:
         rflat, rsalts = plan.flat_right, right_drm.salts(d - 2 - mu)
-    return lflat, lsalts, rflat, rsalts
+        rspec = right_drm.side_spec(d - 2 - mu)
+    return lflat, lsalts, rflat, rsalts, lspec, rspec
 
 
 def _psi_sparse_fused(tensor, mu, plan, n_mu, left_drm, right_drm):
-    """Ψ_μ from the fused slab kernel at the plan's sorted order."""
-    lflat, lsalts, rflat, rsalts = _psi_sides(tensor, mu, plan, left_drm,
-                                              right_drm)
+    """Ψ_μ from the fused slab kernel at the plan's sorted order; a
+    ``WindowPlan`` goes to the window kernel."""
+    if isinstance(plan, WindowPlan):
+        return _psi_sparse_window(tensor, mu, plan, n_mu, left_drm, right_drm)
+    lflat, lsalts, rflat, rsalts, lspec, rspec = _psi_sides(
+        tensor, mu, plan, left_drm, right_drm)
     slabs = psi_fused_slabs(
         plan.local_idx, plan.sorted_entries, lflat, rflat, lsalts, rsalts,
-        plan.n_chunks, plan.span, plan.chunk,
+        plan.n_chunks, plan.span, plan.chunk, lspec, rspec,
     )
     return _psi_from_slabs(slabs, plan, n_mu, tensor.dtype)
+
+
+def _psi_sparse_window(tensor, mu, plan, n_mu, left_drm, right_drm):
+    """Ψ_μ of a giant mode from the aligned-window kernel: finished rows,
+    no combine; the row padding of the last window is sliced off."""
+    lflat, lsalts, rflat, rsalts, lspec, rspec = _psi_sides(
+        tensor, mu, plan, left_drm, right_drm)
+    psi = psi_window_direct(
+        plan.chunk_window, plan.chunk_first, plan.local_idx,
+        plan.sorted_entries, lflat, rflat, lsalts, rsalts, plan.n_chunks,
+        plan.span, plan.chunk, plan.n_windows, lspec, rspec,
+    )
+    return psi[:n_mu].permute(1, 0, 2).to(tensor.dtype)
 
 
 def _psi_omega_sparse_merged(tensor, mu, plan, n_mu, left_drm, right_drm):
     """Ψ_μ and Ω_μ from the merged kernel: one pass over the mode-sorted
     stream, R_μ hashed once for both; Ω's left rows are generator step μ
     over the inclusive prefix (``plan.flat_left_om``)."""
-    lflat, lsalts, rflat, rsalts = _psi_sides(tensor, mu, plan, left_drm,
-                                              right_drm)
+    lflat, lsalts, rflat, rsalts, lspec, rspec = _psi_sides(
+        tensor, mu, plan, left_drm, right_drm)
     slabs, om = psi_omega_merged_slabs(
         plan.local_idx, plan.sorted_entries, lflat, rflat,
         plan.flat_left_om, lsalts, rsalts, left_drm.salts(mu),
-        plan.n_chunks, plan.span, plan.chunk,
+        plan.n_chunks, plan.span, plan.chunk, lspec, rspec,
+        left_drm.side_spec(mu),
     )
     return (_psi_from_slabs(slabs, plan, n_mu, tensor.dtype),
             om.to(tensor.dtype))
@@ -205,14 +234,23 @@ def _omega_sparse_fused(tensor, mu, left_drm, right_drm):
     rflat = flat_index(tensor.indices.flip(0)[: d - 1 - mu],
                        tensor.shape[::-1][: d - 1 - mu])
     om = omega_fused(tensor.entries, lflat, rflat, left_drm.salts(mu),
-                     right_drm.salts(d - 2 - mu))
+                     right_drm.salts(d - 2 - mu), left_drm.side_spec(mu),
+                     right_drm.side_spec(d - 2 - mu))
     return om.to(tensor.dtype)
 
 
 def _hash_rows_from_pairs(drm, k: int, flat, dtype):
     """(rank, N) rows of generator step ``k`` at int64 flat indices (the
-    JAX package passes them as uint32 pairs, hence the name)."""
-    return lazy_gaussian(flat, drm.salts(k)).to(dtype)
+    JAX package passes them as uint32 pairs, hence the name): the
+    sparse-sign generator for a sign DRM, the lazy-Gaussian one otherwise."""
+    spec = drm.side_spec(k)
+    if spec[0] == "s":
+        _, rank, nnz, rank_min, r_out = spec
+        rows = sparse_sign_rows(flat, drm.salts(k), rank, nnz, rank_min,
+                                rank_min + r_out)
+    else:
+        rows = lazy_gaussian(flat, drm.salts(k))
+    return rows.to(dtype)
 
 
 def sketch_omega_sparse(left_sketch, right_sketch, *, tensor, **kwargs):
@@ -227,13 +265,15 @@ def sketch_psi_sparse(left_sketch, right_sketch, *, tensor, mu, **kwargs):
 
 
 def sparse_streaming_sketch_fused(tensor, left_drm, right_drm):
-    """Every Ψ and Ω of a SparseTensor with a kernel-contract Gaussian DRM
-    pair, through the fused kernels and no materialized contraction lists.
+    """Every Ψ and Ω of a SparseTensor with a kernel-contract hash-family
+    DRM pair (Gaussian, sign or mixed), through the fused kernels and no
+    materialized contraction lists.
 
     Per mode: the merged Ψ+Ω kernel where the plan carries the inclusive
-    prefix; the fused Ψ kernel (and later the fused Ω kernel) where it does
-    not; the segment reduction over lazily generated rows for modes
-    without a plan.  Ω of modes not merged comes from the fused Ω kernel."""
+    prefix; the fused Ψ kernel, or the window kernel for a ``WindowPlan``
+    (and later the fused Ω kernel), where it does not; the segment
+    reduction over lazily generated rows for modes without a plan.  Ω of
+    modes not merged comes from the fused Ω kernel."""
     d = len(tensor.shape)
     dtype = tensor.dtype
     plans = tensor.psi_plan or (None,) * d

@@ -1,7 +1,8 @@
 """Host-side sort/chunk plans for the sparse Ψ segment reduction.
 
 Counterpart of ``tt_sketch_tpu/kernels/sparse_plan.py`` (``ModePlan``,
-``build_mode_plan``, ``build_psi_plan``).  Per mode μ the Ψ kernels compute
+``build_mode_plan``, ``WindowPlan``, ``build_window_plan``,
+``build_psi_plan``).  Per mode μ the Ψ kernels compute
 
     Ψ_μ[i, j, m] = Σ_{k : idx_μ[k] = j}  left[i,k] · entries[k] · right[m,k].
 
@@ -11,12 +12,16 @@ rows at most per chunk) and the global row of every slab slot.  The fused
 kernels (``kernels/sparse_psi.py``) write one (span, r1, r2) slab per chunk
 and ``_combine_slabs`` adds the slabs into Ψ.
 
-The plan is built with numpy, in the JAX package's arithmetic, and its
+A mode above ``window_threshold`` rows (FROSTT-lbnl's 868131-row mode) gets
+a ``WindowPlan`` instead: its rows are cut into aligned windows of ``span``
+rows, the sorted stream is padded per window to whole chunks, and
+``psi_window_direct`` writes every window's finished Ψ rows in place, so
+there is no slab stack and no combine.
+
+The plans are built with numpy, in the JAX package's arithmetic, and their
 arrays are then handed to the tensor's device as torch tensors.  The flat
 hash inputs stay one int64 tensor each (the JAX package splits them into
-uint32 hi/lo pairs because 64-bit integers are emulated on the TPU).  Modes
-above ``window_threshold`` would need the aligned-window plan and its
-``psi_window_direct`` kernel, which the port does not have yet: they raise.
+uint32 hi/lo pairs because 64-bit integers are emulated on the TPU).
 """
 from __future__ import annotations
 
@@ -31,8 +36,13 @@ from tt_sketch_torch.rng.hash_rng import _flat_index_np
 #: Modes at or below this size take the plain segment reduction.
 DEFAULT_SORT_THRESHOLD = 512
 
-#: Modes above this size need an aligned-window plan (not ported yet).
+#: Modes above this size get an aligned-window plan (``WindowPlan``).
 DEFAULT_WINDOW_THRESHOLD = 65536
+
+#: Rows per window and nnz per chunk of a ``WindowPlan`` (the JAX package's
+#: defaults, kept so that plans agree).
+DEFAULT_WINDOW_SPAN = 256
+DEFAULT_WINDOW_CHUNK = 512
 
 #: Per-row gather multiplicity cap for the scatter-free combine.
 _GATHER_K_CAP = 16
@@ -107,6 +117,156 @@ class ModePlan:
               if self.gather_slots is not None else "")
         return (f"<ModePlan chunks={self.n_chunks} span={self.span} "
                 f"chunk={self.chunk}{fused}{gk}>")
+
+
+class WindowPlan:
+    """Aligned-window direct-write grouping of one giant COO mode.
+
+    The mode's rows are cut into ``n_windows`` aligned windows of ``span``
+    rows (window w = rows [w·span, (w+1)·span)); the mode-sorted nnz stream
+    is padded per window to a multiple of ``chunk`` slots and cut into
+    chunks, so a window owns a run of adjacent chunks (one at least, also
+    when it is empty).
+
+    - ``local_idx`` (n_chunks·chunk,) int32: row minus window·span per
+      padded sorted slot; the sentinel ``span`` marks a pad, which adds
+      nothing.  Inside a window's run the rows are non-decreasing and the
+      pads come last.
+    - ``sorted_entries`` (n_chunks·chunk,): entries at the padded sorted
+      order, zero at pads.
+    - ``flat_left``/``flat_right`` (n_chunks·chunk,) int64 or None: flat
+      prefix/suffix hash inputs at the padded sorted order (zero at pads);
+      None at the boundary modes.
+    - ``chunk_window`` (n_chunks,) int32: window id per chunk,
+      non-decreasing.
+    - ``chunk_first`` (n_chunks,) int32: 1 on a window's first chunk.
+
+    The geometry ``n_chunks``, ``span``, ``chunk``, ``n_windows`` is plain
+    ints; ``n_windows·span ≥ n_mu`` and callers slice the row padding off.
+    There is no inclusive prefix (``flat_left_om`` is None): a window
+    mode's Ω comes from ``omega_fused`` in nnz order.
+    """
+
+    flat_left_om = None
+    gather_slots = None
+
+    def __init__(self, local_idx, chunk_window, chunk_first, n_chunks: int,
+                 span: int, chunk: int, n_windows: int, sorted_entries=None,
+                 flat_left=None, flat_right=None) -> None:
+        self.local_idx = local_idx
+        self.chunk_window = chunk_window
+        self.chunk_first = chunk_first
+        self.n_chunks = int(n_chunks)
+        self.span = int(span)
+        self.chunk = int(chunk)
+        self.n_windows = int(n_windows)
+        self.sorted_entries = sorted_entries
+        self.flat_left = flat_left
+        self.flat_right = flat_right
+
+    def _replace(self, **changes) -> "WindowPlan":
+        fields = dict(
+            local_idx=self.local_idx, chunk_window=self.chunk_window,
+            chunk_first=self.chunk_first, n_chunks=self.n_chunks,
+            span=self.span, chunk=self.chunk, n_windows=self.n_windows,
+            sorted_entries=self.sorted_entries, flat_left=self.flat_left,
+            flat_right=self.flat_right,
+        )
+        fields.update(changes)
+        return WindowPlan(**fields)
+
+    def transposed(self) -> "WindowPlan":
+        """The same mode's plan seen from the reversed tensor."""
+        return self._replace(flat_left=self.flat_right,
+                             flat_right=self.flat_left)
+
+    def map_entries(self, fn) -> "WindowPlan":
+        """Copy with ``sorted_entries`` mapped through ``fn`` (which must
+        keep the pads' zeros: a cast or a scaling)."""
+        if self.sorted_entries is None:
+            return self
+        return self._replace(sorted_entries=fn(self.sorted_entries))
+
+    def __repr__(self) -> str:
+        return (f"<WindowPlan chunks={self.n_chunks} span={self.span} "
+                f"chunk={self.chunk} windows={self.n_windows}>")
+
+
+def _to_device(a, device):
+    """A host plan array as a torch tensor on ``device`` (uint64 flat
+    indices as their int64 bit patterns)."""
+    if a is None:
+        return None
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def build_window_plan(idx, n_mu: int, span: int = DEFAULT_WINDOW_SPAN,
+                      chunk: Optional[int] = None, *, full_indices=None,
+                      mu: Optional[int] = None,
+                      shape: Optional[Sequence[int]] = None, entries=None,
+                      device=None) -> WindowPlan:
+    """The aligned-window plan of one giant mode from host indices: ``span``
+    rows per window (rounded up to a multiple of 8), ``chunk`` slots per
+    chunk (default 512); its arrays land on ``device``."""
+    idx = np.asarray(idx)
+    nnz = int(idx.shape[0])
+    device = resolve_device(device)
+    span = ((int(span) + 7) // 8) * 8
+    C = int(chunk) if chunk is not None else DEFAULT_WINDOW_CHUNK
+
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    sidx = idx[perm].astype(np.int64)
+    n_windows = max(1, -(-int(n_mu) // span))
+    win = sidx // span
+
+    # every window gets at least one chunk; its nnz run is padded to a
+    # multiple of C
+    counts = np.bincount(win, minlength=n_windows)
+    chunks_per = np.maximum(1, -(-counts // C))
+    n_chunks = int(chunks_per.sum())
+    N_pad = n_chunks * C
+
+    # window w's run starts at slot chunk_base[w]·C of the padded stream
+    chunk_base = np.concatenate([[0], np.cumsum(chunks_per)[:-1]])
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos_in_win = np.arange(nnz, dtype=np.int64) - starts[win]
+    slot = chunk_base[win] * C + pos_in_win
+
+    local = np.full(N_pad, span, np.int32)  # sentinel
+    local[slot] = (sidx - win * span).astype(np.int32)
+    chunk_window = np.repeat(np.arange(n_windows, dtype=np.int32),
+                             chunks_per)
+    first = np.zeros(n_chunks, np.int32)
+    first[chunk_base] = 1
+
+    sorted_entries = flat_left = flat_right = None
+    if full_indices is not None and entries is not None:
+        def _padded(flat_u64):
+            out = np.zeros(N_pad, np.uint64)
+            out[slot] = flat_u64
+            return out
+
+        full_indices = np.asarray(full_indices)
+        shape = tuple(int(s) for s in shape)
+        d = len(shape)
+        sorted_entries = np.zeros(N_pad, np.asarray(entries).dtype)
+        sorted_entries[slot] = np.asarray(entries)[perm]
+        if mu > 0:
+            flat_left = _padded(_flat_index_np(
+                full_indices[:mu][:, perm], shape[:mu]))
+        if mu < d - 1:
+            flat_right = _padded(_flat_index_np(
+                full_indices[::-1][: d - 1 - mu][:, perm],
+                shape[::-1][: d - 1 - mu]))
+    return WindowPlan(
+        _to_device(local, device), _to_device(chunk_window, device),
+        _to_device(first, device), n_chunks, span, C, n_windows,
+        sorted_entries=_to_device(sorted_entries, device),
+        flat_left=_to_device(flat_left, device),
+        flat_right=_to_device(flat_right, device),
+    )
 
 
 def _pick_chunk(nnz: int, n_values: int, boundary: bool = False) -> int:
@@ -199,11 +359,7 @@ def build_mode_plan(idx, n_mu: int, chunk: Optional[int] = None, *,
             )
 
     def _dev(a):
-        if a is None:
-            return None
-        if a.dtype == np.uint64:
-            a = a.view(np.int64)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return _to_device(a, device)
 
     return ModePlan(
         _dev(perm), _dev(local_idx), _dev(slot_rows), n_chunks, span, C,
@@ -217,28 +373,23 @@ def build_psi_plan(indices, shape: Sequence[int],
                    threshold: int = DEFAULT_SORT_THRESHOLD,
                    chunk: Optional[int] = None, entries=None,
                    window_threshold: int = DEFAULT_WINDOW_THRESHOLD,
+                   window_span: int = DEFAULT_WINDOW_SPAN,
                    device=None) -> Tuple[Optional[ModePlan], ...]:
     """Per-mode plan tuple of a COO tensor (None: the plain segment path).
 
     Pass host ``entries`` to get the fused kernels' sorted streams.  A mode
-    above ``window_threshold`` (with ``entries``) needs the aligned-window
-    plan of ``psi_window_direct``, which the port does not have yet, and
-    raises ``NotImplementedError``."""
+    above ``window_threshold`` rows (with ``entries``) gets a ``WindowPlan``
+    of ``window_span`` rows per window instead of a ``ModePlan``."""
     indices = np.asarray(indices)
 
     def _plan(mu, n_mu):
         if int(n_mu) <= threshold:
             return None
+        common = dict(chunk=chunk, full_indices=indices, mu=mu, shape=shape,
+                      entries=entries, device=device)
         if int(n_mu) > window_threshold and entries is not None:
-            raise NotImplementedError(
-                f"mode {mu} has {int(n_mu)} rows > window_threshold="
-                f"{window_threshold}: it needs the aligned-window plan and "
-                f"the psi_window_direct kernel, which the port does not "
-                f"have yet"
-            )
-        return build_mode_plan(
-            indices[mu], int(n_mu), chunk=chunk, full_indices=indices,
-            mu=mu, shape=shape, entries=entries, device=device,
-        )
+            return build_window_plan(indices[mu], int(n_mu),
+                                     span=window_span, **common)
+        return build_mode_plan(indices[mu], int(n_mu), **common)
 
     return tuple(_plan(mu, n_mu) for mu, n_mu in enumerate(shape))

@@ -1,19 +1,35 @@
-"""Fused sparse Ψ/Ω contractions with lazy-Gaussian DRM rows hashed inside
-the kernel.
+"""Fused sparse Ψ/Ω contractions with the DRM rows hashed inside the kernel.
 
-Counterpart of ``tt_sketch_tpu/kernels/pallas_psi.py`` for Gaussian sides:
-``psi_fused_slabs``, ``omega_fused`` and ``psi_omega_merged_slabs``.  On
-CUDA tensors each launches its hand-written kernel of
-``tt_sketch_torch/csrc/sparse_psi.cu`` (built at first use, see
+Counterpart of ``tt_sketch_tpu/kernels/pallas_psi.py``:
+``psi_fused_slabs``, ``omega_fused``, ``psi_omega_merged_slabs`` and
+``psi_window_direct``.  On CUDA tensors each launches its hand-written
+kernel of ``tt_sketch_torch/csrc/sparse_psi.cu`` (built at first use, see
 ``cuda_build``) or raises; on CPU tensors it computes its plain version
 (``*_reference``).  There is no fallback from one to the other.
 
-Layouts are the port's own: slabs are ``(n_chunks, span, r1, r2)`` float32
-with ``r1 = 1`` without a left side and ``r2 = 1`` without a right side, and
-ranks are not padded (the TPU kernels pad them to multiples of 8).  A side
-is described by its int64 flat indices (the plan's ``flat_left`` etc.) and
-its int64 column salts (``hash_rng.drm_salts``).  The sparse-sign side spec
-``("s", ...)`` of the JAX package comes with the sparse-sign slice.
+A side is described by its int64 flat indices (the plan's ``flat_left``
+etc.), its int64 column salts and a spec, as in the JAX package:
+
+- ``("g",)``: lazy-Gaussian rows, one per salt (``hash_rng.drm_salts`` of
+  the DRM's rank slice);
+- ``("s", rank, nnz, rank_min, r_out)``: sparse-sign rows
+  ``[rank_min, rank_min + r_out)`` of the shuffle over ``rank`` slots; the
+  salts are those of columns ``[0, nnz)`` (not padded to the TPU's
+  multiple of 8 rows).
+
+The two sides of a call may differ (mixed pairs).  Layouts are the port's
+own: slabs are ``(n_chunks, span, r1, r2)`` float32 with ``r1 = 1`` without
+a left side and ``r2 = 1`` without a right side, the window kernel's Ψ is
+``(n_windows·span, r1, r2)``, and ranks are not padded (the TPU kernels pad
+them to multiples of 8).
+
+Rank limit of the kernels: a block keeps every side's rows for a tile of 64
+nnz in shared memory, 260 bytes per row, and a sign side keeps all ``rank``
+slots of its shuffle there whatever its ``r_out``.  The rows of all sides
+of a call plus 8 bytes per salt must fit 232,192 bytes: 866 rows in all
+with a salt each (two sign sides of rank 433 with ``nnz = rank``, or three
+of rank 288 in the merged kernel).  Beyond that the wrappers raise ``ValueError``
+before the launch (``sparse_sign_rows`` alone takes ranks up to 5811).
 """
 from __future__ import annotations
 
@@ -28,78 +44,126 @@ from tt_sketch_torch.kernels.lazy_gaussian import (
     _raise_on,
     lazy_gaussian_reference,
 )
+from tt_sketch_torch.kernels.sparse_sign import (
+    _check_slice,
+    sparse_sign_rows_reference,
+)
 
 _GAUSS = ("g",)
 
 #: nnz per step of the plain versions (bounds their temporaries)
 _REF_BLOCK = 1 << 18
 
-
-def _check_spec(*specs) -> None:
-    for spec in specs:
-        if tuple(spec) != _GAUSS:
-            raise NotImplementedError(
-                f"side spec {spec!r}: only lazy-Gaussian sides ('g',) are "
-                f"ported; sparse-sign sides come with the sparse-sign slice")
+#: of csrc/sparse_psi.cu: opt-in shared memory per block, nnz per tile
+_SMEM_LIMIT, _TILE = 232448, 64
 
 
-def _rows(flat, salts, n, like, weight=None):
+def _side_rows(spec, flat, salts) -> int:
+    """Rows a side contributes (1 for a missing side); checks the spec
+    against its salts."""
+    if flat is None:
+        return 1
+    spec = tuple(spec)
+    if spec == _GAUSS:
+        return salts.shape[0]
+    if len(spec) == 5 and spec[0] == "s":
+        _, rank, nnz, rank_min, r_out = spec
+        _check_slice(salts, rank, nnz, rank_min, rank_min + r_out)
+        return r_out
+    raise ValueError(f"side spec {spec!r}: expected ('g',) or "
+                     f"('s', rank, nnz, rank_min, r_out)")
+
+
+def _rows(flat, salts, spec, n, like, weight=None):
     """(r, n) rows of one side, or a row of ones for a missing side; the
     entries ``weight`` scale them when given."""
     if flat is None:
         rows = torch.ones((1, n), dtype=torch.float32, device=like.device)
-    else:
+    elif tuple(spec) == _GAUSS:
         rows = lazy_gaussian_reference(flat, salts)
+    else:
+        _, rank, nnz, rank_min, r_out = spec
+        rows = sparse_sign_rows_reference(flat, salts, rank, nnz, rank_min,
+                                          rank_min + r_out)
     return rows if weight is None else rows * weight
 
 
 # -- plain versions ----------------------------------------------------------
 
-def psi_fused_slabs_reference(loc, se, lflat, rflat, lsalts, rsalts,
-                              n_chunks: int, span: int,
-                              chunk: int) -> torch.Tensor:
-    """Plain PyTorch version of ``psi_fused_slabs``: hashed rows, outer
-    products, and an ``index_add_`` into slab rows (sentinel ``loc == span``
-    goes to a dump row that is dropped)."""
+def _psi_blocks_reference(loc, se, lflat, rflat, lsalts, rsalts, lspec,
+                          rspec, block_of, n_blocks: int, span: int):
+    """Σ over the stream of ``L[:,k]·e[k] ⊗ R[:,k]`` into row ``loc[k]`` of
+    block ``block_of(k)``: hashed rows, outer products and an
+    ``index_add_`` (the sentinel ``loc == span`` goes to a dump row per
+    block that is dropped).  Returns (n_blocks, span, r1, r2)."""
     nnz = se.shape[0]
-    r1 = 1 if lflat is None else lsalts.shape[0]
-    r2 = 1 if rflat is None else rsalts.shape[0]
-    out = torch.zeros((n_chunks * (span + 1), r1 * r2), dtype=torch.float32,
+    r1 = _side_rows(lspec, lflat, lsalts)
+    r2 = _side_rows(rspec, rflat, rsalts)
+    out = torch.zeros((n_blocks * (span + 1), r1 * r2), dtype=torch.float32,
                       device=se.device)
     for k0 in range(0, nnz, _REF_BLOCK):
         sl = slice(k0, min(k0 + _REF_BLOCK, nnz))
         n = sl.stop - k0
         e = se[sl].to(torch.float32)
-        L = _rows(None if lflat is None else lflat[sl], lsalts, n, e, e)
-        R = _rows(None if rflat is None else rflat[sl], rsalts, n, e)
+        L = _rows(None if lflat is None else lflat[sl], lsalts, lspec, n, e,
+                  e)
+        R = _rows(None if rflat is None else rflat[sl], rsalts, rspec, n, e)
         outer = (L.T[:, :, None] * R.T[:, None, :]).reshape(n, r1 * r2)
         k = torch.arange(k0, sl.stop, device=se.device)
-        row = (k // chunk) * (span + 1) + loc[sl].to(torch.int64).clamp(
+        row = block_of(k) * (span + 1) + loc[sl].to(torch.int64).clamp(
             0, span)
         out.index_add_(0, row, outer)
-    return out.reshape(n_chunks, span + 1, r1, r2)[:, :span].contiguous()
+    return out.reshape(n_blocks, span + 1, r1, r2)[:, :span].contiguous()
 
 
-def omega_fused_reference(e, lflat, rflat, lsalts, rsalts) -> torch.Tensor:
+def psi_fused_slabs_reference(loc, se, lflat, rflat, lsalts, rsalts,
+                              n_chunks: int, span: int, chunk: int,
+                              lspec=_GAUSS, rspec=_GAUSS) -> torch.Tensor:
+    """Plain PyTorch version of ``psi_fused_slabs``."""
+    return _psi_blocks_reference(loc, se, lflat, rflat, lsalts, rsalts,
+                                 lspec, rspec, lambda k: k // chunk,
+                                 n_chunks, span)
+
+
+def psi_window_direct_reference(win, first, loc, se, lflat, rflat, lsalts,
+                                rsalts, n_chunks: int, span: int, chunk: int,
+                                n_windows: int, lspec=_GAUSS,
+                                rspec=_GAUSS) -> torch.Tensor:
+    """Plain PyTorch version of ``psi_window_direct``: slot ``k`` of the
+    padded stream adds into row ``loc[k]`` of window ``win[k // chunk]``
+    (``first`` is what the TPU kernel initializes on; a sum needs it not)."""
+    win64 = win.to(torch.int64)
+    psi = _psi_blocks_reference(loc, se, lflat, rflat, lsalts, rsalts, lspec,
+                                rspec, lambda k: win64[k // chunk],
+                                n_windows, span)
+    return psi.reshape(n_windows * span, psi.shape[2], psi.shape[3])
+
+
+def omega_fused_reference(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
+                          rspec=_GAUSS) -> torch.Tensor:
     """Plain PyTorch version of ``omega_fused``: ``(L·e) @ Rᵀ`` in nnz
     blocks, float32."""
-    om = torch.zeros((lsalts.shape[0], rsalts.shape[0]), dtype=torch.float32,
+    om = torch.zeros((_side_rows(lspec, lflat, lsalts),
+                      _side_rows(rspec, rflat, rsalts)), dtype=torch.float32,
                      device=e.device)
     for k0 in range(0, e.shape[0], _REF_BLOCK):
         sl = slice(k0, k0 + _REF_BLOCK)
         ek = e[sl].to(torch.float32)
-        L = lazy_gaussian_reference(lflat[sl], lsalts) * ek
-        om += L @ lazy_gaussian_reference(rflat[sl], rsalts).T
+        n = ek.shape[0]
+        L = _rows(lflat[sl], lsalts, lspec, n, ek, ek)
+        om += L @ _rows(rflat[sl], rsalts, rspec, n, ek).T
     return om
 
 
 def psi_omega_merged_slabs_reference(loc, se, lflat, rflat, oflat, lsalts,
                                      rsalts, osalts, n_chunks: int,
-                                     span: int, chunk: int):
+                                     span: int, chunk: int, lspec=_GAUSS,
+                                     rspec=_GAUSS, ospec=_GAUSS):
     """Plain PyTorch version of ``psi_omega_merged_slabs``."""
     slabs = psi_fused_slabs_reference(loc, se, lflat, rflat, lsalts, rsalts,
-                                      n_chunks, span, chunk)
-    return slabs, omega_fused_reference(se, oflat, rflat, osalts, rsalts)
+                                      n_chunks, span, chunk, lspec, rspec)
+    return slabs, omega_fused_reference(se, oflat, rflat, osalts, rsalts,
+                                        ospec, rspec)
 
 
 # -- kernels -----------------------------------------------------------------
@@ -112,21 +176,52 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("sparse_psi")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    spec = ctypes.POINTER(ctypes.c_int)
     lib.tt_psi_fused_slabs.argtypes = (
-        [ptr] * 7 + [i64] + [i32] * 5 + [ptr])
+        [ptr] * 7 + [i64] + [i32] * 5 + [spec] * 2 + [ptr])
     lib.tt_psi_fused_slabs.restype = i32
-    lib.tt_omega_fused.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
+    lib.tt_psi_window_direct.argtypes = (
+        [ptr] * 9 + [i32] * 6 + [spec] * 2 + [ptr])
+    lib.tt_psi_window_direct.restype = i32
+    lib.tt_omega_fused.argtypes = (
+        [ptr] * 6 + [i64, i32, i32] + [spec] * 2 + [ptr])
     lib.tt_omega_fused.restype = i32
     lib.tt_psi_omega_merged.argtypes = (
-        [ptr] * 10 + [i64] + [i32] * 6 + [ptr])
+        [ptr] * 10 + [i64] + [i32] * 6 + [spec] * 3 + [ptr])
     lib.tt_psi_omega_merged.restype = i32
-    for fn in ("tt_sparse_psi_tile", "tt_omega_chunk",
-               "tt_sparse_psi_smem_limit"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = i32
+    lib.tt_omega_chunk.argtypes = []
+    lib.tt_omega_chunk.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
     lib.tt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _c_spec(spec):
+    """The kernel library's ``int[4] {1, rank, nnz, rank_min}`` of a sign
+    side; None (a null pointer) for a Gaussian one."""
+    if tuple(spec) == _GAUSS:
+        return None
+    _, rank, nnz, rank_min, _ = spec
+    return (ctypes.c_int * 4)(1, int(rank), int(nnz), int(rank_min))
+
+
+def _check_shared_memory(name: str, *sides) -> None:
+    """Raise if the rows and salts of ``sides`` (``(flat, spec, r)`` each)
+    do not fit a block's shared memory (``Layout::bytes`` of the kernel
+    source): a sign side allocates ``rank`` rows, any other its ``r``."""
+    rows = n_salts = 0
+    for flat, spec, r in sides:
+        sign = flat is not None and tuple(spec) != _GAUSS
+        rows += spec[1] if sign else r
+        n_salts += 0 if flat is None else spec[2] if sign else r
+    need = 8 * n_salts + 4 * (_TILE + 1) * rows + 4 * _TILE
+    if need > _SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: {rows} rows (a sign side counts its rank) and "
+            f"{n_salts} salts need {need} bytes of shared memory per block, "
+            f"the kernel has {_SMEM_LIMIT}: about "
+            f"{(_SMEM_LIMIT - 4 * _TILE) // (4 * (_TILE + 1) + 8)} rows over "
+            f"all sides")
 
 
 def _on_cpu(*tensors) -> bool:
@@ -171,19 +266,22 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
     ``loc`` (n_chunks·chunk,) int32 local rows (sentinel ``span``), ``se``
     (nnz,) sorted entries, ``lflat``/``rflat`` (nnz,) int64 flat indices
     (either may be None: boundary modes), ``lsalts``/``rsalts`` int64 column
-    salts.  ``psi_fused_slabs.launches`` counts kernel launches."""
-    _check_spec(lspec, rspec)
+    salts, ``lspec``/``rspec`` the sides' specs (module docstring).
+    ``psi_fused_slabs.launches`` counts kernel launches."""
     if lflat is None and rflat is None:
         raise ValueError("psi_fused_slabs needs a left or a right side")
+    r1 = _side_rows(lspec, lflat, lsalts)
+    r2 = _side_rows(rspec, rflat, rsalts)
     if _on_cpu(loc, se, lflat, rflat, lsalts, rsalts):
         return psi_fused_slabs_reference(loc, se, lflat, rflat, lsalts,
-                                         rsalts, n_chunks, span, chunk)
+                                         rsalts, n_chunks, span, chunk,
+                                         lspec, rspec)
     e = _prepare(se, loc, lflat=lflat, rflat=rflat,
                  lsalts=lsalts if lflat is not None else None,
                  rsalts=rsalts if rflat is not None else None)
     _check_geometry(loc, e, n_chunks, span, chunk)
-    r1 = 1 if lflat is None else lsalts.shape[0]
-    r2 = 1 if rflat is None else rsalts.shape[0]
+    _check_shared_memory("psi_fused_slabs", (lflat, lspec, r1),
+                         (rflat, rspec, r2))
     lib = _library()
     slabs = torch.empty((n_chunks, span, r1, r2), dtype=torch.float32,
                         device=e.device)
@@ -193,7 +291,8 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
             loc.data_ptr(), e.data_ptr(), _ptr(lflat), _ptr(rflat),
             _ptr(lsalts if lflat is not None else None),
             _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
-            e.shape[0], n_chunks, span, chunk, r1, r2, stream)
+            e.shape[0], n_chunks, span, chunk, r1, r2, _c_spec(lspec),
+            _c_spec(rspec), stream)
     _raise_on(lib, err, "psi_fused_slabs")
     psi_fused_slabs.launches += 1
     return slabs
@@ -202,18 +301,80 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
 psi_fused_slabs.launches = 0
 
 
+def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
+                      n_chunks: int, span: int, chunk: int, n_windows: int,
+                      lspec=_GAUSS, rspec=_GAUSS) -> torch.Tensor:
+    """Finished Ψ rows ``(n_windows·span, r1, r2)`` float32 of an
+    aligned-window plan: row ``j`` of the mode lies at ``j`` (window
+    ``j // span``, local row ``j % span``); rows past the mode end are zero.
+
+    ``win``/``first`` (n_chunks,) int32 (``WindowPlan.chunk_window`` /
+    ``chunk_first``); ``loc``, ``se`` and the flats are the plan's padded
+    streams of ``n_chunks·chunk`` slots (pads: ``loc == span``, entry 0).
+    Either side may be None (the one-sided variant of the boundary modes).
+    One block owns one window and writes each of its rows once: no combine
+    follows.  ``psi_window_direct.launches`` counts kernel launches."""
+    if lflat is None and rflat is None:
+        raise ValueError("psi_window_direct needs a left or a right side")
+    r1 = _side_rows(lspec, lflat, lsalts)
+    r2 = _side_rows(rspec, rflat, rsalts)
+    n_pad = n_chunks * chunk
+    for name, t in (("loc", loc), ("entries", se), ("lflat", lflat),
+                    ("rflat", rflat)):
+        if t is not None and t.shape[0] != n_pad:
+            raise ValueError(f"{name} has {t.shape[0]} slots, the window "
+                             f"plan {n_chunks} x {chunk}")
+    if win.shape[0] != n_chunks or first.shape[0] != n_chunks:
+        raise ValueError(f"win/first must have {n_chunks} entries")
+    if _on_cpu(win, first, loc, se, lflat, rflat, lsalts, rsalts):
+        return psi_window_direct_reference(
+            win, first, loc, se, lflat, rflat, lsalts, rsalts, n_chunks,
+            span, chunk, n_windows, lspec, rspec)
+    e = _prepare(se, loc, lflat=lflat, rflat=rflat,
+                 lsalts=lsalts if lflat is not None else None,
+                 rsalts=rsalts if rflat is not None else None)
+    for name, t in (("win", win), ("first", first)):
+        if (t.device != e.device or t.dtype != torch.int32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{e.device}, got {t.dtype} on {t.device}")
+    _check_shared_memory("psi_window_direct", (lflat, lspec, r1),
+                         (rflat, rspec, r2))
+    lib = _library()
+    psi = torch.empty((n_windows * span, r1, r2), dtype=torch.float32,
+                      device=e.device)
+    with torch.cuda.device(e.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tt_psi_window_direct(
+            win.data_ptr(), first.data_ptr(), loc.data_ptr(), e.data_ptr(),
+            _ptr(lflat), _ptr(rflat),
+            _ptr(lsalts if lflat is not None else None),
+            _ptr(rsalts if rflat is not None else None), psi.data_ptr(),
+            n_chunks, span, chunk, n_windows, r1, r2, _c_spec(lspec),
+            _c_spec(rspec), stream)
+    _raise_on(lib, err, "psi_window_direct")
+    psi_window_direct.launches += 1
+    return psi
+
+
+psi_window_direct.launches = 0
+
+
 def omega_fused(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
                 rspec=_GAUSS) -> torch.Tensor:
     """(r1, r2) float32 Ω block ``Σ_k e_k·L[:,k] ⊗ R[:,k]`` with both row
     families hashed in-kernel, in nnz order.  Per-block partials are summed
     by ``torch.sum`` in a fixed order.  ``omega_fused.launches`` counts
     kernel launches."""
-    _check_spec(lspec, rspec)
+    r1 = _side_rows(lspec, lflat, lsalts)
+    r2 = _side_rows(rspec, rflat, rsalts)
     if _on_cpu(e, lflat, rflat, lsalts, rsalts):
-        return omega_fused_reference(e, lflat, rflat, lsalts, rsalts)
+        return omega_fused_reference(e, lflat, rflat, lsalts, rsalts, lspec,
+                                     rspec)
     e = _prepare(e, lflat=lflat, rflat=rflat, lsalts=lsalts, rsalts=rsalts)
+    _check_shared_memory("omega_fused", (lflat, lspec, r1),
+                         (rflat, rspec, r2))
     lib = _library()
-    r1, r2 = lsalts.shape[0], rsalts.shape[0]
     n_blocks = -(-e.shape[0] // lib.tt_omega_chunk())
     part = torch.empty((n_blocks, r1, r2), dtype=torch.float32,
                        device=e.device)
@@ -222,7 +383,7 @@ def omega_fused(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
         err = lib.tt_omega_fused(
             e.data_ptr(), lflat.data_ptr(), rflat.data_ptr(),
             lsalts.data_ptr(), rsalts.data_ptr(), part.data_ptr(),
-            e.shape[0], r1, r2, stream)
+            e.shape[0], r1, r2, _c_spec(lspec), _c_spec(rspec), stream)
     _raise_on(lib, err, "omega_fused")
     omega_fused.launches += 1
     return part.sum(dim=0)
@@ -237,19 +398,22 @@ def psi_omega_merged_slabs(loc, se, lflat, rflat, oflat, lsalts, rsalts,
                            ospec=_GAUSS) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pass computing the Ψ_μ slabs (as ``psi_fused_slabs``) and the
     Ω_μ block ``(r1o, r2)`` from the inclusive-prefix rows ``oflat`` /
-    ``osalts``, with the right rows hashed once for both.  ``lflat`` may be
-    None (μ = 0).  ``psi_omega_merged_slabs.launches`` counts launches."""
-    _check_spec(lspec, rspec, ospec)
+    ``osalts`` / ``ospec``, with the right rows hashed once for both.
+    ``lflat`` may be None (μ = 0).  ``psi_omega_merged_slabs.launches``
+    counts launches."""
+    r1 = _side_rows(lspec, lflat, lsalts)
+    r2 = _side_rows(rspec, rflat, rsalts)
+    r1o = _side_rows(ospec, oflat, osalts)
     if _on_cpu(loc, se, lflat, rflat, oflat, lsalts, rsalts, osalts):
         return psi_omega_merged_slabs_reference(
             loc, se, lflat, rflat, oflat, lsalts, rsalts, osalts, n_chunks,
-            span, chunk)
+            span, chunk, lspec, rspec, ospec)
     e = _prepare(se, loc, lflat=lflat, rflat=rflat, oflat=oflat,
                  lsalts=lsalts if lflat is not None else None,
                  rsalts=rsalts, osalts=osalts)
     _check_geometry(loc, e, n_chunks, span, chunk)
-    r1 = 1 if lflat is None else lsalts.shape[0]
-    r2, r1o = rsalts.shape[0], osalts.shape[0]
+    _check_shared_memory("psi_omega_merged_slabs", (lflat, lspec, r1),
+                         (rflat, rspec, r2), (oflat, ospec, r1o))
     lib = _library()
     slabs = torch.empty((n_chunks, span, r1, r2), dtype=torch.float32,
                         device=e.device)
@@ -262,7 +426,7 @@ def psi_omega_merged_slabs(loc, se, lflat, rflat, oflat, lsalts, rsalts,
             oflat.data_ptr(), _ptr(lsalts if lflat is not None else None),
             rsalts.data_ptr(), osalts.data_ptr(), slabs.data_ptr(),
             part.data_ptr(), e.shape[0], n_chunks, span, chunk, r1, r2, r1o,
-            stream)
+            _c_spec(lspec), _c_spec(rspec), _c_spec(ospec), stream)
     _raise_on(lib, err, "psi_omega_merged_slabs")
     psi_omega_merged_slabs.launches += 1
     return slabs, part.sum(dim=0)

@@ -15,6 +15,13 @@ Two uniform → normal maps share that hash:
   polynomials (``normal_from_bits``), the same arithmetic as the CUDA
   generator in ``csrc/hash_rng.cuh``.
 
+The sparse-sign generator (``nnz`` hashed ±1 per DRM row, shuffled over
+``rank`` slots by a Fisher–Yates pass) has the same two contracts: the parity
+path ``inds_to_sparse_sign`` draws swap positions as ``u52/2^52·(rank−j) + j``
+in float64, the kernel contract ``sparse_sign_from_bits`` as the exact
+integer ``floor(u52·(rank−j) / 2^52) + j``.  Its salts are those of columns
+``[0, nnz)`` whatever rank slice is asked for.
+
 Hashes run on torch ``int64`` tensors: torch has no ``uint64`` shift on the
 CPU, and ``+``/``*`` on ``int64`` wrap mod 2^64 like ``uint64``.  The logical
 right shift is written as ``(x >> s) & (2^(64-s) - 1)``.  The numpy
@@ -178,3 +185,79 @@ def normal_from_bits(h: torch.Tensor) -> torch.Tensor:
     v = 2 * u24 - (2 ** 24 - 1)
     x = v.to(torch.float32) * _INV_2_24
     return _SQRT2_F32 * _erfinv_f32(x)
+
+
+# ---------------------------------------------------------------------------
+# sparse-sign rows
+# ---------------------------------------------------------------------------
+
+def sign_from_bits(h: torch.Tensor) -> torch.Tensor:
+    """±1 (int64) from hash bit 52.  The mask makes the arithmetic int64
+    shift as good as a logical one."""
+    return ((h >> 52) & 1) * 2 - 1
+
+
+def swap_position(h: torch.Tensor, m: int, j: int) -> torch.Tensor:
+    """The exact integer ``floor(u52·m / 2^52) + j`` of one Fisher–Yates
+    draw, ``u52`` the low 52 hash bits.
+
+    ``u52·m`` overflows int64 for ``m > 2^11``, so the 52 bits are split
+    into their top 20 and low 32: ``u52·m = (hi20·m + (lo32·m >> 32))·2^32
+    + …`` and the floor is that sum ``>> 20``.  Each product stays below
+    2^63 for any ``m < 2^31``."""
+    m = int(m)
+    if not 0 < m < 1 << 31:
+        raise ValueError(f"swap range {m} outside (0, 2^31)")
+    u52 = h & _MASK52
+    hi20 = u52 >> 32
+    lo32 = u52 & 0xFFFFFFFF
+    return ((hi20 * m + ((lo32 * m) >> 32)) >> 20) + int(j)
+
+
+def _shuffle_rows(out: torch.Tensor, positions) -> torch.Tensor:
+    """The Fisher–Yates pass on (rank, N) ``out``: step ``j`` swaps row
+    ``j`` with row ``positions(j)[n]`` in every column ``n``."""
+    j = 0
+    for rp in positions:
+        rp = rp[None, :]
+        vj = out[j:j + 1].clone()
+        out[j:j + 1] = out.gather(0, rp)
+        out.scatter_(0, rp, vj)
+        j += 1
+    return out
+
+
+def sparse_sign_from_bits(h: torch.Tensor, rank: int, rank_min: int,
+                          rank_max: int) -> torch.Tensor:
+    """Kernel-contract sparse-sign rows from the (nnz, N) hashes of columns
+    ``[0, nnz)``: (rank_max - rank_min, N) float32 in {-1, 0, +1}."""
+    nnz, N = h.shape
+    if nnz > rank:
+        raise ValueError(f"{nnz} non-zeros per row > rank {rank}")
+    out = torch.zeros((rank, N), dtype=torch.float32, device=h.device)
+    out[:nnz] = sign_from_bits(h).to(torch.float32)
+    _shuffle_rows(out, (swap_position(h[j], rank - j, j)
+                        for j in range(nnz)))
+    return out[rank_min:rank_max]
+
+
+def inds_to_sparse_sign(indices: torch.Tensor, shape: Sequence[int],
+                        rank: int, rank_min: int, rank_max: int,
+                        nnz_per_row: int, seed: int,
+                        dtype=torch.float64) -> torch.Tensor:
+    """Parity-path sparse-sign DRM entries at (d, N) multi-indices:
+    (N, rank_max - rank_min), exactly ``nnz_per_row`` ±1 per full row.  The
+    swap positions are the float64 products of the JAX package's
+    ``inds_to_sparse_sign``, truncated."""
+    rank, nnz = int(rank), int(nnz_per_row)
+    if nnz > rank:
+        raise ValueError(f"{nnz} non-zeros per row > rank {rank}")
+    flat = flat_index(indices, shape)
+    h = _hash_bits(flat, 0, nnz, int(seed)).T.contiguous()  # (nnz, N)
+    u = uniform_from_bits(h)
+    out = torch.zeros((rank, flat.shape[0]), dtype=torch.int64,
+                      device=flat.device)
+    out[:nnz] = sign_from_bits(h)
+    _shuffle_rows(out, ((u[j] * (rank - j) + j).to(torch.int64)
+                        for j in range(nnz)))
+    return out[rank_min:rank_max].T.to(dtype)
