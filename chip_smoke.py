@@ -7,7 +7,8 @@ Run from the repo root on a machine with one CUDA card::
 Phases (the first failure raises and exits non-zero):
 
 1. Build the CUDA libraries ``dual_project``, ``lazy_gaussian``,
-   ``sparse_sign`` and ``sparse_psi`` from ``tt_sketch_torch/csrc`` (nvcc,
+   ``sparse_sign``, ``sparse_psi`` and ``chain_step`` from
+   ``tt_sketch_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once), print each ptxas report
    and the card's name and power limit; count in the built SASS the
    instructions per lazy-Gaussian sample (``lazy_gaussian`` kernel) and per
@@ -54,9 +55,35 @@ Phases (the first failure raises and exits non-zero):
    rolled so that the 868131-row mode is interior (two-sided; Gaussian
    and mixed sides), and at a small skewed shape with empty and
    multi-chunk windows with every combination of sides.
-9. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
-   those of the first main path that launches it; ``by_path`` has them for
-   every path), then the device line last.
+9. The sequential main paths on sparse input at full size, rank 10 (OTTS
+   10/20) in f32 with the library-default plans, run after phase 5's paths
+   on the same tensors and before phase 6: ``hmt_sketch`` of
+   ``uber-synthetic`` with a ``SparseGaussianDRM`` (``chain_step_t`` x 3,
+   ``psi_chunk_slabs_genright`` x 1, ``psi_chunk_slabs`` x 1,
+   ``lazy_gaussian`` x 2); ``orthogonal_sketch`` with a Gaussian pair (the
+   same plus ``omega_fused`` x 3); ``hmt_sketch`` with the default
+   ``TensorTrainDRM`` (``chain_step_t`` x 6, ``psi_chunk_slabs`` x 2); one
+   untimed ``hmt_sketch`` of ``lbnl-synthetic`` (``psi_fused_slabs`` x 1,
+   ``psi_chunk_slabs_genright`` x 3, ``chain_step_t`` x 4 with modes above
+   4096 rows).  Per path: launch counts from the plans, asserted; the
+   recovered TT against the same sketch with every kernel replaced by its
+   plain version, at 10,000 nonzero and 10,000 random index tuples (a QR
+   sits between the modes, so cores are not compared); the sample-error
+   guard (HMT on uber: 0.45-0.60); median time over fresh seeds, host
+   enqueue, busy share.  Phase 6 then also checks, times and bounds the
+   calls these paths recorded.
+10. ``chain_step_t``, ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``
+    against their plain versions at odd shapes: ragged nnz, ``n = 1``,
+    ranks of 1, an index at ``n - 1``, cores staged in shared memory and
+    read through the cache, the first step bit for bit, bfloat16, indices
+    outside the mode; whole tiles of sentinels, a chunk whose every nonzero
+    hits one row, every side combination, sign and sliced hashed sides, the
+    shared-memory limit of given sides; both orientations of the
+    half-fused Ψ through streaming sketches with a ``TensorTrainDRM`` on one
+    side and a ``SparseGaussianDRM`` on the other.
+11. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+    those of the first main path that launches it; ``by_path`` has them for
+    every path), then the device line last.
 
 Requires CUDA; exits non-zero without it.
 """
@@ -79,10 +106,15 @@ H100_FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside the tensor c
 # Lane instructions per second of the CUDA cores: the fp32 peak counts an
 # FMA as two flops; integer instructions share the same dispatch slots.
 H100_LANE_OPS_PER_S = H100_FP32_FLOP_PER_S / 2
-LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_sign", "sparse_psi")
+SEQ_TOL = 2e-4   # max abs over 20,000 recovered values / largest value: two f32 sweeps whose sums differ in order, through a QR per mode
+CHAIN_ULPS = 8   # chain_step_t: max abs err in ulps (2^-23) of the largest output; sums of at most 20 f32 products in another order
+HMT_ERROR_RANGE = (0.45, 0.60)  # sample_error of an HMT sketch of FROSTT-uber at rank 10
+LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_sign", "sparse_psi",
+             "chain_step")
 SPARSE_KERNELS = ("lazy_gaussian", "sparse_sign_rows", "omega_fused",
                   "psi_omega_merged_slabs", "psi_fused_slabs",
-                  "psi_window_direct")
+                  "psi_window_direct", "chain_step_t", "psi_chunk_slabs",
+                  "psi_chunk_slabs_genright")
 RECORDED = SPARSE_KERNELS + ("_psi_sparse_segment", "_psi_from_slabs")
 #: launches of one sketch per main path (the plans give the same counts:
 #: ``expected_launches``); kernels not named launch 0 times
@@ -93,7 +125,20 @@ PATH_LAUNCHES = {
                   "psi_omega_merged_slabs": 1, "psi_fused_slabs": 1},
     "lbnl gauss": {"psi_omega_merged_slabs": 4, "psi_window_direct": 1},
     "lbnl sign": {"psi_omega_merged_slabs": 4, "psi_window_direct": 1},
+    "uber hmt gauss": {"chain_step_t": 3, "psi_chunk_slabs_genright": 1,
+                       "psi_chunk_slabs": 1, "lazy_gaussian": 2},
+    "uber otts gauss": {"chain_step_t": 3, "psi_chunk_slabs_genright": 1,
+                        "psi_chunk_slabs": 1, "lazy_gaussian": 2,
+                        "omega_fused": 3},
+    "uber hmt tt": {"chain_step_t": 6, "psi_chunk_slabs": 2},
+    "lbnl hmt gauss": {"chain_step_t": 4, "psi_fused_slabs": 1,
+                       "psi_chunk_slabs_genright": 3},
 }
+#: the sequential main paths: (method, right DRM)
+SEQ_PATHS = {"uber hmt gauss": ("hmt", "gauss"),
+             "uber otts gauss": ("otts", "gauss"),
+             "uber hmt tt": ("hmt", "tt"),
+             "lbnl hmt gauss": ("hmt", "gauss")}
 REPLACES = {
     "lazy_gaussian": "tt_sketch_tpu/kernels/pallas_rng.py:191",
     "sparse_sign_rows": "tt_sketch_tpu/kernels/pallas_rng.py:357",
@@ -101,6 +146,9 @@ REPLACES = {
     "psi_omega_merged_slabs": "tt_sketch_tpu/kernels/pallas_psi.py:498",
     "psi_fused_slabs": "tt_sketch_tpu/kernels/pallas_psi.py:270",
     "psi_window_direct": "tt_sketch_tpu/kernels/pallas_psi.py:666",
+    "chain_step_t": "tt_sketch_tpu/kernels/pallas_chain.py:82",
+    "psi_chunk_slabs": "tt_sketch_tpu/kernels/pallas_psi.py:70",
+    "psi_chunk_slabs_genright": "tt_sketch_tpu/kernels/pallas_psi.py:795",
 }
 SOURCES = {
     "lazy_gaussian": "tt_sketch_torch/csrc/lazy_gaussian.cu",
@@ -109,6 +157,9 @@ SOURCES = {
     "psi_omega_merged_slabs": "tt_sketch_torch/csrc/sparse_psi.cu",
     "psi_fused_slabs": "tt_sketch_torch/csrc/sparse_psi.cu",
     "psi_window_direct": "tt_sketch_torch/csrc/sparse_psi.cu",
+    "chain_step_t": "tt_sketch_torch/csrc/chain_step.cu",
+    "psi_chunk_slabs": "tt_sketch_torch/csrc/sparse_psi.cu",
+    "psi_chunk_slabs_genright": "tt_sketch_torch/csrc/sparse_psi.cu",
 }
 GAUSS = ("g",)
 
@@ -372,6 +423,7 @@ def phase_stream_sketch():
 # -- sparse slices -------------------------------------------------------------
 
 def _kernel_fns():
+    from tt_sketch_torch.kernels import chain_step as CS
     from tt_sketch_torch.kernels import lazy_gaussian as LG
     from tt_sketch_torch.kernels import sparse_psi as SP
     from tt_sketch_torch.kernels import sparse_sign as SS
@@ -387,45 +439,63 @@ def _kernel_fns():
                             SP.psi_fused_slabs_reference),
         "psi_window_direct": (SP.psi_window_direct,
                               SP.psi_window_direct_reference),
+        "chain_step_t": (CS.chain_step_t, CS.chain_step_t_reference),
+        "psi_chunk_slabs": (SP.psi_chunk_slabs,
+                            SP.psi_chunk_slabs_reference),
+        "psi_chunk_slabs_genright": (SP.psi_chunk_slabs_genright,
+                                     SP.psi_chunk_slabs_genright_reference),
     }
+
+
+def _call_sites(name):
+    """The modules whose name ``name`` the sketches call: the Ψ/Ω functions
+    of ``sketch_kernels``; the DRMs that generate their own rows; the TT
+    chain, which alone calls the chain kernel."""
+    from tt_sketch_torch.drm import (
+        sparse_gaussian_drm,
+        sparse_sign_drm,
+        tensor_train_drm,
+    )
+    from tt_sketch_torch.kernels import sketch_kernels as K
+
+    return {"lazy_gaussian": (K, sparse_gaussian_drm),
+            "sparse_sign_rows": (K, sparse_sign_drm),
+            "chain_step_t": (tensor_train_drm,)}.get(name, (K,))
 
 
 @contextlib.contextmanager
 def _patched(mapping):
-    """Replace names of ``sketch_kernels`` by ``mapping``'s functions for
-    the duration of the block."""
-    from tt_sketch_torch.kernels import sketch_kernels as K
-
-    saved = {name: getattr(K, name) for name in mapping}
-    for name, fn in mapping.items():
-        setattr(K, name, fn)
+    """Replace the names of ``mapping`` by its functions, in every module
+    that calls them (``_call_sites``), for the duration of the block."""
+    saved = [(mod, name, getattr(mod, name)) for name in mapping
+             for mod in _call_sites(name)]
+    for mod, name, _ in saved:
+        setattr(mod, name, mapping[name])
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(K, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def plain_kernels():
-    """Route the fused sparse sketch through every kernel's plain version
-    (on the same device) instead of the kernel."""
+    """Route the sparse sketches through every kernel's plain version (on
+    the same device) instead of the kernel."""
     return _patched({name: plain for name, (_, plain)
                      in _kernel_fns().items()})
 
 
 def recording(calls):
     """Record into ``calls`` (name -> list of argument tuples) every call
-    the fused sparse sketch makes to the kernels, to the segment reduction
-    and to the slab combine; each call runs as it would."""
-    from tt_sketch_torch.kernels import sketch_kernels as K
-
+    a sparse sketch makes to the kernels, to the segment reduction and to
+    the slab combine; each call runs as it would."""
     def recorder(name, fn):
         def call(*args):
             calls.setdefault(name, []).append(args)
             return fn(*args)
         return call
 
-    return _patched({name: recorder(name, getattr(K, name))
+    return _patched({name: recorder(name, getattr(_call_sites(name)[0], name))
                      for name in RECORDED})
 
 
@@ -571,6 +641,32 @@ def sparse_bound(name, args, ops):
         N, R = flat.shape[0], rank_max - rank_min
         nbytes = 8 * N + 8 * nnz + 4 * R * N
         n_ops = ops["sign_draw"] * nnz * N
+    elif name == "chain_step_t":
+        # state read, index read, output written, the core read once; one
+        # FMA per (i, k) and nonzero
+        state, core, idx = args
+        r1, n, r2 = core.shape
+        N = idx.shape[0]
+        nbytes = (4 * (0 if state is None else r1) * N + 8 * N + 4 * r2 * N
+                  + 4 * r1 * n * r2)
+        n_ops = (0 if state is None else r1 * r2) * N
+    elif name in ("psi_chunk_slabs", "psi_chunk_slabs_genright"):
+        # given rows are read (4 bytes each) and not hashed; a missing side
+        # costs nothing
+        if name == "psi_chunk_slabs":
+            loc, se, sl, sr, nc, span, chunk = args
+            r2, s2, g2 = (1, 0, 0) if sr is None else (sr.shape[0], 0, 0)
+            right_bytes = 0 if sr is None else 4 * r2 * se.shape[0]
+        else:
+            loc, se, sl, rflat, rsalts, nc, span, chunk, rspec = args
+            r2, s2, g2 = _side_cost(rflat, rsalts, rspec, ops)
+            right_bytes = 8 * se.shape[0] + 8 * s2
+        N = se.shape[0]
+        r1 = 1 if sl is None else sl.shape[0]
+        nbytes = (4 * loc.shape[0] + 4 * N
+                  + (0 if sl is None else 4 * r1 * N) + right_bytes
+                  + 4 * nc * span * r1 * r2)
+        n_ops = (g2 + r1 + r1 * r2) * N
     elif name == "omega_fused":
         e, lflat, rflat, lsalts, rsalts, lspec, rspec = args
         N = e.shape[0]
@@ -631,6 +727,11 @@ def _compare(name, label, got, ref, phase=6):
         tol = "bit for bit"
     elif name == "lazy_gaussian":
         ok, tol = abs_err <= ROWS_TOL, f"abs tol {ROWS_TOL:g}"
+    elif name == "chain_step_t":
+        ulp = max(float(r.abs().max()) for r in ref) * 2.0 ** -23
+        ok = abs_err <= CHAIN_ULPS * ulp
+        tol = (f"{abs_err / ulp if ulp else 0.0:.2f} ulps of the largest "
+               f"value, tol {CHAIN_ULPS}")
     else:
         ok, tol = rel <= PSI_TOL, f"rel tol {PSI_TOL:g}"
     print(f"# phase {phase}: {name} {label}: max abs err {abs_err:.3e}, rel "
@@ -960,7 +1061,7 @@ def phase_window_kernel():
                 GAUSS), phase=8)
 
 
-def profile_sketch(run, n=3):
+def profile_sketch(run, n=3, phase=5):
     """Device time by kernel over ``n`` sketches (``torch.profiler``) and
     the device's busy share of the window (kernel time over the CUDA-event
     time of the window; one stream, so kernels do not overlap)."""
@@ -991,11 +1092,21 @@ def profile_sketch(run, n=3):
                    if str(e.device_type).endswith("CUDA")
                    and device_us(e) > 0), reverse=True)
     busy_us = sum(r[0] for r in rows)
-    print(f"# phase 5: profiler over {n} sketches: device busy "
+    print(f"# phase {phase}: profiler over {n} sketches: device busy "
           f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
           f"({100 * busy_us / window_us:.1f} % busy); per sketch, by "
           f"device time:")
     for us, count, key in rows[:10]:
+        print(f"#   {us / 1e3 / n:9.3f} ms  {count // n:4d} x  {key[:90]}")
+    # where the host spends its time issuing them: operators by their own
+    # CPU time (under the profiler, which slows the host)
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if not str(e.device_type).endswith("CUDA")), reverse=True)
+    host_us = sum(r[0] for r in host)
+    print(f"# phase {phase}: host time in operators {host_us / 1e3 / n:.3f} "
+          f"ms per sketch under the profiler; by self CPU time:")
+    for us, count, key in host[:6]:
         print(f"#   {us / 1e3 / n:9.3f} ms  {count // n:4d} x  {key[:90]}")
     return busy_us / window_us
 
@@ -1190,6 +1301,354 @@ def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
             "comb_ms": comb_ms, "calls": calls}
 
 
+def _seq_sketch(method, tensor, drm, seed=None, drms=None):
+    """One sequential sketch at rank 10 (OTTS: 10/20) in f32 through the
+    entry points; returns ``(tt, drms)``.  ``drms`` given: sketch with
+    those DRMs instead of fresh ones from ``seed``."""
+    import torch
+
+    from tt_sketch_torch import (
+        SparseGaussianDRM,
+        hmt_sketch,
+        orthogonal_sketch,
+    )
+
+    drm_type = {"gauss": SparseGaussianDRM, "tt": None}[drm]
+    f32 = torch.float32
+    if method == "hmt":
+        if drms is not None:
+            return hmt_sketch(tensor, 10, drm=drms[0]), drms
+        tt, rdrm = hmt_sketch(tensor, 10, seed=seed, drm_type=drm_type,
+                              dtype=f32, return_drm=True)
+        return tt, (rdrm,)
+    if drms is not None:
+        return orthogonal_sketch(tensor, 10, 20, left_drm=drms[0],
+                                 right_drm=drms[1]), drms
+    tt, ldrm, rdrm = orthogonal_sketch(
+        tensor, 10, 20, seed=seed, left_drm_type=drm_type,
+        right_drm_type=drm_type, dtype=f32, return_drm=True)
+    return tt, (ldrm, rdrm)
+
+
+def expected_seq_launches(tensor, method, rdrm):
+    """Kernel launches of one HMT sketch, or of one OTTS sketch with a
+    hash-family pair, worked out from the plans.  The chain advances once
+    per mode after the first (and a TT-DRM runs the same chain for its own
+    rows).  Ψ_μ's left side is the chain, so: a ``ModePlan`` takes the
+    fused kernel at μ = 0 and the half-fused one at an interior mode when
+    the right DRM hashes, else the grouped kernel; a ``WindowPlan`` the
+    window kernel at μ = 0 with a hash DRM and the segment reduction
+    otherwise; a mode that takes the segment reduction has a hash DRM
+    generate its right rows.  OTTS adds one fused Ω per mode."""
+    from tt_sketch_torch.kernels.sparse_plan import ModePlan, WindowPlan
+
+    d = len(tensor.shape)
+    n = dict.fromkeys(SPARSE_KERNELS, 0)
+    hashes = hasattr(rdrm, "side_spec")
+    rows = {"g": "lazy_gaussian", "s": "sparse_sign_rows"}
+    n["chain_step_t"] = (d - 1) * (1 if hashes else 2)
+    for mu, p in enumerate(tensor.psi_plan):
+        right_hashed = hashes and mu < d - 1
+        if isinstance(p, ModePlan):
+            n["psi_fused_slabs" if right_hashed and mu == 0
+              else "psi_chunk_slabs_genright" if right_hashed
+              else "psi_chunk_slabs"] += 1
+        elif isinstance(p, WindowPlan) and right_hashed and mu == 0:
+            n["psi_window_direct"] += 1
+        elif right_hashed:
+            n[rows[rdrm.side_spec(d - 2 - mu)[0]]] += 1
+    if method == "otts":
+        if not hashes:
+            raise AssertionError("OTTS launch counts: hash-family pairs only")
+        n["omega_fused"] = d - 1
+    return n
+
+
+def _recovered_values(tt, tensor, n=10_000, seed=0):
+    """The TT's values at ``n`` of the tensor's nonzeros and ``n`` random
+    index tuples: what a sequential sketch's per-core gauge leaves alone."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pick = torch.randint(0, tensor.nnz, (n,), generator=g, device="cuda")
+    rand = torch.stack([torch.randint(0, s, (n,), generator=g, device="cuda")
+                        for s in tensor.shape])
+    return tt.gather(torch.cat([tensor.indices[:, pick], rand], dim=1))
+
+
+def phase_seq_main(label, tensor, timed=True, groups=3, inner=3):
+    """One sequential main path (``SEQ_PATHS[label]``): ``hmt_sketch`` or
+    ``orthogonal_sketch`` of ``tensor`` at rank 10 (10/20) in f32 through
+    the kernels.  Launch counts asserted against ``PATH_LAUNCHES`` and the
+    plans; the recovered TT against the same sketch under
+    ``plain_kernels()`` at 20,000 index tuples; on uber the sample-error
+    guard; with ``timed``, the median sketch time over fresh seeds, the
+    host's enqueue time and the device's busy share."""
+    import torch
+
+    from tt_sketch_torch.data.frostt import sample_error
+    from tt_sketch_torch.kernels import sketch_kernels as K
+
+    method, drm = SEQ_PATHS[label]
+    fns = _kernel_fns()
+    tag = f"# phase 9 [{label}]:"
+
+    calls = {}
+    torch.cuda.synchronize()
+    for kern, _ in fns.values():
+        kern.launches = 0
+    with recording(calls):
+        tt, drms = _seq_sketch(method, tensor, drm, seed=0)
+    torch.cuda.synchronize()
+    launches = {name: fns[name][0].launches for name in SPARSE_KERNELS}
+    want = dict.fromkeys(SPARSE_KERNELS, 0) | PATH_LAUNCHES[label]
+    planned = expected_seq_launches(tensor, method, drms[-1])
+    print(f"{tag} kernel launches in one sketch: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if not launches == want == planned:
+        raise AssertionError(f"launch counts {launches}, expected {want}, "
+                             f"from the plans {planned}")
+    with plain_kernels():
+        ref, _ = _seq_sketch(method, tensor, drm, drms=drms)
+    torch.cuda.synchronize()
+    a, b = _recovered_values(tt, tensor), _recovered_values(ref, tensor)
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise AssertionError(f"{label}: non-finite recovered values")
+    worst = float((a - b).abs().max() / b.abs().max())
+    print(f"{tag} recovered TT vs the plain-version sketch at 10,000 nonzero "
+          f"and 10,000 random index tuples: max abs diff / largest value "
+          f"{worst:.3e} (tol {SEQ_TOL:g})")
+    if not worst <= SEQ_TOL:
+        raise AssertionError(f"{label} disagrees with its plain-version "
+                             f"sketch: {worst:.3e}")
+    del ref
+    err = sample_error(tt, tensor)
+    out = {"launches": launches, "calls": calls, "sample_error": err,
+           "worst_rel": worst}
+    if label.startswith("uber") and method == "hmt":
+        lo, hi = HMT_ERROR_RANGE
+        print(f"{tag} sample_error = {err:.4f} (guard {lo}-{hi})")
+        if not lo <= err <= hi:
+            raise AssertionError(f"{label}: sample error {err:.4f} outside "
+                                 f"{lo}-{hi}")
+    elif label.startswith("uber"):
+        print(f"{tag} sample_error = {err:.4f} (limit {SAMPLE_ERROR_LIMIT})")
+        if not err <= SAMPLE_ERROR_LIMIT:
+            raise AssertionError(f"{label}: sample error {err:.4f} > "
+                                 f"{SAMPLE_ERROR_LIMIT}")
+    else:
+        print(f"{tag} sample_error = {err:.4f} (printed, no guard: "
+              f"scattered support)")
+    if not timed:
+        return out
+
+    def run(seed):
+        return _seq_sketch(method, tensor, drm, seed=seed)[0]
+
+    run(1)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for j in range(inner):
+            run(100 + inner * i + j)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    med = float(np.median(times))
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    run(7)
+    enqueue_ms = (time.perf_counter() - t_host) * 1e3
+    torch.cuda.synchronize()
+    with plain_kernels():
+        plain_ms = time_ms(lambda: run(3), reps=3, warmup=1)
+    # the same sketch with its DRMs given: what making them costs
+    given_ms = time_ms(lambda: _seq_sketch(method, tensor, drm, drms=drms))
+    segs = calls.get("_psi_sparse_segment", [])
+    combs = calls.get("_psi_from_slabs", [])
+    seg_ms = time_ms(lambda: [K._psi_sparse_segment(*a) for a in segs])
+    comb_ms = time_ms(lambda: [K._psi_from_slabs(*a) for a in combs])
+    busy = profile_sketch(lambda s: run(200 + s), phase=9)
+    nnz_per_s = tensor.nnz / (med / 1e3)
+    print(f"{tag} sketch median {med:.3f} ms over fresh seeds "
+          f"({', '.join(f'{t:.3f}' for t in times)}), {nnz_per_s:.6e} nnz/s; "
+          f"host enqueue of one sketch {enqueue_ms:.3f} ms; with the DRMs "
+          f"given {given_ms:.3f} ms; plain-version "
+          f"sketch {plain_ms:.3f} ms; segment reductions ({len(segs)} modes) "
+          f"{seg_ms:.3f} ms; slab combines ({len(combs)} modes) "
+          f"{comb_ms:.3f} ms; device busy {100 * busy:.1f} %")
+    out.update(ms=med, times=times, nnz_per_s=nnz_per_s, busy=busy,
+               plain_ms=plain_ms, enqueue_ms=enqueue_ms, given_ms=given_ms,
+               seg_ms=seg_ms, comb_ms=comb_ms)
+    return out
+
+
+def phase_seq_kernels():
+    """``chain_step_t``, ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``
+    against their plain versions at the shapes no main path gives them, and
+    the half-fused Ψ in both orientations through streaming sketches with a
+    mixed pair."""
+    import torch
+
+    from tt_sketch_torch import (
+        SparseGaussianDRM,
+        TensorTrainDRM,
+        stream_sketch,
+    )
+    from tt_sketch_torch.kernels.chain_step import _library as chain_library
+    from tt_sketch_torch.rng.hash_rng import drm_salts
+
+    f32 = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=f32)
+
+    def randint(n, size):
+        return torch.randint(0, n, (size,), generator=g, device="cuda")
+
+    # -- chain_step_t
+    staged = chain_library().tt_chain_step_staged_bytes()
+    chain_cases = [
+        ("ragged nnz 100003, n 37, ranks 7 -> 11", 100_003, 37, 7, 11),
+        ("n = 1", 5_001, 1, 5, 6),
+        ("ranks 1 -> 1", 4_097, 50, 1, 1),
+        ("ranks 20 -> 1", 70_001, 300, 20, 1),
+        ("ranks 1 -> 20, one nonzero", 1, 9, 1, 20),
+        ("ranks 9 -> 17 (three register tiles)", 33_333, 64, 9, 17),
+        ("core of 1140 x 10 x 10 read through the cache", 250_007, 1140, 10,
+         10),
+        ("core of 5000 x 20 x 20", 120_001, 5000, 20, 20),
+    ]
+    for label, nnz, n, r1, r2 in chain_cases:
+        core, state, idx = randn(r1, n, r2), randn(r1, nnz), randint(n, nnz)
+        idx[: min(nnz, 3)] = n - 1  # the last row of the core
+        where = ("shared memory" if 4 * n * r1 * r2 <= staged
+                 else "the cache")
+        _check("chain_step_t", f"{label}, core in {where}",
+               (state, core, idx), phase=10)
+        if r1 == 1:
+            a, b = (fn(None, core, idx)
+                    for fn in _kernel_fns()["chain_step_t"])
+            torch.cuda.synchronize()
+            print(f"# phase 10: chain_step_t {label}, first step: "
+                  f"{'equal' if torch.equal(a, b) else 'DIFFERENT'} bit for "
+                  f"bit")
+            if not torch.equal(a, b):
+                raise AssertionError("chain_step_t first step is a gather "
+                                     "and must be exact")
+    core, state, idx = randn(1, 183, 10), None, randint(183, 300_001)
+    a, b = (fn(state, core, idx) for fn in _kernel_fns()["chain_step_t"])
+    if not torch.equal(a, b):
+        raise AssertionError("chain_step_t first step (n 183) is not exact")
+    core = randn(6, 40, 9).to(torch.bfloat16)
+    state, idx = randn(6, 9_999).to(torch.bfloat16), randint(40, 9_999)
+    a, b = (fn(state, core, idx) for fn in _kernel_fns()["chain_step_t"])
+    rel = _rel(a.float(), b.float())
+    print(f"# phase 10: chain_step_t bfloat16 operands (f32 arithmetic, "
+          f"rounded once) vs the plain bfloat16 einsum: rel err {rel:.3e} "
+          f"(tol {BF16_TOL:g})")
+    if not (a.dtype == torch.bfloat16 and rel <= BF16_TOL):
+        raise AssertionError("chain_step_t bfloat16")
+    out_of_range = randint(40, 1_000)
+    out_of_range[::7] = 40
+    out_of_range[3] = -1
+    z = _kernel_fns()["chain_step_t"][0](randn(6, 1_000), randn(6, 40, 9),
+                                         out_of_range)
+    torch.cuda.synchronize()
+    bad = (out_of_range < 0) | (out_of_range >= 40)
+    if not (bool((z[:, bad] == 0).all()) and bool(torch.isfinite(z).all())):
+        raise AssertionError("chain_step_t: an index outside the mode must "
+                             "give a zero column")
+    print(f"# phase 10: chain_step_t: {int(bad.sum())} indices outside "
+          f"[0, 40) give zero columns")
+
+    # -- the slab kernels over given rows, on the ragged tensor's plan
+    t, _, _ = _ragged_case(SparseGaussianDRM, SparseGaussianDRM)
+    p = t.psi_plan[2]
+    nnz = t.nnz
+    geom = (p.n_chunks, p.span, p.chunk)
+    se = p.sorted_entries
+    sl7, sr13, one = randn(7, nnz), randn(13, nnz), randn(1, nnz)
+    g13 = (drm_salts(0, 13, 31, device="cuda"), GAUSS)
+    s13 = (drm_salts(0, 5, 32, device="cuda"), ("s", 13, 5, 0, 13))
+    s5of9 = (drm_salts(0, 4, 33, device="cuda"), ("s", 9, 4, 3, 5))
+    g1 = (drm_salts(0, 1, 34, device="cuda"), GAUSS)
+    # whole tiles of sentinels inside the stream, and a chunk (the second)
+    # whose every nonzero hits one row
+    loc_holes = p.local_idx.clone()
+    loc_holes[128:320] = p.span
+    loc_holes[p.chunk: 2 * p.chunk] = 3
+    for tag, loc in (("ragged plan", p.local_idx),
+                     ("sentinel tiles and a one-row chunk", loc_holes)):
+        for what, sl, sr in (("7 x 13", sl7, sr13), ("7 x none", sl7, None),
+                             ("none x 13", None, sr13), ("1 x 1", one, one),
+                             ("1 x none", one, None)):
+            _check("psi_chunk_slabs", f"{tag}, {what}",
+                   (loc, se, sl, sr, *geom), phase=10)
+        for what, sl, (salts, spec) in (
+                ("7 x gauss 13", sl7, g13), ("7 x sign 13", sl7, s13),
+                ("7 x sign slice 5 of 9", sl7, s5of9),
+                ("none x gauss 13", None, g13), ("1 x gauss 1", one, g1)):
+            _check("psi_chunk_slabs_genright", f"{tag}, {what}",
+                   (loc, se, sl, p.flat_right, salts, *geom, spec), phase=10)
+    every = p.local_idx.clone()
+    every[:] = p.span
+    z = _kernel_fns()["psi_chunk_slabs"][0](every, se, sl7, sr13, *geom)
+    torch.cuda.synchronize()
+    if not bool((z == 0).all()):
+        raise AssertionError("psi_chunk_slabs: sentinels must add nothing")
+    print("# phase 10: psi_chunk_slabs with every local row the sentinel: "
+          "all slabs zero")
+    # the shared-memory limit holds given sides too
+    try:
+        _kernel_fns()["psi_chunk_slabs"][0](
+            p.local_idx, se, randn(893, nnz), one, *geom)
+    except ValueError as exc:
+        print(f"# phase 10: given sides of 893 + 1 rows raise: {exc}")
+    else:
+        raise AssertionError("given sides past the shared-memory limit did "
+                             "not raise")
+    _check("psi_chunk_slabs", "given sides of 892 + 1 rows (the most a "
+           "block holds)", (p.local_idx, se, randn(892, nnz), one, *geom),
+           phase=10)
+
+    # -- both orientations of the half-fused Ψ: streaming with a mixed pair
+    shape = t.shape
+    for tag, lt, rt in (("TT-DRM x gauss", TensorTrainDRM, SparseGaussianDRM),
+                        ("gauss x TT-DRM", SparseGaussianDRM, TensorTrainDRM)):
+        ldrm = lt(7, shape, transpose=False, seed=41, dtype=f32,
+                  device="cuda")
+        rdrm = rt(13, shape, transpose=True, seed=42, dtype=f32,
+                  device="cuda")
+        calls = {}
+        with recording(calls):
+            sk = stream_sketch(t, ldrm.rank, rdrm.rank, left_drm=ldrm,
+                               right_drm=rdrm)
+        with plain_kernels():
+            ref = stream_sketch(t, ldrm.rank, rdrm.rank, left_drm=ldrm,
+                                right_drm=rdrm)
+        torch.cuda.synchronize()
+        n_gen = len(calls.get("psi_chunk_slabs_genright", []))
+        if n_gen == 0:
+            raise AssertionError(f"{tag}: no half-fused Ψ call")
+        for name in ("chain_step_t", "psi_chunk_slabs_genright",
+                     "psi_chunk_slabs", "psi_fused_slabs", "lazy_gaussian"):
+            for i, args in enumerate(calls.get(name, [])):
+                _check(name, f"streaming {tag} call {i}", args, phase=10)
+        worst = max(_rel(a, b) for a, b in zip(
+            sk.Psi_cores + sk.Omega_mats, ref.Psi_cores + ref.Omega_mats))
+        print(f"# phase 10: streaming {tag} on the ragged tensor: {n_gen} "
+              f"half-fused Ψ call(s); every Psi/Omega vs the plain-version "
+              f"sketch: worst rel err {worst:.3e} (tol {PSI_TOL:g})")
+        if not worst <= PSI_TOL:
+            raise AssertionError(f"streaming {tag} disagrees with its plain "
+                                 f"version")
+
+
 def bound_ms(P, S, r, rho):
     nbytes = 4 * (P * S + S * rho + P * r + P * rho + r * S)
     flops = 2 * P * S * (r + rho)
@@ -1223,15 +1682,20 @@ def main():
                                             SparseGaussianDRM, "limit")
     paths["uber sign"] = phase_sparse_main("uber sign", uber, SparseSignDRM,
                                            "parity")
+    for label in ("uber hmt gauss", "uber otts gauss", "uber hmt tt"):
+        paths[label] = phase_seq_main(label, uber)
     del uber
     lbnl = load_sparse("lbnl-synthetic")
     paths["lbnl gauss"] = phase_sparse_main("lbnl gauss", lbnl,
                                             SparseGaussianDRM)
     paths["lbnl sign"] = phase_sparse_main("lbnl sign", lbnl, SparseSignDRM)
+    paths["lbnl hmt gauss"] = phase_seq_main("lbnl hmt gauss", lbnl,
+                                             timed=False)
     del lbnl
     skern = phase_sparse_kernels(paths, ops)
     phase_sign_rows()
     phase_window_kernel()
+    phase_seq_kernels()
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     entry = {
@@ -1281,8 +1745,14 @@ def main():
           f"{path['ms_per_slab']:.3f} ms/slab, recovery error "
           f"{path['rel_err']:.3e}")
     for label, p in paths.items():
+        if "ms" not in p:
+            print(f"# sparse main path {label}: untimed, sample error "
+                  f"{p['sample_error']:.4f}")
+            continue
+        metric = ("nnz_per_s" if label in SEQ_PATHS
+                  else "sparse_stta_nnz_per_s")
         print(f"# sparse main path {label}: {p['ms']:.3f} ms per sketch, "
-              f"sparse_stta_nnz_per_s {p['nnz_per_s']:.6e}, sample error "
+              f"{metric} {p['nnz_per_s']:.6e}, sample error "
               f"{p['sample_error']:.4f}, device busy {100 * p['busy']:.1f} %")
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -49,6 +49,8 @@ def test_import_leaves_jax_out():
         "from tt_sketch_torch import SparseTensor, SparseGaussianDRM\n"
         "from tt_sketch_torch import SparseSignDRM\n"
         "import tt_sketch_torch.kernels.sparse_sign\n"
+        "from tt_sketch_torch import hmt_sketch, orthogonal_sketch\n"
+        "import tt_sketch_torch.kernels.chain_step\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"
@@ -68,7 +70,7 @@ def test_kernel_source_is_in_the_package():
     from tt_sketch_torch.kernels.cuda_build import BUILD_DIR, CSRC
 
     for name in ("dual_project.cu", "lazy_gaussian.cu", "sparse_sign.cu",
-                 "sparse_psi.cu", "hash_rng.cuh"):
+                 "sparse_psi.cu", "chain_step.cu", "hash_rng.cuh"):
         assert (CSRC / name).is_file()
     # builds land under build/, which .gitignore lists
     assert BUILD_DIR.relative_to(ROOT).parts[0] == "build"
@@ -85,7 +87,8 @@ def test_digest_follows_shared_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC, csrc)
     monkeypatch.setattr(cuda_build, "CSRC", csrc)
-    names = ("lazy_gaussian", "sparse_sign", "sparse_psi", "dual_project")
+    names = ("lazy_gaussian", "sparse_sign", "sparse_psi", "dual_project",
+             "chain_step")
     before = {n: cuda_build.source_digest(n) for n in names}
     assert before == {n: cuda_build.source_digest(n) for n in names}
     header = csrc / "hash_rng.cuh"

@@ -126,9 +126,14 @@ def test_placement_mismatch_raises():
     X, _ = _tensors("dense")
     with pytest.raises(ValueError, match="dtype"):
         stream_sketch(X, 4, 7, seed=1, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="slice"):
-        sk, ld, rd = stream_sketch(X, 4, 7, seed=1, return_drm=True)
-        general_sketch(X, ld, rd, SketchMethod.orthogonal)
+    # the orthogonal method is ported (tests/test_torch_sequential.py): the
+    # same placement check guards it
+    sk, ld, rd = stream_sketch(X, 4, 7, seed=1, return_drm=True)
+    assert len(general_sketch(X, ld, rd, SketchMethod.orthogonal).Psi_cores) \
+        == len(SHAPE)
+    with pytest.raises(ValueError, match="dtype"):
+        general_sketch(DenseTensor(X.data.float()), ld, rd,
+                       SketchMethod.orthogonal)
 
 
 def test_no_card_means_an_error_not_the_cpu(monkeypatch):

@@ -243,12 +243,19 @@ def test_exact_recovery_of_tt_on_a_subgrid():
 # -- dispatch, gate and loader -------------------------------------------------
 
 def test_default_drm_is_tt_drm_and_raises_on_sparse():
+    # the default TensorTrainDRM no longer raises on sparse input (its
+    # ``sketch_sparse`` is the sparse chain): the streaming sketch matches
+    # the JAX package's, whose default is the same DRM from the same seeds
     idx, ent = _data(np.float64)
-    t = SparseTensor(SHAPE, idx, ent)
-    with pytest.raises(NotImplementedError, match="HMT/OTTS"):
-        stream_sketch(t, 4, 8, seed=0)
-    with pytest.raises(NotImplementedError, match="HMT/OTTS"):
-        TensorTrainDRM(4, SHAPE, transpose=False, seed=0).sketch_sparse(t)
+    t, jt = _pair(idx, ent)
+    sk, ldrm, rdrm = stream_sketch(t, 4, 8, seed=0, return_drm=True)
+    jsk = jts.stream_sketch(jt, 4, 8, seed=0)
+    assert isinstance(ldrm, TensorTrainDRM) and isinstance(rdrm, TensorTrainDRM)
+    _close(sk.Psi_cores, jsk.Psi_cores, 1e-10)
+    _close(sk.Omega_mats, jsk.Omega_mats, 1e-10)
+    _close(sk.to_tt().cores, jsk.to_tt().cores, 1e-8)
+    rows = TensorTrainDRM(4, SHAPE, transpose=False, seed=0).sketch_sparse(t)
+    assert [tuple(r.shape) for r in rows] == [(4, NNZ)] * 3
 
 
 def test_placement_mismatch_raises():

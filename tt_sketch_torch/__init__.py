@@ -1,12 +1,15 @@
 """tt_sketch_torch — the PyTorch/CUDA port of ``tt_sketch_tpu``.
 
-Streaming tensor-train sketching (STTA) of dense and TT tensors with
-TT-DRMs and of sparse COO tensors with lazy-Gaussian and sparse-sign DRMs,
-and recovery of the TT cores.  The dense slab stream's one-pass projection
+Tensor-train sketching of dense, TT and sparse COO tensors with TT-DRMs,
+lazy-Gaussian and sparse-sign DRMs: the streaming sketch (STTA) with the
+recovery of its TT cores, and the sequential sweeps ``hmt_sketch`` and
+``orthogonal_sketch`` (OTTS).  The dense slab stream's one-pass projection
 runs a hand-written Hopper kernel (``csrc/dual_project.cu``); the sparse
-sketch runs the row generators (``csrc/lazy_gaussian.cu``,
-``csrc/sparse_sign.cu``) and the fused Ψ/Ω kernels, among them the
-aligned-window kernel of giant modes (``csrc/sparse_psi.cu``).
+sketches run the row generators (``csrc/lazy_gaussian.cu``,
+``csrc/sparse_sign.cu``), the Ψ/Ω kernels over hashed or given rows, among
+them the aligned-window kernel of giant modes (``csrc/sparse_psi.cu``), and
+the sparse chain step of the sequential sweeps and of a TT-DRM
+(``csrc/chain_step.cu``).
 Public names mirror ``tt_sketch_tpu``::
 
     from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
@@ -34,6 +37,8 @@ def __getattr__(name):
         "TensorTrain": "tt_sketch_torch.formats.tensor_train",
         "SparseTensor": "tt_sketch_torch.formats.sparse",
         "stream_sketch": "tt_sketch_torch.engine.sketch",
+        "hmt_sketch": "tt_sketch_torch.engine.sketch",
+        "orthogonal_sketch": "tt_sketch_torch.engine.sketch",
         "assemble_sketched_tt": "tt_sketch_torch.engine.sketch",
         "SketchedTensorTrain": "tt_sketch_torch.engine.sketch",
         "SketchContainer": "tt_sketch_torch.engine.sketch_container",

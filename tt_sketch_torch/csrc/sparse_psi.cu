@@ -8,13 +8,19 @@
 //   psi_omega_merged     both from one pass, R hashed once
 //   psi_window_direct    psi[w*span + s, a, b] = Σ_{k in window w, loc[k] = s}
 //                                             L[a,k] e[k] R[b,k]
+//   psi_chunk_slabs      the slabs of psi_fused_slabs from rows that are
+//                        given: L (r1, nnz) and/or R (r2, nnz) float32 in the
+//                        plan's sorted order (a sequential sketch's chain
+//                        state, a TT-DRM's rows); R may instead be hashed
+//                        (psi_chunk_slabs_genright)
 //
 // A Gaussian side has L[a,k] = sample(lflat[k], lsalts[a]); a sign side
 // has L[:,k] = rows [rank_min, rank_min + r) of the sparse-sign column of
 // lflat[k] over `rank` slots, from the nnz salts of columns [0, nnz)
-// (hash_rng.cuh); likewise for R and Lo.  A missing side (Ψ_0 has no left
-// DRM, Ψ_{d-1} no right one) is a single row of ones, so the slab is
-// (span, 1, r2) or (span, r1, 1).
+// (hash_rng.cuh); a given side has L[a,k] = lrows[a*nnz + k], loaded into
+// the same shared tile instead of hashed; likewise for R and Lo.  A missing
+// side (Ψ_0 has no left DRM, Ψ_{d-1} no right one) is a single row of ones,
+// so the slab is (span, 1, r2) or (span, r1, 1).
 //
 // Replaces, in tt_sketch_tpu/kernels/pallas_psi.py:
 //   _fused_kernel, _fused_kernel_noleft, _fused_kernel_noright
@@ -22,6 +28,8 @@
 //   _omega_kernel (entry omega_fused)
 //   _merged_kernel, _merged_kernel_noleft (entry psi_omega_merged_slabs)
 //   _window_kernel, _window_kernel_oneside (entry psi_window_direct)
+//   _slab_kernel, _slab_kernel_noright (entry psi_chunk_slabs)
+//   _slab_genright_kernel (entry psi_chunk_slabs_genright)
 //   _gen_spec_rows (the per-side dispatch between the two generators)
 // Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -67,6 +75,14 @@
 // trick, since loc is non-decreasing over a window's whole run with the
 // pads (sentinel span, entry 0) at its end.  A tile that starts on a pad
 // ends the walk.  Ψ leaves the kernel finished: no atomics, no combine.
+//
+// Given sides.  The TPU's psi_chunk_slabs is the same one-hot product with
+// the rows read, not hashed; here a given side is a third kind of Side whose
+// tile is filled by coalesced loads (thread t reads column k0 + t of a row),
+// so psi_chunk_slabs (both sides given, or the left one alone) and
+// psi_chunk_slabs_genright (left given, right hashed) are the slab kernel
+// itself.  A call with given sides is bound by bytes: (r1 + r2 + 2) * 4 per
+// nnz against r1 * r2 FMAs.  Columns past nnz are never read.
 // Making it fast (sharing samples across warps, wider per-thread tiles,
 // persistent blocks) is later work.
 
@@ -85,11 +101,13 @@ constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
 static_assert(THREADS >= 3 * T,
               "one tile column per thread for up to three sign sides");
 
-// One side's generator: sign == 0 is lazy-Gaussian (one row per salt);
-// otherwise a sparse-sign column over `rank` slots from `nnz` salts, rows
-// [rank_min, rank_min + rows out) contracted.
+// One side's rows: GAUSS is lazy-Gaussian (one row per salt); SIGN a
+// sparse-sign column over `rank` slots from `nnz` salts, rows [rank_min,
+// rank_min + rows out) contracted; GIVEN rows read from device memory.
+enum Kind { GAUSS = 0, SIGN = 1, GIVEN = 2 };
+
 struct Side {
-  int sign;
+  int kind;
   int rank;
   int nnz;
   int rank_min;
@@ -116,6 +134,8 @@ struct Args {
   const int* win;    // window kernel: window id per chunk, non-decreasing
   const int* first;  // window kernel: 1 on a window's first chunk
   int n_chunks;
+  const float* lrows = nullptr;  // a GIVEN left side's rows (r1, nnz)
+  const float* rrows = nullptr;  // a GIVEN right side's rows (r2, nnz)
 };
 
 // Shared-memory layout: salts [L | R | O], rows L | R | O, then loc.
@@ -132,10 +152,10 @@ struct Layout {
 template <bool HAS_L, bool HAS_R, bool OM>
 __host__ __device__ Layout layout(const Args& a) {
   Layout y;
-  const bool sl = HAS_L && a.ls.sign, sr = HAS_R && a.rs.sign;
-  const bool so = OM && a.os.sign;
-  y.nsl = !HAS_L ? 0 : sl ? a.ls.nnz : a.r1;
-  y.nsr = !HAS_R ? 0 : sr ? a.rs.nnz : a.r2;
+  const bool sl = HAS_L && a.ls.kind == SIGN, sr = HAS_R && a.rs.kind == SIGN;
+  const bool so = OM && a.os.kind == SIGN;
+  y.nsl = !HAS_L || a.ls.kind == GIVEN ? 0 : sl ? a.ls.nnz : a.r1;
+  y.nsr = !HAS_R || a.rs.kind == GIVEN ? 0 : sr ? a.rs.nnz : a.r2;
   y.nso = !OM ? 0 : so ? a.os.nnz : a.r1o;
   y.al = sl ? a.ls.rank : a.r1;
   y.ar = sr ? a.rs.rank : a.r2;
@@ -226,26 +246,26 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
     {
       const int job = tid / T, t = tid - job * T;
       int q = 0;
-      if (HAS_L && a.ls.sign) {
+      if (HAS_L && a.ls.kind == SIGN) {
         if (job == q) {
           sign_side(Ls, a.lflat, salts_l, a.ls, r1, a.e, k0, t, tn);
         }
         ++q;
       }
-      if (HAS_R && a.rs.sign) {
+      if (HAS_R && a.rs.kind == SIGN) {
         if (job == q) {
           sign_side(Rs, a.rflat, salts_r, a.rs, r2, nullptr, k0, t, tn);
         }
         ++q;
       }
-      if (OM && a.os.sign) {
+      if (OM && a.os.kind == SIGN) {
         if (job == q) {
           sign_side(Os, a.oflat, salts_o, a.os, r1o, a.e, k0, t, tn);
         }
       }
     }
-    // 1b. Gaussian (and missing) sides: one sample per thread-step; left
-    // rows carry e[k]
+    // 1b. Gaussian, given (and missing) sides: one sample or one load per
+    // thread-step; left rows carry e[k]
     for (int i = tid; i < n_hashed * T; i += THREADS) {
       const int row = i / T, t = i - row * T;
       if (t >= tn) continue;
@@ -253,11 +273,15 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
       if (row < y.gl) {
         const float ek = a.e[k];
         Ls[row * TS + t] =
-            HAS_L ? tt_rng::sample(a.lflat[k], salts_l[row]) * ek : ek;
+            !HAS_L ? ek
+            : a.ls.kind == GIVEN ? a.lrows[(int64_t)row * a.nnz + k] * ek
+                                 : tt_rng::sample(a.lflat[k], salts_l[row]) * ek;
       } else if (row < y.gl + y.gr) {
         const int b = row - y.gl;
         Rs[b * TS + t] =
-            HAS_R ? tt_rng::sample(a.rflat[k], salts_r[b]) : 1.f;
+            !HAS_R ? 1.f
+            : a.rs.kind == GIVEN ? a.rrows[(int64_t)b * a.nnz + k]
+                                 : tt_rng::sample(a.rflat[k], salts_r[b]);
       } else {
         const int b = row - y.gl - y.gr;
         Os[b * TS + t] = tt_rng::sample(a.oflat[k], salts_o[b]) * a.e[k];
@@ -307,8 +331,9 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
 }
 
 bool bad_side(const Side& sd, int r_out) {
-  return sd.sign && (sd.rank <= 0 || sd.nnz < 0 || sd.nnz > sd.rank ||
-                     sd.rank_min < 0 || sd.rank_min + r_out > sd.rank);
+  return sd.kind == SIGN &&
+         (sd.rank <= 0 || sd.nnz < 0 || sd.nnz > sd.rank || sd.rank_min < 0 ||
+          sd.rank_min + r_out > sd.rank);
 }
 
 template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN = false>
@@ -330,10 +355,10 @@ cudaError_t launch(const Args& a, int64_t n_blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// A side's generator from the caller's int[4] {sign, rank, nnz, rank_min}
+// A side's generator from the caller's int[4] {SIGN, rank, nnz, rank_min}
 // (NULL: lazy-Gaussian).
 Side side_of(const int* spec) {
-  if (!spec) return Side{0, 0, 0, 0};
+  if (!spec) return Side{GAUSS, 0, 0, 0};
   return Side{spec[0], spec[1], spec[2], spec[3]};
 }
 
@@ -372,6 +397,37 @@ int tt_psi_fused_slabs(const int* loc, const float* e, const uint64_t* lflat,
   if (lflat && rflat) {
     err = launch<true, true, true, false>(a, n_chunks, st);
   } else if (rflat) {
+    err = launch<false, true, true, false>(a, n_chunks, st);
+  } else {
+    err = launch<true, false, true, false>(a, n_chunks, st);
+  }
+  return (int)err;
+}
+
+// Ψ slabs (n_chunks, span, r1, r2) from given rows: lrows (r1, nnz) or NULL
+// (no left side, r1 == 1); the right side is rrows (r2, nnz), or hashed from
+// rflat / rsalts / rspec (rrows NULL), or missing (both NULL, r2 == 1).
+int tt_psi_chunk_slabs(const int* loc, const float* e, const float* lrows,
+                       const float* rrows, const uint64_t* rflat,
+                       const uint64_t* rsalts, float* slabs, int64_t nnz,
+                       int n_chunks, int span, int chunk, int r1, int r2,
+                       const int* rspec, void* stream) {
+  const bool has_r = rrows || rflat;
+  if (bad_geometry(nnz, n_chunks, span, chunk) || r1 <= 0 || r2 <= 0 ||
+      (!lrows && r1 != 1) || (!has_r && r2 != 1) || (!lrows && !has_r) ||
+      (rrows && rflat) || (rflat && !rsalts)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Side given{GIVEN, 0, 0, 0};
+  Args a{loc, e, nullptr, rflat, nullptr, nullptr, rsalts, nullptr,
+         slabs, nullptr, nnz, chunk, span, r1, r2, 0,
+         given, rrows ? given : side_of(rspec), side_of(nullptr),
+         nullptr, nullptr, n_chunks, lrows, rrows};
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (lrows && has_r) {
+    err = launch<true, true, true, false>(a, n_chunks, st);
+  } else if (has_r) {
     err = launch<false, true, true, false>(a, n_chunks, st);
   } else {
     err = launch<true, false, true, false>(a, n_chunks, st);

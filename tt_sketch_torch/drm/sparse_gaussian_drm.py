@@ -28,6 +28,7 @@ from tt_sketch_torch.drm.base import (
     LazyModeList,
     handle_transpose,
 )
+from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian
 from tt_sketch_torch.rng.hash_rng import drm_salts, flat_index, inds_to_normal
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -72,10 +73,6 @@ class SparseGaussianDRM(CansketchSparse, CanIncreaseRank):
         def mode(mu: int) -> torch.Tensor:
             prefix = tensor.indices[: mu + 1]
             if self.uses_kernel_contract:
-                from tt_sketch_torch.kernels.lazy_gaussian import (
-                    lazy_gaussian,
-                )
-
                 flat = flat_index(prefix, tensor.shape[: mu + 1])
                 return lazy_gaussian(flat, self.salts(mu)).to(self.dtype)
             return inds_to_normal(

@@ -31,6 +31,7 @@ from tt_sketch_torch.drm.base import (
     handle_transpose,
 )
 from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES, step_seed
+from tt_sketch_torch.kernels.sparse_sign import sparse_sign_rows
 from tt_sketch_torch.rng.hash_rng import (
     drm_salts,
     flat_index,
@@ -78,10 +79,6 @@ class SparseSignDRM(CansketchSparse, CanSlice):
         def mode(mu: int) -> torch.Tensor:
             prefix = tensor.indices[: mu + 1]
             if self.uses_kernel_contract:
-                from tt_sketch_torch.kernels.sparse_sign import (
-                    sparse_sign_rows,
-                )
-
                 flat = flat_index(prefix, tensor.shape[: mu + 1])
                 return sparse_sign_rows(
                     flat, self.salts(mu), self.true_rank[mu], self.nnz[mu],

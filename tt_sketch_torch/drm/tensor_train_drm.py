@@ -1,13 +1,18 @@
 """Tensor-train DRM: sketches with partial contractions of a fixed random TT.
 
-Counterpart of ``tt_sketch_tpu/drm/tensor_train_drm.py`` for dense and TT
-input.  Chain-state conventions (state after absorbing cores 0..mu):
+Counterpart of ``tt_sketch_tpu/drm/tensor_train_drm.py`` for sparse, dense
+and TT input.  The per-mode chain *step* functions are exported because the
+orthogonal/HMT sketches reuse them with the just-orthogonalized Ψ cores in
+place of random cores.  Chain-state conventions (state after absorbing
+cores 0..mu):
 
+- sparse: ``(nnz, r)`` rows of the partial contraction at the nonzeros
+  (``chain_step_sparse``); the sketches keep it transposed, ``(r, nnz)``
+  (``chain_step_sparse_t``), the layout the Ψ kernels consume
 - tt:     ``(tensor_rank, r)``
 - dense:  ``(prod(shape[:mu+1]), r)`` — explicit prefix contraction
 
-The sparse (HMT/OTTS slice), CP and Tucker sketches come with later slices
-of the port.
+The CP and Tucker sketches come with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -25,6 +30,33 @@ from tt_sketch_torch.drm.base import (
     handle_transpose,
 )
 from tt_sketch_torch.formats.tensor_train import TensorTrain
+from tt_sketch_torch.kernels.chain_step import (
+    KERNEL_DTYPES,
+    chain_step_t,
+    chain_step_t_reference,
+)
+
+
+def chain_step_sparse_t(state_t, core, indices_mu):
+    """Transposed sparse chain step: the ``(r2, nnz)`` state from the
+    ``(r1, nnz)`` one (None on the first mode),
+    ``out[k, j] = Σ_i state_t[i, j]·core[i, idx[j], k]``.
+
+    float32/bfloat16 go through ``kernels.chain_step.chain_step_t`` whatever
+    the mode size, the number of nonzeros or the ranks (the JAX package
+    gates its kernel to ``n ≤ 4096`` and ``nnz ≥ 4096``); float64 takes the
+    plain einsum."""
+    if core.dtype in KERNEL_DTYPES:
+        return chain_step_t(state_t, core, indices_mu)
+    return chain_step_t_reference(state_t, core, indices_mu)
+
+
+def chain_step_sparse(state, core, indices_mu):
+    """Absorb one TT core at the sparse tensor's μ-th index row: the
+    ``(nnz, r2)`` state from the ``(nnz, r1)`` one (None on the first
+    mode).  The same summands as ``chain_step_sparse_t``, transposed."""
+    state_t = None if state is None else state.T
+    return chain_step_sparse_t(state_t, core, indices_mu).T
 
 
 def chain_step_tt(state, core, tensor_core):
@@ -90,12 +122,15 @@ class TensorTrainDRM(
     def _slice(self, mat, mu: int):
         return mat[:, self.rank_min[mu]: self.rank_max[mu]]
 
+    @handle_transpose
     def sketch_sparse(self, tensor) -> List[torch.Tensor]:
-        raise NotImplementedError(
-            "TensorTrainDRM.sketch_sparse (the sparse TT chain, "
-            "chain_step_sparse) comes with the HMT/OTTS slice of the port; "
-            "sketch sparse tensors with SparseGaussianDRM"
-        )
+        """Per-mode ``(rank[mu], nnz)`` rows of the DRM at the nonzeros'
+        prefix indices, by the sparse chain."""
+        out, state_t = [], None
+        for mu, core in enumerate(self.cores):
+            state_t = chain_step_sparse_t(state_t, core, tensor.indices[mu])
+            out.append(state_t[self.rank_min[mu]: self.rank_max[mu], :])
+        return out
 
     def sketch_cp(self, tensor) -> List[torch.Tensor]:
         raise NotImplementedError(

@@ -1,23 +1,38 @@
 """Format × DRM dispatch and the general sketching engine.
 
-Counterpart of ``tt_sketch_tpu/engine/dispatch.py``, streaming branch only:
-for the streaming method the left/right contractions of every μ are
-independent and the result is a linear function of the tensor.  A sparse
-tensor with a float32/bfloat16 pair of hash-family DRMs
-(``SparseGaussianDRM``, ``SparseSignDRM``) runs entirely through the fused
-sparse kernels (``sparse_streaming_sketch_fused``).  The
-orthogonal and HMT methods come with the sequential-methods slice.
+Counterpart of ``tt_sketch_tpu/engine/dispatch.py``.  ``general_sketch`` is
+the one engine behind all three methods:
+
+- ``streaming``: the left/right contractions of every μ are independent and
+  the result is a linear function of the tensor.  A sparse tensor with a
+  float32/bfloat16 pair of hash-family DRMs (``SparseGaussianDRM``,
+  ``SparseSignDRM``) runs entirely through the fused sparse kernels
+  (``sparse_streaming_sketch_fused``).
+- ``orthogonal`` / ``hmt``: the left sketch at step μ is the contraction of
+  the *already orthogonalized* Ψ cores with the tensor, so the μ-loop is a
+  sequential chain (``_OrthogChain``), advanced with the same step
+  functions as the TT-DRM.  On sparse input the chain step is the
+  ``chain_step_t`` kernel and Ψ takes the half-fused and grouped kernels.
+
+Sparse, TT and dense input are ported; CP, Tucker and ``TensorSum`` chains
+come with those formats.
 """
 from __future__ import annotations
 
 import enum
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from tt_sketch_torch.drm.tensor_train_drm import (
+    chain_step_dense,
+    chain_step_sparse_t,
+    chain_step_tt,
+)
 from tt_sketch_torch.engine.sketch_container import SketchContainer
 from tt_sketch_torch.formats import DenseTensor, SparseTensor, TensorTrain
 from tt_sketch_torch.kernels import sketch_kernels as K
+from tt_sketch_torch.utils import right_mul_pinv
 
 
 class SketchMethod(enum.Enum):
@@ -54,7 +69,10 @@ def get_sketch_method(tensor, drm) -> Callable:
 def _check_placement(tensor, drm) -> None:
     """DRM and tensor must share device and dtype: torch neither moves nor
     promotes silently across them, and the port does not either.  A DRM
-    with cores is where its cores are; a hash DRM is where it generates."""
+    with cores is where its cores are; a hash DRM is where it generates.
+    None (HMT has no left DRM) passes."""
+    if drm is None:
+        return
     cores = getattr(drm, "cores", None)
     device = cores[0].device if cores else drm.device
     dtype = cores[0].dtype if cores else drm.dtype
@@ -69,50 +87,138 @@ def _check_placement(tensor, drm) -> None:
         )
 
 
+# -- orthogonalization step and incremental left chain -----------------------
+
+def orth_step(Psi: torch.Tensor, Omega: Optional[torch.Tensor]) -> torch.Tensor:
+    """QR-orthogonalize a Ψ core (after an optional ``Ψ Ω⁺`` solve, which
+    changes the trailing rank to ``Omega.shape[0]``)."""
+    r1, n, r2 = Psi.shape
+    final_r2 = r2 if Omega is None else Omega.shape[0]
+    mat = Psi.reshape(r1 * n, r2)
+    if Omega is not None:
+        mat = right_mul_pinv(mat, Omega)
+    Q, _ = torch.linalg.qr(mat)
+    return Q.reshape(r1, n, final_r2)
+
+
+class _OrthogChain:
+    """Left-sketch chain built from orthogonalized Ψ cores.
+
+    ``push(core)`` absorbs one (1 if first, else r×n×r) orthogonalized core
+    and returns the left contraction to use for the next Ψ, in the layout
+    the format's Ψ function expects from a left DRM.
+    """
+
+    def __init__(self, tensor) -> None:
+        if type(tensor) not in DRM_SKETCH_METHOD_DISPATCH:
+            raise NotImplementedError(
+                f"the orthogonal and HMT sketches of {type(tensor).__name__} "
+                f"input come with that format's slice of the port"
+            )
+        self.tensor = tensor
+        self.mu = 0
+        self.state = None
+
+    def push(self, core: torch.Tensor):
+        t, mu = self.tensor, self.mu
+        if isinstance(t, SparseTensor):
+            # state kept transposed (r, nnz): what the chain kernel writes
+            # and the Ψ kernels read
+            self.state = chain_step_sparse_t(self.state, core, t.indices[mu])
+            out = self.state
+        elif isinstance(t, TensorTrain):
+            self.state = chain_step_tt(self.state, core, t.cores[mu])
+            out = self.state
+        else:
+            self.state = chain_step_dense(self.state, core)
+            out = self.state.T
+        self.mu += 1
+        return out
+
+
+# -- the engine --------------------------------------------------------------
+
 def general_sketch(
     tensor,
     left_drm,
     right_drm,
     method: SketchMethod,
 ) -> SketchContainer:
-    """Compute the (Ψ, Ω) sketch of ``tensor`` with the given DRM pair."""
-    if method != SketchMethod.streaming:
-        raise NotImplementedError(
-            f"method '{method.value}' comes with the sequential-methods slice "
-            f"of the port"
-        )
-    if left_drm is None:
+    """Compute the (Ψ, Ω) sketch of ``tensor`` with the given DRM pair
+    (``left_drm`` is None for HMT)."""
+    if method != SketchMethod.hmt and left_drm is None:
         raise ValueError(f"left_drm must be provided for method '{method}'")
     for drm in (left_drm, right_drm):
         _check_placement(tensor, drm)
-    if isinstance(tensor, SparseTensor) and K.sparse_fused_applies(
-        tensor, left_drm, right_drm
-    ):
+    sparse = isinstance(tensor, SparseTensor)
+    if (method == SketchMethod.streaming and sparse
+            and K.sparse_fused_applies(tensor, left_drm, right_drm)):
         Psi_cores, Omega_mats = K.sparse_streaming_sketch_fused(
             tensor, left_drm, right_drm
         )
         return SketchContainer(Psi_cores, Omega_mats)
 
     n_dims = len(tensor.shape)
-    left_contractions = get_sketch_method(tensor, left_drm)(tensor)
+    if method != SketchMethod.hmt:
+        left_contractions = get_sketch_method(tensor, left_drm)(tensor)
     right_contractions = get_sketch_method(tensor, right_drm)(tensor)
 
-    omega_method = OMEGA_METHODS[type(tensor)]
-    Omega_mats: List[torch.Tensor] = [
-        omega_method(
-            left_contractions[mu], right_contractions[mu], tensor=tensor, mu=mu
-        )
-        for mu in range(n_dims - 1)
-    ]
+    # The Ψ/Ω functions see the DRM objects so that hash-family DRMs take
+    # the kernels that hash their rows themselves.  For the sequential
+    # methods the left side of Ψ is the orthogonalized-core chain, an array
+    # and not a DRM, so Ψ sees the right DRM only (the half-fused kernel
+    # then hashes the right rows and reads the chain rows); Ω (orthogonal
+    # only) sees both DRMs.
+    if method == SketchMethod.streaming:
+        psi_kwargs = {"left_drm": left_drm, "right_drm": right_drm}
+    else:
+        psi_kwargs = {"right_drm": right_drm}
+    omega_kwargs = {"left_drm": left_drm, "right_drm": right_drm}
 
+    def _lazy_side(contractions, k: int):
+        # the sparse functions take thunks: a fused path never reads the
+        # rows, so a LazyModeList element is not generated for it
+        if sparse:
+            return lambda: contractions[k]
+        return contractions[k]
+
+    Omega_mats: List[torch.Tensor] = []
+    if method != SketchMethod.hmt:
+        omega_method = OMEGA_METHODS[type(tensor)]
+        for mu in range(n_dims - 1):
+            Omega_mats.append(
+                omega_method(
+                    _lazy_side(left_contractions, mu),
+                    _lazy_side(right_contractions, mu),
+                    tensor=tensor,
+                    mu=mu,
+                    **omega_kwargs,
+                )
+            )
+
+    sequential = method in (SketchMethod.hmt, SketchMethod.orthogonal)
+    if sequential:
+        chain = _OrthogChain(tensor)
+
+    Psi_cores: List[torch.Tensor] = []
     psi_method = PSI_METHODS[type(tensor)]
-    Psi_cores: List[torch.Tensor] = [
-        psi_method(
-            left_contractions[mu - 1] if mu > 0 else None,
-            right_contractions[mu] if mu < n_dims - 1 else None,
-            tensor=tensor,
-            mu=mu,
+    for mu in range(n_dims):
+        if mu == 0:
+            left_sketch = None
+        elif sequential:
+            left_sketch = chain.push(Psi_cores[-1])
+        else:
+            left_sketch = _lazy_side(left_contractions, mu - 1)
+        right_sketch = (_lazy_side(right_contractions, mu)
+                        if mu < n_dims - 1 else None)
+        Psi = psi_method(
+            left_sketch, right_sketch, tensor=tensor, mu=mu, **psi_kwargs
         )
-        for mu in range(n_dims)
-    ]
+        if mu < n_dims - 1:
+            if method == SketchMethod.orthogonal:
+                Psi = orth_step(Psi, Omega_mats[mu])
+            elif method == SketchMethod.hmt:
+                Psi = orth_step(Psi, None)
+        Psi_cores.append(Psi)
+
     return SketchContainer(Psi_cores, Omega_mats)

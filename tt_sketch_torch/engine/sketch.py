@@ -1,12 +1,12 @@
-"""Streaming (STTA) sketch API: ``stream_sketch``, ``SketchedTensorTrain``
-and the recovery ``assemble_sketched_tt``.
+"""Sketch API: the streaming (STTA) ``stream_sketch`` with
+``SketchedTensorTrain`` and the recovery ``assemble_sketched_tt``, and the
+sequential one-pass sweeps ``hmt_sketch`` and ``orthogonal_sketch`` (OTTS),
+which return a ``TensorTrain``.
 
-Counterpart of ``tt_sketch_tpu/engine/sketch.py`` for the streaming method,
-on dense, TT and sparse input (sparse with ``SparseGaussianDRM``).
-The right seed is derived as in the JAX package,
+Counterpart of ``tt_sketch_tpu/engine/sketch.py`` on dense, TT and sparse
+input.  The right seed is derived as in the JAX package,
 ``(seed + splitmix_hash(d)) mod 2^32``, so equal seeds give equal DRMs.
-The orthogonal/HMT sketches, blocked sketches and rank growth come with
-later slices.
+Blocked sketches and rank growth come with later slices.
 """
 from __future__ import annotations
 
@@ -57,6 +57,112 @@ def _resolve_drm_types(left_type, right_type):
     if right_type is None:
         right_type = left_type
     return left_type, right_type
+
+
+def hmt_sketch(
+    tensor: Tensor,
+    rank: TTRank,
+    seed: Optional[int] = None,
+    drm_type: Optional[Type[DRM]] = None,
+    drm: Optional[DRM] = None,
+    return_drm: bool = False,
+    dtype=None,
+    compile: bool = False,
+    device=None,
+):
+    """One-sided Halko–Martinsson–Tropp-style sweep; returns a TensorTrain.
+
+    The DRM (default ``TensorTrainDRM``) is a right DRM; the left side of
+    every Ψ is the chain of the cores orthogonalized so far.  ``compile`` is
+    accepted for the JAX package's signature and does nothing: torch runs
+    eagerly.  ``dtype``/``device`` as in ``stream_sketch``."""
+    del compile
+    if seed is None:
+        seed = _random_seed()
+    if drm is None:
+        if drm_type is None:
+            drm_type = TensorTrainDRM
+        rank = process_tt_rank(rank, tensor.shape, trim=True)
+        drm = drm_type(
+            rank, transpose=True, shape=tensor.shape, seed=seed, dtype=dtype,
+            device=device,
+        )
+    elif not _rank_matches(drm.rank[::-1], rank, tensor.shape):
+        raise ValueError(
+            f"Rank {rank} does not match the rank of the DRM {drm.rank}."
+        )
+    sketch = general_sketch(tensor, None, drm, method=SketchMethod.hmt)
+    sketched = TensorTrain(sketch.Psi_cores)
+    if return_drm:
+        return sketched, drm
+    return sketched
+
+
+def orthogonal_sketch(
+    tensor: Tensor,
+    left_rank: TTRank,
+    right_rank: TTRank,
+    seed: Optional[int] = None,
+    left_drm_type: Optional[Type[DRM]] = None,
+    right_drm_type: Optional[Type[DRM]] = None,
+    left_drm: Optional[DRM] = None,
+    right_drm: Optional[DRM] = None,
+    return_drm: bool = False,
+    dtype=None,
+    compile: bool = False,
+    device=None,
+):
+    """Two-sided orthogonal sketch (OTTS); returns a TensorTrain.
+
+    ``compile`` is accepted for the JAX package's signature and does
+    nothing: torch runs eagerly.  ``dtype``/``device`` as in
+    ``stream_sketch``."""
+    del compile
+    d = len(tensor.shape)
+    if not bool(np.all(np.array(left_rank) < np.array(right_rank))):
+        raise ValueError(
+            f"The right rank needs to be larger than the left rank. "
+            f"Left rank: {left_rank}, right rank: {right_rank}"
+        )
+    if seed is None:
+        seed = _random_seed()
+
+    left_drm_type, right_drm_type = _resolve_drm_types(
+        left_drm_type, right_drm_type
+    )
+    if left_drm is None:
+        left_rank = process_tt_rank(left_rank, tensor.shape, trim=True)
+        left_drm = left_drm_type(
+            left_rank, transpose=False, shape=tensor.shape, seed=seed,
+            dtype=dtype, device=device,
+        )
+    elif not _rank_matches(left_drm.rank, left_rank, tensor.shape):
+        raise ValueError(
+            f"Left rank {left_rank} does not match the DRM rank {left_drm.rank}."
+        )
+    if right_drm is None:
+        right_rank = process_tt_rank(right_rank, tensor.shape, trim=False)
+        right_drm = right_drm_type(
+            right_rank,
+            transpose=True,
+            shape=tensor.shape,
+            seed=_derive_right_seed(seed, d),
+            dtype=dtype,
+            device=device,
+        )
+    elif not _rank_matches(right_drm.rank[::-1], right_rank, tensor.shape):
+        raise ValueError(
+            f"Right rank {right_rank} does not match the DRM rank "
+            f"{right_drm.rank}."
+        )
+
+    sketch = general_sketch(
+        tensor, left_drm, right_drm, method=SketchMethod.orthogonal
+    )
+    sketched = TensorTrain(sketch.Psi_cores)
+    if return_drm:
+        return sketched, left_drm, right_drm
+    return sketched
 
 
 def stream_sketch(

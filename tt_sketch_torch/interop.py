@@ -30,6 +30,24 @@ def container_from_numpy(psi_list: Sequence[np.ndarray],
     )
 
 
+def tt_drm_from_numpy(cores: Sequence[np.ndarray], rank, shape,
+                      transpose: bool, seed: Optional[int] = None,
+                      device=None, **slice_kwargs):
+    """A ``TensorTrainDRM`` with the given cores (e.g. ``np.asarray`` of a
+    JAX ``TensorTrainDRM``'s ``cores``), so that both packages sketch with
+    the same operator.
+
+    ``rank`` is the rank as a constructor takes it (for a right DRM, the
+    reverse of the DRM's ``rank`` attribute); ``slice_kwargs`` may carry
+    ``rank_min``/``rank_max``/``true_rank`` in the same orientation.  The
+    DRM's dtype is the cores'."""
+    from tt_sketch_torch.drm.tensor_train_drm import TensorTrainDRM
+
+    cores = from_numpy_cores(cores, device)
+    return TensorTrainDRM(rank, tuple(shape), transpose, seed=seed,
+                          cores=cores, dtype=cores[0].dtype, **slice_kwargs)
+
+
 def sparse_tensor_from_numpy(shape, indices, entries, device=None):
     """A ``SparseTensor`` on ``device`` from numpy (d, nnz) indices and
     (nnz,) entries."""

@@ -6,17 +6,22 @@ of the dense, TT and sparse functions of
 ``tt_sketch_tpu/kernels/sketch_kernels.py``; the CP and Tucker functions
 come with a later slice.
 
-Sparse input takes two routes.  With a pair of hash-family DRMs
-(``SparseGaussianDRM``, ``SparseSignDRM`` or one of each) in
-float32/bfloat16, ``sparse_streaming_sketch_fused`` computes every Ψ and Ω
-through the fused kernels of ``kernels/sparse_psi.py`` (DRM rows hashed
+Sparse input takes two routes.  A streaming sketch with a pair of
+hash-family DRMs (``SparseGaussianDRM``, ``SparseSignDRM`` or one of each)
+in float32/bfloat16 goes to ``sparse_streaming_sketch_fused``: every Ψ and
+Ω through the fused kernels of ``kernels/sparse_psi.py`` (DRM rows hashed
 inside the kernel, per the tensor's sort/chunk plans; a giant mode's
 ``WindowPlan`` goes to ``psi_window_direct``) and the row generators
 ``kernels/lazy_gaussian.py`` / ``kernels/sparse_sign.py`` (rows of unplanned
-modes).  Otherwise (the float64 parity path) the DRM rows are materialized
-and reduced by the segment sum.  The JAX package's grouped, hash-sorted and
-half-fused Ψ paths serve the sequential methods, which come with a later
-slice.
+modes).  Every other sketch (the sequential methods, whose left side is the
+chain of orthogonalized cores; a ``TensorTrainDRM`` on either side; float64)
+calls ``sketch_psi_sparse`` / ``sketch_omega_sparse`` per mode.  In
+float32/bfloat16 with a ``ModePlan``, Ψ_μ then takes, in this order: the
+fused kernel when every side it consumes is a hash DRM; the half-fused
+kernel (``psi_chunk_slabs_genright``) when one side is a hash DRM and the
+other an array; the grouped kernel (``psi_chunk_slabs``) over rows gathered
+into the plan's order.  Without a plan, with a ``WindowPlan`` and a non-hash
+side, or in float64 it is the segment reduction over materialized rows.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian
 from tt_sketch_torch.kernels.sparse_plan import WindowPlan
 from tt_sketch_torch.kernels.sparse_psi import (
     omega_fused,
+    psi_chunk_slabs,
+    psi_chunk_slabs_genright,
     psi_fused_slabs,
     psi_omega_merged_slabs,
     psi_window_direct,
@@ -96,14 +103,24 @@ def _is_kernel_hash_drm(drm) -> bool:
             and drm.uses_kernel_contract)
 
 
+def _kernel_dtype(tensor) -> bool:
+    from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES
+
+    return tensor.dtype in KERNEL_DTYPES
+
+
 def sparse_fused_applies(tensor, left_drm, right_drm) -> bool:
     """Whether ``sparse_streaming_sketch_fused`` sketches ``tensor``: both
     DRMs are kernel-contract hash-family DRMs (Gaussian, sign or one of
     each) and the tensor is float32 or bfloat16."""
-    from tt_sketch_torch.drm.sparse_gaussian_drm import KERNEL_DTYPES
-
-    return (tensor.dtype in KERNEL_DTYPES and _is_kernel_hash_drm(left_drm)
+    return (_kernel_dtype(tensor) and _is_kernel_hash_drm(left_drm)
             and _is_kernel_hash_drm(right_drm))
+
+
+def _materialize(side):
+    """Sides may arrive as thunks: the fused paths never need the rows, so
+    a thunk is called only where a path consumes the array."""
+    return side() if callable(side) else side
 
 
 def _segment_sum_onehot(outer, idx, n_mu):
@@ -253,15 +270,134 @@ def _hash_rows_from_pairs(drm, k: int, flat, dtype):
     return rows.to(dtype)
 
 
-def sketch_omega_sparse(left_sketch, right_sketch, *, tensor, **kwargs):
-    """Ω = Σ_k entries[k] · left[:,k] ⊗ right[:,k] over materialized rows."""
+def sketch_omega_sparse(left_sketch, right_sketch, *, tensor, mu=None,
+                        left_drm=None, right_drm=None, **kwargs):
+    """Ω_μ = Σ_k entries[k] · left[:,k] ⊗ right[:,k]: the fused kernel when
+    ``mu`` is given and both DRMs are kernel-contract hash DRMs (the rows
+    are hashed inside it and the sides, which may be thunks, are never
+    read), else the product over materialized rows."""
+    if (mu is not None and _kernel_dtype(tensor)
+            and _is_kernel_hash_drm(left_drm)
+            and _is_kernel_hash_drm(right_drm)):
+        return _omega_sparse_fused(tensor, mu, left_drm, right_drm)
+    left_sketch = _materialize(left_sketch)
+    right_sketch = _materialize(right_sketch)
     return (left_sketch * tensor.entries) @ right_sketch.T
 
 
-def sketch_psi_sparse(left_sketch, right_sketch, *, tensor, mu, **kwargs):
-    """Ψ_μ by the segment reduction over materialized rows."""
-    return _psi_sparse_segment(left_sketch, right_sketch, tensor.entries,
-                               tensor.indices[mu], tensor.shape[mu])
+def _sorted_rows(arr, plan):
+    """``arr[:, plan.perm]``: an (r, nnz) row family gathered into the
+    plan's mode-sorted order."""
+    return arr.index_select(1, plan.perm)
+
+
+def _psi_sparse_grouped(left, right, entries, plan, n_mu):
+    """Ψ_μ over a sort/chunk plan from materialized rows: entries and rows
+    are gathered into the plan's order, ``psi_chunk_slabs`` writes one slab
+    per chunk and the slabs are combined.
+
+    The entries are the argument's, gathered through ``plan.perm``: a plan
+    whose ``sorted_entries`` went stale cannot change the result (the JAX
+    package prefers ``plan.sorted_entries``; a gather costs little here)."""
+    se = entries.index_select(0, plan.perm)
+    sl = sr = None
+    if left is not None:
+        sl = _sorted_rows(left, plan).to(torch.float32)
+    if right is not None:
+        sr = _sorted_rows(right, plan).to(torch.float32)
+    slabs = psi_chunk_slabs(plan.local_idx, se, sl, sr, plan.n_chunks,
+                            plan.span, plan.chunk)
+    return _psi_from_slabs(slabs, plan, n_mu, entries.dtype)
+
+
+def _can_fuse_psi(plan, tensor, mu, left_drm, right_drm) -> bool:
+    """The fused sorted-stream kernels apply when the plan carries the
+    sorted streams and every side Ψ_μ consumes is a kernel-contract hash
+    DRM (the kernel hashes the rows the DRM would materialize)."""
+    if plan.sorted_entries is None or not _kernel_dtype(tensor):
+        return False
+    d = len(tensor.shape)
+    if mu > 0 and not _is_kernel_hash_drm(left_drm):
+        return False
+    if mu < d - 1 and not _is_kernel_hash_drm(right_drm):
+        return False
+    return True
+
+
+def _can_halffuse_psi(plan, tensor, mu, left_sketch, right_sketch, left_drm,
+                      right_drm) -> bool:
+    """Exactly one consumed side is a kernel-contract hash DRM, the other
+    side's rows are present as an array (a sequential chain state or a
+    materialized non-hash DRM), and the ``ModePlan`` carries the sorted
+    streams."""
+    if (plan.sorted_entries is None or isinstance(plan, WindowPlan)
+            or not _kernel_dtype(tensor)):
+        return False
+    d = len(tensor.shape)
+    right_hash = mu < d - 1 and _is_kernel_hash_drm(right_drm)
+    left_hash = mu > 0 and _is_kernel_hash_drm(left_drm)
+    if right_hash and not left_hash:
+        return mu == 0 or left_sketch is not None
+    if left_hash and not right_hash:
+        return mu == d - 1 or right_sketch is not None
+    return False
+
+
+def _psi_sparse_halffused(left_sketch, right_sketch, tensor, mu, plan, n_mu,
+                          left_drm, right_drm):
+    """Ψ_μ with one hash-family side generated in the kernel and the other
+    side's rows fed in sorted order (one gather through ``plan.perm``).
+
+    Serves the sequential methods' chain left side and streaming's mixed
+    TT-DRM × hash pairs.  The swapped case (hash left, array right) is the
+    same kernel call with the roles exchanged and each slab block
+    transposed."""
+    d = len(tensor.shape)
+    right_is_hash = mu < d - 1 and _is_kernel_hash_drm(right_drm)
+    if right_is_hash:
+        gen_drm, k, gen_flat = right_drm, d - 2 - mu, plan.flat_right
+        arr = left_sketch
+    else:
+        gen_drm, k, gen_flat = left_drm, mu - 1, plan.flat_left
+        arr = right_sketch
+    arr = _materialize(arr)
+    rows = (None if arr is None
+            else _sorted_rows(arr, plan).to(torch.float32))
+    slabs = psi_chunk_slabs_genright(
+        plan.local_idx, plan.sorted_entries, rows, gen_flat,
+        gen_drm.salts(k), plan.n_chunks, plan.span, plan.chunk,
+        gen_drm.side_spec(k),
+    )  # (n_chunks, span, r_arr, r_gen)
+    if not right_is_hash:
+        slabs = slabs.transpose(2, 3)
+    return _psi_from_slabs(slabs, plan, n_mu, tensor.dtype)
+
+
+def sketch_psi_sparse(left_sketch, right_sketch, *, tensor, mu,
+                      left_drm=None, right_drm=None, **kwargs):
+    """Ψ_μ of a sparse tensor from its sides (arrays, thunks or None) and,
+    where known, the DRMs behind them (module docstring: fused, half-fused,
+    grouped, segment)."""
+    n_mu = tensor.shape[mu]
+    plan = tensor.psi_plan[mu] if tensor.psi_plan is not None else None
+    if plan is not None:
+        if _can_fuse_psi(plan, tensor, mu, left_drm, right_drm):
+            return _psi_sparse_fused(tensor, mu, plan, n_mu, left_drm,
+                                     right_drm)
+        # a WindowPlan carries only the window kernel's padded streams, and
+        # float64 is the parity path: both take the segment reduction
+        if not isinstance(plan, WindowPlan) and _kernel_dtype(tensor):
+            if _can_halffuse_psi(plan, tensor, mu, left_sketch, right_sketch,
+                                 left_drm, right_drm):
+                return _psi_sparse_halffused(
+                    left_sketch, right_sketch, tensor, mu, plan, n_mu,
+                    left_drm, right_drm)
+            return _psi_sparse_grouped(
+                _materialize(left_sketch), _materialize(right_sketch),
+                tensor.entries, plan, n_mu)
+    return _psi_sparse_segment(
+        _materialize(left_sketch), _materialize(right_sketch),
+        tensor.entries, tensor.indices[mu], n_mu)
 
 
 def sparse_streaming_sketch_fused(tensor, left_drm, right_drm):

@@ -1,11 +1,13 @@
 """Fused sparse Ψ/Ω contractions with the DRM rows hashed inside the kernel.
 
 Counterpart of ``tt_sketch_tpu/kernels/pallas_psi.py``:
-``psi_fused_slabs``, ``omega_fused``, ``psi_omega_merged_slabs`` and
-``psi_window_direct``.  On CUDA tensors each launches its hand-written
-kernel of ``tt_sketch_torch/csrc/sparse_psi.cu`` (built at first use, see
-``cuda_build``) or raises; on CPU tensors it computes its plain version
-(``*_reference``).  There is no fallback from one to the other.
+``psi_fused_slabs``, ``omega_fused``, ``psi_omega_merged_slabs``,
+``psi_window_direct`` and, for rows that are given and not hashed,
+``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``.  On CUDA tensors each
+launches its hand-written kernel of ``tt_sketch_torch/csrc/sparse_psi.cu``
+(built at first use, see ``cuda_build``) or raises; on CPU tensors it
+computes its plain version (``*_reference``).  There is no fallback from
+one to the other.
 
 A side is described by its int64 flat indices (the plan's ``flat_left``
 etc.), its int64 column salts and a spec, as in the JAX package:
@@ -16,6 +18,11 @@ etc.), its int64 column salts and a spec, as in the JAX package:
   ``[rank_min, rank_min + r_out)`` of the shuffle over ``rank`` slots; the
   salts are those of columns ``[0, nnz)`` (not padded to the TPU's
   multiple of 8 rows).
+
+``psi_chunk_slabs`` and ``psi_chunk_slabs_genright`` take a side's rows as a
+float32 ``(r, nnz)`` tensor in the plan's sorted order (a sequential
+sketch's chain state, a TT-DRM's rows): the kernel loads them into the tile
+it would otherwise hash into.
 
 The two sides of a call may differ (mixed pairs).  Layouts are the port's
 own: slabs are ``(n_chunks, span, r1, r2)`` float32 with ``r1 = 1`` without
@@ -28,8 +35,10 @@ nnz in shared memory, 260 bytes per row, and a sign side keeps all ``rank``
 slots of its shuffle there whatever its ``r_out``.  The rows of all sides
 of a call plus 8 bytes per salt must fit 232,192 bytes: 866 rows in all
 with a salt each (two sign sides of rank 433 with ``nnz = rank``, or three
-of rank 288 in the merged kernel).  Beyond that the wrappers raise ``ValueError``
-before the launch (``sparse_sign_rows`` alone takes ranks up to 5811).
+of rank 288 in the merged kernel).  A given side keeps its ``r`` rows there
+and no salts (893 rows when nothing else is held).  Beyond that the wrappers
+raise ``ValueError`` before the launch (``sparse_sign_rows`` alone takes
+ranks up to 5811).
 """
 from __future__ import annotations
 
@@ -50,6 +59,8 @@ from tt_sketch_torch.kernels.sparse_sign import (
 )
 
 _GAUSS = ("g",)
+#: a side whose rows are given as an (r, nnz) tensor in place of ``flat``
+_GIVEN = ("a",)
 
 #: nnz per step of the plain versions (bounds their temporaries)
 _REF_BLOCK = 1 << 18
@@ -64,6 +75,8 @@ def _side_rows(spec, flat, salts) -> int:
     if flat is None:
         return 1
     spec = tuple(spec)
+    if spec == _GIVEN:
+        return flat.shape[0]
     if spec == _GAUSS:
         return salts.shape[0]
     if len(spec) == 5 and spec[0] == "s":
@@ -74,11 +87,20 @@ def _side_rows(spec, flat, salts) -> int:
                      f"('s', rank, nnz, rank_min, r_out)")
 
 
+def _cols(x, sl):
+    """Columns ``sl`` of a side: of its flat stream, or of its given rows."""
+    if x is None:
+        return None
+    return x[sl] if x.ndim == 1 else x[:, sl]
+
+
 def _rows(flat, salts, spec, n, like, weight=None):
     """(r, n) rows of one side, or a row of ones for a missing side; the
     entries ``weight`` scale them when given."""
     if flat is None:
         rows = torch.ones((1, n), dtype=torch.float32, device=like.device)
+    elif tuple(spec) == _GIVEN:
+        rows = flat.to(torch.float32)
     elif tuple(spec) == _GAUSS:
         rows = lazy_gaussian_reference(flat, salts)
     else:
@@ -105,9 +127,8 @@ def _psi_blocks_reference(loc, se, lflat, rflat, lsalts, rsalts, lspec,
         sl = slice(k0, min(k0 + _REF_BLOCK, nnz))
         n = sl.stop - k0
         e = se[sl].to(torch.float32)
-        L = _rows(None if lflat is None else lflat[sl], lsalts, lspec, n, e,
-                  e)
-        R = _rows(None if rflat is None else rflat[sl], rsalts, rspec, n, e)
+        L = _rows(_cols(lflat, sl), lsalts, lspec, n, e, e)
+        R = _rows(_cols(rflat, sl), rsalts, rspec, n, e)
         outer = (L.T[:, :, None] * R.T[:, None, :]).reshape(n, r1 * r2)
         k = torch.arange(k0, sl.stop, device=se.device)
         row = block_of(k) * (span + 1) + loc[sl].to(torch.int64).clamp(
@@ -123,6 +144,21 @@ def psi_fused_slabs_reference(loc, se, lflat, rflat, lsalts, rsalts,
     return _psi_blocks_reference(loc, se, lflat, rflat, lsalts, rsalts,
                                  lspec, rspec, lambda k: k // chunk,
                                  n_chunks, span)
+
+
+def psi_chunk_slabs_reference(loc, se, sl, sr, n_chunks: int, span: int,
+                              chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of ``psi_chunk_slabs``."""
+    return _psi_blocks_reference(loc, se, sl, sr, None, None, _GIVEN, _GIVEN,
+                                 lambda k: k // chunk, n_chunks, span)
+
+
+def psi_chunk_slabs_genright_reference(loc, se, sl, rflat, rsalts,
+                                       n_chunks: int, span: int, chunk: int,
+                                       rspec=_GAUSS) -> torch.Tensor:
+    """Plain PyTorch version of ``psi_chunk_slabs_genright``."""
+    return _psi_blocks_reference(loc, se, sl, rflat, None, rsalts, _GIVEN,
+                                 rspec, lambda k: k // chunk, n_chunks, span)
 
 
 def psi_window_direct_reference(win, first, loc, se, lflat, rflat, lsalts,
@@ -183,6 +219,9 @@ def _library() -> ctypes.CDLL:
     lib.tt_psi_window_direct.argtypes = (
         [ptr] * 9 + [i32] * 6 + [spec] * 2 + [ptr])
     lib.tt_psi_window_direct.restype = i32
+    lib.tt_psi_chunk_slabs.argtypes = (
+        [ptr] * 7 + [i64] + [i32] * 5 + [spec] + [ptr])
+    lib.tt_psi_chunk_slabs.restype = i32
     lib.tt_omega_fused.argtypes = (
         [ptr] * 6 + [i64, i32, i32] + [spec] * 2 + [ptr])
     lib.tt_omega_fused.restype = i32
@@ -208,12 +247,14 @@ def _c_spec(spec):
 def _check_shared_memory(name: str, *sides) -> None:
     """Raise if the rows and salts of ``sides`` (``(flat, spec, r)`` each)
     do not fit a block's shared memory (``Layout::bytes`` of the kernel
-    source): a sign side allocates ``rank`` rows, any other its ``r``."""
+    source): a sign side allocates ``rank`` rows, any other its ``r``; a
+    missing or given side has no salts."""
     rows = n_salts = 0
     for flat, spec, r in sides:
-        sign = flat is not None and tuple(spec) != _GAUSS
+        sign = flat is not None and tuple(spec)[0] == "s"
         rows += spec[1] if sign else r
-        n_salts += 0 if flat is None else spec[2] if sign else r
+        if flat is not None and tuple(spec) != _GIVEN:
+            n_salts += spec[2] if sign else r
     need = 8 * n_salts + 4 * (_TILE + 1) * rows + 4 * _TILE
     if need > _SMEM_LIMIT:
         raise ValueError(
@@ -299,6 +340,102 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
 
 
 psi_fused_slabs.launches = 0
+
+
+def _check_rows(name: str, nnz: int, **sides) -> None:
+    """Given sides are (r, nnz) in the plan's sorted order, unpadded."""
+    for side, rows in sides.items():
+        if rows is not None and (rows.ndim != 2 or rows.shape[1] != nnz):
+            raise ValueError(f"{name}: {side} of shape {tuple(rows.shape)} "
+                             f"for {nnz} entries; rows are (r, nnz) in the "
+                             f"plan's sorted order, unpadded")
+
+
+def _launch_chunk_slabs(name, loc, se, sl, sr, rflat, rsalts, rspec,
+                        n_chunks: int, span: int, chunk: int):
+    """The slab kernel with a given left side (or none) and a right side
+    that is given (``sr``), hashed (``rflat``/``rsalts``/``rspec``) or
+    missing."""
+    right, rspec = (sr, _GIVEN) if sr is not None else (rflat, rspec)
+    r1 = _side_rows(_GIVEN, sl, None)
+    r2 = _side_rows(rspec, right, rsalts)
+    e = _prepare(se, loc, rflat=rflat,
+                 rsalts=rsalts if rflat is not None else None)
+    for side, rows in (("sl", sl), ("sr", sr)):
+        if rows is not None and (rows.device != e.device
+                                 or rows.dtype != torch.float32
+                                 or not rows.is_contiguous()):
+            raise ValueError(f"{name}: {side} must be a contiguous float32 "
+                             f"tensor on {e.device}, got {rows.dtype} on "
+                             f"{rows.device}")
+    _check_geometry(loc, e, n_chunks, span, chunk)
+    _check_shared_memory(name, (sl, _GIVEN, r1), (right, rspec, r2))
+    lib = _library()
+    slabs = torch.empty((n_chunks, span, r1, r2), dtype=torch.float32,
+                        device=e.device)
+    with torch.cuda.device(e.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tt_psi_chunk_slabs(
+            loc.data_ptr(), e.data_ptr(), _ptr(sl), _ptr(sr), _ptr(rflat),
+            _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
+            e.shape[0], n_chunks, span, chunk, r1, r2,
+            None if sr is not None else _c_spec(rspec), stream)
+    _raise_on(lib, err, name)
+    return slabs
+
+
+def psi_chunk_slabs(loc, se, sl, sr, n_chunks: int, span: int,
+                    chunk: int) -> torch.Tensor:
+    """Per-chunk Ψ slabs ``(n_chunks, span, r1, r2)`` float32 from rows that
+    are given: ``slab[c, s, i, k] = Σ_{j in chunk c, loc[j] = s}
+    e[j]·sl[i, j]·sr[k, j]``.
+
+    ``loc`` (n_chunks·chunk,) int32 local rows (sentinel ``span``), ``se``
+    (nnz,) sorted entries, ``sl`` (r1, nnz) and ``sr`` (r2, nnz) float32
+    rows in the plan's sorted order, unpadded; either may be None (a row of
+    ones: ``r1 = 1`` or ``r2 = 1``).  ``psi_chunk_slabs.launches`` counts
+    kernel launches."""
+    if sl is None and sr is None:
+        raise ValueError("psi_chunk_slabs needs a left or a right side")
+    _check_rows("psi_chunk_slabs", se.shape[0], sl=sl, sr=sr)
+    if _on_cpu(loc, se, sl, sr):
+        return psi_chunk_slabs_reference(loc, se, sl, sr, n_chunks, span,
+                                         chunk)
+    slabs = _launch_chunk_slabs("psi_chunk_slabs", loc, se, sl, sr, None,
+                                None, _GAUSS, n_chunks, span, chunk)
+    psi_chunk_slabs.launches += 1
+    return slabs
+
+
+psi_chunk_slabs.launches = 0
+
+
+def psi_chunk_slabs_genright(loc, se, sl, rflat, rsalts, n_chunks: int,
+                             span: int, chunk: int,
+                             rspec=_GAUSS) -> torch.Tensor:
+    """Per-chunk Ψ slabs ``(n_chunks, span, r1, r2)`` float32 with the left
+    rows given (``sl`` (r1, nnz) float32, sorted, unpadded; None: a row of
+    ones) and the right rows hashed in the kernel from ``rflat`` (nnz,)
+    int64, ``rsalts`` and ``rspec`` (module docstring).  The swapped case
+    (hashed left, given right) is the same call with the roles exchanged
+    and each slab block transposed by the caller.
+    ``psi_chunk_slabs_genright.launches`` counts kernel launches."""
+    if rflat is None:
+        raise ValueError("psi_chunk_slabs_genright needs the hashed side's "
+                         "flat indices")
+    _check_rows("psi_chunk_slabs_genright", se.shape[0], sl=sl)
+    _side_rows(rspec, rflat, rsalts)  # checks the spec against its salts
+    if _on_cpu(loc, se, sl, rflat, rsalts):
+        return psi_chunk_slabs_genright_reference(
+            loc, se, sl, rflat, rsalts, n_chunks, span, chunk, rspec)
+    slabs = _launch_chunk_slabs("psi_chunk_slabs_genright", loc, se, sl,
+                                None, rflat, rsalts, rspec, n_chunks, span,
+                                chunk)
+    psi_chunk_slabs_genright.launches += 1
+    return slabs
+
+
+psi_chunk_slabs_genright.launches = 0
 
 
 def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
