@@ -7,7 +7,7 @@ Run from the repo root on a machine with one CUDA card::
 Phases (the first failure raises and exits non-zero):
 
 1. Build the CUDA libraries ``dual_project``, ``lazy_gaussian``,
-   ``sparse_sign``, ``sparse_psi`` and ``chain_step`` from
+   ``sparse_sign``, ``sparse_psi``, ``chain_step`` and ``segment_psi`` from
    ``tt_sketch_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once), print each ptxas report
    and the card's name and power limit; count in the built SASS the
@@ -29,7 +29,8 @@ Phases (the first failure raises and exits non-zero):
 5. The sparse main paths at full size, each through ``stream_sketch`` in
    f32 at rank 10/20 with the library-default plans, recording the
    arguments of every kernel call: ``uber-synthetic`` with a
-   ``SparseGaussianDRM`` pair (launches 3/2/1/1: rows, Ω, merged, Ψ) and
+   ``SparseGaussianDRM`` pair (launches 3/2/1/1/2: rows, Ω, merged, Ψ,
+   segment reductions) and
    with a ``SparseSignDRM`` pair (the same with ``sparse_sign_rows``);
    ``lbnl-synthetic`` with a Gaussian and with a sign pair (merged x 4,
    ``psi_window_direct`` x 1).  Per path: the launch counts, worked out
@@ -38,14 +39,18 @@ Phases (the first failure raises and exits non-zero):
    of ``to_tt()`` (a guard for uber only: lbnl's scattered support has
    nothing to compress; with the sign pair each of seeds 0-4 against the
    float64 parity path of the same seed, and their median); median sketch
-   time over fresh seeds (CUDA events); the recorded segment reductions and slab combines replayed and
-   timed; a profiler breakdown.
+   time over fresh seeds (CUDA events); the recorded segment reductions
+   (the package's, through ``psi_segment`` for a Ψ of at most 16384 values;
+   its plain ``index_add_``; a one-hot ``torch.matmul`` written here as a
+   yardstick) and slab combines replayed and timed; a profiler breakdown.
 6. The sparse kernels against their plain versions: the 64-bit hash bit for
    bit; every kernel at every call phase 5 recorded (Gaussian and sign
    sides), at the calls of ragged sketches (nnz not a multiple of the
    chunk, odd ranks; Gaussian, sign and mixed pairs, sliced sign sides) and
-   with flat indices above 2^63; time the recorded calls and their plain
-   versions, and bound them.
+   with flat indices above 2^63; the segment kernel also at a Ψ of the most
+   values it takes (float32 and float64), without sides and with one row;
+   time the recorded calls and their plain versions (the segment kernel's
+   also against ``index_add_`` of the outer products), and bound them.
 7. ``sparse_sign_rows`` against its plain version bit for bit
    (``torch.equal``): uber's shapes (in phase 6), a ragged N, fewer
    non-zeros than slots, a rank slice, flats above 2^63 and a rank above
@@ -60,9 +65,10 @@ Phases (the first failure raises and exits non-zero):
    on the same tensors and before phase 6: ``hmt_sketch`` of
    ``uber-synthetic`` with a ``SparseGaussianDRM`` (``chain_step_t`` x 3,
    ``psi_chunk_slabs_genright`` x 1, ``psi_chunk_slabs`` x 1,
-   ``lazy_gaussian`` x 2); ``orthogonal_sketch`` with a Gaussian pair (the
-   same plus ``omega_fused`` x 3); ``hmt_sketch`` with the default
-   ``TensorTrainDRM`` (``chain_step_t`` x 6, ``psi_chunk_slabs`` x 2); one
+   ``lazy_gaussian`` x 2, ``psi_segment`` x 2); ``orthogonal_sketch`` with
+   a Gaussian pair (the same plus ``omega_fused`` x 3); ``hmt_sketch`` with
+   the default ``TensorTrainDRM`` (``chain_step_t`` x 6, ``psi_chunk_slabs``
+   x 2, ``psi_segment`` x 2); one
    untimed ``hmt_sketch`` of ``lbnl-synthetic`` (``psi_fused_slabs`` x 1,
    ``psi_chunk_slabs_genright`` x 3, ``chain_step_t`` x 4 with modes above
    4096 rows).  Per path: launch counts from the plans, asserted; the
@@ -70,8 +76,9 @@ Phases (the first failure raises and exits non-zero):
    plain version, at 10,000 nonzero and 10,000 random index tuples (a QR
    sits between the modes, so cores are not compared); the sample-error
    guard (HMT on uber: 0.45-0.60); median time over fresh seeds, host
-   enqueue, busy share.  Phase 6 then also checks, times and bounds the
-   calls these paths recorded.
+   enqueue, busy share, the recorded segment reductions as in phase 5.
+   Phase 6 then also checks, times and bounds the calls these paths
+   recorded.
 10. ``chain_step_t``, ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``
     against their plain versions at odd shapes: ragged nnz, ``n = 1``,
     ranks of 1, an index at ``n - 1``, cores staged in shared memory and
@@ -81,9 +88,18 @@ Phases (the first failure raises and exits non-zero):
     shared-memory limit of given sides; both orientations of the
     half-fused Ψ through streaming sketches with a ``TensorTrainDRM`` on one
     side and a ``SparseGaussianDRM`` on the other.
-11. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+11. The projector diagnostics (``kernels/projector_diag.py``): ``t_only``
+    and ``u_only`` (``f32`` and ``bf16``) and ``reduce_read`` against their
+    plain versions at the main-path shape, a ragged shape, a rank-split
+    shape (several launches) and a shape whose S is odd; their times, plain
+    versions' and library calls' times and bounds at the main-path shape;
+    then ``run_projector_diag`` at the main-path shape with the launch
+    counts set to 0 just before it and read just after, printing its nine
+    tagged lines.
+12. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
-    every path), then the device line last.
+    every path; the diagnostics' launches are those of their run), then the
+    device line last.
 
 Requires CUDA; exits non-zero without it.
 """
@@ -103,6 +119,7 @@ SAMPLE_ERROR_LIMIT = 1.0  # sample_error(to_tt()) of a FROSTT-uber sketch at ran
 PARITY_ERROR_TOL = 1e-3   # absolute: an f32 kernel sketch's sample error vs the f64 parity path's, same seed
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, bf16 tensor cores, dense
 # Lane instructions per second of the CUDA cores: the fp32 peak counts an
 # FMA as two flops; integer instructions share the same dispatch slots.
 H100_LANE_OPS_PER_S = H100_FP32_FLOP_PER_S / 2
@@ -110,27 +127,31 @@ SEQ_TOL = 2e-4   # max abs over 20,000 recovered values / largest value: two f32
 CHAIN_ULPS = 8   # chain_step_t: max abs err in ulps (2^-23) of the largest output; sums of at most 20 f32 products in another order
 HMT_ERROR_RANGE = (0.45, 0.60)  # sample_error of an HMT sketch of FROSTT-uber at rank 10
 LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_sign", "sparse_psi",
-             "chain_step")
+             "chain_step", "segment_psi")
 SPARSE_KERNELS = ("lazy_gaussian", "sparse_sign_rows", "omega_fused",
                   "psi_omega_merged_slabs", "psi_fused_slabs",
                   "psi_window_direct", "chain_step_t", "psi_chunk_slabs",
-                  "psi_chunk_slabs_genright")
+                  "psi_chunk_slabs_genright", "psi_segment")
 RECORDED = SPARSE_KERNELS + ("_psi_sparse_segment", "_psi_from_slabs")
 #: launches of one sketch per main path (the plans give the same counts:
 #: ``expected_launches``); kernels not named launch 0 times
 PATH_LAUNCHES = {
     "uber gauss": {"lazy_gaussian": 3, "omega_fused": 2,
-                   "psi_omega_merged_slabs": 1, "psi_fused_slabs": 1},
+                   "psi_omega_merged_slabs": 1, "psi_fused_slabs": 1,
+                   "psi_segment": 2},
     "uber sign": {"sparse_sign_rows": 3, "omega_fused": 2,
-                  "psi_omega_merged_slabs": 1, "psi_fused_slabs": 1},
+                  "psi_omega_merged_slabs": 1, "psi_fused_slabs": 1,
+                  "psi_segment": 2},
     "lbnl gauss": {"psi_omega_merged_slabs": 4, "psi_window_direct": 1},
     "lbnl sign": {"psi_omega_merged_slabs": 4, "psi_window_direct": 1},
     "uber hmt gauss": {"chain_step_t": 3, "psi_chunk_slabs_genright": 1,
-                       "psi_chunk_slabs": 1, "lazy_gaussian": 2},
+                       "psi_chunk_slabs": 1, "lazy_gaussian": 2,
+                       "psi_segment": 2},
     "uber otts gauss": {"chain_step_t": 3, "psi_chunk_slabs_genright": 1,
                         "psi_chunk_slabs": 1, "lazy_gaussian": 2,
-                        "omega_fused": 3},
-    "uber hmt tt": {"chain_step_t": 6, "psi_chunk_slabs": 2},
+                        "omega_fused": 3, "psi_segment": 2},
+    "uber hmt tt": {"chain_step_t": 6, "psi_chunk_slabs": 2,
+                    "psi_segment": 2},
     "lbnl hmt gauss": {"chain_step_t": 4, "psi_fused_slabs": 1,
                        "psi_chunk_slabs_genright": 3},
 }
@@ -149,6 +170,9 @@ REPLACES = {
     "chain_step_t": "tt_sketch_tpu/kernels/pallas_chain.py:82",
     "psi_chunk_slabs": "tt_sketch_tpu/kernels/pallas_psi.py:70",
     "psi_chunk_slabs_genright": "tt_sketch_tpu/kernels/pallas_psi.py:795",
+    # not a Pallas kernel: the one-hot segment reduction the JAX package
+    # takes on a TPU
+    "psi_segment": "tt_sketch_tpu/kernels/sketch_kernels.py:401",
 }
 SOURCES = {
     "lazy_gaussian": "tt_sketch_torch/csrc/lazy_gaussian.cu",
@@ -160,12 +184,26 @@ SOURCES = {
     "chain_step_t": "tt_sketch_torch/csrc/chain_step.cu",
     "psi_chunk_slabs": "tt_sketch_torch/csrc/sparse_psi.cu",
     "psi_chunk_slabs_genright": "tt_sketch_torch/csrc/sparse_psi.cu",
+    "psi_segment": "tt_sketch_torch/csrc/segment_psi.cu",
 }
 GAUSS = ("g",)
 
 MAIN = (32768, 16384, 32, 64)   # (P, S, r, rho) of one slab's pivot-1 view
 SHAPES = {"main": MAIN, "ragged": (1000, 3000, 7, 13),
           "rank_split": (777, 5000, 40, 100)}
+#: the projector diagnostics (``kernels/projector_diag.py``): their TPU
+#: kernels and the shapes they are checked at (S odd: unvectorized loads)
+DIAG_KERNELS = ("t_only", "u_only", "reduce_read")
+DIAG_REPLACES = {"t_only": "scripts/bench_projector_diag.py:36",
+                 "u_only": "scripts/bench_projector_diag.py:74",
+                 "reduce_read": "scripts/bench_projector_diag.py:97"}
+DIAG_SHAPES = dict(SHAPES, odd=(333, 1001, 5, 9))
+#: the tags of ``run_projector_diag`` each kernel's JSON entry carries
+DIAG_TAGS = {"dual_project": ("dual-f32", "dual-bf16"),
+             "t_only": ("T-f32", "T-bf16", "lib-T"),
+             "u_only": ("U-f32", "U-bf16", "lib-U"),
+             "reduce_read": ("read-roofline",)}
+DIAG_REPS = 8
 
 
 def _rel(a, b):
@@ -425,6 +463,7 @@ def phase_stream_sketch():
 def _kernel_fns():
     from tt_sketch_torch.kernels import chain_step as CS
     from tt_sketch_torch.kernels import lazy_gaussian as LG
+    from tt_sketch_torch.kernels import segment_psi as SG
     from tt_sketch_torch.kernels import sparse_psi as SP
     from tt_sketch_torch.kernels import sparse_sign as SS
 
@@ -444,6 +483,7 @@ def _kernel_fns():
                             SP.psi_chunk_slabs_reference),
         "psi_chunk_slabs_genright": (SP.psi_chunk_slabs_genright,
                                      SP.psi_chunk_slabs_genright_reference),
+        "psi_segment": (SG.psi_segment, SG.psi_segment_reference),
     }
 
 
@@ -667,6 +707,16 @@ def sparse_bound(name, args, ops):
                   + (0 if sl is None else 4 * r1 * N) + right_bytes
                   + 4 * nc * span * r1 * r2)
         n_ops = (g2 + r1 + r1 * r2) * N
+    elif name == "psi_segment":
+        # indices, entries and given rows read, Ψ written; per nonzero one
+        # multiply per weighted left row and one FMA per rank pair
+        left, right, ent, idx, n_mu = args
+        N = ent.shape[0]
+        r1 = 1 if left is None else left.shape[0]
+        r2 = 1 if right is None else right.shape[0]
+        nbytes = (8 * N + 4 * N + 4 * (0 if left is None else r1) * N
+                  + 4 * (0 if right is None else r2) * N + 4 * n_mu * r1 * r2)
+        n_ops = ((0 if left is None else r1) + r1 * r2) * N
     elif name == "omega_fused":
         e, lflat, rflat, lsalts, rsalts, lspec, rspec = args
         N = e.shape[0]
@@ -836,9 +886,10 @@ def phase_sparse_kernels(paths, ops):
         ragged[tag] = (rt_, rl, rr)
         cases.append((f"ragged {tag}", calls))
     for label in ("uber gauss", "uber sign", "lbnl sign"):
+        # the segment reduction takes mode indices, not flat ones
         high = {n: [_high_flats(a, -(1 << 63) + 12345)
                     for a in paths[label]["calls"].get(n, [])]
-                for n in SPARSE_KERNELS}
+                for n in SPARSE_KERNELS if n != "psi_segment"}
         cases.append((f"{label} flats>2^63", high))
     # the u24 = 2^24-1 input: salt + flat == 30787972 hashes to the top
     # quantile (the extreme is finite only if x is formed in int32)
@@ -901,6 +952,28 @@ def phase_sparse_kernels(paths, ops):
                 ("s", rank, rank, 0, 3), ("s", 433, 433, 430, 3))
 
     _check("psi_fused_slabs", "sign sides of rank 433 + 433", wide(433))
+
+    # the segment kernel at shapes no sketch gives it: a Ψ of the most
+    # values it takes (float32: one tile of bins; float64: two), no sides,
+    # one row
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def seg_case(n_mu, r1, r2, nnz, dtype=torch.float32):
+        def rows(r):
+            return None if r is None else torch.randn(
+                (r, nnz), generator=g, device="cuda", dtype=dtype)
+        return (rows(r1), rows(r2),
+                torch.randn(nnz, generator=g, device="cuda", dtype=dtype),
+                torch.randint(0, n_mu, (nnz,), generator=g, device="cuda"),
+                n_mu)
+
+    for label, args in (
+            ("81 rows x 10 x 20", seg_case(81, 10, 20, 300_001)),
+            ("512 rows x 4 x 8, float64", seg_case(512, 4, 8, 100_003,
+                                                   torch.float64)),
+            ("183 rows, no sides", seg_case(183, None, None, 50_001)),
+            ("one row x 3 x 5", seg_case(1, 3, 5, 1000))):
+        _check("psi_segment", label, args)
     try:
         _kernel_fns()["psi_fused_slabs"][0](*wide(434))
     except ValueError as exc:
@@ -929,9 +1002,15 @@ def phase_sparse_kernels(paths, ops):
                 "launches": len(calls), "max_abs_err": abs_err,
                 "max_rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by}
+            lib = ""
+            if name == "psi_segment":
+                lib_ms = segment_library_ms(calls)
+                res[name][label]["library_ms"] = lib_ms
+                lib = (f", library index_add_ over the outer products "
+                       f"{lib_ms:.3f} ms")
             print(f"# phase 6: {name}: {len(calls)} launch(es) of one "
                   f"{label} sketch in {ms:.3f} ms (bound {b_ms:.3f} ms by "
-                  f"{b_by}), plain version {plain_ms:.3f} ms")
+                  f"{b_by}), plain version {plain_ms:.3f} ms{lib}")
     return res
 
 
@@ -1111,6 +1190,83 @@ def profile_sketch(run, n=3, phase=5):
     return busy_us / window_us
 
 
+def _outer(left, right, entries):
+    """(nnz, r1 * r2) outer products of the weighted left rows and the
+    right rows."""
+    w = entries[None, :] if left is None else left * entries
+    outer = w.T[:, :, None] * (1 if right is None else right.T[:, None, :])
+    return outer.reshape(outer.shape[0], -1)
+
+
+def segment_library_ms(calls):
+    """The library call of the segment reduction: ``index_add_`` of the
+    outer products, made beforehand and not timed, into the (n_mu, r1 * r2)
+    rows of each recorded call."""
+    import torch
+
+    outs = [(_outer(left, right, ent), idx, n_mu)
+            for left, right, ent, idx, n_mu in calls]
+    ms = time_ms(lambda: [
+        torch.zeros((n_mu, o.shape[1]), device="cuda").index_add_(0, idx, o)
+        for o, idx, n_mu in outs])
+    del outs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def segment_onehot(left, right, entries, indices_mu, n_mu):
+    """The segment reduction of ``sketch_kernels._psi_sparse_segment`` as a
+    one-hot ``torch.matmul`` per chunk of nonzeros: the form the JAX package
+    takes on a TPU.  A yardstick timed beside the package's; the port never
+    calls it."""
+    import torch
+
+    from tt_sketch_torch.kernels import segment_psi as SG
+
+    r1 = left.shape[0] if left is not None else 1
+    r2 = right.shape[0] if right is not None else 1
+    psi = torch.zeros((n_mu, r1 * r2), dtype=entries.dtype,
+                      device=entries.device)
+    iota = torch.arange(n_mu, dtype=indices_mu.dtype,
+                        device=indices_mu.device)
+    for k0 in range(0, entries.shape[0], SG._REF_CHUNK):
+        sl = slice(k0, k0 + SG._REF_CHUNK)
+        outer = _outer(None if left is None else left[:, sl],
+                       None if right is None else right[:, sl], entries[sl])
+        onehot = (iota[:, None] == indices_mu[sl][None, :]).to(psi.dtype)
+        psi += onehot @ outer
+    return psi.reshape(n_mu, r1, r2).permute(1, 0, 2)
+
+
+def replay_segments(segs, tag):
+    """Time the recorded segment reductions ``segs`` through the package
+    (``psi_segment``'s kernel for a Ψ of at most 16384 values), through the
+    plain ``index_add_`` (``psi_segment_reference``) and through the
+    one-hot yardstick, after holding the last two to the first; returns
+    ``(package ms, index_add_ ms, one-hot ms)``."""
+    from tt_sketch_torch.kernels import segment_psi as SG
+    from tt_sketch_torch.kernels import sketch_kernels as K
+
+    if not segs:
+        return 0.0, 0.0, 0.0
+    worst = max(max(_rel(SG.psi_segment_reference(*a).permute(1, 0, 2), ref),
+                    _rel(segment_onehot(*a), ref))
+                for a in segs for ref in (K._psi_sparse_segment(*a),))
+    seg_ms = time_ms(lambda: [K._psi_sparse_segment(*a) for a in segs])
+    add_ms = time_ms(lambda: [SG.psi_segment_reference(*a) for a in segs])
+    onehot_ms = time_ms(lambda: [segment_onehot(*a) for a in segs])
+    print(f"{tag} segment reductions ({len(segs)} modes, rows "
+          f"{[a[4] for a in segs]}): package {seg_ms:.3f} ms, index_add_ "
+          f"{add_ms:.3f} ms, one-hot torch.matmul yardstick {onehot_ms:.3f} "
+          f"ms (the last two agree with the first to rel err {worst:.3e}, "
+          f"tol {PSI_TOL:g})")
+    if not worst <= PSI_TOL:
+        raise AssertionError(f"{tag} index_add_ or the one-hot yardstick "
+                             f"disagrees with the segment reduction: "
+                             f"{worst:.3e}")
+    return seg_ms, add_ms, onehot_ms
+
+
 def load_sparse(name):
     """A committed FROSTT stand-in with its default plans, on the card in
     f32."""
@@ -1138,12 +1294,27 @@ def load_sparse(name):
     return tensor
 
 
+def _hash_rows(drm, k):
+    """Rows of generator step ``k`` of a hash-family DRM."""
+    spec = drm.side_spec(k)
+    return spec[4] if spec[0] == "s" else drm.salts(k).shape[0]
+
+
+def _segment_kernel(n_mu, r1, r2):
+    """1 if the segment reduction of a Ψ of (r1, n_mu, r2) launches
+    ``psi_segment``'s kernel, else 0 (it scatters with ``index_add_``)."""
+    from tt_sketch_torch.kernels.segment_psi import MAX_CELLS
+
+    return int(n_mu * r1 * r2 <= MAX_CELLS)
+
+
 def expected_launches(tensor, ldrm, rdrm):
     """Kernel launches of one fused sketch, worked out from the tensor's
     plans: a plan with the inclusive prefix merges Ψ and Ω, a window plan
     takes the window kernel, any other plan the Ψ slab kernel; a mode
     without a plan generates its rows; Ω of modes not merged takes the Ω
-    kernel."""
+    kernel; a mode without a plan takes the segment reduction, through its
+    kernel for a Ψ of at most 16384 values."""
     from tt_sketch_torch.kernels.sparse_plan import WindowPlan
 
     d = len(tensor.shape)
@@ -1155,6 +1326,9 @@ def expected_launches(tensor, ldrm, rdrm):
                 n[rows[ldrm.side_spec(mu - 1)[0]]] += 1
             if mu < d - 1:
                 n[rows[rdrm.side_spec(d - 2 - mu)[0]]] += 1
+            n["psi_segment"] += _segment_kernel(
+                tensor.shape[mu], _hash_rows(ldrm, mu - 1) if mu > 0 else 1,
+                _hash_rows(rdrm, d - 2 - mu) if mu < d - 1 else 1)
         elif isinstance(p, WindowPlan):
             n["psi_window_direct"] += 1
         elif mu < d - 1 and p.flat_left_om is not None:
@@ -1284,7 +1458,7 @@ def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
     # ones
     segs = calls.get("_psi_sparse_segment", [])
     combs = calls.get("_psi_from_slabs", [])
-    seg_ms = time_ms(lambda: [K._psi_sparse_segment(*a) for a in segs])
+    seg_ms, add_ms, onehot_ms = replay_segments(segs, tag)
     comb_ms = time_ms(lambda: [K._psi_from_slabs(*a) for a in combs])
     busy = profile_sketch(lambda s: run(200 + s))
     nnz_per_s = tensor.nnz / (med / 1e3)
@@ -1298,6 +1472,7 @@ def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
     return {"launches": launches, "busy": busy, "ms": med, "times": times,
             "nnz_per_s": nnz_per_s, "sample_error": err, "worst_rel": worst,
             "plain_ms": plain_ms, "enqueue_ms": enqueue_ms, "seg_ms": seg_ms,
+            "index_add_ms": add_ms, "onehot_ms": onehot_ms,
             "comb_ms": comb_ms, "calls": calls}
 
 
@@ -1338,8 +1513,10 @@ def expected_seq_launches(tensor, method, rdrm):
     fused kernel at μ = 0 and the half-fused one at an interior mode when
     the right DRM hashes, else the grouped kernel; a ``WindowPlan`` the
     window kernel at μ = 0 with a hash DRM and the segment reduction
-    otherwise; a mode that takes the segment reduction has a hash DRM
-    generate its right rows.  OTTS adds one fused Ω per mode."""
+    otherwise; a mode that takes the segment reduction (through its kernel
+    for a Ψ of at most 16384 values; the chain on the left has the
+    sketch's rank, 10 on every path here) has a hash DRM generate its right
+    rows.  OTTS adds one fused Ω per mode."""
     from tt_sketch_torch.kernels.sparse_plan import ModePlan, WindowPlan
 
     d = len(tensor.shape)
@@ -1355,8 +1532,13 @@ def expected_seq_launches(tensor, method, rdrm):
               else "psi_chunk_slabs"] += 1
         elif isinstance(p, WindowPlan) and right_hashed and mu == 0:
             n["psi_window_direct"] += 1
-        elif right_hashed:
-            n[rows[rdrm.side_spec(d - 2 - mu)[0]]] += 1
+        else:
+            r2 = (1 if mu == d - 1 else _hash_rows(rdrm, d - 2 - mu)
+                  if hashes else rdrm.rank[d - 2 - mu])
+            n["psi_segment"] += _segment_kernel(
+                tensor.shape[mu], 10 if mu > 0 else 1, r2)
+            if right_hashed:
+                n[rows[rdrm.side_spec(d - 2 - mu)[0]]] += 1
     if method == "otts":
         if not hashes:
             raise AssertionError("OTTS launch counts: hash-family pairs only")
@@ -1469,7 +1651,7 @@ def phase_seq_main(label, tensor, timed=True, groups=3, inner=3):
     given_ms = time_ms(lambda: _seq_sketch(method, tensor, drm, drms=drms))
     segs = calls.get("_psi_sparse_segment", [])
     combs = calls.get("_psi_from_slabs", [])
-    seg_ms = time_ms(lambda: [K._psi_sparse_segment(*a) for a in segs])
+    seg_ms, add_ms, onehot_ms = replay_segments(segs, tag)
     comb_ms = time_ms(lambda: [K._psi_from_slabs(*a) for a in combs])
     busy = profile_sketch(lambda s: run(200 + s), phase=9)
     nnz_per_s = tensor.nnz / (med / 1e3)
@@ -1482,7 +1664,8 @@ def phase_seq_main(label, tensor, timed=True, groups=3, inner=3):
           f"{comb_ms:.3f} ms; device busy {100 * busy:.1f} %")
     out.update(ms=med, times=times, nnz_per_s=nnz_per_s, busy=busy,
                plain_ms=plain_ms, enqueue_ms=enqueue_ms, given_ms=given_ms,
-               seg_ms=seg_ms, comb_ms=comb_ms)
+               seg_ms=seg_ms, index_add_ms=add_ms, onehot_ms=onehot_ms,
+               comb_ms=comb_ms)
     return out
 
 
@@ -1649,13 +1832,147 @@ def phase_seq_kernels():
                                  f"version")
 
 
-def bound_ms(P, S, r, rho):
-    nbytes = 4 * (P * S + S * rho + P * r + P * rho + r * S)
-    flops = 2 * P * S * (r + rho)
+def _bound(nbytes, n_ops, ops_per_s):
+    """(bound ms, bound_by, bytes ms, operations ms)."""
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations"), t_bytes, t_ops
+
+
+def bound_ms(P, S, r, rho):
+    return _bound(4 * (P * S + S * rho + P * r + P * rho + r * S),
+                  2 * P * S * (r + rho), H100_FP32_FLOP_PER_S)
+
+
+def diag_bound(name, P, S, r, rho, compute="f32"):
+    """The bound of one projector diagnostic: X read once, the small
+    operands read and the output written once; its flops at the fp32 rate,
+    or in ``bf16`` mode at the bf16 tensor-core rate (X stays f32 in
+    memory); ``reduce_read``'s adds as lane instructions."""
+    rate = H100_FP32_FLOP_PER_S if compute == "f32" else H100_BF16_FLOP_PER_S
+    if name == "reduce_read":
+        return _bound(4 * (P * S + P), P * S, H100_LANE_OPS_PER_S)
+    if name == "t_only":
+        return _bound(4 * (P * S + S * rho + P * rho), 2 * P * S * rho, rate)
+    return _bound(4 * (P * S + P * r + r * S), 2 * P * S * r, rate)
+
+
+def phase_projector_diag():
+    """``t_only``, ``u_only`` and ``reduce_read`` against their plain
+    versions at every shape of ``DIAG_SHAPES`` (launch counts of the rank
+    split asserted), their timings and bounds at the main-path shape, then
+    ``run_projector_diag`` there: the diagnostics' own path, with the
+    launch counts set to 0 just before it and read just after."""
+    import torch
+
+    from tt_sketch_torch.kernels import dual_project as DP
+    from tt_sketch_torch.kernels import projector_diag as PD
+
+    fns = {"t_only": (PD.t_only, PD.t_only_reference),
+           "u_only": (PD.u_only, PD.u_only_reference),
+           "reduce_read": (PD.reduce_read, PD.reduce_read_reference)}
+    modes = {"t_only": ("f32", "bf16"), "u_only": ("f32", "bf16"),
+             "reduce_read": ("f32",)}
+    # bf16 at F32_TOL too: kernel and plain version round the same operands
+    # to bf16 and accumulate in fp32, so a kernel that skipped the rounding
+    # (about 2e-3 away) fails
+    tol = {"f32": F32_TOL, "bf16": F32_TOL}
+    res = {name: {} for name in DIAG_KERNELS}
+    for seed, (label, (P, S, r, rho)) in enumerate(DIAG_SHAPES.items()):
+        X, R, L = _operands(P, S, r, rho, 100 + seed)
+        args = {"t_only": (X, R), "u_only": (X, L), "reduce_read": (X,)}
+        split = {"t_only": -(-rho // 64), "u_only": -(-r // 32),
+                 "reduce_read": 1}
+        for name in DIAG_KERNELS:
+            kern, plain = fns[name]
+            for compute in modes[name]:
+                kw = {} if name == "reduce_read" else {"compute": compute}
+                before = kern.launches
+                got = kern(*args[name], **kw)
+                ref = plain(*args[name], **kw)
+                torch.cuda.synchronize()
+                launched = kern.launches - before
+                rel = _rel(got, ref)
+                abs_err = float((got - ref).abs().max())
+                print(f"# phase 11: {name} {label} P={P} S={S} r={r} "
+                      f"rho={rho} {compute}: rel err {rel:.3e} (tol "
+                      f"{tol[compute]:g}), max abs err {abs_err:.3e}, "
+                      f"{launched} launch(es)")
+                if not (rel <= tol[compute] and got.shape == ref.shape
+                        and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"{name} {compute} disagrees with "
+                                         f"its plain version at {label}")
+                if launched != split[name]:
+                    raise AssertionError(f"{name} at {label}: {launched} "
+                                         f"launches, expected {split[name]}")
+                if label == "main":
+                    res[name][compute] = {"max_abs_err": abs_err,
+                                          "rel_err": rel}
+        if label != "main":
+            del X, R, L
+            torch.cuda.empty_cache()
+            continue
+        library = {"t_only": lambda: torch.matmul(X, R),
+                   "u_only": lambda: torch.matmul(L.T, X),
+                   "reduce_read": lambda: X.sum(dim=1, keepdim=True)}
+        for name in DIAG_KERNELS:
+            kern, plain = fns[name]
+            for compute in modes[name]:
+                kw = {} if name == "reduce_read" else {"compute": compute}
+                m = res[name][compute]
+                m["ms"] = time_ms(lambda: kern(*args[name], **kw))
+                m["plain_ms"] = time_ms(lambda: plain(*args[name], **kw))
+                m["bound_ms"], m["bound_by"], _, _ = diag_bound(
+                    name, P, S, r, rho, compute)
+            res[name]["library_ms"] = time_ms(library[name])
+            print(f"# phase 11: {name} at the main-path shape: "
+                  + "; ".join(f"{c} {m['ms']:.3f} ms (bound "
+                              f"{m['bound_ms']:.3f} ms by {m['bound_by']}, "
+                              f"plain version {m['plain_ms']:.3f} ms)"
+                              for c, m in ((c, res[name][c])
+                                           for c in modes[name]))
+                  + f"; library call {res[name]['library_ms']:.3f} ms")
+
+        # the diagnostics' own path
+        torch.cuda.synchronize()
+        for name in DIAG_KERNELS:
+            fns[name][0].launches = 0
+        DP.dual_project.launches = 0
+        diag = PD.run_projector_diag(X, R, L, reps=DIAG_REPS)
+        torch.cuda.synchronize()
+        launches = {name: fns[name][0].launches for name in DIAG_KERNELS}
+        launches["dual_project"] = DP.dual_project.launches
+        calls = DIAG_REPS + 1  # one untimed call per tag, then the timed
+        want = {"t_only": 2 * calls, "u_only": 2 * calls,
+                "reduce_read": calls, "dual_project": 2 * calls}
+        print(f"# phase 11: launches in run_projector_diag: {launches}")
+        if launches != want:
+            raise AssertionError(f"diagnostic launches {launches}, expected "
+                                 f"{want}")
+        for tag in PD.TAGS:
+            out = diag[tag]["out"]
+            for o in (out if isinstance(out, tuple) else (out,)):
+                if not bool(torch.isfinite(o).all()):
+                    raise AssertionError(f"[{tag}] non-finite output")
+        for name in DIAG_KERNELS:
+            res[name]["launches"] = launches[name]
+        ms = {tag: diag[tag]["ms"] for tag in PD.TAGS}
+        floor = ms["read-roofline"]
+        b_read = diag_bound("reduce_read", P, S, r, rho)[0]
+        print(f"# phase 11: read floor {floor:.3f} ms against the data "
+              f"sheet's {b_read:.3f} ms ({b_read / floor * 100:.1f} % of "
+              f"3.35 TB/s); dual-f32 {ms['dual-f32']:.3f} ms = "
+              f"{ms['dual-f32'] / floor:.2f} x the read floor; T-f32 "
+              f"{ms['T-f32']:.3f} + U-f32 {ms['U-f32']:.3f} = "
+              f"{ms['T-f32'] + ms['U-f32']:.3f} ms unfused; the slower half "
+              f"is {'T' if ms['T-f32'] >= ms['U-f32'] else 'U'}; lib-T + "
+              f"lib-U {ms['lib-T'] + ms['lib-U']:.3f} ms")
+        res["diag"] = {tag: {"ms": diag[tag]["ms"], "gbps": diag[tag]["gbps"]}
+                       for tag in PD.TAGS}
+        del X, R, L, diag
+        torch.cuda.empty_cache()
+    return res
 
 
 def main():
@@ -1696,6 +2013,7 @@ def main():
     phase_sign_rows()
     phase_window_kernel()
     phase_seq_kernels()
+    diag = phase_projector_diag()
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     entry = {
@@ -1717,6 +2035,7 @@ def main():
         "bf16_plain_ms": kern["bf16"]["plain_ms"],
         "bf16_max_rel_err": kern["bf16"]["rel_err"],
         "shape": dict(zip(("P", "S", "r", "rho"), MAIN)),
+        "diag": {t: diag["diag"][t] for t in DIAG_TAGS["dual_project"]},
         "card": smi,
     }
     entries = [entry]
@@ -1732,13 +2051,38 @@ def main():
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            **m,
             "library_ms": None,
+            **m,
             "bound_ops": ops,
             "shape": f"the {label} main path, rank 10/20; ms, plain_ms and "
                      f"bound_ms cover its {m['launches']} launch(es) of one "
                      f"sketch",
             "by_path": skern[name],
+            "card": smi,
+        })
+    for name in DIAG_KERNELS:
+        d = diag[name]
+        f32 = d["f32"]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tt_sketch_torch/csrc/dual_project.cu",
+            "replaces": DIAG_REPLACES[name],
+            "launches": d["launches"],
+            "max_abs_err": f32["max_abs_err"],
+            "max_rel_err": f32["rel_err"],
+            "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"],
+            "library_ms": d["library_ms"],
+            **({} if "bf16" not in d else {
+                "bf16_ms": d["bf16"]["ms"],
+                "bf16_plain_ms": d["bf16"]["plain_ms"],
+                "bf16_bound_ms": d["bf16"]["bound_ms"],
+                "bf16_max_rel_err": d["bf16"]["rel_err"]}),
+            "shape": dict(zip(("P", "S", "r", "rho"), MAIN)),
+            "diag": {t: diag["diag"][t] for t in DIAG_TAGS[name]},
             "card": smi,
         })
     print(f"# dense main path: {path['gbps']:.2f} GB/s, "

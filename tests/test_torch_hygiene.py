@@ -51,6 +51,8 @@ def test_import_leaves_jax_out():
         "import tt_sketch_torch.kernels.sparse_sign\n"
         "from tt_sketch_torch import hmt_sketch, orthogonal_sketch\n"
         "import tt_sketch_torch.kernels.chain_step\n"
+        "import tt_sketch_torch.kernels.projector_diag\n"
+        "import tt_sketch_torch.kernels.segment_psi\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"

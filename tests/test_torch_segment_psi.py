@@ -1,0 +1,141 @@
+"""The Ψ segment reduction of the port (``kernels/segment_psi.py``) against
+the JAX package's ``_psi_sparse_segment``, which takes
+``jax.ops.segment_sum`` off a TPU.
+
+Tolerances: float64 ``1e-10`` absolute (the same products summed in
+another order); float32 ``2e-5·max|ref|`` (float32 sums of a few thousand
+terms in another order).  On the CPU the wrapper takes its plain version;
+the kernel runs only on a CUDA card, where the last test holds it against
+the plain version.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tt_sketch_torch import config
+from tt_sketch_torch.kernels import segment_psi as SG
+from tt_sketch_torch.kernels import sketch_kernels as K
+from tt_sketch_tpu.kernels import sketch_kernels as JK
+
+SIDES = [(4, 8), (None, 8), (4, None), (None, None)]
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    prev = config.default_device()
+    config.set_default_device("cpu")
+    yield
+    config.set_default_device(prev)
+
+
+def _operands(n_mu, r1, r2, nnz=3001, dtype=np.float64, seed=0):
+    rng = np.random.default_rng(seed)
+    left = None if r1 is None else rng.standard_normal((r1, nnz)).astype(dtype)
+    right = None if r2 is None else rng.standard_normal((r2, nnz)).astype(dtype)
+    ent = rng.standard_normal(nnz).astype(dtype)
+    idx = rng.integers(0, n_mu, nnz)
+    return left, right, ent, idx
+
+
+def _torch(*arrays):
+    return tuple(None if a is None else torch.from_numpy(a) for a in arrays)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("r1, r2", SIDES)
+@pytest.mark.parametrize("n_mu", [24, 183])
+def test_cpu_takes_the_plain_version_and_matches_segment_sum(n_mu, r1, r2,
+                                                             dtype):
+    ops = _operands(n_mu, r1, r2, dtype=dtype, seed=n_mu)
+    before = SG.psi_segment.launches
+    got = SG.psi_segment(*_torch(*ops), n_mu)
+    assert SG.psi_segment.launches == before
+    assert torch.equal(got, SG.psi_segment_reference(*_torch(*ops), n_mu))
+    ref = np.asarray(JK._psi_sparse_segment(
+        *(None if a is None else jnp.asarray(a) for a in ops), n_mu))
+    assert not JK._use_onehot_segments(n_mu)
+    ref = ref.transpose(1, 0, 2)  # (n_mu, r1, r2)
+    assert got.dtype == torch.from_numpy(ops[2]).dtype
+    assert tuple(got.shape) == ref.shape == (n_mu, r1 or 1, r2 or 1)
+    atol = 1e-10 if dtype == np.float64 else 2e-5 * np.abs(ref).max()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=atol)
+
+
+def test_operands_promote_as_the_plain_version():
+    left, right, ent, idx = _operands(24, 3, 5, dtype=np.float32)
+    lb = torch.from_numpy(left).to(torch.bfloat16)
+    got = SG.psi_segment(lb, torch.from_numpy(right), torch.from_numpy(ent),
+                         torch.from_numpy(idx), 24)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, SG.psi_segment_reference(
+        lb, torch.from_numpy(right), torch.from_numpy(ent),
+        torch.from_numpy(idx), 24))
+
+
+@pytest.mark.parametrize("n_mu, r1, r2, kernel", [
+    (SG.MAX_CELLS // 6, 2, 3, True), (SG.MAX_CELLS // 6 + 1, 2, 3, False),
+    (SG.MAX_CELLS, None, None, True), (SG.MAX_CELLS // 2 + 1, 2, None, False)])
+def test_large_psi_scatters_on_every_device(monkeypatch, n_mu, r1, r2,
+                                            kernel):
+    # the sketch sends a Ψ of at most MAX_CELLS values to the wrapper (the
+    # kernel on CUDA) and scatters a larger one with the plain version
+    routed = []
+    monkeypatch.setattr(K, "psi_segment",
+                        lambda *a: routed.append(a[4]) or SG.psi_segment(*a))
+    ops = _torch(*_operands(n_mu, r1, r2, nnz=500))
+    psi = K._psi_sparse_segment(*ops, n_mu)
+    assert routed == ([n_mu] if kernel else [])
+    assert torch.equal(psi, SG.psi_segment_reference(*ops, n_mu)
+                       .permute(1, 0, 2))
+    if not kernel:
+        with pytest.raises(ValueError, match="values outside"):
+            SG.psi_segment(*ops, n_mu)
+
+
+@pytest.mark.parametrize("nnz, n_mu, pairs", [
+    (0, 24, 200), (1, 1, 1), (1023, 183, 20), (5000, 24, 200),
+    (3_309_490, 183, 20), (3_309_490, 24, 200), (3_309_490, 4096, 200)])
+def test_segment_chunks_cover_the_nonzeros(nnz, n_mu, pairs):
+    chunk, n_chunks = SG.segment_chunks(nnz, n_mu, pairs)
+    assert chunk >= 1 and 1 <= n_chunks <= SG._TARGET_BLOCKS
+    assert chunk * n_chunks >= nnz
+    assert nnz == 0 or (n_chunks - 1) * chunk < nnz  # no block is empty
+    assert n_chunks == 1 or n_chunks * n_mu * pairs <= SG._MAX_PARTIALS
+    assert chunk >= min(SG._MIN_CHUNK, nnz)
+
+
+def test_raises_off_cpu_without_kernel():
+    # a tensor that is neither on the CPU nor on CUDA never reaches the
+    # plain version: the wrapper launches or raises
+    meta = {"device": "meta"}
+    left, right = torch.empty((4, 64), **meta), torch.empty((8, 64), **meta)
+    ent = torch.empty(64, **meta)
+    idx = torch.empty(64, dtype=torch.int64, **meta)
+    before = SG.psi_segment.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        SG.psi_segment(left, right, ent, idx, 24)
+    # one operand on the CPU and one elsewhere is not the plain path
+    with pytest.raises(ValueError, match="CUDA device"):
+        SG.psi_segment(None, None, ent, torch.zeros(64, dtype=torch.int64),
+                       24)
+    assert SG.psi_segment.launches == before
+
+
+@pytest.mark.parametrize("r1, r2", SIDES)
+@pytest.mark.parametrize("n_mu, nnz, dtype", [
+    (24, 100_003, np.float32), (183, 5000, np.float32),
+    (512, 20_000, np.float32), (512, 20_000, np.float64)])
+def test_kernel_matches_plain_version_on_the_card(n_mu, nnz, dtype, r1, r2):
+    # 512 rows x 4 x 8 pairs: MAX_CELLS values, two tiles of bins in float64
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    ops = tuple(None if a is None else torch.from_numpy(a).cuda()
+                for a in _operands(n_mu, r1, r2, nnz=nnz, dtype=dtype))
+    before = SG.psi_segment.launches
+    got = SG.psi_segment(*ops, n_mu)
+    ref = SG.psi_segment_reference(*ops, n_mu)
+    assert SG.psi_segment.launches == before + 1
+    assert torch.equal(got, SG.psi_segment(*ops, n_mu))  # a fixed order
+    tol = 1e-12 if dtype == np.float64 else 2e-5
+    assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= tol

@@ -434,6 +434,28 @@ def test_hmt_default_drm_return_drm_and_given_drm():
     assert torch.equal(compiled.to_dense(), tt.to_dense())
 
 
+def test_stream_sketch_takes_compile_as_the_jax_package_does():
+    # the arguments of round_tt_sum's sketch in
+    # tt_sketch_tpu/solvers/tt_gmres.py, on a TT
+    from math import ceil
+
+    from tt_sketch_torch.utils import process_tt_rank
+
+    X, jX = _dense_pair("tt", rank=4)
+    left_rank = process_tt_rank(3, X.shape, trim=True)
+    right_rank = tuple(ceil(r * 2.0) for r in left_rank)
+    kw = dict(left_rank=left_rank, right_rank=right_rank, seed=4,
+              dtype=torch.float64)
+    compiled = stream_sketch(X, compile=True, **kw)
+    eager = stream_sketch(X, **kw)
+    for a, b in zip(compiled.Psi_cores + compiled.Omega_mats,
+                    eager.Psi_cores + eager.Omega_mats):
+        assert torch.equal(a, b)
+    jsk = jts.stream_sketch(jX, left_rank=left_rank, right_rank=right_rank,
+                            seed=4, dtype=jnp.float64, compile=True)
+    _close_dense(compiled.to_tt(), jsk.to_tt(), 1e-10)
+
+
 def test_orthogonal_return_drm_given_drms_and_rank_check():
     X, _ = _dense_pair("tt")
     tt, ldrm, rdrm = orthogonal_sketch(X, 3, 6, seed=2, return_drm=True)

@@ -221,6 +221,42 @@ def test_stream_sketch_f64_matches_jax(threshold):
     assert len(sk.Psi_cores) == d
 
 
+@pytest.mark.parametrize("n_mu, r1, r2", [(24, 4, 8), (183, None, 8),
+                                          (4096, 4, None), (5000, 3, 5)])
+def test_segment_reduction_is_index_add_and_matches_segment_sum(
+        monkeypatch, n_mu, r1, r2):
+    # off a TPU the JAX package sums with jax.ops.segment_sum for every
+    # mode size; the port's counterpart is index_add_, never a one-hot
+    # product (modes of at most 4096 rows included)
+    from tt_sketch_torch.kernels import sketch_kernels as K
+    from tt_sketch_tpu.kernels import sketch_kernels as JK
+
+    rng = np.random.default_rng(11)
+    nnz = 3001
+    left = None if r1 is None else rng.standard_normal((r1, nnz))
+    right = None if r2 is None else rng.standard_normal((r2, nnz))
+    ent = rng.standard_normal(nnz)
+    idx = rng.integers(0, n_mu, nnz)
+    adds = []
+    index_add_ = torch.Tensor.index_add_
+
+    def counted(self, *args, **kwargs):
+        adds.append(self.shape)
+        return index_add_(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", counted)
+    as_t = (lambda a: None if a is None else torch.from_numpy(a))
+    psi = K._psi_sparse_segment(as_t(left), as_t(right), torch.from_numpy(ent),
+                                torch.from_numpy(idx), n_mu)
+    as_j = (lambda a: None if a is None else jnp.asarray(a))
+    ref = np.asarray(JK._psi_sparse_segment(as_j(left), as_j(right),
+                                            jnp.asarray(ent),
+                                            jnp.asarray(idx), n_mu))
+    assert len(adds) == 1 and not JK._use_onehot_segments(n_mu)
+    assert tuple(psi.shape) == ref.shape == (r1 or 1, n_mu, r2 or 1)
+    np.testing.assert_allclose(psi.numpy(), ref, rtol=0, atol=1e-10)
+
+
 def test_exact_recovery_of_tt_on_a_subgrid():
     # a sparse tensor whose support is a Cartesian subgrid of a rank-3 TT
     # is itself a TT of rank 3: a rank 4/8 sketch recovers it exactly

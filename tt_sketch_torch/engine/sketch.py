@@ -176,6 +176,7 @@ def stream_sketch(
     right_drm: Optional[DRM] = None,
     return_drm: bool = False,
     dtype=None,
+    compile: bool = False,
     device=None,
 ):
     """Two-sided streaming (STTA) sketch; returns a ``SketchedTensorTrain``
@@ -183,8 +184,10 @@ def stream_sketch(
 
     DRMs not given are built with ``dtype`` (default float64) on ``device``
     (default: the package default device); the tensor must lie on the same
-    device with the same dtype.
+    device with the same dtype.  ``compile`` is accepted for the JAX
+    package's signature and does nothing: torch runs eagerly.
     """
+    del compile
     d = len(tensor.shape)
     left_rank_bigger = bool(np.all(np.array(left_rank) > np.array(right_rank)))
     right_rank_bigger = bool(np.all(np.array(left_rank) < np.array(right_rank)))

@@ -6,6 +6,9 @@ tensor ``dual_project`` launches the hand-written Hopper kernel of
 ``tt_sketch_torch/csrc/dual_project.cu`` (built at first use, see
 ``cuda_build``) or raises; on CPU tensors it computes the plain version
 ``dual_project_reference``.  There is no fallback from one to the other.
+The same library holds the projector diagnostics' kernels
+(``projector_diag.py``), which share the operand checks and the bf16
+rounding here.
 """
 from __future__ import annotations
 
@@ -34,38 +37,54 @@ def dual_project_reference(X2d: torch.Tensor, R: torch.Tensor,
     ``compute="bf16"`` first rounds X2d, R and L to bfloat16 (products then
     accumulate in the inputs' dtype), as the kernel's bf16 mode does.
     """
-    if compute not in _COMPUTE:
-        raise ValueError(f"compute must be one of {_COMPUTE}, got {compute!r}")
-    if compute == "bf16":
-        X2d, R, L = (t.to(torch.bfloat16).to(t.dtype) for t in (X2d, R, L))
+    X2d, R, L = rounded_operands(compute, X2d, R, L)
     return X2d @ R, L.T @ X2d
 
 
-def _check_cuda_operands(X2d, R, L) -> None:
-    named = (("X2d", X2d), ("R", R), ("L", L))
+def check_compute(compute: str) -> None:
+    """Raise unless ``compute`` is a mode the kernels take."""
+    if compute not in _COMPUTE:
+        raise ValueError(f"compute must be one of {_COMPUTE}, got {compute!r}")
+
+
+def rounded_operands(compute: str, *tensors):
+    """The operands as the kernels' ``compute`` mode sees them: unchanged
+    for ``"f32"``, rounded to bfloat16 (and back to their dtype) for
+    ``"bf16"``."""
+    check_compute(compute)
+    if compute == "bf16":
+        return tuple(t.to(torch.bfloat16).to(t.dtype) for t in tensors)
+    return tensors
+
+
+def check_cuda_operands(fn: str, X2d, R=None, L=None) -> None:
+    """Raise unless X2d (P, S) and the given R (S, ρ) and L (P, r) are
+    contiguous 2-D float32 tensors on one CUDA device and X2d is not
+    empty; ``fn`` names the caller in the message."""
+    named = [("X2d", X2d)] + [(n, t) for n, t in (("R", R), ("L", L))
+                              if t is not None]
     for name, t in named:
         if t.device.type != "cuda" or t.device != X2d.device:
             raise ValueError(
-                f"dual_project: {name} lies on {t.device}; all operands must "
+                f"{fn}: {name} lies on {t.device}; all operands must "
                 f"lie on one CUDA device (X2d is on {X2d.device})"
             )
         if t.dtype != torch.float32:
             raise ValueError(
-                f"dual_project: the kernel takes float32, {name} is {t.dtype}"
+                f"{fn}: the kernel takes float32, {name} is {t.dtype}"
             )
         if t.ndim != 2 or not t.is_contiguous():
             raise ValueError(
-                f"dual_project: {name} must be a contiguous 2-D tensor, got "
+                f"{fn}: {name} must be a contiguous 2-D tensor, got "
                 f"shape {tuple(t.shape)} with strides {t.stride()}"
             )
     P, S = X2d.shape
-    if R.shape[0] != S or L.shape[0] != P:
-        raise ValueError(
-            f"dual_project: shapes X2d {tuple(X2d.shape)}, R {tuple(R.shape)}, "
-            f"L {tuple(L.shape)} do not chain"
-        )
+    if (R is not None and R.shape[0] != S) or (L is not None
+                                               and L.shape[0] != P):
+        shapes = ", ".join(f"{n} {tuple(t.shape)}" for n, t in named)
+        raise ValueError(f"{fn}: shapes {shapes} do not chain")
     if P == 0 or S == 0:
-        raise ValueError("dual_project: X2d is empty")
+        raise ValueError(f"{fn}: X2d is empty")
 
 
 @functools.cache
@@ -77,13 +96,26 @@ def _library() -> ctypes.CDLL:
     lib = load_library("dual_project")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tt_dual_project.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.tt_dual_project.restype = i32
+    lib.tt_t_only.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.tt_u_only.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.tt_reduce_read.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
+    for fn in ("dual_project", "t_only", "u_only", "reduce_read"):
+        getattr(lib, f"tt_{fn}").restype = i32
     for fn in ("row_block", "col_tile", "max_r", "max_rho"):
         getattr(lib, f"tt_dual_project_{fn}").argtypes = []
         getattr(lib, f"tt_dual_project_{fn}").restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
     lib.tt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def raise_on_error(lib, fn: str, err: int) -> None:
+    """Raise if a launch of ``fn`` returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(
+            f"{fn} kernel failed to launch: CUDA error {err} "
+            f"({lib.tt_cuda_error_string(err).decode()})"
+        )
 
 
 def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
@@ -98,11 +130,10 @@ def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
     ``dual_project_reference``.  ``dual_project.launches`` counts kernel
     launches.
     """
-    if compute not in _COMPUTE:
-        raise ValueError(f"compute must be one of {_COMPUTE}, got {compute!r}")
+    check_compute(compute)
     if all(t.device.type == "cpu" for t in (X2d, R, L)):
         return dual_project_reference(X2d, R, L, compute)
-    _check_cuda_operands(X2d, R, L)
+    check_cuda_operands("dual_project", X2d, R, L)
     lib = _library()
     P, S = X2d.shape
     r, rho = L.shape[1], R.shape[1]
@@ -130,11 +161,7 @@ def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
                 Uc.data_ptr(), Upart.data_ptr(), P, S, rc, rhoc,
                 int(compute == "bf16"), stream,
             )
-            if err != 0:
-                raise RuntimeError(
-                    f"dual_project kernel failed to launch: CUDA error {err} "
-                    f"({lib.tt_cuda_error_string(err).decode()})"
-                )
+            raise_on_error(lib, "dual_project", err)
             dual_project.launches += 1
             T_parts.append(Tc)
             U_parts.append(Uc)

@@ -1,0 +1,172 @@
+"""The Ψ segment reduction of a mode without a sort/chunk plan:
+
+    Ψ[n, a, b] = Σ_{k : idx[k] = n}  left[a, k] · entries[k] · right[b, k]
+
+Counterpart of the segment reduction in
+``tt_sketch_tpu/kernels/sketch_kernels.py`` (``_psi_sparse_segment``),
+which sums with ``jax.ops.segment_sum`` off a TPU and with a one-hot
+product on one (a TPU workaround).  On CUDA tensors ``psi_segment``
+launches the hand-written kernel of ``tt_sketch_torch/csrc/segment_psi.cu``
+(built at first use, see ``cuda_build``) or raises; on CPU tensors it
+computes the plain version ``psi_segment_reference``: the chunked outer
+products summed with ``index_add_``, the counterpart of ``segment_sum``.
+There is no fallback from one to the other.
+
+The kernel keeps a block's bins of every row and rank pair in shared
+memory and sums in a fixed order, without atomics: it takes a Ψ of at most
+``MAX_CELLS`` values (n_mu · r1 · r2).  A larger Ψ scatters with
+``psi_segment_reference`` on every device
+(``sketch_kernels._psi_sparse_segment``): its atomics then rarely meet on
+one address.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
+
+#: the most values (rows x rank pairs) of a Ψ the kernel takes: 64 KB of
+#: float32 bins, one block holds all of them
+MAX_CELLS = 16384
+#: nnz per step of the plain version (bounds the outer-product temporary to
+#: a few hundred MB at rank 10 x 20)
+_REF_CHUNK = 1 << 19
+#: the kernel's nonzero ranges: about this many blocks, at least this many
+#: nonzeros each, and partial bins of at most this many values
+_TARGET_BLOCKS = 1024
+_MIN_CHUNK = 1024
+_MAX_PARTIALS = 1 << 26
+
+
+def _ranks(left, right):
+    return (1 if left is None else left.shape[0],
+            1 if right is None else right.shape[0])
+
+
+def segment_cells(left, right, n_mu: int) -> int:
+    """The number of values of the Ψ: n_mu · r1 · r2."""
+    r1, r2 = _ranks(left, right)
+    return n_mu * r1 * r2
+
+
+def _out_dtype(left, right, entries):
+    dtype = entries.dtype
+    for side in (left, right):
+        if side is not None:
+            dtype = torch.promote_types(dtype, side.dtype)
+    return dtype
+
+
+def psi_segment_reference(left, right, entries, indices_mu, n_mu):
+    """Plain PyTorch version: the outer products of ``_REF_CHUNK`` nonzeros
+    at a time, summed into their rows with ``index_add_``, in the promoted
+    dtype of the operands.  Returns (n_mu, r1, r2)."""
+    r1, r2 = _ranks(left, right)
+    dtype = _out_dtype(left, right, entries)
+    psi = torch.zeros((n_mu, r1, r2), dtype=dtype, device=entries.device)
+    for k0 in range(0, entries.shape[0], _REF_CHUNK):
+        sl = slice(k0, k0 + _REF_CHUNK)
+        ent = entries[sl].to(dtype)
+        weighted = (ent[None, :] if left is None
+                    else left[:, sl].to(dtype) * ent)
+        if right is None:
+            outer = weighted.T[:, :, None]
+        else:
+            rows = right[:, sl].to(dtype)
+            outer = weighted.T[:, :, None] * rows.T[:, None, :]
+        psi.index_add_(0, indices_mu[sl], outer)
+    return psi
+
+
+def segment_chunks(nnz: int, n_mu: int, n_pairs: int) -> tuple:
+    """``(chunk, n_chunks)``: the kernel's blocks each take ``chunk``
+    consecutive nonzeros; about ``_TARGET_BLOCKS`` of them, none shorter
+    than ``_MIN_CHUNK`` unless there are fewer nonzeros, and the partial
+    bins ``n_chunks * n_mu * n_pairs`` at most ``_MAX_PARTIALS`` values."""
+    n_chunks = min(nnz // _MIN_CHUNK, _TARGET_BLOCKS,
+                   _MAX_PARTIALS // (n_mu * n_pairs))
+    n_chunks = max(1, n_chunks)
+    chunk = max(1, -(-nnz // n_chunks))
+    return chunk, max(1, -(-nnz // chunk))
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared (once per
+    process)."""
+    from tt_sketch_torch.kernels.cuda_build import load_library
+
+    lib = load_library("segment_psi")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.tt_segment_psi.argtypes = [i32] + [ptr] * 6 + [i64, i32, i32, i32,
+                                                      i64, i32, ptr]
+    lib.tt_segment_psi.restype = i32
+    lib.tt_cuda_error_string.argtypes = [i32]
+    lib.tt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def psi_segment(left, right, entries, indices_mu, n_mu):
+    """(n_mu, r1, r2) Ψ of at most ``MAX_CELLS`` values from its sides
+    ``left`` (r1, nnz) and ``right`` (r2, nnz) (either may be None: rank 1,
+    a factor of 1), the ``entries`` (nnz,) and the int64 mode indices
+    (nnz,), in the operands' promoted dtype.
+
+    CPU tensors take ``psi_segment_reference``.  CUDA tensors launch the
+    kernel in float64 for float64 operands and in float32 otherwise
+    (``psi_segment.launches`` counts launches; no nonzeros, no launch);
+    indices outside ``[0, n_mu)`` are dropped there."""
+    n_mu = int(n_mu)
+    cells = segment_cells(left, right, n_mu)
+    if not 0 < cells <= MAX_CELLS:
+        raise ValueError(f"psi_segment: a Ψ of {cells} values outside "
+                         f"[1, {MAX_CELLS}]")
+    named = [(n, t) for n, t in (("left", left), ("right", right),
+                                 ("entries", entries),
+                                 ("indices_mu", indices_mu))
+             if t is not None]
+    if all(t.device.type == "cpu" for _, t in named):
+        return psi_segment_reference(left, right, entries, indices_mu, n_mu)
+    device = entries.device
+    if device.type != "cuda":
+        raise ValueError(f"psi_segment: entries lie on {device}; all operands "
+                         f"must lie on one CUDA device")
+    _check_int64("indices_mu", indices_mu, device)
+    nnz = entries.shape[0]
+    for name, t in named:
+        if t.device != device:
+            raise ValueError(f"psi_segment: {name} lies on {t.device}; all "
+                             f"operands must lie on one CUDA device")
+        if t.shape[-1] != nnz or t.ndim != (2 if name in ("left", "right")
+                                             else 1):
+            raise ValueError(f"psi_segment: {name} of shape "
+                             f"{tuple(t.shape)} for {nnz} nonzeros")
+    dtype = _out_dtype(left, right, entries)
+    kdtype = torch.float64 if dtype == torch.float64 else torch.float32
+    left, right, entries = (None if t is None else t.to(kdtype).contiguous()
+                            for t in (left, right, entries))
+    r1, r2 = _ranks(left, right)
+    if nnz == 0:
+        return torch.zeros((n_mu, r1, r2), dtype=dtype, device=device)
+    lib = _library()
+    elem = torch.finfo(kdtype).bits // 8
+    chunk, n_chunks = segment_chunks(nnz, n_mu, r1 * r2)
+    out = torch.empty((n_mu, r1, r2), dtype=kdtype, device=device)
+    partials = torch.empty((n_chunks, n_mu, r1 * r2), dtype=kdtype,
+                           device=device)
+    with torch.cuda.device(device):
+        err = lib.tt_segment_psi(
+            elem, indices_mu.data_ptr(), entries.data_ptr(),
+            None if left is None else left.data_ptr(),
+            None if right is None else right.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), nnz, n_mu, r1, r2, chunk, n_chunks,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "psi_segment")
+    psi_segment.launches += 1
+    return out.to(dtype)
+
+
+psi_segment.launches = 0

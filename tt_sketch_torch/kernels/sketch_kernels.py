@@ -21,13 +21,20 @@ fused kernel when every side it consumes is a hash DRM; the half-fused
 kernel (``psi_chunk_slabs_genright``) when one side is a hash DRM and the
 other an array; the grouped kernel (``psi_chunk_slabs``) over rows gathered
 into the plan's order.  Without a plan, with a ``WindowPlan`` and a non-hash
-side, or in float64 it is the segment reduction over materialized rows.
+side, or in float64 it is the segment reduction over materialized rows
+(``kernels/segment_psi.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian
+from tt_sketch_torch.kernels.segment_psi import MAX_CELLS as SEGMENT_MAX_CELLS
+from tt_sketch_torch.kernels.segment_psi import (
+    psi_segment,
+    psi_segment_reference,
+    segment_cells,
+)
 from tt_sketch_torch.kernels.sparse_plan import WindowPlan
 from tt_sketch_torch.kernels.sparse_psi import (
     omega_fused,
@@ -40,15 +47,6 @@ from tt_sketch_torch.kernels.sparse_psi import (
 from tt_sketch_torch.kernels.sparse_sign import sparse_sign_rows
 from tt_sketch_torch.rng.hash_rng import flat_index
 from tt_sketch_torch.utils import matricize
-
-#: Mode-size cap for the one-hot ``torch.matmul`` segment reduction; above
-#: it the reduction is an ``index_add_``.
-_SPARSE_PSI_ONEHOT_MAX = 4096
-
-#: nnz per step of the segment reduction (bounds the one-hot and outer
-#: product temporaries to a few hundred MB at rank 10 x 20).
-_SEGMENT_CHUNK = 1 << 19
-
 
 # -- dense -------------------------------------------------------------------
 
@@ -123,42 +121,17 @@ def _materialize(side):
     return side() if callable(side) else side
 
 
-def _segment_sum_onehot(outer, idx, n_mu):
-    """``segment_sum(outer, idx, n_mu)`` as a one-hot ``torch.matmul``."""
-    chunk = outer.shape[0]
-    iota = torch.arange(n_mu, dtype=idx.dtype, device=idx.device)
-    onehot = (iota[:, None] == idx[None, :]).to(outer.dtype)  # (n, chunk)
-    return (onehot @ outer.reshape(chunk, -1)).reshape(
-        (n_mu,) + outer.shape[1:])
-
-
 def _psi_sparse_segment(left, right, entries, indices_mu, n_mu):
-    """Σ_k  e_{ind[k]} ⊗ (left[:,k]·entries[k]) ⊗ right[:,k], chunked over
-    nnz: a one-hot product for modes of at most 4096 rows, ``index_add_``
-    above.  Returns (r1, n_mu, r2)."""
-    r1 = left.shape[0] if left is not None else 1
-    r2 = right.shape[0] if right is not None else 1
-    dtype = entries.dtype
-    for side in (left, right):
-        if side is not None:
-            dtype = torch.promote_types(dtype, side.dtype)
-    psi = torch.zeros((n_mu, r1, r2), dtype=dtype, device=entries.device)
-    nnz = entries.shape[0]
-    for k0 in range(0, nnz, _SEGMENT_CHUNK):
-        sl = slice(k0, k0 + _SEGMENT_CHUNK)
-        ent = entries[sl].to(dtype)
-        weighted = (ent[None, :] if left is None
-                    else left[:, sl].to(dtype) * ent)
-        if right is None:
-            outer = weighted.T[:, :, None]
-        else:
-            rows = right[:, sl].to(dtype)
-            outer = weighted.T[:, :, None] * rows.T[:, None, :]
-        if n_mu <= _SPARSE_PSI_ONEHOT_MAX:
-            psi += _segment_sum_onehot(outer, indices_mu[sl], n_mu)
-        else:
-            psi.index_add_(0, indices_mu[sl], outer)
-    return psi.permute(1, 0, 2)
+    """Σ_k  e_{ind[k]} ⊗ (left[:,k]·entries[k]) ⊗ right[:,k]: the
+    counterpart of the ``jax.ops.segment_sum`` the JAX package takes off a
+    TPU (its one-hot product there is a TPU workaround).  A Ψ of at most
+    ``MAX_CELLS`` values takes ``psi_segment`` (the kernel on CUDA, one
+    block holding every value); a larger one scatters with ``index_add_``
+    (``psi_segment_reference``) on every device: its atomics then rarely
+    meet on one address.  Returns (r1, n_mu, r2)."""
+    seg = (psi_segment if segment_cells(left, right, n_mu) <= SEGMENT_MAX_CELLS
+           else psi_segment_reference)
+    return seg(left, right, entries, indices_mu, n_mu).permute(1, 0, 2)
 
 
 def _combine_slabs(flat, plan, n_mu):
