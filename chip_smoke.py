@@ -112,14 +112,14 @@ import time
 import numpy as np
 
 F32_TOL = 2e-5   # relative Frobenius: fp32 sums of 16384/32768 terms in another order
-BF16_TOL = 1e-2  # the same operands rounded to bf16 on both sides, fp32 accumulate
+BF16_TOL = 1e-2  # chain_step_t on bfloat16 operands: its output rounded to bf16 once, the einsum's at each step
 ROWS_TOL = 2e-6  # absolute: FMA-contracted erfinv polynomial vs separate ops, a few f32 ulps at |g| <= 5.5
 PSI_TOL = 2e-5   # relative Frobenius: fp32 sums over up to 3.3M nnz in another order
 SAMPLE_ERROR_LIMIT = 1.0  # sample_error(to_tt()) of a FROSTT-uber sketch at rank 10/20
 PARITY_ERROR_TOL = 1e-3   # absolute: an f32 kernel sketch's sample error vs the f64 parity path's, same seed
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, fp32 outside the tensor cores
-H100_BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, bf16 tensor cores, dense
+H100_TF32_FLOP_PER_S = 495e12   # H100 SXM data sheet, TF32 tensor cores, dense
 # Lane instructions per second of the CUDA cores: the fp32 peak counts an
 # FMA as two flops; integer instructions share the same dispatch slots.
 H100_LANE_OPS_PER_S = H100_FP32_FLOP_PER_S / 2
@@ -265,9 +265,20 @@ def _operands(P, S, r, rho, seed):
     return X, R, L
 
 
+def u_partial_bytes(P, S, r):
+    """Bytes of the U partials of one launch: (G, r, s_pad) f32 written by
+    the projection kernel and read back by its reduction, each way."""
+    from tt_sketch_torch.kernels.dual_project import _library
+
+    lib = _library()
+    G = -(-P // lib.tt_dual_project_row_block())
+    col_tile = lib.tt_dual_project_col_tile()
+    return 4 * G * r * (-(-S // col_tile) * col_tile)
+
+
 def phase_kernel_check():
-    """Kernel vs plain version at every shape and mode; returns the
-    measurements at the main-path shape."""
+    """Kernel vs plain version at every shape and mode, the same bits from
+    two calls at the main-path shape; returns the measurements there."""
     import torch
 
     from tt_sketch_torch.kernels.dual_project import (
@@ -275,10 +286,13 @@ def phase_kernel_check():
         dual_project_reference,
     )
 
+    # bf16 at F32_TOL too: kernel and plain version round the same operands
+    # to bf16 and accumulate in fp32, so a kernel that skipped the rounding
+    # (about 2e-3 away) fails
     main = {}
     for seed, (label, (P, S, r, rho)) in enumerate(SHAPES.items()):
         X, R, L = _operands(P, S, r, rho, seed)
-        for compute, tol in (("f32", F32_TOL), ("bf16", BF16_TOL)):
+        for compute, tol in (("f32", F32_TOL), ("bf16", F32_TOL)):
             T, U = dual_project(X, R, L, compute=compute)
             T0, U0 = dual_project_reference(X, R, L, compute=compute)
             torch.cuda.synchronize()
@@ -295,7 +309,22 @@ def phase_kernel_check():
                 )
             if label == "main":
                 main[compute] = {"rel_err": rel, "max_abs_err": abs_err}
+                T2, U2 = dual_project(X, R, L, compute=compute)
+                same = torch.equal(T, T2) and torch.equal(U, U2)
+                print(f"# phase 2: main {compute}: a second call gives the "
+                      f"same bits: {same}")
+                if not same:
+                    raise AssertionError(f"dual_project {compute} is not "
+                                         f"deterministic")
+                del T2, U2
+            del T, U, T0, U0
         if label == "main":
+            part = u_partial_bytes(P, S, r)
+            xbytes = 4 * P * S
+            main["u_partial_bytes"] = 2 * part
+            print(f"# phase 2: U partials at the main shape: {part} bytes "
+                  f"written + {part} read = {2 * part} = "
+                  f"{2 * part / xbytes:.3f} x X's {xbytes} bytes")
             for compute in ("f32", "bf16"):
                 main[compute]["ms"] = time_ms(
                     lambda: dual_project(X, R, L, compute=compute))
@@ -308,7 +337,9 @@ def phase_kernel_check():
                   f"{main['bf16']['ms']:.3f}, plain f32 "
                   f"{main['f32']['plain_ms']:.3f}, plain bf16 "
                   f"{main['bf16']['plain_ms']:.3f}, two torch.matmul "
-                  f"{main['library_ms']:.3f}")
+                  f"{main['library_ms']:.3f}; bound f32 "
+                  + ", bf16 ".join("{:.3f} by {}".format(*bound_ms(
+                      P, S, r, rho, c)[:2]) for c in ("f32", "bf16")))
         del X, R, L
         torch.cuda.empty_cache()
     return main
@@ -1840,22 +1871,32 @@ def _bound(nbytes, n_ops, ops_per_s):
                                  "operations"), t_bytes, t_ops
 
 
-def bound_ms(P, S, r, rho):
+#: TF32 tensor-core products per flop of the projection kernel: 3xTF32 in
+#: f32 mode (big·big + big·small + small·big), one pass in bf16 mode
+TF32_PASSES = {"f32": 3, "bf16": 1}
+
+
+def bound_ms(P, S, r, rho, compute="f32"):
+    """``dual_project``'s bound: X, R and L read once, T and U written once,
+    against its tensor-core products at the TF32 rate."""
     return _bound(4 * (P * S + S * rho + P * r + P * rho + r * S),
-                  2 * P * S * (r + rho), H100_FP32_FLOP_PER_S)
+                  TF32_PASSES[compute] * 2 * P * S * (r + rho),
+                  H100_TF32_FLOP_PER_S)
 
 
 def diag_bound(name, P, S, r, rho, compute="f32"):
     """The bound of one projector diagnostic: X read once, the small
-    operands read and the output written once; its flops at the fp32 rate,
-    or in ``bf16`` mode at the bf16 tensor-core rate (X stays f32 in
-    memory); ``reduce_read``'s adds as lane instructions."""
-    rate = H100_FP32_FLOP_PER_S if compute == "f32" else H100_BF16_FLOP_PER_S
+    operands read and the output written once; the products as
+    ``bound_ms`` counts them (X stays f32 in memory in both modes);
+    ``reduce_read``'s adds as lane instructions."""
     if name == "reduce_read":
         return _bound(4 * (P * S + P), P * S, H100_LANE_OPS_PER_S)
+    passes = TF32_PASSES[compute]
     if name == "t_only":
-        return _bound(4 * (P * S + S * rho + P * rho), 2 * P * S * rho, rate)
-    return _bound(4 * (P * S + P * r + r * S), 2 * P * S * r, rate)
+        return _bound(4 * (P * S + S * rho + P * rho),
+                      passes * 2 * P * S * rho, H100_TF32_FLOP_PER_S)
+    return _bound(4 * (P * S + P * r + r * S), passes * 2 * P * S * r,
+                  H100_TF32_FLOP_PER_S)
 
 
 def phase_projector_diag():
@@ -1909,6 +1950,12 @@ def phase_projector_diag():
                 if label == "main":
                     res[name][compute] = {"max_abs_err": abs_err,
                                           "rel_err": rel}
+                    same = torch.equal(got, kern(*args[name], **kw))
+                    print(f"# phase 11: {name} main {compute}: a second "
+                          f"call gives the same bits: {same}")
+                    if not same:
+                        raise AssertionError(f"{name} {compute} is not "
+                                             f"deterministic")
         if label != "main":
             del X, R, L
             torch.cuda.empty_cache()
@@ -2016,6 +2063,7 @@ def main():
     diag = phase_projector_diag()
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
+    bf16_bound = bound_ms(*MAIN, compute="bf16")
     entry = {
         "name": "dual_project",
         "route": "cuda",
@@ -2033,7 +2081,10 @@ def main():
         "bound_ops_ms": b_ops,
         "bf16_ms": kern["bf16"]["ms"],
         "bf16_plain_ms": kern["bf16"]["plain_ms"],
+        "bf16_bound_ms": bf16_bound[0],
+        "bf16_bound_by": bf16_bound[1],
         "bf16_max_rel_err": kern["bf16"]["rel_err"],
+        "u_partial_bytes": kern["u_partial_bytes"],
         "shape": dict(zip(("P", "S", "r", "rho"), MAIN)),
         "diag": {t: diag["diag"][t] for t in DIAG_TAGS["dual_project"]},
         "card": smi,

@@ -68,9 +68,11 @@ constexpr int ROW_TILES = 2;        // row tiles owned by a block
 constexpr int RB = BM * ROW_TILES;  // rows of X owned by a block
 constexpr int R_MAX = 32;           // columns of L per launch
 constexpr int RHO_MAX = 64;         // columns of R per launch
-constexpr int THREADS = 256;
-constexpr int XS_LD = BN + 4;       // padded row stride of the X tile
-constexpr int SMEM_FLOATS = BM * XS_LD + BN * RHO_MAX + RB * R_MAX;
+constexpr int THREADS = 256;        // 8 warps
+constexpr int RS_LD = RHO_MAX + 8;  // row stride of the R tile (= 8 mod 32)
+constexpr int LS_LD = R_MAX + 8;    // row stride of the block's L (= 8 mod 32)
+constexpr int X_TILE = BM * BN;     // floats of one X tile (swizzled, no pad)
+constexpr int SMEM_FLOATS = X_TILE + 2 * BN * RS_LD + RB * LS_LD;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
 template <bool BF16>
@@ -82,22 +84,61 @@ __device__ __forceinline__ float operand(float v) {
   }
 }
 
-template <bool BF16>
-__device__ __forceinline__ float4 operand4(float4 v) {
-  return make_float4(operand<BF16>(v.x), operand<BF16>(v.y),
-                     operand<BF16>(v.z), operand<BF16>(v.w));
+// Round to TF32 (10 mantissa bits), nearest, ties away from zero; the low
+// 13 bits of the result are zero.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-__device__ __forceinline__ void unpack(const float4 v, float* out) {
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
+// An operand as the tensor cores take it: f32 mode splits x = big + small
+// (both TF32; x - big is exact in fp32), bf16 mode rounds x to bf16, which
+// TF32 holds exactly (small unused).
+template <bool BF16>
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (BF16) {
+    big = __float_as_uint(operand<true>(x));
+  } else {
+    big = tf32(x);
+    small = tf32(x - __uint_as_float(big));
+  }
+}
+
+// d += a @ b on one 16x8x8 TF32 tile, fp32 accumulate.
+__device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a @ b with the operands as split<BF16> gives them: three products
+// in f32 mode (the small terms first, small @ small dropped), one in bf16.
+template <bool BF16>
+__device__ __forceinline__ void mma3(float* d, const uint32_t* ab,
+                                     const uint32_t* as, const uint32_t* bb,
+                                     const uint32_t* bs) {
+  if constexpr (!BF16) {
+    mma(d, as, bb);
+    mma(d, ab, bs);
+  }
+  mma(d, ab, bb);
+}
+
+// Column swizzle of the X tile: element (row, col) lies at
+// row * BN + (col ^ swz(row)).  It permutes bits 2-4 of the column by the
+// row's low three bits, so 16-byte chunks stay whole, and both fragment
+// reads of a warp hit 32 distinct banks: the T side reads rows g, columns
+// t (A operand), the U side rows t, columns g (B operand), g < 8, t < 4.
+__device__ __forceinline__ int swz(int row) {
+  return ((row & 3) << 3) | (row & 4);
 }
 
 // One tile of X: rows [row_base, row_base + BM), columns [col0, col0 + BN),
-// zero outside (P, S).
-template <bool BF16>
+// zero outside (P, S); raw fp32 (the fragment reads round and split).
 __device__ __forceinline__ void load_x_tile(float* Xs, const float* X, int P,
                                             int S, int row_base, int col0,
                                             bool vec) {
@@ -113,7 +154,7 @@ __device__ __forceinline__ void load_x_tile(float* Xs, const float* X, int P,
       if (row < P && s < S) {
         v = __ldcs(reinterpret_cast<const float4*>(X + (size_t)row * S + s));
       }
-      *reinterpret_cast<float4*>(&Xs[i * XS_LD + c]) = operand4<BF16>(v);
+      *reinterpret_cast<float4*>(&Xs[i * BN + (c ^ swz(i))]) = v;
     }
   } else {
     for (int idx = tid; idx < BM * BN; idx += THREADS) {
@@ -121,26 +162,29 @@ __device__ __forceinline__ void load_x_tile(float* Xs, const float* X, int P,
       const int c = idx % BN;
       const int row = row_base + i;
       const int s = col0 + c;
-      Xs[i * XS_LD + c] =
-          (row < P && s < S) ? operand<BF16>(__ldcs(X + (size_t)row * S + s))
-                             : 0.f;
+      Xs[i * BN + (c ^ swz(i))] =
+          (row < P && s < S) ? __ldcs(X + (size_t)row * S + s) : 0.f;
     }
   }
 }
 
 // WANT_T / WANT_U select the halves; dual_project launches both.
 template <bool BF16, bool WANT_T, bool WANT_U>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
 dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
                     const float* __restrict__ L, float* __restrict__ T,
                     float* __restrict__ Upart, int P, int S, int r, int rho,
                     int s_pad, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* Xs = smem;                // [BM][XS_LD]
-  float* Rs = Xs + BM * XS_LD;     // [BN][RHO_MAX]
-  float* Ls = Rs + BN * RHO_MAX;   // [RB][R_MAX]
+  float* Xs = smem;                 // [BM][BN], swizzled
+  float* Rb = Xs + X_TILE;          // [BN][RS_LD], TF32 big (bf16: rounded)
+  float* Rsm = Rb + BN * RS_LD;     // [BN][RS_LD], TF32 small (f32 mode)
+  float* Ls = Rsm + BN * RS_LD;     // [RB][LS_LD], raw fp32
 
   const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;     // fragment row group
+  const int t = tid % 4;            // thread in the group
   const int row0 = blockIdx.x * RB;
 
   // The block's rows of L, once; zero beyond P and r.
@@ -149,115 +193,181 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
       const int i = idx / R_MAX;
       const int k = idx % R_MAX;
       const int row = row0 + i;
-      Ls[idx] = (row < P && k < r) ? operand<BF16>(L[(size_t)row * r + k]) : 0.f;
+      Ls[i * LS_LD + k] = (row < P && k < r) ? L[(size_t)row * r + k] : 0.f;
     }
   }
 
-  // U: this thread owns L-columns [ur, ur+4) and tile columns [uc, uc+4).
-  const int ur = (tid / 32) * 4;
-  const int uc = (tid % 32) * 4;
-  // T: this thread owns tile rows [tr, tr+4) and R-columns [tc, tc+4).
-  const int tr = (tid / 16) * 4;
-  const int tc = (tid % 16) * 4;
+  // T: warp owns tile rows [tm, tm + 16) and R-columns [tn, tn + 32), four
+  // n8 tiles.  Its A fragments read rows g, g + 8 (row & 7 == g) at columns
+  // k0 + t and k0 + t + 4: the swizzled column is k0 ^ (t ^ swz(g)), k0 a
+  // multiple of 8, so four offsets per thread cover k0 % 32.
+  const int tm = (warp % 4) * 16;
+  const int tn = (warp / 4) * 32;
+  int a_off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a_off[j] = (8 * j) ^ (t ^ swz(g));
+  // U: warp owns tile columns [un, un + 16), two n8 tiles, and all r <= 32
+  // rows of U (two m16 tiles).  Its B fragments read rows k0 + t and
+  // k0 + t + 4 (row & 7 == t, t + 4) at column un + 8 j + g.
+  const int un = warp * 16;
+  int b_col[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    b_col[j][0] = (un + 8 * j + g) ^ swz(t);
+    b_col[j][1] = (un + 8 * j + g) ^ swz(t + 4);
+  }
 
   float tacc[ROW_TILES][4][4];
 #pragma unroll
   for (int it = 0; it < ROW_TILES; ++it)
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) tacc[it][m][c] = 0.f;
+      for (int e = 0; e < 4; ++e) tacc[it][j][e] = 0.f;
 
   const int n_col_tiles = (S + BN - 1) / BN;
   for (int jt = 0; jt < n_col_tiles; ++jt) {
     const int col0 = jt * BN;
-    __syncthreads();  // every read of the previous Rs and Xs is done
+    __syncthreads();  // every read of the previous R tile and X tile is done
     if constexpr (WANT_T) {
+      // R[col0 + k, c], split once per column tile for every row tile
       for (int idx = tid; idx < BN * RHO_MAX; idx += THREADS) {
         const int k = idx / RHO_MAX;
         const int c = idx % RHO_MAX;
         const int s = col0 + k;
-        Rs[idx] = (s < S && c < rho) ? operand<BF16>(R[(size_t)s * rho + c])
-                                     : 0.f;
+        const float v = (s < S && c < rho) ? R[(size_t)s * rho + c] : 0.f;
+        uint32_t big, small = 0;
+        split<BF16>(v, big, small);
+        Rb[k * RS_LD + c] = __uint_as_float(big);
+        if constexpr (!BF16) Rsm[k * RS_LD + c] = __uint_as_float(small);
       }
     }
 
-    float uacc[4][4];
+    float uacc[2][2][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) uacc[a][b] = 0.f;
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) uacc[i][j][e] = 0.f;
 
 #pragma unroll
     for (int it = 0; it < ROW_TILES; ++it) {
       if (it > 0) __syncthreads();  // every read of the previous Xs is done
-      load_x_tile<BF16>(Xs, X, P, S, row0 + it * BM, col0, vec);
+      load_x_tile(Xs, X, P, S, row0 + it * BM, col0, vec);
       __syncthreads();
 
-      // U[:, tile] += L[tile rows]^T @ X_tile
+      // U[:, tile] += L[tile rows]^T @ X_tile: M = r (two m16), N = 16
+      // columns a warp, K = BM rows.  A fresh accumulator per tile, added
+      // to uacc in fp32: the tensor cores' chained sums stay short.
       if constexpr (WANT_U) {
-#pragma unroll 4
-        for (int k = 0; k < BM; ++k) {
-          float a[4], b[4];
-          unpack(*reinterpret_cast<const float4*>(&Ls[(it * BM + k) * R_MAX + ur]), a);
-          unpack(*reinterpret_cast<const float4*>(&Xs[k * XS_LD + uc]), b);
+        float part[2][2][4] = {};
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int kk = 0; kk < BM / 8; ++kk) {
+          const int k0 = kk * 8;
+          const float* l0 = Ls + (it * BM + k0 + t) * LS_LD + g;
+          const float* l4 = l0 + 4 * LS_LD;
+          uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) uacc[i][j] = fmaf(a[i], b[j], uacc[i][j]);
+          for (int i = 0; i < 2; ++i) {
+            split<BF16>(l0[16 * i], ab[i][0], as[i][0]);
+            split<BF16>(l0[16 * i + 8], ab[i][1], as[i][1]);
+            split<BF16>(l4[16 * i], ab[i][2], as[i][2]);
+            split<BF16>(l4[16 * i + 8], ab[i][3], as[i][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            split<BF16>(Xs[(k0 + t) * BN + b_col[j][0]], bb[j][0], bs[j][0]);
+            split<BF16>(Xs[(k0 + t + 4) * BN + b_col[j][1]], bb[j][1],
+                        bs[j][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              mma3<BF16>(part[i][j], ab[i], as[i], bb[j], bs[j]);
         }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) uacc[i][j][e] += part[i][j][e];
       }
 
-      // T[tile rows] += X_tile @ R[tile columns]
+      // T[tile rows] += X_tile @ R[tile columns]: M = 16 rows a warp,
+      // N = 32 columns, K = BN; a fresh accumulator per tile, as for U.
       if constexpr (WANT_T) {
-#pragma unroll 2
-        for (int k = 0; k < BN; k += 4) {
-          float x[4][4], w[4][4];
+        float part[4][4] = {};
+        const float* x0 = Xs + (tm + g) * BN;
+        const float* x8 = x0 + 8 * BN;
 #pragma unroll
-          for (int m = 0; m < 4; ++m)
-            unpack(*reinterpret_cast<const float4*>(&Xs[(tr + m) * XS_LD + k]), x[m]);
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          const int kb = (kk / 4) * 32;  // k0 = kb + 8 (kk % 4)
+          const int o = a_off[kk % 4];
+          uint32_t ab[4], as[4], bb[4][2], bs[4][2];
+          split<BF16>(x0[kb + o], ab[0], as[0]);
+          split<BF16>(x8[kb + o], ab[1], as[1]);
+          split<BF16>(x0[kb + (o ^ 4)], ab[2], as[2]);
+          split<BF16>(x8[kb + (o ^ 4)], ab[3], as[3]);
+          const int k0 = kk * 8;
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            unpack(*reinterpret_cast<const float4*>(&Rs[(k + q) * RHO_MAX + tc]), w[q]);
+          for (int j = 0; j < 4; ++j) {
+            const int n = (k0 + t) * RS_LD + tn + 8 * j + g;
+            bb[j][0] = __float_as_uint(Rb[n]);
+            bb[j][1] = __float_as_uint(Rb[n + 4 * RS_LD]);
+            if constexpr (!BF16) {
+              bs[j][0] = __float_as_uint(Rsm[n]);
+              bs[j][1] = __float_as_uint(Rsm[n + 4 * RS_LD]);
+            }
+          }
 #pragma unroll
-          for (int m = 0; m < 4; ++m)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                tacc[it][m][c] = fmaf(x[m][q], w[q][c], tacc[it][m][c]);
+          for (int j = 0; j < 4; ++j) mma3<BF16>(part[j], ab, as, bb[j], bs[j]);
         }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tacc[it][j][e] += part[j][e];
       }
     }
 
-    // This block's partial of U for the column tile; s_pad is a multiple of
-    // BN, so the float4 stores stay in bounds and aligned.
+    // This block's partial of U for the column tile: rows i16 + g (+ 8),
+    // columns col0 + un + 8 j + 2 t (+ 1); s_pad is a multiple of BN, so
+    // the float2 stores stay in bounds and aligned.
     if constexpr (WANT_U) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        if (ur + a < r) {
-          float* dst = Upart + ((size_t)blockIdx.x * r + ur + a) * s_pad + col0 + uc;
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(uacc[a][0], uacc[a][1], uacc[a][2], uacc[a][3]);
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 16 * i + g + 8 * h;
+          if (k < r) {
+            float* dst = Upart + ((size_t)blockIdx.x * r + k) * s_pad + col0 +
+                         un + 2 * t;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              *reinterpret_cast<float2*>(dst + 8 * j) =
+                  make_float2(uacc[i][j][2 * h], uacc[i][j][2 * h + 1]);
+          }
         }
-      }
     }
   }
 
   if constexpr (WANT_T) {
 #pragma unroll
-    for (int it = 0; it < ROW_TILES; ++it) {
+    for (int it = 0; it < ROW_TILES; ++it)
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int row = row0 + it * BM + tr + m;
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + it * BM + tm + g + 8 * h;
         if (row < P) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (tc + c < rho) T[(size_t)row * rho + tc + c] = tacc[it][m][c];
-          }
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = tn + 8 * j + 2 * t + e;
+              if (c < rho) T[(size_t)row * rho + c] = tacc[it][j][2 * h + e];
+            }
         }
       }
-    }
   }
 }
 
