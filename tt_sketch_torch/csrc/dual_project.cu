@@ -72,7 +72,8 @@ constexpr int THREADS = 256;        // 8 warps
 constexpr int RS_LD = RHO_MAX + 8;  // row stride of the R tile (= 8 mod 32)
 constexpr int LS_LD = R_MAX + 8;    // row stride of the block's L (= 8 mod 32)
 constexpr int X_TILE = BM * BN;     // floats of one X tile (swizzled, no pad)
-constexpr int SMEM_FLOATS = X_TILE + 2 * BN * RS_LD + RB * LS_LD;
+constexpr int STAGES = 3;           // X tiles in the cp.async ring
+constexpr int SMEM_FLOATS = STAGES * X_TILE + 2 * BN * RS_LD + RB * LS_LD;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
 template <bool BF16>
@@ -137,27 +138,49 @@ __device__ __forceinline__ int swz(int row) {
   return ((row & 3) << 3) | (row & 4);
 }
 
-// One tile of X: rows [row_base, row_base + BM), columns [col0, col0 + BN),
-// zero outside (P, S); raw fp32 (the fragment reads round and split).
+// 16 bytes from global to shared memory without passing through registers;
+// in == false writes 16 zero bytes and reads nothing (src-size 0).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start loading one tile of X: rows [row_base, row_base + BM), columns
+// [col0, col0 + BN), zero outside (P, S); raw fp32 (the fragment reads
+// round and split).  vec (S % 4 == 0 and X 16-byte aligned, so s < S
+// implies s + 3 < S): 16-byte cp.async, in flight until waited for.
+// Otherwise scalar loads, complete on return.
 __device__ __forceinline__ void load_x_tile(float* Xs, const float* X, int P,
                                             int S, int row_base, int col0,
                                             bool vec) {
   const int tid = threadIdx.x;
   if (vec) {
-    // S % 4 == 0 and X 16-byte aligned: s < S implies s + 3 < S.
-    for (int idx = tid; idx < BM * (BN / 4); idx += THREADS) {
+#pragma unroll
+    for (int q = 0; q < X_TILE / 4 / THREADS; ++q) {
+      const int idx = tid + q * THREADS;
       const int i = idx / (BN / 4);
       const int c = (idx % (BN / 4)) * 4;
       const int row = row_base + i;
       const int s = col0 + c;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < P && s < S) {
-        v = __ldcs(reinterpret_cast<const float4*>(X + (size_t)row * S + s));
-      }
-      *reinterpret_cast<float4*>(&Xs[i * BN + (c ^ swz(i))]) = v;
+      const bool in = row < P && s < S;
+      cp_async16(&Xs[i * BN + (c ^ swz(i))], in ? X + (size_t)row * S + s : X,
+                 in);
     }
   } else {
-    for (int idx = tid; idx < BM * BN; idx += THREADS) {
+    for (int idx = tid; idx < X_TILE; idx += THREADS) {
       const int i = idx / BN;
       const int c = idx % BN;
       const int row = row_base + i;
@@ -176,8 +199,8 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
                     float* __restrict__ Upart, int P, int S, int r, int rho,
                     int s_pad, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* Xs = smem;                 // [BM][BN], swizzled
-  float* Rb = Xs + X_TILE;          // [BN][RS_LD], TF32 big (bf16: rounded)
+  float* Xring = smem;              // STAGES x [BM][BN], swizzled
+  float* Rb = Xring + STAGES * X_TILE;  // [BN][RS_LD], TF32 big (bf16: rounded)
   float* Rsm = Rb + BN * RS_LD;     // [BN][RS_LD], TF32 small (f32 mode)
   float* Ls = Rsm + BN * RS_LD;     // [RB][LS_LD], raw fp32
 
@@ -187,13 +210,33 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
   const int t = tid % 4;            // thread in the group
   const int row0 = blockIdx.x * RB;
 
-  // The block's rows of L, once; zero beyond P and r.
+  // The X tiles in walk order: q = jt * ROW_TILES + it.  The first
+  // STAGES - 1 start now; one group is committed per tile, empty or not.
+  const int n_col_tiles = (S + BN - 1) / BN;
+  const int n_tiles = n_col_tiles * ROW_TILES;
+#pragma unroll
+  for (int q = 0; q < STAGES - 1; ++q) {
+    if (q < n_tiles)
+      load_x_tile(Xring + q * X_TILE, X, P, S, row0 + (q % ROW_TILES) * BM,
+                  (q / ROW_TILES) * BN, vec);
+    cp_async_commit();
+  }
+
+  // The block's rows of L, once; zero beyond P and r.  All loads of a
+  // thread are issued before its first store.
   if constexpr (WANT_U) {
-    for (int idx = tid; idx < RB * R_MAX; idx += THREADS) {
-      const int i = idx / R_MAX;
-      const int k = idx % R_MAX;
-      const int row = row0 + i;
-      Ls[i * LS_LD + k] = (row < P && k < r) ? L[(size_t)row * r + k] : 0.f;
+    constexpr int N = RB * R_MAX / THREADS;
+    float v[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const int row = row0 + (tid + q * THREADS) / R_MAX;
+      const int k = (tid + q * THREADS) % R_MAX;
+      v[q] = (row < P && k < r) ? L[(size_t)row * r + k] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const int idx = tid + q * THREADS;
+      Ls[(idx / R_MAX) * LS_LD + idx % R_MAX] = v[q];
     }
   }
 
@@ -225,21 +268,18 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
 #pragma unroll
       for (int e = 0; e < 4; ++e) tacc[it][j][e] = 0.f;
 
-  const int n_col_tiles = (S + BN - 1) / BN;
   for (int jt = 0; jt < n_col_tiles; ++jt) {
     const int col0 = jt * BN;
-    __syncthreads();  // every read of the previous R tile and X tile is done
+    // R[col0 + k, c] for the column tile: all loads of a thread are issued
+    // at once, before the wait for the X tile, so their latencies overlap.
+    constexpr int NR = BN * RHO_MAX / THREADS;
+    float rv[NR];
     if constexpr (WANT_T) {
-      // R[col0 + k, c], split once per column tile for every row tile
-      for (int idx = tid; idx < BN * RHO_MAX; idx += THREADS) {
-        const int k = idx / RHO_MAX;
-        const int c = idx % RHO_MAX;
-        const int s = col0 + k;
-        const float v = (s < S && c < rho) ? R[(size_t)s * rho + c] : 0.f;
-        uint32_t big, small = 0;
-        split<BF16>(v, big, small);
-        Rb[k * RS_LD + c] = __uint_as_float(big);
-        if constexpr (!BF16) Rsm[k * RS_LD + c] = __uint_as_float(small);
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const int s = col0 + (tid + q * THREADS) / RHO_MAX;
+        const int c = (tid + q * THREADS) % RHO_MAX;
+        rv[q] = (s < S && c < rho) ? R[(size_t)s * rho + c] : 0.f;
       }
     }
 
@@ -253,9 +293,33 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
 
 #pragma unroll
     for (int it = 0; it < ROW_TILES; ++it) {
-      if (it > 0) __syncthreads();  // every read of the previous Xs is done
-      load_x_tile(Xs, X, P, S, row0 + it * BM, col0, vec);
+      const int q = jt * ROW_TILES + it;
+      cp_async_wait<STAGES - 2>();  // this thread's copies of tile q landed
+      // Every thread's copies of tile q are visible, and every warp is done
+      // with tile q - 1, whose stage the next load takes.
       __syncthreads();
+      const int qn = q + STAGES - 1;
+      if (qn < n_tiles)
+        load_x_tile(Xring + (qn % STAGES) * X_TILE, X, P, S,
+                    row0 + (qn % ROW_TILES) * BM, (qn / ROW_TILES) * BN, vec);
+      cp_async_commit();
+      if constexpr (WANT_T) {
+        if (it == 0) {
+          // the previous column tile's reads of Rb and Rsm are done: split
+          // R once for every row tile of this one
+#pragma unroll
+          for (int k = 0; k < NR; ++k) {
+            const int idx = tid + k * THREADS;
+            const int o = (idx / RHO_MAX) * RS_LD + idx % RHO_MAX;
+            uint32_t big, small = 0;
+            split<BF16>(rv[k], big, small);
+            Rb[o] = __uint_as_float(big);
+            if constexpr (!BF16) Rsm[o] = __uint_as_float(small);
+          }
+          __syncthreads();
+        }
+      }
+      const float* Xs = Xring + (q % STAGES) * X_TILE;
 
       // U[:, tile] += L[tile rows]^T @ X_tile: M = r (two m16), N = 16
       // columns a warp, K = BM rows.  A fresh accumulator per tile, added
