@@ -64,16 +64,16 @@ namespace {
 
 constexpr int BM = 64;              // rows of X per tile
 constexpr int BN = 128;             // columns of X per tile
-constexpr int ROW_TILES = 2;        // row tiles owned by a block
+constexpr int ROW_TILES = 4;        // row tiles owned by a block
 constexpr int RB = BM * ROW_TILES;  // rows of X owned by a block
 constexpr int R_MAX = 32;           // columns of L per launch
 constexpr int RHO_MAX = 64;         // columns of R per launch
 constexpr int THREADS = 256;        // 8 warps
-constexpr int RS_LD = RHO_MAX + 8;  // row stride of the R tile (= 8 mod 32)
-constexpr int LS_LD = R_MAX + 8;    // row stride of the block's L (= 8 mod 32)
 constexpr int X_TILE = BM * BN;     // floats of one X tile (swizzled, no pad)
 constexpr int STAGES = 3;           // X tiles in the cp.async ring
-constexpr int SMEM_FLOATS = STAGES * X_TILE + 2 * BN * RS_LD + RB * LS_LD;
+constexpr int R_FRAG = 2 * BN * RHO_MAX;  // R tile, split, in fragment order
+constexpr int L_PLANE = RB * R_MAX;       // the block's L, one split part
+constexpr int SMEM_FLOATS = STAGES * X_TILE + R_FRAG + 2 * L_PLANE;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
 template <bool BF16>
@@ -138,6 +138,23 @@ __device__ __forceinline__ int swz(int row) {
   return ((row & 3) << 3) | (row & 4);
 }
 
+// The block's L in shared memory: element (row, col) lies at
+// row * R_MAX + (col ^ lswz(row)), which permutes the 16-byte chunks of a
+// row so that the U side's 16-byte reads (rows t, chunks g) are free of
+// bank conflicts.
+__device__ __forceinline__ int lswz(int row) { return (row & 3) << 3; }
+
+// The four 32-bit A fragments of a 16x8 TF32 tile from a row-major tile
+// in shared memory: lane l gives the address of row l % 8 of matrix l / 8
+// (rows 0-7 and 8-15 at columns 0-3, then the same at columns 4-7).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* d, const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a));
+}
+
 // 16 bytes from global to shared memory without passing through registers;
 // in == false writes 16 zero bytes and reads nothing (src-size 0).
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -199,15 +216,16 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
                     float* __restrict__ Upart, int P, int S, int r, int rho,
                     int s_pad, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* Xring = smem;              // STAGES x [BM][BN], swizzled
-  float* Rb = Xring + STAGES * X_TILE;  // [BN][RS_LD], TF32 big (bf16: rounded)
-  float* Rsm = Rb + BN * RS_LD;     // [BN][RS_LD], TF32 small (f32 mode)
-  float* Ls = Rsm + BN * RS_LD;     // [RB][LS_LD], raw fp32
+  float* Xring = smem;                  // STAGES x [BM][BN], swizzled
+  float* Rf = Xring + STAGES * X_TILE;  // R tile, split, fragment order
+  float* Lb = Rf + R_FRAG;              // [RB][R_MAX] TF32 big (bf16: rounded)
+  float* Lsm = Lb + L_PLANE;            // [RB][R_MAX] TF32 small (f32 mode)
 
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
   const int warp = tid / 32;
-  const int g = (tid % 32) / 4;     // fragment row group
-  const int t = tid % 4;            // thread in the group
+  const int g = lane / 4;  // fragment row group
+  const int t = lane % 4;  // thread in the group
   const int row0 = blockIdx.x * RB;
 
   // The X tiles in walk order: q = jt * ROW_TILES + it.  The first
@@ -222,8 +240,8 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
     cp_async_commit();
   }
 
-  // The block's rows of L, once; zero beyond P and r.  All loads of a
-  // thread are issued before its first store.
+  // The block's rows of L, split once; zero beyond P and r.  All loads of
+  // a thread are issued before its first store.
   if constexpr (WANT_U) {
     constexpr int N = RB * R_MAX / THREADS;
     float v[N];
@@ -235,30 +253,40 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
     }
 #pragma unroll
     for (int q = 0; q < N; ++q) {
-      const int idx = tid + q * THREADS;
-      Ls[(idx / R_MAX) * LS_LD + idx % R_MAX] = v[q];
+      const int i = (tid + q * THREADS) / R_MAX;
+      const int o = i * R_MAX + (((tid + q * THREADS) % R_MAX) ^ lswz(i));
+      uint32_t big, small = 0;
+      split<BF16>(v[q], big, small);
+      Lb[o] = __uint_as_float(big);
+      if constexpr (!BF16) Lsm[o] = __uint_as_float(small);
     }
   }
 
-  // T: warp owns tile rows [tm, tm + 16) and R-columns [tn, tn + 32), four
-  // n8 tiles.  Its A fragments read rows g, g + 8 (row & 7 == g) at columns
-  // k0 + t and k0 + t + 4: the swizzled column is k0 ^ (t ^ swz(g)), k0 a
-  // multiple of 8, so four offsets per thread cover k0 % 32.
+  // T: warp owns tile rows [tm, tm + 16) and the four n8 tiles [tj, tj + 4)
+  // of R's columns.  Its A fragments come from one ldmatrix per k-step:
+  // lane l points at row tm + l % 8 + 8 (l / 8 % 2), columns k0 + 4 (l / 16)
+  // + (0..3); the swizzle of those rows depends on l % 8 only, and k0 is a
+  // multiple of 8, so four offsets per lane cover k0 % 32.
   const int tm = (warp % 4) * 16;
-  const int tn = (warp / 4) * 32;
+  const int tj = (warp / 4) * 4;
   int a_off[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) a_off[j] = (8 * j) ^ (t ^ swz(g));
-  // U: warp owns tile columns [un, un + 16), two n8 tiles, and all r <= 32
-  // rows of U (two m16 tiles).  Its B fragments read rows k0 + t and
-  // k0 + t + 4 (row & 7 == t, t + 4) at column un + 8 j + g.
+  for (int j = 0; j < 4; ++j)
+    a_off[j] = (tm + lane % 8 + 8 * (lane / 8 % 2)) * BN +
+               ((8 * j + 4 * (lane / 16)) ^ swz(lane % 8));
+  // U: warp owns tile columns [un, un + 16) and all r <= 32 rows of U.
+  // The rows and columns of its mma tiles are permuted so that loads and
+  // stores are vectors: m16 tile i, row slot g (+ 8 h) is U row 4 g + 2 i
+  // + h, and n8 tile j, column slot n is tile column un + 2 n + j.  A
+  // thread then reads L row k, columns 4 g .. 4 g + 3 (one 16-byte load
+  // for both m16 tiles), reads X row k, columns un + 2 g, un + 2 g + 1 (one
+  // 8-byte load for both n8 tiles), and owns a 4x4 block of U: rows 4 g ..
+  // 4 g + 3, columns un + 4 t .. un + 4 t + 3.
   const int un = warp * 16;
-  int b_col[2][2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    b_col[j][0] = (un + 8 * j + g) ^ swz(t);
-    b_col[j][1] = (un + 8 * j + g) ^ swz(t + 4);
-  }
+  const int bx0 = t * BN + ((un + 2 * g) ^ swz(t));
+  const int bx4 = (t + 4) * BN + ((un + 2 * g) ^ swz(t + 4));
+  const int la0 = t * R_MAX + ((4 * g) ^ lswz(t));
+  const int la4 = (t + 4) * R_MAX + ((4 * g) ^ lswz(t));
 
   float tacc[ROW_TILES][4][4];
 #pragma unroll
@@ -270,17 +298,21 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
 
   for (int jt = 0; jt < n_col_tiles; ++jt) {
     const int col0 = jt * BN;
-    // R[col0 + k, c] for the column tile: all loads of a thread are issued
-    // at once, before the wait for the X tile, so their latencies overlap.
-    constexpr int NR = BN * RHO_MAX / THREADS;
-    float rv[NR];
+    // R for the column tile: warp w stages n8 tile w, lane (g, t) the rows
+    // col0 + 8 kk + t and + 4 of column 8 w + g for every k-step kk.  All
+    // loads of a thread are issued at once, before the wait for the X
+    // tile, so their latencies overlap.
+    constexpr int NR = BN / 8;
+    float rv[NR][2];
     if constexpr (WANT_T) {
+      const int c = 8 * warp + g;
 #pragma unroll
-      for (int q = 0; q < NR; ++q) {
-        const int s = col0 + (tid + q * THREADS) / RHO_MAX;
-        const int c = (tid + q * THREADS) % RHO_MAX;
-        rv[q] = (s < S && c < rho) ? R[(size_t)s * rho + c] : 0.f;
-      }
+      for (int kk = 0; kk < NR; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int s = col0 + 8 * kk + t + 4 * h;
+          rv[kk][h] = (s < S && c < rho) ? R[(size_t)s * rho + c] : 0.f;
+        }
     }
 
     float uacc[2][2][4];
@@ -305,16 +337,18 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
       cp_async_commit();
       if constexpr (WANT_T) {
         if (it == 0) {
-          // the previous column tile's reads of Rb and Rsm are done: split
-          // R once for every row tile of this one
+          // The previous column tile's reads of Rf are done.  Split R once
+          // for every row tile of this one: per k-step and n8 tile, lane
+          // (g, t) holds (big b0, big b1, small b0, small b1).
 #pragma unroll
-          for (int k = 0; k < NR; ++k) {
-            const int idx = tid + k * THREADS;
-            const int o = (idx / RHO_MAX) * RS_LD + idx % RHO_MAX;
-            uint32_t big, small = 0;
-            split<BF16>(rv[k], big, small);
-            Rb[o] = __uint_as_float(big);
-            if constexpr (!BF16) Rsm[o] = __uint_as_float(small);
+          for (int kk = 0; kk < NR; ++kk) {
+            uint32_t big[2], small[2] = {0, 0};
+            split<BF16>(rv[kk][0], big[0], small[0]);
+            split<BF16>(rv[kk][1], big[1], small[1]);
+            float* dst = Rf + ((kk * 8 + warp) * 32 + lane) * 4;
+            *reinterpret_cast<float4*>(dst) = make_float4(
+                __uint_as_float(big[0]), __uint_as_float(big[1]),
+                __uint_as_float(small[0]), __uint_as_float(small[1]));
           }
           __syncthreads();
         }
@@ -328,22 +362,39 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
         float part[2][2][4] = {};
 #pragma unroll
         for (int kk = 0; kk < BM / 8; ++kk) {
-          const int k0 = kk * 8;
-          const float* l0 = Ls + (it * BM + k0 + t) * LS_LD + g;
-          const float* l4 = l0 + 4 * LS_LD;
-          uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            split<BF16>(l0[16 * i], ab[i][0], as[i][0]);
-            split<BF16>(l0[16 * i + 8], ab[i][1], as[i][1]);
-            split<BF16>(l4[16 * i], ab[i][2], as[i][2]);
-            split<BF16>(l4[16 * i + 8], ab[i][3], as[i][3]);
+          const float* xs = Xs + kk * 8 * BN;
+          const float2 x0 = *reinterpret_cast<const float2*>(xs + bx0);
+          const float2 x4 = *reinterpret_cast<const float2*>(xs + bx4);
+          uint32_t bb[2][2], bs[2][2];
+          split<BF16>(x0.x, bb[0][0], bs[0][0]);
+          split<BF16>(x0.y, bb[1][0], bs[1][0]);
+          split<BF16>(x4.x, bb[0][1], bs[0][1]);
+          split<BF16>(x4.y, bb[1][1], bs[1][1]);
+          const int lo = (it * BM + kk * 8) * R_MAX;
+          uint32_t ab[2][4], as[2][4];
+          {
+            const float4 p = *reinterpret_cast<const float4*>(Lb + lo + la0);
+            const float4 q4 = *reinterpret_cast<const float4*>(Lb + lo + la4);
+            ab[0][0] = __float_as_uint(p.x);
+            ab[0][1] = __float_as_uint(p.y);
+            ab[1][0] = __float_as_uint(p.z);
+            ab[1][1] = __float_as_uint(p.w);
+            ab[0][2] = __float_as_uint(q4.x);
+            ab[0][3] = __float_as_uint(q4.y);
+            ab[1][2] = __float_as_uint(q4.z);
+            ab[1][3] = __float_as_uint(q4.w);
           }
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            split<BF16>(Xs[(k0 + t) * BN + b_col[j][0]], bb[j][0], bs[j][0]);
-            split<BF16>(Xs[(k0 + t + 4) * BN + b_col[j][1]], bb[j][1],
-                        bs[j][1]);
+          if constexpr (!BF16) {
+            const float4 p = *reinterpret_cast<const float4*>(Lsm + lo + la0);
+            const float4 q4 = *reinterpret_cast<const float4*>(Lsm + lo + la4);
+            as[0][0] = __float_as_uint(p.x);
+            as[0][1] = __float_as_uint(p.y);
+            as[1][0] = __float_as_uint(p.z);
+            as[1][1] = __float_as_uint(p.w);
+            as[0][2] = __float_as_uint(q4.x);
+            as[0][3] = __float_as_uint(q4.y);
+            as[1][2] = __float_as_uint(q4.z);
+            as[1][3] = __float_as_uint(q4.w);
           }
 #pragma unroll
           for (int i = 0; i < 2; ++i)
@@ -363,30 +414,29 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
       // N = 32 columns, K = BN; a fresh accumulator per tile, as for U.
       if constexpr (WANT_T) {
         float part[4][4] = {};
-        const float* x0 = Xs + (tm + g) * BN;
-        const float* x8 = x0 + 8 * BN;
 #pragma unroll
         for (int kk = 0; kk < BN / 8; ++kk) {
-          const int kb = (kk / 4) * 32;  // k0 = kb + 8 (kk % 4)
-          const int o = a_off[kk % 4];
-          uint32_t ab[4], as[4], bb[4][2], bs[4][2];
-          split<BF16>(x0[kb + o], ab[0], as[0]);
-          split<BF16>(x8[kb + o], ab[1], as[1]);
-          split<BF16>(x0[kb + (o ^ 4)], ab[2], as[2]);
-          split<BF16>(x8[kb + (o ^ 4)], ab[3], as[3]);
-          const int k0 = kk * 8;
+          uint32_t xa[4], ab[4], as[4];
+          ldmatrix_x4(xa, Xs + (kk / 4) * 32 + a_off[kk % 4]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split<BF16>(__uint_as_float(xa[e]), ab[e], as[e]);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int n = (k0 + t) * RS_LD + tn + 8 * j + g;
-            bb[j][0] = __float_as_uint(Rb[n]);
-            bb[j][1] = __float_as_uint(Rb[n + 4 * RS_LD]);
-            if constexpr (!BF16) {
-              bs[j][0] = __float_as_uint(Rsm[n]);
-              bs[j][1] = __float_as_uint(Rsm[n + 4 * RS_LD]);
+            const float* rf = Rf + ((kk * 8 + tj + j) * 32 + lane) * 4;
+            uint32_t bb[2], bs[2];
+            if constexpr (BF16) {
+              const float2 b = *reinterpret_cast<const float2*>(rf);
+              bb[0] = __float_as_uint(b.x);
+              bb[1] = __float_as_uint(b.y);
+            } else {
+              const float4 b = *reinterpret_cast<const float4*>(rf);
+              bb[0] = __float_as_uint(b.x);
+              bb[1] = __float_as_uint(b.y);
+              bs[0] = __float_as_uint(b.z);
+              bs[1] = __float_as_uint(b.w);
             }
+            mma3<BF16>(part[j], ab, as, bb, bs);
           }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma3<BF16>(part[j], ab, as, bb[j], bs[j]);
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -395,22 +445,21 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
       }
     }
 
-    // This block's partial of U for the column tile: rows i16 + g (+ 8),
-    // columns col0 + un + 8 j + 2 t (+ 1); s_pad is a multiple of BN, so
-    // the float2 stores stay in bounds and aligned.
+    // This block's partial of U for the column tile: the thread's 4x4 block
+    // (rows 4 g + 2 i + h, columns col0 + un + 4 t + (0..3)).  s_pad is a
+    // multiple of BN, so the float4 stores stay in bounds and aligned.
     if constexpr (WANT_U) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int k = 16 * i + g + 8 * h;
+          const int k = 4 * g + 2 * i + h;
           if (k < r) {
-            float* dst = Upart + ((size_t)blockIdx.x * r + k) * s_pad + col0 +
-                         un + 2 * t;
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              *reinterpret_cast<float2*>(dst + 8 * j) =
-                  make_float2(uacc[i][j][2 * h], uacc[i][j][2 * h + 1]);
+            *reinterpret_cast<float4*>(
+                Upart + ((size_t)blockIdx.x * r + k) * s_pad + col0 + un +
+                4 * t) =
+                make_float4(uacc[i][0][2 * h], uacc[i][1][2 * h],
+                            uacc[i][0][2 * h + 1], uacc[i][1][2 * h + 1]);
           }
         }
     }
@@ -427,7 +476,7 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
           for (int j = 0; j < 4; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int c = tn + 8 * j + 2 * t + e;
+              const int c = 8 * (tj + j) + 2 * t + e;
               if (c < rho) T[(size_t)row * rho + c] = tacc[it][j][2 * h + e];
             }
         }
