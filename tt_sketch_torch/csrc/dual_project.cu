@@ -70,10 +70,25 @@ constexpr int R_MAX = 32;           // columns of L per launch
 constexpr int RHO_MAX = 64;         // columns of R per launch
 constexpr int THREADS = 256;        // 8 warps
 constexpr int X_TILE = BM * BN;     // floats of one X tile (swizzled, no pad)
-constexpr int STAGES = 3;           // X tiles in the cp.async ring
-constexpr int R_FRAG = 2 * BN * RHO_MAX;  // R tile, split, in fragment order
-constexpr int L_PLANE = RB * R_MAX;       // the block's L, one split part
-constexpr int SMEM_FLOATS = STAGES * X_TILE + R_FRAG + 2 * L_PLANE;
+constexpr int L_PLANE = RB * R_MAX;  // the block's L, one split part
+constexpr int SMEM_FLOATS = 57344;   // 224 KB of the 227 a block may have
+static_assert(BN == 2 * BM, "a U k-step runs beside two T k-steps");
+
+// The R tile in fragment order holds two floats a lane (bf16) or four (f32:
+// big and small); the block's L one plane or two.
+template <bool BF16>
+__host__ __device__ constexpr int parts() { return BF16 ? 1 : 2; }
+template <bool BF16, bool WANT_T, bool WANT_U>
+__host__ __device__ constexpr int side_floats() {
+  return (WANT_T ? parts<BF16>() * BN * RHO_MAX : 0) +
+         (WANT_U ? parts<BF16>() * L_PLANE : 0);
+}
+// X tiles in the cp.async ring: whatever shared memory R and L leave (3 in
+// the fused f32 instance, 5-6 in the others).
+template <bool BF16, bool WANT_T, bool WANT_U>
+__host__ __device__ constexpr int stages() {
+  return (SMEM_FLOATS - side_floats<BF16, WANT_T, WANT_U>()) / X_TILE;
+}
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
 template <bool BF16>
@@ -85,24 +100,27 @@ __device__ __forceinline__ float operand(float v) {
   }
 }
 
-// Round to TF32 (10 mantissa bits), nearest, ties away from zero; the low
-// 13 bits of the result are zero.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+// The TF32 rounding of cvt.rna.tf32.f32 (10 mantissa bits, nearest, ties
+// away from zero) before the mask of the low 13 bits: adding half a TF32
+// ulp to the magnitude bits carries into the kept bits exactly when the
+// dropped ones are at least half.  Hopper has no instruction for the cvt
+// (ptxas expands it to about eight, with a test for inf and NaN); these
+// are two.  The tensor cores read the top 19 bits of a TF32 operand only.
+__device__ __forceinline__ uint32_t tf32_unmasked(float x) {
+  return __float_as_uint(x) + 0x1000u;
 }
 
 // An operand as the tensor cores take it: f32 mode splits x = big + small
-// (both TF32; x - big is exact in fp32), bf16 mode rounds x to bf16, which
-// TF32 holds exactly (small unused).
+// (both TF32; x - big is exact in fp32; small is passed unmasked, as
+// ptxas's own expansion of cvt.rna.tf32.f32 does for an mma operand), bf16
+// mode rounds x to bf16, which TF32 holds exactly (small unused).
 template <bool BF16>
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   if constexpr (BF16) {
     big = __float_as_uint(operand<true>(x));
   } else {
-    big = tf32(x);
-    small = tf32(x - __uint_as_float(big));
+    big = tf32_unmasked(x) & 0xffffe000u;
+    small = tf32_unmasked(x - __uint_as_float(big));
   }
 }
 
@@ -137,12 +155,6 @@ __device__ __forceinline__ void mma3(float* d, const uint32_t* ab,
 __device__ __forceinline__ int swz(int row) {
   return ((row & 3) << 3) | (row & 4);
 }
-
-// The block's L in shared memory: element (row, col) lies at
-// row * R_MAX + (col ^ lswz(row)), which permutes the 16-byte chunks of a
-// row so that the U side's 16-byte reads (rows t, chunks g) are free of
-// bank conflicts.
-__device__ __forceinline__ int lswz(int row) { return (row & 3) << 3; }
 
 // The four 32-bit A fragments of a 16x8 TF32 tile from a row-major tile
 // in shared memory: lane l gives the address of row l % 8 of matrix l / 8
@@ -215,11 +227,13 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
                     const float* __restrict__ L, float* __restrict__ T,
                     float* __restrict__ Upart, int P, int S, int r, int rho,
                     int s_pad, bool vec) {
+  constexpr int STAGES = stages<BF16, WANT_T, WANT_U>();
+  constexpr int PARTS = parts<BF16>();
   extern __shared__ __align__(16) float smem[];
   float* Xring = smem;                  // STAGES x [BM][BN], swizzled
   float* Rf = Xring + STAGES * X_TILE;  // R tile, split, fragment order
-  float* Lb = Rf + R_FRAG;              // [RB][R_MAX] TF32 big (bf16: rounded)
-  float* Lsm = Lb + L_PLANE;            // [RB][R_MAX] TF32 small (f32 mode)
+  float* Lb = Rf + (WANT_T ? PARTS * BN * RHO_MAX : 0);  // L, big parts
+  float* Lsm = Lb + L_PLANE;            // L, small parts (f32 mode)
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -240,25 +254,36 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
     cp_async_commit();
   }
 
-  // The block's rows of L, split once; zero beyond P and r.  All loads of
-  // a thread are issued before its first store.
+  // The block's rows of L, split once, in the order of U's A fragments
+  // (see below): per k-step ks of 8 rows and m16 tile i, lane (g, t) holds
+  // L[8 ks + t, c], L[8 ks + t, c + 1], L[8 ks + t + 4, c], L[8 ks + t + 4,
+  // c + 1] with c = 4 g + 2 i, one 16-byte load that lands in an aligned
+  // register quad.  Zero beyond P and r.  All loads of a thread are issued
+  // before its first store.
   if constexpr (WANT_U) {
-    constexpr int N = RB * R_MAX / THREADS;
-    float v[N];
+    constexpr int N = RB * R_MAX / (4 * THREADS);
+    float v[N][4];
 #pragma unroll
     for (int q = 0; q < N; ++q) {
-      const int row = row0 + (tid + q * THREADS) / R_MAX;
-      const int k = (tid + q * THREADS) % R_MAX;
-      v[q] = (row < P && k < r) ? L[(size_t)row * r + k] : 0.f;
+      const int f = warp + 8 * q;  // 2 ks + i
+      const int c = 4 * g + 2 * (f % 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (f / 2) + t + 4 * (e / 2);
+        const int k = c + e % 2;
+        v[q][e] = (row < P && k < r) ? L[(size_t)row * r + k] : 0.f;
+      }
     }
 #pragma unroll
     for (int q = 0; q < N; ++q) {
-      const int i = (tid + q * THREADS) / R_MAX;
-      const int o = i * R_MAX + (((tid + q * THREADS) % R_MAX) ^ lswz(i));
-      uint32_t big, small = 0;
-      split<BF16>(v[q], big, small);
-      Lb[o] = __uint_as_float(big);
-      if constexpr (!BF16) Lsm[o] = __uint_as_float(small);
+      uint32_t big[4], small[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split<BF16>(v[q][e], big[e], small[e]);
+      const int o = ((warp + 8 * q) * 32 + lane) * 4;
+      *reinterpret_cast<uint4*>(Lb + o) = make_uint4(big[0], big[1], big[2], big[3]);
+      if constexpr (!BF16)
+        *reinterpret_cast<uint4*>(Lsm + o) =
+            make_uint4(small[0], small[1], small[2], small[3]);
     }
   }
 
@@ -275,18 +300,15 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
     a_off[j] = (tm + lane % 8 + 8 * (lane / 8 % 2)) * BN +
                ((8 * j + 4 * (lane / 16)) ^ swz(lane % 8));
   // U: warp owns tile columns [un, un + 16) and all r <= 32 rows of U.
-  // The rows and columns of its mma tiles are permuted so that loads and
-  // stores are vectors: m16 tile i, row slot g (+ 8 h) is U row 4 g + 2 i
+  // The rows and columns of its mma tiles are permuted so that stores and
+  // X loads are vectors: m16 tile i, row slot g (+ 8 h) is U row 4 g + 2 i
   // + h, and n8 tile j, column slot n is tile column un + 2 n + j.  A
-  // thread then reads L row k, columns 4 g .. 4 g + 3 (one 16-byte load
-  // for both m16 tiles), reads X row k, columns un + 2 g, un + 2 g + 1 (one
-  // 8-byte load for both n8 tiles), and owns a 4x4 block of U: rows 4 g ..
-  // 4 g + 3, columns un + 4 t .. un + 4 t + 3.
+  // thread then reads X row k, columns un + 2 g, un + 2 g + 1 (one 8-byte
+  // load for both n8 tiles), and owns a 4x4 block of U: rows 4 g .. 4 g +
+  // 3, columns un + 4 t .. un + 4 t + 3.
   const int un = warp * 16;
   const int bx0 = t * BN + ((un + 2 * g) ^ swz(t));
   const int bx4 = (t + 4) * BN + ((un + 2 * g) ^ swz(t + 4));
-  const int la0 = t * R_MAX + ((4 * g) ^ lswz(t));
-  const int la4 = (t + 4) * R_MAX + ((4 * g) ^ lswz(t));
 
   float tacc[ROW_TILES][4][4];
 #pragma unroll
@@ -339,30 +361,40 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
         if (it == 0) {
           // The previous column tile's reads of Rf are done.  Split R once
           // for every row tile of this one: per k-step and n8 tile, lane
-          // (g, t) holds (big b0, big b1, small b0, small b1).
+          // (g, t) holds (big b0, big b1, small b0, small b1), or the
+          // rounded (b0, b1) in bf16 mode.
 #pragma unroll
           for (int kk = 0; kk < NR; ++kk) {
             uint32_t big[2], small[2] = {0, 0};
             split<BF16>(rv[kk][0], big[0], small[0]);
             split<BF16>(rv[kk][1], big[1], small[1]);
-            float* dst = Rf + ((kk * 8 + warp) * 32 + lane) * 4;
-            *reinterpret_cast<float4*>(dst) = make_float4(
-                __uint_as_float(big[0]), __uint_as_float(big[1]),
-                __uint_as_float(small[0]), __uint_as_float(small[1]));
+            float* dst = Rf + ((kk * 8 + warp) * 32 + lane) * 2 * PARTS;
+            if constexpr (BF16) {
+              *reinterpret_cast<float2*>(dst) = make_float2(
+                  __uint_as_float(big[0]), __uint_as_float(big[1]));
+            } else {
+              *reinterpret_cast<float4*>(dst) = make_float4(
+                  __uint_as_float(big[0]), __uint_as_float(big[1]),
+                  __uint_as_float(small[0]), __uint_as_float(small[1]));
+            }
           }
           __syncthreads();
         }
       }
       const float* Xs = Xring + (q % STAGES) * X_TILE;
 
-      // U[:, tile] += L[tile rows]^T @ X_tile: M = r (two m16), N = 16
-      // columns a warp, K = BM rows.  A fresh accumulator per tile, added
-      // to uacc in fp32: the tensor cores' chained sums stay short.
-      if constexpr (WANT_U) {
-        float part[2][2][4] = {};
+      // U[:, tile] += L[tile rows]^T @ X_tile (M = r in two m16, N = 16
+      // columns a warp, K = BM rows) and T[tile rows] += X_tile @ R[tile
+      // columns] (M = 16 rows a warp, N = 32 columns, K = BN), one U k-step
+      // beside two T k-steps: two independent chains of mma.  U chains over
+      // the column tile's RB rows (96 products in f32 mode); T's products
+      // go to a fresh accumulator per tile, added to tacc in fp32, so that
+      // the tensor cores' chained sums stay short.
+      float tpart[4][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < BM / 8; ++kk) {
-          const float* xs = Xs + kk * 8 * BN;
+      for (int ku = 0; ku < BM / 8; ++ku) {
+        if constexpr (WANT_U) {
+          const float* xs = Xs + ku * 8 * BN;
           const float2 x0 = *reinterpret_cast<const float2*>(xs + bx0);
           const float2 x4 = *reinterpret_cast<const float2*>(xs + bx4);
           uint32_t bb[2][2], bs[2][2];
@@ -370,78 +402,53 @@ dual_project_kernel(const float* __restrict__ X, const float* __restrict__ R,
           split<BF16>(x0.y, bb[1][0], bs[1][0]);
           split<BF16>(x4.x, bb[0][1], bs[0][1]);
           split<BF16>(x4.y, bb[1][1], bs[1][1]);
-          const int lo = (it * BM + kk * 8) * R_MAX;
-          uint32_t ab[2][4], as[2][4];
-          {
-            const float4 p = *reinterpret_cast<const float4*>(Lb + lo + la0);
-            const float4 q4 = *reinterpret_cast<const float4*>(Lb + lo + la4);
-            ab[0][0] = __float_as_uint(p.x);
-            ab[0][1] = __float_as_uint(p.y);
-            ab[1][0] = __float_as_uint(p.z);
-            ab[1][1] = __float_as_uint(p.w);
-            ab[0][2] = __float_as_uint(q4.x);
-            ab[0][3] = __float_as_uint(q4.y);
-            ab[1][2] = __float_as_uint(q4.z);
-            ab[1][3] = __float_as_uint(q4.w);
-          }
-          if constexpr (!BF16) {
-            const float4 p = *reinterpret_cast<const float4*>(Lsm + lo + la0);
-            const float4 q4 = *reinterpret_cast<const float4*>(Lsm + lo + la4);
-            as[0][0] = __float_as_uint(p.x);
-            as[0][1] = __float_as_uint(p.y);
-            as[1][0] = __float_as_uint(p.z);
-            as[1][1] = __float_as_uint(p.w);
-            as[0][2] = __float_as_uint(q4.x);
-            as[0][3] = __float_as_uint(q4.y);
-            as[1][2] = __float_as_uint(q4.z);
-            as[1][3] = __float_as_uint(q4.w);
+          uint4 ab[2], as[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int o = (((it * BM / 8 + ku) * 2 + i) * 32 + lane) * 4;
+            ab[i] = *reinterpret_cast<const uint4*>(Lb + o);
+            if constexpr (!BF16) as[i] = *reinterpret_cast<const uint4*>(Lsm + o);
           }
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
             for (int j = 0; j < 2; ++j)
-              mma3<BF16>(part[i][j], ab[i], as[i], bb[j], bs[j]);
+              mma3<BF16>(uacc[i][j], &ab[i].x, &as[i].x, bb[j], bs[j]);
         }
+        if constexpr (WANT_T) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+          for (int h = 0; h < 2; ++h) {
+            const int kk = 2 * ku + h;
+            uint32_t xa[4], ab[4], as[4];
+            ldmatrix_x4(xa, Xs + (kk / 4) * 32 + a_off[kk % 4]);
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
+            for (int e = 0; e < 4; ++e)
+              split<BF16>(__uint_as_float(xa[e]), ab[e], as[e]);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) uacc[i][j][e] += part[i][j][e];
-      }
-
-      // T[tile rows] += X_tile @ R[tile columns]: M = 16 rows a warp,
-      // N = 32 columns, K = BN; a fresh accumulator per tile, as for U.
-      if constexpr (WANT_T) {
-        float part[4][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < BN / 8; ++kk) {
-          uint32_t xa[4], ab[4], as[4];
-          ldmatrix_x4(xa, Xs + (kk / 4) * 32 + a_off[kk % 4]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split<BF16>(__uint_as_float(xa[e]), ab[e], as[e]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float* rf = Rf + ((kk * 8 + tj + j) * 32 + lane) * 4;
-            uint32_t bb[2], bs[2];
-            if constexpr (BF16) {
-              const float2 b = *reinterpret_cast<const float2*>(rf);
-              bb[0] = __float_as_uint(b.x);
-              bb[1] = __float_as_uint(b.y);
-            } else {
-              const float4 b = *reinterpret_cast<const float4*>(rf);
-              bb[0] = __float_as_uint(b.x);
-              bb[1] = __float_as_uint(b.y);
-              bs[0] = __float_as_uint(b.z);
-              bs[1] = __float_as_uint(b.w);
+            for (int j = 0; j < 4; ++j) {
+              const float* rf = Rf + ((kk * 8 + tj + j) * 32 + lane) * 2 * PARTS;
+              uint32_t bb[2], bs[2];
+              if constexpr (BF16) {
+                const float2 b = *reinterpret_cast<const float2*>(rf);
+                bb[0] = __float_as_uint(b.x);
+                bb[1] = __float_as_uint(b.y);
+              } else {
+                const float4 b = *reinterpret_cast<const float4*>(rf);
+                bb[0] = __float_as_uint(b.x);
+                bb[1] = __float_as_uint(b.y);
+                bs[0] = __float_as_uint(b.z);
+                bs[1] = __float_as_uint(b.w);
+              }
+              mma3<BF16>(tpart[j], ab, as, bb, bs);
             }
-            mma3<BF16>(part[j], ab, as, bb, bs);
           }
         }
+      }
+      if constexpr (WANT_T) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) tacc[it][j][e] += part[j][e];
+          for (int e = 0; e < 4; ++e) tacc[it][j][e] += tpart[j][e];
       }
     }
 
