@@ -13,10 +13,15 @@ Phases (the first failure raises and exits non-zero):
    and the card's name and power limit; count in the built SASS the
    instructions per lazy-Gaussian sample (``lazy_gaussian`` kernel) and per
    draw of a sparse-sign column (``sparse_sign`` kernel, one hash per
-   draw): the sparse bounds use those counts.
+   draw): the sparse bounds use those counts; and per instance of the
+   projection kernel its instructions, tensor-core products and
+   shared-memory loads.
 2. Hold ``dual_project`` against its plain PyTorch version, ``f32`` and
-   ``bf16`` modes, at the main-path shape, a ragged shape and a rank-split
-   shape; time kernel, plain version and the two-``torch.matmul`` yardstick.
+   ``bf16`` modes both at ``F32_TOL``, at the main-path shape, a ragged
+   shape and a rank-split shape; check that two calls at the main shape
+   give the same bits; print the U partials' bytes (asserted at most a
+   quarter of X's); time kernel, plain version and the two-``torch.matmul``
+   yardstick; bound it by bytes and by its TF32 tensor-core products.
 3. The dense main path at full width (``bench.py``'s configuration): a
    rank-5 TT of logical shape (4864, 128, 128, 128), 1.02e10 f32 entries,
    streamed in 19 mode-0 slabs kept as their pivot-1 2-D view
@@ -91,8 +96,9 @@ Phases (the first failure raises and exits non-zero):
 11. The projector diagnostics (``kernels/projector_diag.py``): ``t_only``
     and ``u_only`` (``f32`` and ``bf16``) and ``reduce_read`` against their
     plain versions at the main-path shape, a ragged shape, a rank-split
-    shape (several launches) and a shape whose S is odd; their times, plain
-    versions' and library calls' times and bounds at the main-path shape;
+    shape (several launches) and a shape whose S is odd, the same bits from
+    two calls at the main-path shape; their times, plain versions' and
+    library calls' times and bounds at the main-path shape;
     then ``run_projector_diag`` at the main-path shape with the launch
     counts set to 0 just before it and read just after, printing its nine
     tagged lines.
@@ -325,6 +331,9 @@ def phase_kernel_check():
             print(f"# phase 2: U partials at the main shape: {part} bytes "
                   f"written + {part} read = {2 * part} = "
                   f"{2 * part / xbytes:.3f} x X's {xbytes} bytes")
+            if not 2 * part <= xbytes / 4:
+                raise AssertionError("the U partials move more than a "
+                                     "quarter of X's bytes")
             for compute in ("f32", "bf16"):
                 main[compute]["ms"] = time_ms(
                     lambda: dual_project(X, R, L, compute=compute))
@@ -681,6 +690,30 @@ def sass_sign_ops():
           f"the sign pass's second hash ({min(hashing)}) is not charged to "
           f"the bound")
     return max(hashing)
+
+
+def sass_projection_census():
+    """Per instance of the projection kernel (``dual_project_kernel<BF16,
+    WANT_T, WANT_U>``), its SASS instructions, tensor-core products (HMMA)
+    and shared-memory loads, counted statically in the built library: the
+    loops over a column tile are unrolled, so the ratio is the
+    instructions a warp issues per product."""
+    census = {}
+    for bf16 in (0, 1):
+        for want_t, want_u, label in ((1, 1, "dual"), (1, 0, "T"),
+                                      (0, 1, "U")):
+            ins, op, _ = _sass("dual_project", f"dual_project_kernelILb{bf16}"
+                                               f"ELb{want_t}ELb{want_u}E")
+            ops = [op(t) for _, t in ins]
+            hmma = sum(o.startswith("HMMA") for o in ops)
+            lds = sum(o.startswith("LDS") for o in ops)
+            tag = f"{label}-{'bf16' if bf16 else 'f32'}"
+            census[tag] = {"instructions": len(ops), "hmma": hmma,
+                           "shared_loads": lds}
+            print(f"# phase 1: dual_project SASS {tag}: {len(ops)} "
+                  f"instructions, {hmma} HMMA, {lds} shared-memory loads "
+                  f"({len(ops) / max(hmma, 1):.2f} instructions per HMMA)")
+    return census
 
 
 def _side_cost(flat, salts, spec, ops):
@@ -2037,6 +2070,7 @@ def main():
 
     smi = phase_build()
     ops = {"gauss": sass_ops_per_sample(), "sign_draw": sass_sign_ops()}
+    census = sass_projection_census()
     kern = phase_kernel_check()
     path = phase_main_path()
     phase_stream_sketch()
@@ -2087,6 +2121,7 @@ def main():
         "u_partial_bytes": kern["u_partial_bytes"],
         "shape": dict(zip(("P", "S", "r", "rho"), MAIN)),
         "diag": {t: diag["diag"][t] for t in DIAG_TAGS["dual_project"]},
+        "sass": census,
         "card": smi,
     }
     entries = [entry]
@@ -2136,6 +2171,15 @@ def main():
             "diag": {t: diag["diag"][t] for t in DIAG_TAGS[name]},
             "card": smi,
         })
+    for name, ms, lib, what in (
+            ("dual_project", kern["f32"]["ms"], kern["library_ms"],
+             "two torch.matmul"),
+            ("t_only", diag["t_only"]["f32"]["ms"],
+             diag["t_only"]["library_ms"], "lib-T"),
+            ("u_only", diag["u_only"]["f32"]["ms"],
+             diag["u_only"]["library_ms"], "lib-U")):
+        print(f"# {name} f32 at the main shape: {ms:.3f} ms against "
+              f"{lib:.3f} ms for {what} ({lib / ms:.2f}x)")
     print(f"# dense main path: {path['gbps']:.2f} GB/s, "
           f"{path['ms_per_slab']:.3f} ms/slab, recovery error "
           f"{path['rel_err']:.3e}")

@@ -9,47 +9,75 @@
 // into a library with a plain C interface, loaded by
 // tt_sketch_torch/kernels/dual_project.py through ctypes.
 //
-// What bounds it.  Per element of X the kernel does 2*(r + rho) flops and
-// reads 4 bytes.  At the main-path shape (r = 32, rho = 64) that is 48
-// flop/byte; the H100's fp32 CUDA-core ridge is 67 TFLOP/s over 3.35 TB/s,
-// about 20 flop/byte.  In plain FP32 the kernel is therefore bound by
-// operations (1.54 ms for one 2.15 GB slab against 0.64 ms for its bytes),
-// not by memory.  Only TF32 or bf16 tensor cores would make it memory-bound.
+// What bounds it.  Per element of X the kernel reads 4 bytes and does
+// 2 (r + rho) flops, 48 flop/byte at the main-path shape (r = 32, rho = 64).
+// On the CUDA cores (67 TFLOP/s fp32) that is bound by operations, 1.54 ms
+// for one 2.15 GB slab.  On the TF32 tensor cores (495 TFLOP/s dense, data
+// sheet) fp32 accuracy takes three products per flop (3xTF32, below): 0.62
+// ms, under the 0.65 ms that the slab's bytes take at 3.35 TB/s, so the
+// bound is the bytes.  This kernel uses warp-level mma.sync, which reaches
+// a part of that rate only, and in f32 mode its warps read about fifteen
+// times an X tile's bytes from shared memory per tile (each R fragment is
+// read by four warps, each L fragment by all eight, both split in two), so
+// operations and shared memory, not device memory, still set its pace.
 //
-// What the design does about it.  X is read from device memory exactly once
-// (streaming loads, so the small R, L and T stay in L2), and every element
-// fetched into shared memory feeds both products.  The inner loops are
-// register-tiled (4x4 outputs per thread, float4 shared-memory reads) so
-// the FMA pipes, not shared memory, are the limit.  Nothing is pipelined
-// asynchronously yet: wgmma/TF32, TMA and a persistent schedule are later
-// work.
+// What the design does about it.
+//   - Products on the tensor cores: mma.sync m16n8k8 TF32, fp32 accumulate.
+//     f32 mode splits each operand x = big + small, big = x rounded to TF32
+//     (nearest, ties away) and small = the same rounding of x - big, which
+//     is exact in fp32; it sums small*big + big*small + big*big and drops
+//     small*small, a relative error near 2^-21 per product.  bf16 mode
+//     rounds the operands to bf16, which TF32 holds exactly, and takes one
+//     product: a third of the f32 mode's tensor work.
+//   - Few instructions per mma.  The rounding is an integer add and mask
+//     (ptxas expands cvt.rna.tf32.f32 into a test for inf and NaN, a
+//     select and the mask).  R is split once per column tile and L once per
+//     block, both into fragment order, so a fragment is one 16-byte load
+//     into an aligned register quad.  X is split where its fragments are
+//     read: cp.async lands raw bytes, each X element feeds one warp per
+//     product, so splitting on staging would cost the same conversions and
+//     double the ring's shared memory.  T's X fragments come from one
+//     ldmatrix per k-step.
+//   - No bank conflicts: the X tile is stored with its columns swizzled by
+//     the row (swz below), so T's row-wise and U's column-wise fragment
+//     reads, ldmatrix and the cp.async stores all hit distinct banks.
+//   - X is read from device memory once, by 16-byte cp.async into a ring of
+//     3-6 tiles (whatever shared memory R and L leave), two or more tiles
+//     ahead of the tensor cores.  Shapes with S % 4 != 0 or a misaligned X
+//     take synchronous scalar loads into the same ring.
+//   - Short chained sums.  The tensor cores add with truncation inside an
+//     mma; each X tile's T products go to a fresh accumulator that is added
+//     to the running sum in fp32, and U chains over one column tile's rows.
 //
 // Schedule.  The TPU kernel relied on a sequential grid to keep U resident
 // across its inner sweep.  Here blocks run in parallel, so each block owns
-// RB = 128 consecutive rows of X and walks all of S in column tiles of BN:
+// RB = 256 consecutive rows of X (128 blocks, one wave, at the main shape)
+// and walks all of S in column tiles of BN, BM rows at a time:
 //   - T rows of the block accumulate in registers over the whole walk and
 //     are written once; no reduction is needed for T.
 //   - U for the current column tile accumulates in registers over the
 //     block's rows and is written as a per-block partial Upart[g] (r, S).
 //     A second kernel sums the partials over the blocks in a fixed order.
+//     At the main shape the partials are a quarter of X's bytes, written
+//     and read back.
 // Both outputs are therefore deterministic: the same inputs give the same
-// bits on every run.
+// bits on every run.  One U k-step runs beside two T k-steps, so a warp
+// has two independent chains of mma in flight.
 //
 // Ranks: one launch takes r <= 32 and rho <= 64 (zero-padded below that);
 // the wrapper splits larger ranks into several launches.  Ragged P and S
-// are masked: any shape is taken.  BF16 rounds X, R and L to bfloat16 as
-// they enter shared memory and accumulates in fp32, like the TPU kernel's
-// mxu_dtype=bfloat16.
+// are masked: any shape is taken.  bf16 mode rounds X, R and L to bfloat16
+// and accumulates in fp32, like the TPU kernel's mxu_dtype=bfloat16.
 //
 // The projector diagnostics (tt_sketch_torch/kernels/projector_diag.py)
 // live here too, so that they measure this kernel's own design:
 //   - tt_t_only and tt_u_only launch the same kernel with only its T half
 //     (WANT_U = false) or only its U half (WANT_T = false): the same tile,
-//     block, bf16 rounding, U partials and rank limits.  They replace
-//     scripts/bench_projector_diag.py:t_only and :u_only.  T alone does
-//     2*rho flops per 4-byte element (32 flop/byte at rho = 64: bound by
-//     operations, 1.03 ms per slab); U alone 2*r (16 flop/byte at r = 32:
-//     bound by bytes, 0.64 ms).
+//     block, rounding, U partials and rank limits, with the shared memory
+//     of the missing half spent on more X stages.  They replace
+//     scripts/bench_projector_diag.py:t_only and :u_only.  Both are bound
+//     by bytes on the tensor cores (T alone: 3xTF32 at rho = 64, 0.42 ms of
+//     products against 0.64 ms of bytes per slab).
 //   - tt_reduce_read is a read-once pass that writes the row sums of X, and
 //     replaces scripts/bench_projector_diag.py:reduce_read.  It is bound by
 //     bytes (0.64 ms per slab) and its time is the card's read floor for X.
@@ -91,21 +119,18 @@ __host__ __device__ constexpr int stages() {
 }
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
+// v rounded to bfloat16 (nearest, ties to even), back in fp32.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The TF32 rounding of cvt.rna.tf32.f32 (10 mantissa bits, nearest, ties
 // away from zero) before the mask of the low 13 bits: adding half a TF32
 // ulp to the magnitude bits carries into the kept bits exactly when the
 // dropped ones are at least half.  Hopper has no instruction for the cvt
-// (ptxas expands it to about eight, with a test for inf and NaN); these
-// are two.  The tensor cores read the top 19 bits of a TF32 operand only.
+// (ptxas expands it with a test for inf and NaN, a select and the mask);
+// this is one add.  The tensor cores read the top 19 bits of a TF32
+// operand only.
 __device__ __forceinline__ uint32_t tf32_unmasked(float x) {
   return __float_as_uint(x) + 0x1000u;
 }
@@ -117,7 +142,7 @@ __device__ __forceinline__ uint32_t tf32_unmasked(float x) {
 template <bool BF16>
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   if constexpr (BF16) {
-    big = __float_as_uint(operand<true>(x));
+    big = __float_as_uint(bf16_round(x));
   } else {
     big = tf32_unmasked(x) & 0xffffe000u;
     small = tf32_unmasked(x - __uint_as_float(big));
@@ -190,23 +215,26 @@ __device__ __forceinline__ void cp_async_wait() {
 // Start loading one tile of X: rows [row_base, row_base + BM), columns
 // [col0, col0 + BN), zero outside (P, S); raw fp32 (the fragment reads
 // round and split).  vec (S % 4 == 0 and X 16-byte aligned, so s < S
-// implies s + 3 < S): 16-byte cp.async, in flight until waited for.
-// Otherwise scalar loads, complete on return.
+// implies s + 3 < S): 16-byte cp.async, in flight until waited for; warp
+// w copies rows w + 8 q, lane l columns 4 l .. 4 l + 3, so a thread's
+// addresses move by a fixed stride.  Otherwise scalar loads, complete on
+// return.
 __device__ __forceinline__ void load_x_tile(float* Xs, const float* X, int P,
                                             int S, int row_base, int col0,
                                             bool vec) {
   const int tid = threadIdx.x;
+  static_assert(THREADS == 8 * 32 && BN == 4 * 32, "one row a warp");
   if (vec) {
+    const int warp = tid / 32;
+    const int row = row_base + warp;
+    const int s = col0 + 4 * (tid % 32);
+    const float* src = X + (size_t)row * S + s;
+    float* dst = Xs + warp * BN + ((4 * (tid % 32)) ^ swz(warp));
+    const size_t stride = (size_t)8 * S;
 #pragma unroll
-    for (int q = 0; q < X_TILE / 4 / THREADS; ++q) {
-      const int idx = tid + q * THREADS;
-      const int i = idx / (BN / 4);
-      const int c = (idx % (BN / 4)) * 4;
-      const int row = row_base + i;
-      const int s = col0 + c;
-      const bool in = row < P && s < S;
-      cp_async16(&Xs[i * BN + (c ^ swz(i))], in ? X + (size_t)row * S + s : X,
-                 in);
+    for (int q = 0; q < BM / 8; ++q) {
+      const bool in = s < S && row + 8 * q < P;
+      cp_async16(dst + q * 8 * BN, in ? src + q * stride : X, in);
     }
   } else {
     for (int idx = tid; idx < X_TILE; idx += THREADS) {

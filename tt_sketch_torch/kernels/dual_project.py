@@ -123,8 +123,10 @@ def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
     """Return ``(X2d @ R, Lᵀ @ X2d)`` with one pass over ``X2d``.
 
     X2d: (P, S); R: (S, ρ); L: (P, r).  On CUDA all three are contiguous
-    float32 on one device, and the kernel accumulates in fp32;
-    ``compute="bf16"`` rounds the operands to bfloat16 first.  Ranks above
+    float32 on one device, and the kernel multiplies on the tensor cores
+    with fp32 accumulation: three TF32 products per product (3xTF32, fp32
+    accuracy), or one after ``compute="bf16"`` rounds the operands to
+    bfloat16, which TF32 holds exactly.  Ranks above
     the kernel's per-launch limit (r ≤ 32, ρ ≤ 64) are split into several
     launches, each reading X once.  CPU tensors take
     ``dual_project_reference``.  ``dual_project.launches`` counts kernel

@@ -7,8 +7,8 @@ Counterpart of ``scripts/bench_projector_diag.py`` (``t_only``, ``u_only``,
 what reading X costs (``reduce_read``, the card's read floor), what each
 product costs alone, and what fusing the two costs.  ``t_only`` and
 ``u_only`` are ``dual_project``'s own kernel with one half switched off
-(``csrc/dual_project.cu``: same tile, block, bf16 rounding, U partials and
-rank limits); ``reduce_read`` is a kernel of the same library.
+(``csrc/dual_project.cu``: same tile, block, rounding, U partials and rank
+limits); ``reduce_read`` is a kernel of the same library.
 
 On CUDA tensors each entry point launches its hand-written kernel or
 raises; on CPU tensors it computes the plain version beside it.  There is
@@ -108,8 +108,9 @@ t_only.launches = 0
 def u_only(X2d: torch.Tensor, L: torch.Tensor,
            compute: str = "f32") -> torch.Tensor:
     """Return ``Lᵀ @ X2d`` (r, S) through the U half of ``dual_project``'s
-    kernel: per-block partials over 128 rows, summed in a fixed order by a
-    second kernel.  r above the per-launch limit (32) is split into several
+    kernel: one partial per block of the kernel's rows
+    (``tt_dual_project_row_block``), summed in a fixed order by a second
+    kernel.  r above the per-launch limit (32) is split into several
     launches.  CPU tensors take ``u_only_reference``."""
     check_compute(compute)
     if X2d.device.type == "cpu" and L.device.type == "cpu":
