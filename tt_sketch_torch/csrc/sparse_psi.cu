@@ -94,10 +94,14 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int T = 64;       // nnz per tile
-constexpr int TS = T + 1;   // padded row stride in shared memory
+constexpr int T = 60;      // tile columns (nnz), also the row stride in floats
+constexpr int MJ = 4;      // j columns of a thread's micro-tile
+constexpr int GMAX = 5;    // thread groups per block at most
 constexpr int OMEGA_CHUNK = 4096;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
+static_assert(T % 4 == 0 && (T / 4) % 2 == 1,
+              "a row stride of an odd number of 16-byte units keeps eight "
+              "consecutive rows in eight different bank quads");
 static_assert(THREADS >= 3 * T,
               "one tile column per thread for up to three sign sides");
 
@@ -111,6 +115,16 @@ struct Side {
   int rank;
   int nnz;
   int rank_min;
+};
+
+// The block program's geometry, chosen by the launch code from the ranks.
+struct Sched {
+  int G;   // thread groups, each over its own contiguous part of the range
+  int TG;  // tile columns per group, a multiple of 4
+  int NJ;  // a micro-tile is (i, {jq + c*NJ : c < MJ}), jq < NJ
+  int P;   // micro-tiles: max(Ψ's r1, Ω's r1o) * NJ
+  int GP;  // threads per group: P when G > 1, else THREADS (P > THREADS/2
+           // takes ceil(P / THREADS) passes over the range)
 };
 
 struct Args {
@@ -136,70 +150,97 @@ struct Args {
   int n_chunks;
   const float* lrows = nullptr;  // a GIVEN left side's rows (r1, nnz)
   const float* rrows = nullptr;  // a GIVEN right side's rows (r2, nnz)
+  Sched sc = {};
 };
 
-// Shared-memory layout: salts [L | R | O], rows L | R | O, then loc.
+// Shared-memory layout while the tiles run: rows L | R | O (T floats each),
+// loc (T ints), salts [L | R | O]; after the last tile the groups' tail
+// sums and Ω sums overlay them.  With G > 1 groups the head runs follow:
+// rows (G, 2) ints (head, tail) and sums (G, P, MJ) floats.
 struct Layout {
   int nsl, nsr, nso;  // salts per side
   int al, ar, ao;     // rows allocated per side
   int gl, gr, go;     // rows hashed sample by sample (Gaussian or ones)
-  __host__ __device__ size_t bytes() const {
-    return (size_t)(nsl + nsr + nso) * sizeof(uint64_t) +
-           (size_t)(al + ar + ao) * TS * sizeof(float) + T * sizeof(int);
-  }
+  size_t heads;       // byte offset of the group heads
+  size_t bytes;       // dynamic shared memory of the block
 };
 
-template <bool HAS_L, bool HAS_R, bool OM>
+template <bool HAS_L, bool HAS_R, bool PSI, bool OM>
 __host__ __device__ Layout layout(const Args& a) {
   Layout y;
-  const bool sl = HAS_L && a.ls.kind == SIGN, sr = HAS_R && a.rs.kind == SIGN;
+  const bool sl = PSI && HAS_L && a.ls.kind == SIGN;
+  const bool sr = HAS_R && a.rs.kind == SIGN;
   const bool so = OM && a.os.kind == SIGN;
-  y.nsl = !HAS_L || a.ls.kind == GIVEN ? 0 : sl ? a.ls.nnz : a.r1;
+  y.nsl = !PSI || !HAS_L || a.ls.kind == GIVEN ? 0 : sl ? a.ls.nnz : a.r1;
   y.nsr = !HAS_R || a.rs.kind == GIVEN ? 0 : sr ? a.rs.nnz : a.r2;
   y.nso = !OM ? 0 : so ? a.os.nnz : a.r1o;
-  y.al = sl ? a.ls.rank : a.r1;
+  y.al = !PSI ? 0 : sl ? a.ls.rank : a.r1;
   y.ar = sr ? a.rs.rank : a.r2;
   y.ao = !OM ? 0 : so ? a.os.rank : a.r1o;
-  y.gl = sl ? 0 : a.r1;
+  y.gl = sl || !PSI ? 0 : a.r1;
   y.gr = sr ? 0 : a.r2;
-  y.go = so ? 0 : (OM ? a.r1o : 0);
+  y.go = so || !OM ? 0 : a.r1o;
+  const size_t tiles = (size_t)(y.al + y.ar + y.ao) * T * sizeof(float) +
+                       T * sizeof(int) +
+                       (size_t)(y.nsl + y.nsr + y.nso) * sizeof(uint64_t);
+  const int G = a.sc.G;
+  const size_t tails =
+      G > 1 ? (size_t)G *
+                  ((PSI ? (size_t)a.r1 * a.r2 : 0) +
+                   (OM ? (size_t)a.r1o * a.r2 : 0)) * sizeof(float)
+            : 0;
+  y.heads = ((tiles > tails ? tiles : tails) + 15) / 16 * 16;
+  y.bytes = y.heads + (G > 1 && PSI ? (size_t)G * 2 * sizeof(int) +
+                                          (size_t)G * a.sc.P * MJ *
+                                              sizeof(float)
+                                    : 0);
   return y;
 }
 
-// One tile column of a sign side, in place on the side's rows; a left side
-// carries the entry.
-__device__ __forceinline__ void sign_side(float* rows, const uint64_t* flat,
+// One tile column of a sign side, in place on the side's rows (`col` is
+// the column's slot 0); a left side carries the entry.  A column past the
+// range contributes zeros.
+__device__ __forceinline__ void sign_side(float* col, const uint64_t* flat,
                                           const uint64_t* salts,
                                           const Side& sd, int r_out,
-                                          const float* e, int64_t k0, int t,
-                                          int tn) {
-  if (t >= tn) return;
-  float* col = rows + t;
-  tt_rng::sign_column(flat[k0 + t], salts, sd.rank, sd.nnz, col, TS);
+                                          const float* e, int64_t k,
+                                          bool valid) {
+  if (!valid) {
+    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * T] = 0.f;
+    return;
+  }
+  tt_rng::sign_column(flat[k], salts, sd.rank, sd.nnz, col, T);
   if (e) {
-    const float ek = e[k0 + t];
-    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * TS] *= ek;
+    const float ek = e[k];
+    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * T] *= ek;
   }
 }
 
+__device__ __forceinline__ int phase_of(int r0, int base, int rs) {
+  return ((r0 - base) % rs + rs) % rs;
+}
+
 template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN>
-__global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
-  extern __shared__ uint64_t smem[];
-  const int r1 = a.r1, r2 = a.r2, r1o = OM ? a.r1o : 0;
-  const Layout y = layout<HAS_L, HAS_R, OM>(a);
-  uint64_t* salts = smem;
+__global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int r1 = a.r1, r2 = a.r2, r1o = OM ? a.r1o : 0, span = a.span;
+  const Layout y = layout<HAS_L, HAS_R, PSI, OM>(a);
+  float* Ls = smem;
+  float* Rs = Ls + y.al * T;
+  float* Os = Rs + y.ar * T;
+  int* loc_s = reinterpret_cast<int*>(Os + y.ao * T);
+  uint64_t* salts = reinterpret_cast<uint64_t*>(loc_s + T);
+  int* ends = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + y.heads);
+  float* heads = reinterpret_cast<float*>(ends + 2 * a.sc.G);
   const uint64_t* salts_l = salts;
   const uint64_t* salts_r = salts + y.nsl;
   const uint64_t* salts_o = salts_r + y.nsr;
   const int n_salts = y.nsl + y.nsr + y.nso;
-  float* Ls = reinterpret_cast<float*>(salts + n_salts);
-  float* Rs = Ls + y.al * TS;
-  float* Os = Rs + y.ar * TS;
-  int* loc_s = reinterpret_cast<int*>(Os + y.ao * TS);
   // the rows the contraction reads: a sign side's slice starts at rank_min
-  const float* Lc = Ls + (y.gl ? 0 : a.ls.rank_min * TS);
-  const float* Rc = Rs + (y.gr ? 0 : a.rs.rank_min * TS);
-  const float* Oc = Os + (y.go || !OM ? 0 : a.os.rank_min * TS);
+  const float* Lc = Ls + (y.gl || !PSI ? 0 : a.ls.rank_min * T);
+  const float* Rc = Rs + (y.gr ? 0 : a.rs.rank_min * T);
+  const float* Oc = Os + (y.go || !OM ? 0 : a.os.rank_min * T);
 
   const int tid = threadIdx.x;
   for (int i = tid; i < n_salts; i += THREADS) {
@@ -226,107 +267,291 @@ __global__ void __launch_bounds__(THREADS) sparse_psi_kernel(Args a) {
     end = (int64_t)c1 * a.chunk;
   }
   if (end > a.nnz) end = a.nnz;
+  if (WIN) {
+    // the pads (loc == span) come last in a window's run: it ends at the
+    // first of them
+    int64_t lo = start, hi = end;
+    while (lo < hi) {
+      const int64_t mid = lo + ((hi - lo) >> 1);
+      if (a.loc[mid] < span) lo = mid + 1; else hi = mid;
+    }
+    end = lo;
+  }
+  float* slab = PSI ? a.slabs + g * span * r1 * r2 : nullptr;
+  float* om = OM ? a.om + g * r1o * r2 : nullptr;
   if (PSI) {
-    float* slab = a.slabs + g * a.span * r1 * r2;
-    for (int i = tid; i < a.span * r1 * r2; i += THREADS) slab[i] = 0.f;
+    for (int i = tid; i < span * r1 * r2; i += THREADS) slab[i] = 0.f;
   }
-  if (OM) {
-    float* om = a.om + g * r1o * r2;
-    for (int i = tid; i < r1o * r2; i += THREADS) om[i] = 0.f;
-  }
-  __syncthreads();
+  __syncthreads();  // the salts
 
-  const int n_hashed = y.gl + y.gr + y.go;
-  for (int64_t k0 = start; k0 < end; k0 += T) {
-    // a window's pads sit at the end of its run: a tile that starts on one
-    // holds nothing more (the same address for every thread: no divergence)
-    if (WIN && a.loc[k0] >= a.span) break;
-    const int tn = (int)(end - k0 < T ? end - k0 : T);
-    // 1a. sign sides: one thread per tile column shuffles the column
-    {
-      const int job = tid / T, t = tid - job * T;
-      int q = 0;
-      if (HAS_L && a.ls.kind == SIGN) {
-        if (job == q) {
-          sign_side(Ls, a.lflat, salts_l, a.ls, r1, a.e, k0, t, tn);
-        }
-        ++q;
-      }
-      if (HAS_R && a.rs.kind == SIGN) {
-        if (job == q) {
-          sign_side(Rs, a.rflat, salts_r, a.rs, r2, nullptr, k0, t, tn);
-        }
-        ++q;
-      }
-      if (OM && a.os.kind == SIGN) {
-        if (job == q) {
-          sign_side(Os, a.oflat, salts_o, a.os, r1o, a.e, k0, t, tn);
-        }
-      }
-    }
-    // 1b. Gaussian, given (and missing) sides: one sample or one load per
-    // thread-step; left rows carry e[k]
-    for (int i = tid; i < n_hashed * T; i += THREADS) {
-      const int row = i / T, t = i - row * T;
-      if (t >= tn) continue;
-      const int64_t k = k0 + t;
-      if (row < y.gl) {
-        const float ek = a.e[k];
-        Ls[row * TS + t] =
-            !HAS_L ? ek
-            : a.ls.kind == GIVEN ? a.lrows[(int64_t)row * a.nnz + k] * ek
-                                 : tt_rng::sample(a.lflat[k], salts_l[row]) * ek;
-      } else if (row < y.gl + y.gr) {
-        const int b = row - y.gl;
-        Rs[b * TS + t] =
-            !HAS_R ? 1.f
-            : a.rs.kind == GIVEN ? a.rrows[(int64_t)b * a.nnz + k]
-                                 : tt_rng::sample(a.rflat[k], salts_r[b]);
-      } else {
-        const int b = row - y.gl - y.gr;
-        Os[b * TS + t] = tt_rng::sample(a.oflat[k], salts_o[b]) * a.e[k];
-      }
-    }
-    if (PSI) {
-      for (int t = tid; t < T; t += THREADS) {
-        loc_s[t] = t < tn ? a.loc[k0 + t] : a.span;
-      }
-    }
-    __syncthreads();
+  // The range [start, end) splits into G contiguous parts of q nnz, whole
+  // group tiles each; group c walks its part TG columns per tile, at tile
+  // columns [c*TG, (c+1)*TG).
+  const Sched sc = a.sc;
+  const int G = sc.G, TG = sc.TG, W = G * TG, RS = THREADS / W;
+  const int64_t n = end > start ? end - start : 0;
+  int64_t q = (n + G - 1) / G;
+  q = (q + TG - 1) / TG * TG;
+  const int n_it = (int)(q / TG);
 
-    // 2. contract: each thread owns output elements (i, j)
-    if (PSI) {
-      float* slab = a.slabs + g * a.span * r1 * r2;
-      for (int el = tid; el < r1 * r2; el += THREADS) {
-        const int i = el / r2, j = el - i * r2;
-        const float* li = Lc + i * TS;
-        const float* rj = Rc + j * TS;
-        int s = loc_s[0];
-        float acc = 0.f;
-        for (int t = 0; t < tn; ++t) {
-          const int st = loc_s[t];  // the same for every thread: no divergence
-          if (st != s) {
-            if (s >= 0 && s < a.span) slab[(s * r1 + i) * r2 + j] += acc;
-            acc = 0.f;
-            s = st;
+  // generation: this thread's tile column t0 and its first row r0 (rows
+  // r0, r0 + RS, ... of the hashed rows in one sequence over the sides)
+  const int r0 = tid / W, t0 = tid - r0 * W;
+  const bool gen = r0 < RS;
+  const int cg = t0 / TG;
+  const int64_t col_lo = start + cg * q + (t0 - cg * TG);
+  const int64_t col_end = min(start + (cg + 1) * q, end);
+  const int64_t col_grp = start + cg * q;
+  const int ph_l = phase_of(r0, 0, RS), ph_r = phase_of(r0, y.gl, RS),
+            ph_o = phase_of(r0, y.gl + y.gr, RS);
+  const bool given_l = HAS_L && a.ls.kind == GIVEN;
+  const bool given_r = HAS_R && a.rs.kind == GIVEN;
+
+  // contraction: this thread's group and its place in it
+  const int grp = tid / sc.GP, in_grp = tid - grp * sc.GP;
+  const int64_t my_lo = start + grp * q;
+  const int64_t my_hi = min(my_lo + q, end);
+  const int64_t my_n = grp < G && my_lo < my_hi ? my_hi - my_lo : 0;
+  const int c0 = grp * TG;
+  const int passes = (sc.P + sc.GP - 1) / sc.GP;
+
+  for (int pass = 0; pass < passes; ++pass) {
+    const int p = pass * sc.GP + in_grp;
+    const bool mine = grp < G && p < sc.P;  // owns a micro-tile
+    const int i = mine ? p / sc.NJ : 0;
+    const int jq = mine ? p - i * sc.NJ : 0;
+    int jc[MJ];
+    const float* rrow[MJ];
+#pragma unroll
+    for (int c = 0; c < MJ; ++c) {
+      jc[c] = jq + c * sc.NJ;
+      rrow[c] = Rc + (jc[c] < r2 ? jc[c] : 0) * T + c0;
+    }
+    const float* lrow = Lc + (i < r1 ? i : 0) * T + c0;
+    const float* orow = Oc + (i < r1o ? i : 0) * T + c0;
+    const bool psi_i = PSI && mine && i < r1, om_i = OM && mine && i < r1o;
+    float acc[MJ], oacc[MJ];
+#pragma unroll
+    for (int c = 0; c < MJ; ++c) acc[c] = oacc[c] = 0.f;
+    // the current run's row; with G > 1 the group's first run is its head,
+    // kept in shared memory for the combine
+    int s = PSI && my_n > 0 ? a.loc[my_lo] : 0;
+    bool head_open = true;
+    auto close_run = [&](int next) {
+      if (G > 1 && head_open) {
+        if (mine) {
+          *reinterpret_cast<float4*>(heads + (grp * sc.P + p) * MJ) =
+              make_float4(acc[0], acc[1], acc[2], acc[3]);
+          if (in_grp == 0) ends[2 * grp] = s;
+        }
+      } else if (psi_i && s >= 0 && s < span) {
+        float* out = slab + ((int64_t)s * r1 + i) * r2;
+#pragma unroll
+        for (int c = 0; c < MJ; ++c) {
+          if (jc[c] < r2) out[jc[c]] = acc[c];
+        }
+      }
+      head_open = false;
+#pragma unroll
+      for (int c = 0; c < MJ; ++c) acc[c] = 0.f;
+      s = next;
+    };
+
+    for (int it = 0; it < n_it; ++it) {
+      const int64_t k = col_lo + (int64_t)it * TG;
+      const bool kv = gen && k < col_end;
+      // 1a. sign sides: thread row r0 == q shuffles column t0 of sign side q
+      {
+        int qs = 0;
+        if (PSI && HAS_L && a.ls.kind == SIGN) {
+          if (gen && r0 == qs) {
+            sign_side(Ls + t0, a.lflat, salts_l, a.ls, r1, a.e, k, kv);
           }
-          acc = fmaf(li[t], rj[t], acc);
+          ++qs;
         }
-        if (s >= 0 && s < a.span) slab[(s * r1 + i) * r2 + j] += acc;
+        if (HAS_R && a.rs.kind == SIGN) {
+          if (gen && r0 == qs) {
+            sign_side(Rs + t0, a.rflat, salts_r, a.rs, r2, nullptr, k, kv);
+          }
+          ++qs;
+        }
+        if (OM && a.os.kind == SIGN) {
+          if (gen && r0 == qs) {
+            sign_side(Os + t0, a.oflat, salts_o, a.os, r1o, a.e, k, kv);
+          }
+        }
+      }
+      // 1b. Gaussian, given and missing sides: the column's flat indices
+      // and entry are loaded once; left rows carry e[k]; a column past the
+      // range is zero
+      if (gen) {
+        float ek = 0.f;
+        uint64_t fl = 0, fr = 0, fo = 0;
+        if (kv) {
+          ek = a.e[k];
+          if (PSI && HAS_L && y.gl && !given_l) fl = a.lflat[k];
+          if (HAS_R && y.gr && !given_r) fr = a.rflat[k];
+          if (OM && y.go) fo = a.oflat[k];
+        }
+        if (PSI) {
+          for (int b = ph_l; b < y.gl; b += RS) {
+            Ls[b * T + t0] =
+                !kv ? 0.f
+                : !HAS_L ? ek
+                : given_l ? a.lrows[(int64_t)b * a.nnz + k] * ek
+                          : tt_rng::sample(fl, salts_l[b]) * ek;
+          }
+        }
+        for (int b = ph_r; b < y.gr; b += RS) {
+          Rs[b * T + t0] = !kv ? 0.f
+                           : !HAS_R ? 1.f
+                           : given_r ? a.rrows[(int64_t)b * a.nnz + k]
+                                     : tt_rng::sample(fr, salts_r[b]);
+        }
+        if (OM) {
+          for (int b = ph_o; b < y.go; b += RS) {
+            Os[b * T + t0] = !kv ? 0.f : tt_rng::sample(fo, salts_o[b]) * ek;
+          }
+        }
+        // past the range, a column repeats the group's last row: it
+        // closes no run
+        if (PSI && r0 == 0) {
+          loc_s[t0] = kv ? a.loc[k]
+                      : col_end > col_grp ? a.loc[col_end - 1] : 0;
+        }
+      }
+      __syncthreads();
+
+      // 2. contract the group's TG columns: R is read once for Ψ and Ω,
+      // four columns at a time
+      if (mine && (int64_t)it * TG < my_n) {
+        for (int t = 0; t < TG; t += 4) {
+          float4 rv[MJ];
+#pragma unroll
+          for (int c = 0; c < MJ; ++c) {
+            rv[c] = jc[c] < r2 ? *reinterpret_cast<const float4*>(rrow[c] + t)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          if (OM) {
+            const float4 ov = *reinterpret_cast<const float4*>(orow + t);
+#pragma unroll
+            for (int c = 0; c < MJ; ++c) {
+              oacc[c] = fmaf(ov.x, rv[c].x, oacc[c]);
+              oacc[c] = fmaf(ov.y, rv[c].y, oacc[c]);
+              oacc[c] = fmaf(ov.z, rv[c].z, oacc[c]);
+              oacc[c] = fmaf(ov.w, rv[c].w, oacc[c]);
+            }
+          }
+          if (PSI) {
+            const int4 lc = *reinterpret_cast<const int4*>(loc_s + c0 + t);
+            const float4 lv = *reinterpret_cast<const float4*>(lrow + t);
+            if (lc.w == s) {
+              // loc is non-decreasing: the four columns continue the run
+#pragma unroll
+              for (int c = 0; c < MJ; ++c) {
+                acc[c] = fmaf(lv.x, rv[c].x, acc[c]);
+                acc[c] = fmaf(lv.y, rv[c].y, acc[c]);
+                acc[c] = fmaf(lv.z, rv[c].z, acc[c]);
+                acc[c] = fmaf(lv.w, rv[c].w, acc[c]);
+              }
+            } else {
+              if (lc.x != s) close_run(lc.x);
+#pragma unroll
+              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.x, rv[c].x, acc[c]);
+              if (lc.y != s) close_run(lc.y);
+#pragma unroll
+              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.y, rv[c].y, acc[c]);
+              if (lc.z != s) close_run(lc.z);
+#pragma unroll
+              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.z, rv[c].z, acc[c]);
+              if (lc.w != s) close_run(lc.w);
+#pragma unroll
+              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.w, rv[c].w, acc[c]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    // 3. store: each output element once
+    if (G == 1) {
+      if (PSI && my_n > 0) close_run(s);  // the tail run
+      if (om_i) {
+        float* out = om + (int64_t)i * r2;
+#pragma unroll
+        for (int c = 0; c < MJ; ++c) {
+          if (jc[c] < r2) out[jc[c]] = oacc[c];
+        }
+      }
+    } else {
+      // the groups' tail runs and Ω sums go to shared memory over the tiles
+      // (the tile loop ended on a barrier); a group that is one run keeps
+      // it as its head.  Then one thread per element adds them in group
+      // order.
+      float* tv = smem;                          // (G, r1, r2)
+      float* ov = tv + (PSI ? G * r1 * r2 : 0);  // (G, r1o, r2)
+      if (PSI && mine) {
+        if (my_n == 0 || head_open) {
+          if (in_grp == 0) {
+            ends[2 * grp] = my_n == 0 ? -1 : s;
+            ends[2 * grp + 1] = -1;
+          }
+          *reinterpret_cast<float4*>(heads + (grp * sc.P + p) * MJ) =
+              make_float4(acc[0], acc[1], acc[2], acc[3]);
+        } else {
+          if (in_grp == 0) ends[2 * grp + 1] = s;
+          if (psi_i) {
+            float* tl = tv + ((int64_t)grp * r1 + i) * r2;
+#pragma unroll
+            for (int c = 0; c < MJ; ++c) {
+              if (jc[c] < r2) tl[jc[c]] = acc[c];
+            }
+          }
+        }
+      }
+      if (om_i) {
+        float* o = ov + ((int64_t)grp * r1o + i) * r2;
+#pragma unroll
+        for (int c = 0; c < MJ; ++c) {
+          if (jc[c] < r2) o[jc[c]] = oacc[c];
+        }
+      }
+      __syncthreads();
+      if (PSI) {
+        const int ne = r1 * r2;
+        for (int el = tid; el < ne; el += THREADS) {
+          int cur = -1;
+          float sum = 0.f;
+          for (int u = 0; u < 2 * G; ++u) {
+            const int row = ends[u];
+            if (row < 0) continue;
+            // a head sum lies at (group, micro-tile, c) of its element
+            const int gu = u >> 1, ei = el / r2, ej = el - ei * r2;
+            const float v =
+                (u & 1) ? tv[gu * ne + el]
+                        : heads[(gu * sc.P + ei * sc.NJ + ej % sc.NJ) * MJ +
+                                ej / sc.NJ];
+            if (row == cur) {
+              sum += v;
+            } else {
+              if (cur >= 0 && cur < span) slab[(int64_t)cur * ne + el] = sum;
+              cur = row;
+              sum = v;
+            }
+          }
+          if (cur >= 0 && cur < span) slab[(int64_t)cur * ne + el] = sum;
+        }
+      }
+      if (OM) {
+        const int ne = r1o * r2;
+        for (int el = tid; el < ne; el += THREADS) {
+          float sum = ov[el];
+          for (int u = 1; u < G; ++u) sum += ov[u * ne + el];
+          om[el] = sum;
+        }
       }
     }
-    if (OM) {
-      float* om = a.om + g * r1o * r2;
-      for (int el = tid; el < r1o * r2; el += THREADS) {
-        const int i = el / r2, j = el - i * r2;
-        const float* oi = Oc + i * TS;
-        const float* rj = Rc + j * TS;
-        float acc = 0.f;
-        for (int t = 0; t < tn; ++t) acc = fmaf(oi[t], rj[t], acc);
-        om[el] += acc;
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -336,9 +561,26 @@ bool bad_side(const Side& sd, int r_out) {
           sd.rank_min + r_out > sd.rank);
 }
 
+// Groups from the micro-tiles: as many groups as the block's threads hold
+// (at most GMAX), each over its own part of the range; past THREADS / 2
+// micro-tiles one group takes them in passes.
+template <bool PSI, bool OM>
+Sched schedule(const Args& a) {
+  Sched s;
+  int m = PSI ? a.r1 : 0;
+  if (OM && a.r1o > m) m = a.r1o;
+  s.NJ = (a.r2 + MJ - 1) / MJ;
+  s.P = m * s.NJ;
+  s.G = 2 * s.P > THREADS ? 1 : (THREADS / s.P < GMAX ? THREADS / s.P : GMAX);
+  s.TG = T / (4 * s.G) * 4;
+  s.GP = s.G > 1 ? s.P : THREADS;
+  return s;
+}
+
 template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN = false>
-cudaError_t launch(const Args& a, int64_t n_blocks, cudaStream_t stream) {
-  const size_t bytes = layout<HAS_L, HAS_R, OM>(a).bytes();
+cudaError_t launch(Args a, int64_t n_blocks, cudaStream_t stream) {
+  a.sc = schedule<PSI, OM>(a);
+  const size_t bytes = layout<HAS_L, HAS_R, PSI, OM>(a).bytes;
   if (bytes > SMEM_LIMIT || n_blocks <= 0 || n_blocks > 0x7FFFFFFF ||
       (HAS_L && bad_side(a.ls, a.r1)) || (HAS_R && bad_side(a.rs, a.r2)) ||
       (OM && bad_side(a.os, a.r1o))) {
