@@ -867,6 +867,28 @@ def _check(name, label, args, phase=6):
     return _compare(name, label, got, ref, phase)
 
 
+#: the kernels that are instances of csrc/sparse_psi.cu's block program
+SPARSE_PSI_INSTANCES = ("psi_omega_merged_slabs", "omega_fused",
+                        "psi_fused_slabs", "psi_window_direct",
+                        "psi_chunk_slabs", "psi_chunk_slabs_genright")
+
+
+def _same_bits(name, label, args, phase=6):
+    """Two calls of a kernel on the same operands give the same bits (no
+    atomics: each output is summed by one thread, or in a fixed order)."""
+    import torch
+
+    kern = _kernel_fns()[name][0]
+    a, b = _as_tuple(kern(*args)), _as_tuple(kern(*args))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"# phase {phase}: {name} {label}: two calls give the same bits: "
+          f"{same}")
+    if not same:
+        raise AssertionError(f"{name} gives other bits on a second call at "
+                             f"{label}")
+
+
 def _high_flats(args, offset):
     """The same call with every flat index stream shifted by ``offset``
     (mod 2^64), which puts them above 2^63."""
@@ -970,6 +992,8 @@ def phase_sparse_kernels(paths, ops):
                 if label in paths:
                     m = worst.setdefault((name, label), [0.0, 0.0])
                     m[0], m[1] = max(m[0], a), max(m[1], r)
+                    if name in SPARSE_PSI_INSTANCES[:4]:
+                        _same_bits(name, f"{label} call {i}", args)
 
     # the variants no sketch above launches: Ψ with both sides and without
     # a left side, merged without a left side, each with Gaussian, sign,
@@ -1065,7 +1089,7 @@ def phase_sparse_kernels(paths, ops):
             res[name][label] = {
                 "launches": len(calls), "max_abs_err": abs_err,
                 "max_rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by, "over_bound": ms / b_ms}
             lib = ""
             if name == "psi_segment":
                 lib_ms = segment_library_ms(calls)
@@ -1074,7 +1098,8 @@ def phase_sparse_kernels(paths, ops):
                        f"{lib_ms:.3f} ms")
             print(f"# phase 6: {name}: {len(calls)} launch(es) of one "
                   f"{label} sketch in {ms:.3f} ms (bound {b_ms:.3f} ms by "
-                  f"{b_by}), plain version {plain_ms:.3f} ms{lib}")
+                  f"{b_by}; {ms / b_ms:.2f}x the bound), plain version "
+                  f"{plain_ms:.3f} ms{lib}")
     return res
 
 
@@ -1836,12 +1861,17 @@ def phase_seq_kernels():
                              ("1 x none", one, None)):
             _check("psi_chunk_slabs", f"{tag}, {what}",
                    (loc, se, sl, sr, *geom), phase=10)
+        _same_bits("psi_chunk_slabs", f"{tag}, 7 x 13",
+                   (loc, se, sl7, sr13, *geom), phase=10)
         for what, sl, (salts, spec) in (
                 ("7 x gauss 13", sl7, g13), ("7 x sign 13", sl7, s13),
                 ("7 x sign slice 5 of 9", sl7, s5of9),
                 ("none x gauss 13", None, g13), ("1 x gauss 1", one, g1)):
             _check("psi_chunk_slabs_genright", f"{tag}, {what}",
                    (loc, se, sl, p.flat_right, salts, *geom, spec), phase=10)
+        _same_bits("psi_chunk_slabs_genright", f"{tag}, 7 x sign 13",
+                   (loc, se, sl7, p.flat_right, s13[0], *geom, s13[1]),
+                   phase=10)
     every = p.local_idx.clone()
     every[:] = p.span
     z = _kernel_fns()["psi_chunk_slabs"][0](every, se, sl7, sr13, *geom)
@@ -1886,6 +1916,9 @@ def phase_seq_kernels():
                      "psi_chunk_slabs", "psi_fused_slabs", "lazy_gaussian"):
             for i, args in enumerate(calls.get(name, [])):
                 _check(name, f"streaming {tag} call {i}", args, phase=10)
+                if name in SPARSE_PSI_INSTANCES:
+                    _same_bits(name, f"streaming {tag} call {i}", args,
+                               phase=10)
         worst = max(_rel(a, b) for a, b in zip(
             sk.Psi_cores + sk.Omega_mats, ref.Psi_cores + ref.Omega_mats))
         print(f"# phase 10: streaming {tag} on the ragged tensor: {n_gen} "

@@ -47,7 +47,9 @@ def _const(name):
     return int(m.group(1))
 
 
-THREADS, T, MJ, GMAX = (_const(n) for n in ("THREADS", "T", "MJ", "GMAX"))
+THREADS, MJ, GMAX = (_const(n) for n in ("THREADS", "MJ", "GMAX"))
+STRIDES = tuple(int(v) for v in re.search(
+    r"constexpr int STRIDES\[\] = \{([\d, ]+)\};", SRC).group(1).split(","))
 OMEGA_CHUNK, SMEM_LIMIT = _const("OMEGA_CHUNK"), _const("SMEM_LIMIT")
 PSI_TOL = 2e-5
 SHAPE = (11, 9, 300, 25)
@@ -124,15 +126,34 @@ def test_loc_is_non_decreasing_with_pads_last(case):
 
 # -- 2. the schedule, emulated ---------------------------------------------------
 
-def schedule(psi, om, r1, r2, r1o):
-    """(G, TG, NJ, P, GP) as ``schedule`` of the kernel source."""
-    m = r1 if psi else 0
-    if om and r1o > m:
-        m = r1o
-    nj = -(-r2 // MJ)
-    p = m * nj
+def layout_bytes(ts, g, rows, salts, ne, neo):
+    """``Layout::bytes`` of the kernel source: the tiles (rows, loc, each
+    thread's parked sums and run, salts) or the groups' tails and Ω sums
+    over them, then the group heads."""
+    park = THREADS * (16 * (2 if neo else 1) + 8)
+    tiles = rows * ts * 4 + ts * 4 + park + salts * 8
+    tails = g * (ne + neo) * 4 if g > 1 else 0
+    heads = -(-max(tiles, tails) // 16) * 16
+    return heads + (g * (8 + 4 * ne) if g > 1 and ne else 0)
+
+
+def schedule(psi, om, r1, r2, r1o, rows=None, salts=None):
+    """(TS, G, TG, NA, P, GP, BYI) as ``schedule`` of the kernel source, for
+    ``rows`` allocated and ``salts`` held (default: Gaussian sides)."""
+    rows = (r1 if psi else 0) + r2 + r1o if rows is None else rows
+    salts = rows if salts is None else salts
+    byi = psi and not om and r2 < MJ and r1 > r2
+    m = max(r1 if psi else 0, r1o if om else 0)
+    na = -(-(r1 if byi else r2) // MJ)
+    p = (r2 if byi else m) * na
     g = 1 if 2 * p > THREADS else min(THREADS // p, GMAX)
-    return g, T // (4 * g) * 4, nj, p, (p if g > 1 else THREADS)
+    for ts in STRIDES:
+        tg = ts // (4 * g) * 4
+        if layout_bytes(
+                ts, g, rows, salts, r1 * r2 if psi else 0,
+                r1o * r2 if om else 0) <= SMEM_LIMIT:
+            break
+    return ts, g, tg, na, p, (p if g > 1 else THREADS), byi
 
 
 def run_block(loc, L, R, O, start, end, span):
@@ -144,7 +165,8 @@ def run_block(loc, L, R, O, start, end, span):
     r1 = L.shape[0] if psi else 1
     r2 = R.shape[0]
     r1o = O.shape[0] if om else 0
-    G, TG, NJ, P, GP = schedule(psi, om, r1, r2, r1o)
+    _, G, TG, NA, P, GP, byi = schedule(psi, om, r1, r2, r1o)
+    A, n_a = (L, r1) if byi else (R, r2)
     slab = np.zeros((span, r1, r2), np.float32)  # the zero pass
     slab_n = np.zeros((span, r1, r2), np.int64)
     om_out = np.full((max(r1o, 1), r2), np.nan, np.float32)
@@ -158,12 +180,16 @@ def run_block(loc, L, R, O, start, end, span):
     for pas in range(passes):
         for grp in range(G):
             ps = np.arange(pas * GP, min(P, pas * GP + GP))
-            i = ps // NJ
-            jc = (ps % NJ)[:, None] + np.arange(MJ)[None, :] * NJ
-            jok = jc < r2
-            jrow = np.where(jok, jc, 0)
-            il, io = np.where(i < r1, i, 0), np.where(i < r1o, i, 0)
-            psi_i, om_i = psi & (i < r1), om & (i < r1o)
+            b = ps // NA  # the B row; A rows a0 + c·NA
+            ac = (ps % NA)[:, None] + np.arange(MJ)[None, :] * NA
+            aok = ac < n_a
+            arow = np.where(aok, ac, 0)
+            # output c of a micro-tile: (i, j) = (b, a_c), or (a_c, b) by i
+            ic, jc = (arow, b[:, None] + 0 * ac) if byi else \
+                (b[:, None] + 0 * ac, arow)
+            bl, bo = np.where(b < r1, b, 0), np.where(b < r1o, b, 0)
+            psi_b = psi & (byi | (b < r1))
+            om_b = om & (b < r1o)
             lo = start + grp * q
             hi = min(lo + q, end)
             my_n = max(hi - lo, 0)
@@ -175,9 +201,9 @@ def run_block(loc, L, R, O, start, end, span):
             def store(s, vals):
                 if 0 <= s < span:
                     for c in range(MJ):
-                        sel = psi_i & jok[:, c]
-                        slab[s, i[sel], jc[sel, c]] = vals[sel, c]
-                        slab_n[s, i[sel], jc[sel, c]] += 1
+                        sel = psi_b & aok[:, c]
+                        slab[s, ic[sel, c], jc[sel, c]] = vals[sel, c]
+                        slab_n[s, ic[sel, c], jc[sel, c]] += 1
 
             def close(nxt):
                 if G > 1 and st["open"]:
@@ -196,44 +222,46 @@ def run_block(loc, L, R, O, start, end, span):
                 kc = np.where(kv, ks, hi - 1)
                 lcol = np.where(kv, loc[kc] if psi else 0,
                                 loc[hi - 1] if psi else 0)
-                Rt = np.where(kv, R[:, kc], 0).astype(np.float32)
-                rv = Rt[jrow] * jok[:, :, None]  # (np, MJ, TG)
-                Lt = np.where(kv, L[:, kc], 0).astype(np.float32) if psi \
-                    else None
-                Ot = np.where(kv, O[:, kc], 0).astype(np.float32) if om \
+                At = np.where(kv, A[:, kc], 0).astype(np.float32)
+                av = At[arow] * aok[:, :, None]  # (np, MJ, TG)
+                if byi:
+                    Bt = np.where(kv, R[:, kc], 0).astype(np.float32)[b]
+                elif psi:
+                    Bt = np.where(kv, L[:, kc], 0).astype(np.float32)[bl]
+                Ot = np.where(kv, O[:, kc], 0).astype(np.float32)[bo] if om \
                     else None
                 for t in range(0, TG, 4):
                     if om:
                         for v in range(4):
-                            oacc += Ot[io, t + v][:, None] * rv[:, :, t + v]
+                            oacc += Ot[:, t + v][:, None] * av[:, :, t + v]
                     if psi:
                         lc = lcol[t:t + 4]
                         same = lc[3] == st["s"]  # the four continue the run
                         for v in range(4):
                             if not same and lc[v] != st["s"]:
                                 close(int(lc[v]))
-                            acc += Lt[il, t + v][:, None] * rv[:, :, t + v]
+                            acc += Bt[:, t + v][:, None] * av[:, :, t + v]
             if G == 1:
                 if psi and my_n:
                     close(st["s"])
                 if om:
                     for c in range(MJ):
-                        sel = om_i & jok[:, c]
-                        om_out[i[sel], jc[sel, c]] = oacc[sel, c]
-                        om_n[i[sel], jc[sel, c]] += 1
+                        sel = om_b & aok[:, c]
+                        om_out[ic[sel, c], jc[sel, c]] = oacc[sel, c]
+                        om_n[ic[sel, c], jc[sel, c]] += 1
                 continue
             # group partials, as the kernel writes them to shared memory
             h = np.full((r1, r2), np.nan, np.float32)
             tl = np.full((r1, r2), np.nan, np.float32)
             o = np.full((max(r1o, 1), r2), np.nan, np.float32)
             for c in range(MJ):
-                sel = psi_i & jok[:, c]
-                assert np.isnan(h[i[sel], jc[sel, c]]).all()
-                h[i[sel], jc[sel, c]] = (acc if st["open"]
-                                         else st["head"])[sel, c]
-                tl[i[sel], jc[sel, c]] = acc[sel, c]
-                sel = om_i & jok[:, c]
-                o[i[sel], jc[sel, c]] = oacc[sel, c]
+                sel = psi_b & aok[:, c]
+                assert np.isnan(h[ic[sel, c], jc[sel, c]]).all()
+                h[ic[sel, c], jc[sel, c]] = (acc if st["open"]
+                                             else st["head"])[sel, c]
+                tl[ic[sel, c], jc[sel, c]] = acc[sel, c]
+                sel = om_b & aok[:, c]
+                o[ic[sel, c], jc[sel, c]] = oacc[sel, c]
             ends.append((-1 if not my_n else st["s"] if st["open"]
                          else st["head_row"],
                          -1 if not my_n or st["open"] else st["s"]))
@@ -316,10 +344,11 @@ def test_merged_schedule_stores_once_and_sums(ranks, chunk):
         om = om + o
     assert _rel(np.stack(slabs), ref_slabs.numpy()) <= PSI_TOL
     assert _rel(om, ref_om.numpy()) <= PSI_TOL
-    # the runs cross tiles: some row of a chunk holds more nnz than a
-    # group's tile
-    counts = np.bincount(loc[:plan.chunk], minlength=plan.span + 1)
-    assert counts[:plan.span].max() > schedule(True, True, r1, r2, r1)[1]
+    if chunk is None:
+        # the runs cross tiles: some row of a chunk holds more nnz than a
+        # group's tile
+        counts = np.bincount(loc[:plan.chunk], minlength=plan.span + 1)
+        assert counts[:plan.span].max() > schedule(True, True, r1, r2, r1)[2]
 
 
 def test_merged_schedule_without_a_left_side():
@@ -408,44 +437,49 @@ def test_window_schedule_stores_once_and_sums(ranks):
 
 
 @pytest.mark.parametrize("ranks,expect", [
-    ((10, 20, 10), (5, 12, 5, 50)), ((1, 1, 0), (5, 12, 1, 1)),
-    ((16, 16, 0), (4, 12, 4, 64)), ((30, 40, 0), (1, 60, 10, 300)),
-    ((1, 20, 10), (5, 12, 5, 50))])
+    ((10, 20, 10), (124, 5, 24, 5, 50, False)),
+    ((1, 1, 0), (124, 15, 8, 1, 1, False)),
+    ((16, 16, 0), (124, 4, 28, 4, 64, False)),
+    ((30, 40, 0), (124, 1, 124, 10, 300, False)),
+    ((1, 20, 10), (124, 5, 24, 5, 50, False)),
+    ((10, 1, 0), (124, 15, 8, 3, 3, True))],
+    ids=["merged 10x20", "1x1", "16x16", "30x40", "merged, no left side",
+         "10x1, by the left side"])
 def test_schedule_fills_the_block(ranks, expect):
     r1, r2, r1o = ranks
-    G, TG, NJ, P, GP = schedule(True, r1o > 0, r1, r2, r1o)
-    assert (G, TG, NJ, P) == expect
-    assert TG % 4 == 0 and G * TG <= T and 3 * G * TG <= THREADS
+    ts, G, TG, NA, P, GP, byi = schedule(True, r1o > 0, r1, r2, r1o)
+    assert (ts, G, TG, NA, P, byi) == expect
+    assert TG % 4 == 0 and G * TG <= ts
     assert G * GP <= THREADS or G == 1
 
 
 # -- 3. shared memory ------------------------------------------------------------
 
-def _kernel_bytes(rows, salts, psi_ranks=None):
-    tiles = rows * T * 4 + T * 4 + salts * 8
-    comb = 0
-    if psi_ranks:
-        r1, r2, r1o = psi_ranks
-        G = schedule(True, r1o > 0, r1, r2, r1o)[0]
-        if G > 1:
-            comb = G * (8 + 4 * (2 * r1 * r2 + r1o * r2))
-    return max(tiles, comb)
+LIMIT_CASES = {
+    # (rows allocated, salts, (r1, r2, r1o)): the stride taken
+    "sign 433 + 433, 3 x 3": ((866, 866, (3, 3, 0)), 60),
+    "given 892 + 1": ((893, 0, (892, 1, 0)), 60),
+    "merged sign 288 x 3": ((864, 864, (3, 3, 3)), 60),
+    "merged gauss 10 x 20 + 10": ((40, 40, (10, 20, 10)), 124),
+    "merged sign 20 + 20 + 20, 10 x 20": ((60, 60, (10, 20, 10)), 124),
+    "gauss 200 + 200": ((400, 400, (200, 200, 0)), 124),
+    "gauss 235 + 235": ((470, 470, (235, 235, 0)), 84),
+}
 
 
-@pytest.mark.parametrize("case", [
-    ("sign 433 + 433, 3 x 3", 866, 866, (3, 3, 0)),
-    ("given 892 + 1", 893, 0, (892, 1, 0)),
-    ("merged sign 288 x 3", 864, 864, (3, 3, 3)),
-    ("gauss 10 x 20 + 10", 40, 40, (10, 20, 10)),
-], ids=lambda c: c[0])
+@pytest.mark.parametrize("case", LIMIT_CASES, ids=list(LIMIT_CASES))
 def test_kernel_layout_fits_the_wrappers_limit(case):
-    _, rows, salts, ranks = case
+    (rows, salts, (r1, r2, r1o)), stride = LIMIT_CASES[case]
     api = 8 * salts + 4 * (64 + 1) * rows + 4 * 64
     assert api <= SMEM_LIMIT  # what the wrappers admit
-    assert _kernel_bytes(rows, salts, ranks) <= SMEM_LIMIT
+    ts, G = schedule(True, r1o > 0, r1, r2, r1o, rows, salts)[:2]
+    assert ts == stride and 2 * ts <= THREADS
+    assert layout_bytes(ts, G, rows, salts, r1 * r2, r1o * r2) <= SMEM_LIMIT
 
 
-def test_row_stride_spreads_eight_rows_over_the_bank_quads():
+@pytest.mark.parametrize("ts", STRIDES)
+def test_row_stride_spreads_eight_rows_over_the_bank_quads(ts):
+    assert ts % 4 == 0
     for r in range(64):
-        quads = {((r + d) * T // 4) % 8 for d in range(8)}
+        quads = {((r + d) * ts // 4) % 8 for d in range(8)}
         assert len(quads) == 8

@@ -94,16 +94,19 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int T = 60;      // tile columns (nnz), also the row stride in floats
-constexpr int MJ = 4;      // j columns of a thread's micro-tile
-constexpr int GMAX = 5;    // thread groups per block at most
+// Row strides (floats) a launch picks from, widest first: each holds an odd
+// number of 16-byte quads, so eight consecutive rows fall in eight
+// different bank quads.  A stride is also the tile's column count at most.
+constexpr int STRIDES[] = {124, 84, 60};
+constexpr int MJ = 4;      // outputs of a thread's micro-tile
+constexpr int GMAX = 15;   // thread groups per block at most
+// blocks per SM the registers must allow: the merged kernel, Ω alone, Ψ
+// alone
+constexpr int MIN_BLOCKS_MERGED = 4, MIN_BLOCKS_OMEGA = 6, MIN_BLOCKS_PSI = 8;
 constexpr int OMEGA_CHUNK = 4096;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
-static_assert(T % 4 == 0 && (T / 4) % 2 == 1,
-              "a row stride of an odd number of 16-byte units keeps eight "
-              "consecutive rows in eight different bank quads");
-static_assert(THREADS >= 3 * T,
-              "one tile column per thread for up to three sign sides");
+static_assert(2 * STRIDES[0] <= THREADS,
+              "the widest tile leaves two thread rows for the sign sides");
 
 // One side's rows: GAUSS is lazy-Gaussian (one row per salt); SIGN a
 // sparse-sign column over `rank` slots from `nnz` salts, rows [rank_min,
@@ -117,14 +120,19 @@ struct Side {
   int rank_min;
 };
 
-// The block program's geometry, chosen by the launch code from the ranks.
+// The block program's geometry, chosen by the launch code.  A micro-tile
+// is MJ rows a0 + c*NA of side A against one row b of side B: A is the
+// right side (B the left side for Ψ, Ω's left side for Ω), or, for a Ψ
+// whose right side has fewer than MJ rows, the left side (BYI).
 struct Sched {
-  int G;   // thread groups, each over its own contiguous part of the range
-  int TG;  // tile columns per group, a multiple of 4
-  int NJ;  // a micro-tile is (i, {jq + c*NJ : c < MJ}), jq < NJ
-  int P;   // micro-tiles: max(Ψ's r1, Ω's r1o) * NJ
-  int GP;  // threads per group: P when G > 1, else THREADS (P > THREADS/2
-           // takes ceil(P / THREADS) passes over the range)
+  int TS;   // row stride in floats, one of STRIDES
+  int G;    // thread groups, each over its own contiguous part of the range
+  int TG;   // tile columns per group, a multiple of 4
+  int NA;   // ceil(rows of A / MJ)
+  int P;    // micro-tiles: NA * rows of B (the most of Ψ's and Ω's)
+  int GP;   // threads per group: P when G > 1, else THREADS (P > THREADS/2
+            // takes ceil(P / THREADS) passes over the range)
+  int BYI;  // A is the left side
 };
 
 struct Args {
@@ -153,10 +161,11 @@ struct Args {
   Sched sc = {};
 };
 
-// Shared-memory layout while the tiles run: rows L | R | O (T floats each),
-// loc (T ints), salts [L | R | O]; after the last tile the groups' tail
-// sums and Ω sums overlay them.  With G > 1 groups the head runs follow:
-// rows (G, 2) ints (head, tail) and sums (G, P, MJ) floats.
+// Shared-memory layout while the tiles run: rows L | R | O (TS floats
+// each), loc (TS ints), each thread's parked sums (float4 Ψ, float4 Ω) and
+// run (int2), salts [L | R | O]; after the last tile the groups'
+// tail sums and Ω sums overlay them.  With G > 1 groups the heads follow:
+// rows (G, 2) ints (head, tail) and Ψ sums (G, r1, r2) floats.
 struct Layout {
   int nsl, nsr, nso;  // salts per side
   int al, ar, ao;     // rows allocated per side
@@ -180,39 +189,37 @@ __host__ __device__ Layout layout(const Args& a) {
   y.gl = sl || !PSI ? 0 : a.r1;
   y.gr = sr ? 0 : a.r2;
   y.go = so || !OM ? 0 : a.r1o;
-  const size_t tiles = (size_t)(y.al + y.ar + y.ao) * T * sizeof(float) +
-                       T * sizeof(int) +
+  const size_t ts = a.sc.TS, G = a.sc.G;
+  const size_t ne = PSI ? (size_t)a.r1 * a.r2 : 0;
+  const size_t neo = OM ? (size_t)a.r1o * a.r2 : 0;
+  const size_t park = THREADS * ((OM ? 2 : 1) * sizeof(float4) + sizeof(int2));
+  const size_t tiles = (size_t)(y.al + y.ar + y.ao) * ts * sizeof(float) +
+                       ts * sizeof(int) + park +
                        (size_t)(y.nsl + y.nsr + y.nso) * sizeof(uint64_t);
-  const int G = a.sc.G;
-  const size_t tails =
-      G > 1 ? (size_t)G *
-                  ((PSI ? (size_t)a.r1 * a.r2 : 0) +
-                   (OM ? (size_t)a.r1o * a.r2 : 0)) * sizeof(float)
-            : 0;
+  const size_t tails = G > 1 ? G * (ne + neo) * sizeof(float) : 0;
   y.heads = ((tiles > tails ? tiles : tails) + 15) / 16 * 16;
-  y.bytes = y.heads + (G > 1 && PSI ? (size_t)G * 2 * sizeof(int) +
-                                          (size_t)G * a.sc.P * MJ *
-                                              sizeof(float)
-                                    : 0);
+  y.bytes = y.heads +
+            (G > 1 && PSI ? G * (2 * sizeof(int) + ne * sizeof(float)) : 0);
   return y;
 }
 
 // One tile column of a sign side, in place on the side's rows (`col` is
-// the column's slot 0); a left side carries the entry.  A column past the
-// range contributes zeros.
-__device__ __forceinline__ void sign_side(float* col, const uint64_t* flat,
+// the column's slot 0, `ts` the row stride); a left side carries the
+// entry.  A column past the range contributes zeros.
+__device__ __forceinline__ void sign_side(float* col, int ts,
+                                          const uint64_t* flat,
                                           const uint64_t* salts,
                                           const Side& sd, int r_out,
                                           const float* e, int64_t k,
                                           bool valid) {
   if (!valid) {
-    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * T] = 0.f;
+    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * ts] = 0.f;
     return;
   }
-  tt_rng::sign_column(flat[k], salts, sd.rank, sd.nnz, col, T);
+  tt_rng::sign_column(flat[k], salts, sd.rank, sd.nnz, col, ts);
   if (e) {
     const float ek = e[k];
-    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * T] *= ek;
+    for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * ts] *= ek;
   }
 }
 
@@ -220,27 +227,73 @@ __device__ __forceinline__ int phase_of(int r0, int base, int rs) {
   return ((r0 - base) % rs + rs) % rs;
 }
 
+__device__ __forceinline__ float4 lds4(const float* smem, int off) {
+  return *reinterpret_cast<const float4*>(smem + off);
+}
+
+// A thread's micro-tile: outputs el0 + c*el_step for c < n_ok, from A rows
+// at smem offsets a_off + c*a_step and the B row at b_off (Ψ), the Ω-left
+// row at o_off.
+struct Micro {
+  int a_off, a_step, b_off, o_off;
+  int el0, el_step, n_ok;
+  bool psi, om;
+};
+
+__device__ __forceinline__ Micro micro_tile(const Sched& sc, int p, int c0,
+                                            int r1, int r2, int r1o, int ts,
+                                            int l_at, int r_at, int o_at,
+                                            bool psi, bool om) {
+  Micro m;
+  const bool byi = !om && sc.BYI;
+  const int b = p / sc.NA, a0 = p - b * sc.NA;
+  const int n_a = byi ? r1 : r2;
+  m.a_off = (byi ? l_at : r_at) + a0 * ts + c0;
+  m.a_step = sc.NA * ts;
+  m.b_off = (byi ? r_at + b * ts : l_at + (b < r1 ? b : 0) * ts) + c0;
+  m.o_off = o_at + (b < r1o ? b : 0) * ts + c0;
+  m.el0 = byi ? a0 * r2 + b : b * r2 + a0;
+  m.el_step = byi ? sc.NA * r2 : sc.NA;
+  m.n_ok = 0;
+#pragma unroll
+  for (int c = 0; c < MJ; ++c) m.n_ok += a0 + c * sc.NA < n_a;
+  m.psi = psi && (byi || b < r1);
+  m.om = om && b < r1o;
+  return m;
+}
+
 template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN>
-__global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
+__global__ void __launch_bounds__(
+    THREADS, PSI && OM ? MIN_BLOCKS_MERGED
+             : OM      ? MIN_BLOCKS_OMEGA
+                       : MIN_BLOCKS_PSI)
+    sparse_psi_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int r1 = a.r1, r2 = a.r2, r1o = OM ? a.r1o : 0, span = a.span;
+  const Sched sc = a.sc;
+  const int ts = sc.TS;
   const Layout y = layout<HAS_L, HAS_R, PSI, OM>(a);
+  // the rows the contraction reads, as offsets into smem: a sign side's
+  // slice starts at rank_min
+  const int l_at = y.gl || !PSI ? 0 : a.ls.rank_min * ts;
+  const int r_at = y.al * ts + (y.gr ? 0 : a.rs.rank_min * ts);
+  const int o_at = (y.al + y.ar) * ts + (y.go || !OM ? 0 : a.os.rank_min * ts);
   float* Ls = smem;
-  float* Rs = Ls + y.al * T;
-  float* Os = Rs + y.ar * T;
-  int* loc_s = reinterpret_cast<int*>(Os + y.ao * T);
-  uint64_t* salts = reinterpret_cast<uint64_t*>(loc_s + T);
+  float* Rs = Ls + y.al * ts;
+  float* Os = Rs + y.ar * ts;
+  int* loc_s = reinterpret_cast<int*>(Os + y.ao * ts);
+  // a thread's sums and run between tiles: (acc, Ω sums, {s, head open})
+  float4* park_acc = reinterpret_cast<float4*>(loc_s + ts);
+  float4* park_om = park_acc + THREADS;
+  int2* park_run = reinterpret_cast<int2*>(park_om + (OM ? THREADS : 0));
+  uint64_t* salts = reinterpret_cast<uint64_t*>(park_run + THREADS);
   int* ends = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + y.heads);
-  float* heads = reinterpret_cast<float*>(ends + 2 * a.sc.G);
+  float* heads = reinterpret_cast<float*>(ends + 2 * sc.G);
   const uint64_t* salts_l = salts;
   const uint64_t* salts_r = salts + y.nsl;
   const uint64_t* salts_o = salts_r + y.nsr;
   const int n_salts = y.nsl + y.nsr + y.nso;
-  // the rows the contraction reads: a sign side's slice starts at rank_min
-  const float* Lc = Ls + (y.gl || !PSI ? 0 : a.ls.rank_min * T);
-  const float* Rc = Rs + (y.gr ? 0 : a.rs.rank_min * T);
-  const float* Oc = Os + (y.go || !OM ? 0 : a.os.rank_min * T);
 
   const int tid = threadIdx.x;
   for (int i = tid; i < n_salts; i += THREADS) {
@@ -267,27 +320,27 @@ __global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
     end = (int64_t)c1 * a.chunk;
   }
   if (end > a.nnz) end = a.nnz;
-  if (WIN) {
-    // the pads (loc == span) come last in a window's run: it ends at the
-    // first of them
-    int64_t lo = start, hi = end;
-    while (lo < hi) {
-      const int64_t mid = lo + ((hi - lo) >> 1);
-      if (a.loc[mid] < span) lo = mid + 1; else hi = mid;
+  if (WIN && end > start) {
+    // the pads (loc == span) fill the end of a window's last chunk: its
+    // run ends after the last chunk's real nnz
+    const int64_t last = end - a.chunk;
+    int real = 0;
+    for (int c = 0; c < a.chunk; c += THREADS) {
+      real += __syncthreads_count(c + tid < a.chunk &&
+                                  a.loc[last + c + tid] < span);
     }
-    end = lo;
+    end = last + real;
   }
-  float* slab = PSI ? a.slabs + g * span * r1 * r2 : nullptr;
-  float* om = OM ? a.om + g * r1o * r2 : nullptr;
+  const int ne = r1 * r2, neo = r1o * r2;
+  float* slab = PSI ? a.slabs + g * span * ne : nullptr;
+  float* om = OM ? a.om + g * neo : nullptr;
   if (PSI) {
-    for (int i = tid; i < span * r1 * r2; i += THREADS) slab[i] = 0.f;
+    for (int i = tid; i < span * ne; i += THREADS) slab[i] = 0.f;
   }
-  __syncthreads();  // the salts
 
   // The range [start, end) splits into G contiguous parts of q nnz, whole
   // group tiles each; group c walks its part TG columns per tile, at tile
   // columns [c*TG, (c+1)*TG).
-  const Sched sc = a.sc;
   const int G = sc.G, TG = sc.TG, W = G * TG, RS = THREADS / W;
   const int64_t n = end > start ? end - start : 0;
   int64_t q = (n + G - 1) / G;
@@ -314,41 +367,32 @@ __global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
   const int64_t my_n = grp < G && my_lo < my_hi ? my_hi - my_lo : 0;
   const int c0 = grp * TG;
   const int passes = (sc.P + sc.GP - 1) / sc.GP;
+  const bool lead = in_grp == 0 && grp < G;  // writes the group's rows
+  float* const my_heads = heads + grp * ne;
 
   for (int pass = 0; pass < passes; ++pass) {
     const int p = pass * sc.GP + in_grp;
     const bool mine = grp < G && p < sc.P;  // owns a micro-tile
-    const int i = mine ? p / sc.NJ : 0;
-    const int jq = mine ? p - i * sc.NJ : 0;
-    int jc[MJ];
-    const float* rrow[MJ];
-#pragma unroll
-    for (int c = 0; c < MJ; ++c) {
-      jc[c] = jq + c * sc.NJ;
-      rrow[c] = Rc + (jc[c] < r2 ? jc[c] : 0) * T + c0;
-    }
-    const float* lrow = Lc + (i < r1 ? i : 0) * T + c0;
-    const float* orow = Oc + (i < r1o ? i : 0) * T + c0;
-    const bool psi_i = PSI && mine && i < r1, om_i = OM && mine && i < r1o;
-    float acc[MJ], oacc[MJ];
-#pragma unroll
-    for (int c = 0; c < MJ; ++c) acc[c] = oacc[c] = 0.f;
-    // the current run's row; with G > 1 the group's first run is its head,
-    // kept in shared memory for the combine
-    int s = PSI && my_n > 0 ? a.loc[my_lo] : 0;
+    float acc[MJ] = {}, oacc[MJ] = {};
+    int s = 0;
     bool head_open = true;
-    auto close_run = [&](int next) {
+    // closes the current run of row s and starts row `next`: with G > 1
+    // the group's first run is its head, kept in shared memory for the
+    // combine; every later run is stored, once
+    auto close_run = [&](const Micro& m, int next) {
       if (G > 1 && head_open) {
-        if (mine) {
-          *reinterpret_cast<float4*>(heads + (grp * sc.P + p) * MJ) =
-              make_float4(acc[0], acc[1], acc[2], acc[3]);
-          if (in_grp == 0) ends[2 * grp] = s;
+        if (m.psi) {
+#pragma unroll
+          for (int c = 0; c < MJ; ++c) {
+            if (c < m.n_ok) my_heads[m.el0 + c * m.el_step] = acc[c];
+          }
         }
-      } else if (psi_i && s >= 0 && s < span) {
-        float* out = slab + ((int64_t)s * r1 + i) * r2;
+        if (lead) ends[2 * grp] = s;
+      } else if (m.psi && s >= 0 && s < span) {
+        float* out = slab + (int64_t)s * ne + m.el0;
 #pragma unroll
         for (int c = 0; c < MJ; ++c) {
-          if (jc[c] < r2) out[jc[c]] = acc[c];
+          if (c < m.n_ok) out[c * m.el_step] = acc[c];
         }
       }
       head_open = false;
@@ -356,28 +400,38 @@ __global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
       for (int c = 0; c < MJ; ++c) acc[c] = 0.f;
       s = next;
     };
+    if (mine) {
+      park_acc[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (OM) park_om[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+      park_run[tid] = make_int2(PSI && my_n > 0 ? a.loc[my_lo] : 0, 1);
+    }
+    __syncthreads();  // the salts and the zero pass
 
     for (int it = 0; it < n_it; ++it) {
       const int64_t k = col_lo + (int64_t)it * TG;
       const bool kv = gen && k < col_end;
-      // 1a. sign sides: thread row r0 == q shuffles column t0 of sign side q
+      // 1a. sign sides: thread row r0 shuffles column t0 of its sign
+      // sides, the right side first (the most rows, as a rule), then the
+      // left and Ω's left sides, a row each while rows last (the last row
+      // takes the rest)
       {
         int qs = 0;
-        if (PSI && HAS_L && a.ls.kind == SIGN) {
-          if (gen && r0 == qs) {
-            sign_side(Ls + t0, a.lflat, salts_l, a.ls, r1, a.e, k, kv);
+        if (HAS_R && a.rs.kind == SIGN) {
+          if (gen && r0 == min(qs, RS - 1)) {
+            sign_side(Rs + t0, ts, a.rflat, salts_r, a.rs, r2, nullptr, k,
+                      kv);
           }
           ++qs;
         }
-        if (HAS_R && a.rs.kind == SIGN) {
-          if (gen && r0 == qs) {
-            sign_side(Rs + t0, a.rflat, salts_r, a.rs, r2, nullptr, k, kv);
+        if (PSI && HAS_L && a.ls.kind == SIGN) {
+          if (gen && r0 == min(qs, RS - 1)) {
+            sign_side(Ls + t0, ts, a.lflat, salts_l, a.ls, r1, a.e, k, kv);
           }
           ++qs;
         }
         if (OM && a.os.kind == SIGN) {
-          if (gen && r0 == qs) {
-            sign_side(Os + t0, a.oflat, salts_o, a.os, r1o, a.e, k, kv);
+          if (gen && r0 == min(qs, RS - 1)) {
+            sign_side(Os + t0, ts, a.oflat, salts_o, a.os, r1o, a.e, k, kv);
           }
         }
       }
@@ -394,23 +448,24 @@ __global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
           if (OM && y.go) fo = a.oflat[k];
         }
         if (PSI) {
-          for (int b = ph_l; b < y.gl; b += RS) {
-            Ls[b * T + t0] =
+          for (int row = ph_l; row < y.gl; row += RS) {
+            Ls[row * ts + t0] =
                 !kv ? 0.f
                 : !HAS_L ? ek
-                : given_l ? a.lrows[(int64_t)b * a.nnz + k] * ek
-                          : tt_rng::sample(fl, salts_l[b]) * ek;
+                : given_l ? a.lrows[(int64_t)row * a.nnz + k] * ek
+                          : tt_rng::sample(fl, salts_l[row]) * ek;
           }
         }
-        for (int b = ph_r; b < y.gr; b += RS) {
-          Rs[b * T + t0] = !kv ? 0.f
-                           : !HAS_R ? 1.f
-                           : given_r ? a.rrows[(int64_t)b * a.nnz + k]
-                                     : tt_rng::sample(fr, salts_r[b]);
+        for (int row = ph_r; row < y.gr; row += RS) {
+          Rs[row * ts + t0] = !kv ? 0.f
+                              : !HAS_R ? 1.f
+                              : given_r ? a.rrows[(int64_t)row * a.nnz + k]
+                                        : tt_rng::sample(fr, salts_r[row]);
         }
         if (OM) {
-          for (int b = ph_o; b < y.go; b += RS) {
-            Os[b * T + t0] = !kv ? 0.f : tt_rng::sample(fo, salts_o[b]) * ek;
+          for (int row = ph_o; row < y.go; row += RS) {
+            Os[row * ts + t0] =
+                !kv ? 0.f : tt_rng::sample(fo, salts_o[row]) * ek;
           }
         }
         // past the range, a column repeats the group's last row: it
@@ -422,116 +477,132 @@ __global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
       }
       __syncthreads();
 
-      // 2. contract the group's TG columns: R is read once for Ψ and Ω,
-      // four columns at a time
+      // 2. contract the group's TG columns four at a time: each A row is
+      // read once for Ψ and Ω
       if (mine && (int64_t)it * TG < my_n) {
+        const Micro m = micro_tile(sc, p, c0, r1, r2, r1o, ts, l_at, r_at,
+                                   o_at, PSI, OM);
+        {
+          const float4 pa = park_acc[tid];
+          acc[0] = pa.x, acc[1] = pa.y, acc[2] = pa.z, acc[3] = pa.w;
+          const float4 po = OM ? park_om[tid] : pa;
+          oacc[0] = po.x, oacc[1] = po.y, oacc[2] = po.z, oacc[3] = po.w;
+          const int2 pr = park_run[tid];
+          s = pr.x;
+          head_open = pr.y;
+        }
         for (int t = 0; t < TG; t += 4) {
-          float4 rv[MJ];
+          const int4 lc = PSI ? *reinterpret_cast<const int4*>(loc_s + c0 + t)
+                              : make_int4(0, 0, 0, 0);
+          const bool same = lc.w == s;  // loc is non-decreasing
+          const float4 bv = PSI ? lds4(smem, m.b_off + t) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 ov = OM ? lds4(smem, m.o_off + t) : bv;
 #pragma unroll
           for (int c = 0; c < MJ; ++c) {
-            rv[c] = jc[c] < r2 ? *reinterpret_cast<const float4*>(rrow[c] + t)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-          }
-          if (OM) {
-            const float4 ov = *reinterpret_cast<const float4*>(orow + t);
-#pragma unroll
-            for (int c = 0; c < MJ; ++c) {
-              oacc[c] = fmaf(ov.x, rv[c].x, oacc[c]);
-              oacc[c] = fmaf(ov.y, rv[c].y, oacc[c]);
-              oacc[c] = fmaf(ov.z, rv[c].z, oacc[c]);
-              oacc[c] = fmaf(ov.w, rv[c].w, oacc[c]);
+            if (c < m.n_ok) {
+              const float4 av = lds4(smem, m.a_off + c * m.a_step + t);
+              if (OM) {
+                oacc[c] = fmaf(ov.x, av.x, oacc[c]);
+                oacc[c] = fmaf(ov.y, av.y, oacc[c]);
+                oacc[c] = fmaf(ov.z, av.z, oacc[c]);
+                oacc[c] = fmaf(ov.w, av.w, oacc[c]);
+              }
+              if (PSI && same) {
+                acc[c] = fmaf(bv.x, av.x, acc[c]);
+                acc[c] = fmaf(bv.y, av.y, acc[c]);
+                acc[c] = fmaf(bv.z, av.z, acc[c]);
+                acc[c] = fmaf(bv.w, av.w, acc[c]);
+              }
             }
           }
-          if (PSI) {
-            const int4 lc = *reinterpret_cast<const int4*>(loc_s + c0 + t);
-            const float4 lv = *reinterpret_cast<const float4*>(lrow + t);
-            if (lc.w == s) {
-              // loc is non-decreasing: the four columns continue the run
+          if (PSI && !same) {
+            // a run ends inside these four columns
+            const int lcv[4] = {lc.x, lc.y, lc.z, lc.w};
+            const float bvv[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              if (lcv[v] != s) close_run(m, lcv[v]);
 #pragma unroll
               for (int c = 0; c < MJ; ++c) {
-                acc[c] = fmaf(lv.x, rv[c].x, acc[c]);
-                acc[c] = fmaf(lv.y, rv[c].y, acc[c]);
-                acc[c] = fmaf(lv.z, rv[c].z, acc[c]);
-                acc[c] = fmaf(lv.w, rv[c].w, acc[c]);
+                if (c < m.n_ok) {
+                  acc[c] = fmaf(bvv[v], smem[m.a_off + c * m.a_step + t + v],
+                                acc[c]);
+                }
               }
-            } else {
-              if (lc.x != s) close_run(lc.x);
-#pragma unroll
-              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.x, rv[c].x, acc[c]);
-              if (lc.y != s) close_run(lc.y);
-#pragma unroll
-              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.y, rv[c].y, acc[c]);
-              if (lc.z != s) close_run(lc.z);
-#pragma unroll
-              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.z, rv[c].z, acc[c]);
-              if (lc.w != s) close_run(lc.w);
-#pragma unroll
-              for (int c = 0; c < MJ; ++c) acc[c] = fmaf(lv.w, rv[c].w, acc[c]);
             }
           }
         }
+        park_acc[tid] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        if (OM) park_om[tid] = make_float4(oacc[0], oacc[1], oacc[2], oacc[3]);
+        park_run[tid] = make_int2(s, head_open);
       }
       __syncthreads();
     }
 
     // 3. store: each output element once
+    Micro m = {};
+    if (mine) {
+      m = micro_tile(sc, p, c0, r1, r2, r1o, ts, l_at, r_at, o_at, PSI, OM);
+      const float4 pa = park_acc[tid];
+      acc[0] = pa.x, acc[1] = pa.y, acc[2] = pa.z, acc[3] = pa.w;
+      const float4 po = OM ? park_om[tid] : pa;
+      oacc[0] = po.x, oacc[1] = po.y, oacc[2] = po.z, oacc[3] = po.w;
+      const int2 pr = park_run[tid];
+      s = pr.x;
+      head_open = pr.y;
+    }
     if (G == 1) {
-      if (PSI && my_n > 0) close_run(s);  // the tail run
-      if (om_i) {
-        float* out = om + (int64_t)i * r2;
+      if (PSI && mine && my_n > 0) close_run(m, s);  // the tail run
+      if (m.om) {
+        float* out = om + m.el0;
 #pragma unroll
         for (int c = 0; c < MJ; ++c) {
-          if (jc[c] < r2) out[jc[c]] = oacc[c];
+          if (c < m.n_ok) out[c * m.el_step] = oacc[c];
         }
       }
     } else {
       // the groups' tail runs and Ω sums go to shared memory over the tiles
-      // (the tile loop ended on a barrier); a group that is one run keeps
-      // it as its head.  Then one thread per element adds them in group
-      // order.
-      float* tv = smem;                          // (G, r1, r2)
-      float* ov = tv + (PSI ? G * r1 * r2 : 0);  // (G, r1o, r2)
-      if (PSI && mine) {
-        if (my_n == 0 || head_open) {
-          if (in_grp == 0) {
-            ends[2 * grp] = my_n == 0 ? -1 : s;
-            ends[2 * grp + 1] = -1;
-          }
-          *reinterpret_cast<float4*>(heads + (grp * sc.P + p) * MJ) =
-              make_float4(acc[0], acc[1], acc[2], acc[3]);
-        } else {
-          if (in_grp == 0) ends[2 * grp + 1] = s;
-          if (psi_i) {
-            float* tl = tv + ((int64_t)grp * r1 + i) * r2;
+      // (once every thread has read its park); a group that is one run
+      // keeps it as its head.  Then one thread per element adds them in
+      // group order.
+      __syncthreads();
+      float* tv = smem;                     // (G, r1, r2)
+      float* ov = tv + (PSI ? G * ne : 0);  // (G, r1o, r2)
+      if (PSI && (my_n == 0 || head_open)) {
+        if (lead) {
+          ends[2 * grp] = my_n == 0 ? -1 : s;
+          ends[2 * grp + 1] = -1;
+        }
+        if (m.psi) {
 #pragma unroll
-            for (int c = 0; c < MJ; ++c) {
-              if (jc[c] < r2) tl[jc[c]] = acc[c];
-            }
+          for (int c = 0; c < MJ; ++c) {
+            if (c < m.n_ok) my_heads[m.el0 + c * m.el_step] = acc[c];
+          }
+        }
+      } else if (PSI) {
+        if (lead) ends[2 * grp + 1] = s;
+        if (m.psi) {
+#pragma unroll
+          for (int c = 0; c < MJ; ++c) {
+            if (c < m.n_ok) tv[grp * ne + m.el0 + c * m.el_step] = acc[c];
           }
         }
       }
-      if (om_i) {
-        float* o = ov + ((int64_t)grp * r1o + i) * r2;
+      if (m.om) {
 #pragma unroll
         for (int c = 0; c < MJ; ++c) {
-          if (jc[c] < r2) o[jc[c]] = oacc[c];
+          if (c < m.n_ok) ov[grp * neo + m.el0 + c * m.el_step] = oacc[c];
         }
       }
       __syncthreads();
       if (PSI) {
-        const int ne = r1 * r2;
         for (int el = tid; el < ne; el += THREADS) {
           int cur = -1;
           float sum = 0.f;
           for (int u = 0; u < 2 * G; ++u) {
             const int row = ends[u];
             if (row < 0) continue;
-            // a head sum lies at (group, micro-tile, c) of its element
-            const int gu = u >> 1, ei = el / r2, ej = el - ei * r2;
-            const float v =
-                (u & 1) ? tv[gu * ne + el]
-                        : heads[(gu * sc.P + ei * sc.NJ + ej % sc.NJ) * MJ +
-                                ej / sc.NJ];
+            const float v = ((u & 1) ? tv : heads)[(u >> 1) * ne + el];
             if (row == cur) {
               sum += v;
             } else {
@@ -544,10 +615,9 @@ __global__ void __launch_bounds__(THREADS, 4) sparse_psi_kernel(Args a) {
         }
       }
       if (OM) {
-        const int ne = r1o * r2;
-        for (int el = tid; el < ne; el += THREADS) {
+        for (int el = tid; el < neo; el += THREADS) {
           float sum = ov[el];
-          for (int u = 1; u < G; ++u) sum += ov[u * ne + el];
+          for (int u = 1; u < G; ++u) sum += ov[u * neo + el];
           om[el] = sum;
         }
       }
@@ -561,25 +631,33 @@ bool bad_side(const Side& sd, int r_out) {
           sd.rank_min + r_out > sd.rank);
 }
 
-// Groups from the micro-tiles: as many groups as the block's threads hold
-// (at most GMAX), each over its own part of the range; past THREADS / 2
-// micro-tiles one group takes them in passes.
-template <bool PSI, bool OM>
-Sched schedule(const Args& a) {
-  Sched s;
+// The block program's geometry: micro-tiles along the right side (along
+// the left one for a Ψ with fewer than MJ right rows), as many thread
+// groups as the block's threads hold (at most GMAX), and the widest row
+// stride whose tile gives every sign side a thread per column and whose
+// layout fits the shared memory (the narrowest always does where the
+// wrappers' limit admits the call).
+template <bool HAS_L, bool HAS_R, bool PSI, bool OM>
+Sched schedule(Args a) {
+  Sched& s = a.sc;
+  s.BYI = PSI && !OM && a.r2 < MJ && a.r1 > a.r2;
   int m = PSI ? a.r1 : 0;
   if (OM && a.r1o > m) m = a.r1o;
-  s.NJ = (a.r2 + MJ - 1) / MJ;
-  s.P = m * s.NJ;
+  s.NA = ((s.BYI ? a.r1 : a.r2) + MJ - 1) / MJ;
+  s.P = (s.BYI ? a.r2 : m) * s.NA;
   s.G = 2 * s.P > THREADS ? 1 : (THREADS / s.P < GMAX ? THREADS / s.P : GMAX);
-  s.TG = T / (4 * s.G) * 4;
   s.GP = s.G > 1 ? s.P : THREADS;
+  for (int ts : STRIDES) {
+    s.TS = ts;
+    s.TG = ts / (4 * s.G) * 4;
+    if (layout<HAS_L, HAS_R, PSI, OM>(a).bytes <= SMEM_LIMIT) break;
+  }
   return s;
 }
 
 template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN = false>
 cudaError_t launch(Args a, int64_t n_blocks, cudaStream_t stream) {
-  a.sc = schedule<PSI, OM>(a);
+  a.sc = schedule<HAS_L, HAS_R, PSI, OM>(a);
   const size_t bytes = layout<HAS_L, HAS_R, PSI, OM>(a).bytes;
   if (bytes > SMEM_LIMIT || n_blocks <= 0 || n_blocks > 0x7FFFFFFF ||
       (HAS_L && bad_side(a.ls, a.r1)) || (HAS_R && bad_side(a.rs, a.r2)) ||
