@@ -137,9 +137,10 @@ def layout_bytes(ts, g, rows, salts, ne, neo):
     return heads + (g * (8 + 4 * ne) if g > 1 and ne else 0)
 
 
-def schedule(psi, om, r1, r2, r1o, rows=None, salts=None):
+def schedule(psi, om, r1, r2, r1o, rows=None, salts=None, sign=False):
     """(TS, G, TG, NA, P, GP, BYI) as ``schedule`` of the kernel source, for
-    ``rows`` allocated and ``salts`` held (default: Gaussian sides)."""
+    ``rows`` allocated and ``salts`` held (default: Gaussian sides); with a
+    sign side the tile leaves two thread rows."""
     rows = (r1 if psi else 0) + r2 + r1o if rows is None else rows
     salts = rows if salts is None else salts
     byi = psi and not om and r2 < MJ and r1 > r2
@@ -149,7 +150,7 @@ def schedule(psi, om, r1, r2, r1o, rows=None, salts=None):
     g = 1 if 2 * p > THREADS else min(THREADS // p, GMAX)
     for ts in STRIDES:
         tg = ts // (4 * g) * 4
-        if layout_bytes(
+        if (not sign or 2 * ts <= THREADS) and layout_bytes(
                 ts, g, rows, salts, r1 * r2 if psi else 0,
                 r1o * r2 if om else 0) <= SMEM_LIMIT:
             break
@@ -345,10 +346,13 @@ def test_merged_schedule_stores_once_and_sums(ranks, chunk):
     assert _rel(np.stack(slabs), ref_slabs.numpy()) <= PSI_TOL
     assert _rel(om, ref_om.numpy()) <= PSI_TOL
     if chunk is None:
-        # the runs cross tiles: some row of a chunk holds more nnz than a
-        # group's tile
-        counts = np.bincount(loc[:plan.chunk], minlength=plan.span + 1)
-        assert counts[:plan.span].max() > schedule(True, True, r1, r2, r1)[2]
+        # a run crosses a tile boundary inside a group's part of chunk 0
+        G, TG = schedule(True, True, r1, r2, r1)[1:3]
+        n = min(plan.chunk, nnz)
+        q = -(-(-(-n // G)) // TG) * TG
+        cuts = [b for g in range(G) for b in range(g * q + TG, min(
+            (g + 1) * q, n), TG)]
+        assert any(loc[b - 1] == loc[b] for b in cuts)
 
 
 def test_merged_schedule_without_a_left_side():
@@ -437,12 +441,12 @@ def test_window_schedule_stores_once_and_sums(ranks):
 
 
 @pytest.mark.parametrize("ranks,expect", [
-    ((10, 20, 10), (124, 5, 24, 5, 50, False)),
-    ((1, 1, 0), (124, 15, 8, 1, 1, False)),
-    ((16, 16, 0), (124, 4, 28, 4, 64, False)),
-    ((30, 40, 0), (124, 1, 124, 10, 300, False)),
-    ((1, 20, 10), (124, 5, 24, 5, 50, False)),
-    ((10, 1, 0), (124, 15, 8, 3, 3, True))],
+    ((10, 20, 10), (252, 5, 48, 5, 50, False)),
+    ((1, 1, 0), (252, 15, 16, 1, 1, False)),
+    ((16, 16, 0), (252, 4, 60, 4, 64, False)),
+    ((30, 40, 0), (252, 1, 252, 10, 300, False)),
+    ((1, 20, 10), (252, 5, 48, 5, 50, False)),
+    ((10, 1, 0), (252, 15, 16, 3, 3, True))],
     ids=["merged 10x20", "1x1", "16x16", "30x40", "merged, no left side",
          "10x1, by the left side"])
 def test_schedule_fills_the_block(ranks, expect):
@@ -456,24 +460,25 @@ def test_schedule_fills_the_block(ranks, expect):
 # -- 3. shared memory ------------------------------------------------------------
 
 LIMIT_CASES = {
-    # (rows allocated, salts, (r1, r2, r1o)): the stride taken
-    "sign 433 + 433, 3 x 3": ((866, 866, (3, 3, 0)), 60),
-    "given 892 + 1": ((893, 0, (892, 1, 0)), 60),
-    "merged sign 288 x 3": ((864, 864, (3, 3, 3)), 60),
-    "merged gauss 10 x 20 + 10": ((40, 40, (10, 20, 10)), 124),
-    "merged sign 20 + 20 + 20, 10 x 20": ((60, 60, (10, 20, 10)), 124),
-    "gauss 200 + 200": ((400, 400, (200, 200, 0)), 124),
-    "gauss 235 + 235": ((470, 470, (235, 235, 0)), 84),
+    # (rows allocated, salts, sign sides?, (r1, r2, r1o)): the stride taken
+    "sign 433 + 433, 3 x 3": ((866, 866, True, (3, 3, 0)), 60),
+    "given 892 + 1": ((893, 0, False, (892, 1, 0)), 60),
+    "merged sign 288 x 3": ((864, 864, True, (3, 3, 3)), 60),
+    "merged gauss 10 x 20 + 10": ((40, 40, False, (10, 20, 10)), 252),
+    "merged sign 20 + 20 + 20, 10 x 20": ((60, 60, True, (10, 20, 10)),
+                                          124),
+    "gauss 200 + 200": ((400, 400, False, (200, 200, 0)), 124),
+    "gauss 235 + 235": ((470, 470, False, (235, 235, 0)), 84),
 }
 
 
 @pytest.mark.parametrize("case", LIMIT_CASES, ids=list(LIMIT_CASES))
 def test_kernel_layout_fits_the_wrappers_limit(case):
-    (rows, salts, (r1, r2, r1o)), stride = LIMIT_CASES[case]
+    (rows, salts, sign, (r1, r2, r1o)), stride = LIMIT_CASES[case]
     api = 8 * salts + 4 * (64 + 1) * rows + 4 * 64
     assert api <= SMEM_LIMIT  # what the wrappers admit
-    ts, G = schedule(True, r1o > 0, r1, r2, r1o, rows, salts)[:2]
-    assert ts == stride and 2 * ts <= THREADS
+    ts, G = schedule(True, r1o > 0, r1, r2, r1o, rows, salts, sign)[:2]
+    assert ts == stride and (not sign or 2 * ts <= THREADS)
     assert layout_bytes(ts, G, rows, salts, r1 * r2, r1o * r2) <= SMEM_LIMIT
 
 

@@ -43,48 +43,98 @@
 // (ranks 10/20, merged) that is 40 samples = ~3840 instructions plus 400
 // FMAs for 32 bytes: ~130 instructions per byte against the CUDA cores'
 // ridge of 33.5e12 / 3.35e12 = 10.  The kernels are bound by operations,
-// and the hash and erfinv are ~90 % of them.
+// and the hash and erfinv are ~90 % of them.  A sign side's column is one
+// thread's serial shuffle (hash_rng.cuh), so sign calls wait on its
+// latency: there the blocks an SM holds set the pace.
 //
-// What the design does about it.  One block per chunk of the mode-sorted
-// nnz stream (per plan chunk for Ψ; per OMEGA_CHUNK nnz for Ω).  The block
-// walks its chunk in tiles of T nnz: all threads hash the tile's rows into
-// shared memory (every sample is hashed exactly once per kernel, R once
-// for both Ψ and Ω in the merged kernel), the entry weighting is folded
-// into the left rows, then each thread owns output elements (a, b) and
-// sums over the tile.  loc is non-decreasing inside a chunk, so the rows
-// s of a slab are contiguous runs: a thread adds its running sum into
-// slab[s] only when s changes (r1*r2 FMAs per nnz, not span times that as
-// the TPU's one-hot product).  The padding sentinel loc == span is never
-// written.  Every output element belongs to one thread of one block and is
-// written without atomics: the slabs and the per-block Ω partials are
-// deterministic, and the wrapper sums the Ω partials in a fixed order.
+// The block program.  One block per chunk of the mode-sorted nnz stream
+// (per plan chunk for Ψ; per OMEGA_CHUNK nnz for Ω; per window for the
+// window kernel).  Its range splits into G contiguous parts, one per
+// group of threads (G up to GMAX, as many as the micro-tiles allow).
+// Each tile, all threads first generate W = G*TG columns into shared
+// memory, TG of each part: every sample is hashed once per kernel (R once
+// for Ψ and Ω in the merged kernel), a column's flat indices and entry
+// are loaded once per side, the entry is folded into the left rows, and a
+// column past its part is zero.  After a barrier each group contracts its
+// own TG columns.
+//
+// Micro-tiles.  A thread owns MJ = 4 outputs: rows a0 + c*NA of side A (the
+// right side; the left side for a Ψ whose right side has fewer than 4
+// rows) against one row b of side B.  In the merged kernel the same A rows
+// serve Ψ (B = the left side) and Ω (B = Ω's left side): each R value is
+// read once for both.  Reads are 16 bytes along the nnz: per 4 columns a
+// thread loads 4 A quads, its B quad, its Ω-left quad and the 4 locs, 7
+// LDS.128 for 32 FMAs (0.22 per FMA; Ω alone 5 for 16, 0.31; Ψ alone 6
+// for 16, 0.38), against 2 scalar loads per FMA before.  A run that ends
+// inside 4 columns reloads those A values one by one.
+//
+// Row stride.  Rows are TS floats apart, TS one of STRIDES = 252, 124, 84,
+// 60 (63, 31, 21, 15 quads): an odd number of 16-byte quads puts eight
+// consecutive rows in eight different bank quads, so the quarter-warp
+// phases of an LDS.128 (lanes of one group read consecutive A rows at one
+// column) are free of conflicts, and a column of a sign side or of the
+// generator loops is 32 consecutive words.  The launch code takes the
+// widest stride whose layout fits; with a sign side at most 124, so that
+// two rows of threads serve the sign sides: the right side on one, the
+// left and Ω's left sides on the next while rows last (the right side has
+// the most slots).
+//
+// Where each output is stored.  loc is non-decreasing inside a plan chunk
+// and over a window's whole run, pads last (the plans pin it), so the rows
+// s of a slab are contiguous runs and a group's part is a run of runs.  A
+// thread keeps the sum of its current run from tile to tile and stores it,
+// with a plain store, once: when the row changes or its part ends.  A
+// group's first run (its head) and last run (its tail) may continue in the
+// groups beside it; they go to shared memory, and after the last tile one
+// thread per element adds heads and tails in group order and stores the
+// row once.  Ω sums go to shared memory per group and one thread per
+// element adds them in group order (G = 1: stored from the thread).  A
+// zero pass clears the slab rows no nnz reaches; the tile loop only
+// stores, it never reads a slab or Ω, and there are no atomics: the same
+// inputs give the same bits.  The sentinel loc == span is never written.
+// The window kernel's range ends before the first pad of the window's last
+// chunk (counted with __syncthreads_count).
+//
+// Registers.  Between one tile's contraction and the next a thread's sums
+// and run wait in shared memory (a float4 each for Ψ and Ω, an int2): the
+// generator's registers and the contraction's are then not live at once,
+// and each instance has its own budget (the merged kernel 64 registers,
+// four blocks an SM; Ω alone 40; Ψ alone 32).  Held in registers across
+// the tile loop instead (94-112 registers, two blocks an SM) the merged
+// kernel was no faster and the sign and window calls were slower (NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md, PR 9).
+//
+// Threads without an output element.  A group has P micro-tiles (P*G <=
+// 256 threads; at ranks 10/20, G = 5 groups of 50); the rest wait at the
+// barrier.  Every thread generates.  Past THREADS/2 micro-tiles one group
+// takes them in passes over the range, each generating the tiles anew.
+//
+// Shared-memory limits.  The wrappers admit what the earlier layout held
+// (64-column tiles, 65 floats a row: 866 hashed rows with a salt each, or
+// 892 + 1 given rows).  The narrowest stride needs 240 bytes a row and the
+// parked sums 10 KB at most, so every admitted call fits at TS = 60; wider
+// strides are taken only by the calls whose layout fits them.
 //
 // A sign side cannot be hashed one sample per thread-step: its column is
-// one shuffle over `rank` slots.  One thread per tile column runs
-// sign_column in place on the side's rows in shared memory (T of the 256
-// threads per sign side, before they join the Gaussian samples' loop); a
-// sliced side (r < rank) allocates `rank` rows and contracts rows
-// [rank_min, rank_min + r).
+// one shuffle over `rank` slots, run by one thread per tile column in
+// place on the side's rows in shared memory; a sliced side (r < rank)
+// allocates `rank` rows and contracts rows [rank_min, rank_min + r).
 //
-// The window kernel is the same block program over another range.  The TPU
-// kernel revisits one output block over adjacent grid steps (init on a
-// window's first chunk, accumulate after); blocks here run in parallel, so
-// one block owns one window: it finds its chunks in the non-decreasing
-// chunk_window (binary search, then chunk_first marks the next window),
-// zeroes the window's span rows and walks the chunks with the same run
-// trick, since loc is non-decreasing over a window's whole run with the
-// pads (sentinel span, entry 0) at its end.  A tile that starts on a pad
-// ends the walk.  Ψ leaves the kernel finished: no atomics, no combine.
+// The window kernel.  The TPU kernel revisits one output block over
+// adjacent grid steps (init on a window's first chunk, accumulate after);
+// blocks here run in parallel, so one block owns one window: it finds its
+// chunks in the non-decreasing chunk_window (binary search, then
+// chunk_first marks the next window), zeroes the window's span rows and
+// walks its run with the same program, a run of rows crossing chunk
+// boundaries as it crosses tiles.  Ψ leaves the kernel finished.
 //
 // Given sides.  The TPU's psi_chunk_slabs is the same one-hot product with
-// the rows read, not hashed; here a given side is a third kind of Side whose
-// tile is filled by coalesced loads (thread t reads column k0 + t of a row),
-// so psi_chunk_slabs (both sides given, or the left one alone) and
+// the rows read, not hashed; here a given side is a third kind of Side
+// whose tile is filled by loads (thread column t0 reads its column of a
+// row), so psi_chunk_slabs (both sides given, or the left one alone) and
 // psi_chunk_slabs_genright (left given, right hashed) are the slab kernel
 // itself.  A call with given sides is bound by bytes: (r1 + r2 + 2) * 4 per
 // nnz against r1 * r2 FMAs.  Columns past nnz are never read.
-// Making it fast (sharing samples across warps, wider per-thread tiles,
-// persistent blocks) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,7 +147,7 @@ constexpr int THREADS = 256;
 // Row strides (floats) a launch picks from, widest first: each holds an odd
 // number of 16-byte quads, so eight consecutive rows fall in eight
 // different bank quads.  A stride is also the tile's column count at most.
-constexpr int STRIDES[] = {124, 84, 60};
+constexpr int STRIDES[] = {252, 124, 84, 60};
 constexpr int MJ = 4;      // outputs of a thread's micro-tile
 constexpr int GMAX = 15;   // thread groups per block at most
 // blocks per SM the registers must allow: the merged kernel, Ω alone, Ψ
@@ -105,8 +155,8 @@ constexpr int GMAX = 15;   // thread groups per block at most
 constexpr int MIN_BLOCKS_MERGED = 4, MIN_BLOCKS_OMEGA = 6, MIN_BLOCKS_PSI = 8;
 constexpr int OMEGA_CHUNK = 4096;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
-static_assert(2 * STRIDES[0] <= THREADS,
-              "the widest tile leaves two thread rows for the sign sides");
+static_assert(2 * STRIDES[1] <= THREADS,
+              "the widest tile with sign sides leaves them two thread rows");
 
 // One side's rows: GAUSS is lazy-Gaussian (one row per salt); SIGN a
 // sparse-sign column over `rank` slots from `nnz` salts, rows [rank_min,
@@ -647,10 +697,15 @@ Sched schedule(Args a) {
   s.P = (s.BYI ? a.r2 : m) * s.NA;
   s.G = 2 * s.P > THREADS ? 1 : (THREADS / s.P < GMAX ? THREADS / s.P : GMAX);
   s.GP = s.G > 1 ? s.P : THREADS;
+  const bool sign = (PSI && HAS_L && a.ls.kind == SIGN) ||
+                    (HAS_R && a.rs.kind == SIGN) || (OM && a.os.kind == SIGN);
   for (int ts : STRIDES) {
     s.TS = ts;
     s.TG = ts / (4 * s.G) * 4;
-    if (layout<HAS_L, HAS_R, PSI, OM>(a).bytes <= SMEM_LIMIT) break;
+    if ((!sign || 2 * ts <= THREADS) &&
+        layout<HAS_L, HAS_R, PSI, OM>(a).bytes <= SMEM_LIMIT) {
+      break;
+    }
   }
   return s;
 }

@@ -30,15 +30,18 @@ a left side and ``r2 = 1`` without a right side, the window kernel's Ψ is
 ``(n_windows·span, r1, r2)``, and ranks are not padded (the TPU kernels pad
 them to multiples of 8).
 
-Rank limit of the kernels: a block keeps every side's rows for a tile of 64
-nnz in shared memory, 260 bytes per row, and a sign side keeps all ``rank``
-slots of its shuffle there whatever its ``r_out``.  The rows of all sides
-of a call plus 8 bytes per salt must fit 232,192 bytes: 866 rows in all
-with a salt each (two sign sides of rank 433 with ``nnz = rank``, or three
-of rank 288 in the merged kernel).  A given side keeps its ``r`` rows there
-and no salts (893 rows when nothing else is held).  Beyond that the wrappers
-raise ``ValueError`` before the launch (``sparse_sign_rows`` alone takes
-ranks up to 5811).
+Rank limit of the kernels: a block keeps every side's rows for a tile of
+nnz in shared memory, and a sign side keeps all ``rank`` slots of its
+shuffle there whatever its ``r_out``.  The limit is counted as 260 bytes
+per row (a 64-nnz tile) plus 8 bytes per salt within 232,192 bytes: 866
+rows in all with a salt each (two sign sides of rank 433 with ``nnz =
+rank``, or three of rank 288 in the merged kernel).  A given side keeps its
+``r`` rows there and no salts (893 rows when nothing else is held).  Beyond
+that the wrappers raise ``ValueError`` before the launch
+(``sparse_sign_rows`` alone takes ranks up to 5811).  Every call inside the
+limit fits the kernel's narrowest layout (60-nnz tiles, 240 bytes per row,
+plus the threads' parked sums); the kernel takes a wider tile where the
+call's layout fits it.
 """
 from __future__ import annotations
 
@@ -65,7 +68,8 @@ _GIVEN = ("a",)
 #: nnz per step of the plain versions (bounds their temporaries)
 _REF_BLOCK = 1 << 18
 
-#: of csrc/sparse_psi.cu: opt-in shared memory per block, nnz per tile
+#: opt-in shared memory per block, and the tile width the rank limit is
+#: counted in (csrc/sparse_psi.cu fits every call inside it)
 _SMEM_LIMIT, _TILE = 232448, 64
 
 
