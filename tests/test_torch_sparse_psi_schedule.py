@@ -137,10 +137,12 @@ def layout_bytes(ts, g, rows, salts, ne, neo):
     return heads + (g * (8 + 4 * ne) if g > 1 and ne else 0)
 
 
-def schedule(psi, om, r1, r2, r1o, rows=None, salts=None, sign=False):
+def schedule(psi, om, r1, r2, r1o, rows=None, salts=None, draws=()):
     """(TS, G, TG, NA, P, GP, BYI) as ``schedule`` of the kernel source, for
-    ``rows`` allocated and ``salts`` held (default: Gaussian sides); with a
-    sign side the tile leaves two thread rows."""
+    ``rows`` allocated and ``salts`` held (default: Gaussian sides);
+    ``draws`` lists the sign sides' draws: a side takes a thread per
+    (most draws // its draws) tile columns from a warp of its own, and all
+    must fit the block."""
     rows = (r1 if psi else 0) + r2 + r1o if rows is None else rows
     salts = rows if salts is None else salts
     byi = psi and not om and r2 < MJ and r1 > r2
@@ -150,7 +152,10 @@ def schedule(psi, om, r1, r2, r1o, rows=None, salts=None, sign=False):
     g = 1 if 2 * p > THREADS else min(THREADS // p, GMAX)
     for ts in STRIDES:
         tg = ts // (4 * g) * 4
-        if (not sign or 2 * ts <= THREADS) and layout_bytes(
+        most, used = max(draws, default=1), 0
+        for d in draws:  # each side from a warp of its own
+            used = -(-used // 32) * 32 + -(-g * tg // (most // d))
+        if used <= THREADS and layout_bytes(
                 ts, g, rows, salts, r1 * r2 if psi else 0,
                 r1o * r2 if om else 0) <= SMEM_LIMIT:
             break
@@ -460,26 +465,30 @@ def test_schedule_fills_the_block(ranks, expect):
 # -- 3. shared memory ------------------------------------------------------------
 
 LIMIT_CASES = {
-    # (rows allocated, salts, sign sides?, (r1, r2, r1o)): the stride taken
-    "sign 433 + 433, 3 x 3": ((866, 866, True, (3, 3, 0)), 60),
-    "given 892 + 1": ((893, 0, False, (892, 1, 0)), 60),
-    "merged sign 288 x 3": ((864, 864, True, (3, 3, 3)), 60),
-    "merged gauss 10 x 20 + 10": ((40, 40, False, (10, 20, 10)), 252),
-    "merged sign 20 + 20 + 20, 10 x 20": ((60, 60, True, (10, 20, 10)),
-                                          124),
-    "gauss 200 + 200": ((400, 400, False, (200, 200, 0)), 124),
-    "gauss 235 + 235": ((470, 470, False, (235, 235, 0)), 84),
+    # (rows allocated, salts, sign sides' draws, (r1, r2, r1o)): the stride
+    "sign 433 + 433, 3 x 3": ((866, 866, (433, 433), (3, 3, 0)), 60),
+    "given 892 + 1": ((893, 0, (), (892, 1, 0)), 60),
+    "merged sign 288 x 3": ((864, 864, (288,) * 3, (3, 3, 3)), 60),
+    "merged gauss 10 x 20 + 10": ((40, 40, (), (10, 20, 10)), 252),
+    "merged sign 10 x 20 + 10": ((40, 40, (20, 10, 10), (10, 20, 10)), 124),
+    "merged sign, equal draws": ((60, 60, (20, 20, 20), (10, 20, 10)), 60),
+    "omega sign 10 x 20": ((30, 30, (20, 10), (1, 20, 10)), 172),
+    "psi sign 10, no right side": ((11, 10, (10,), (10, 1, 0)), 252),
+    "gauss 200 + 200": ((400, 400, (), (200, 200, 0)), 124),
+    "gauss 235 + 235": ((470, 470, (), (235, 235, 0)), 84),
 }
 
 
 @pytest.mark.parametrize("case", LIMIT_CASES, ids=list(LIMIT_CASES))
 def test_kernel_layout_fits_the_wrappers_limit(case):
-    (rows, salts, sign, (r1, r2, r1o)), stride = LIMIT_CASES[case]
+    (rows, salts, draws, (r1, r2, r1o)), stride = LIMIT_CASES[case]
     api = 8 * salts + 4 * (64 + 1) * rows + 4 * 64
     assert api <= SMEM_LIMIT  # what the wrappers admit
-    ts, G = schedule(True, r1o > 0, r1, r2, r1o, rows, salts, sign)[:2]
-    assert ts == stride and (not sign or 2 * ts <= THREADS)
-    assert layout_bytes(ts, G, rows, salts, r1 * r2, r1o * r2) <= SMEM_LIMIT
+    psi = "omega" not in case  # omega_fused: Ψ off, Ω's left side r1o
+    ts, G = schedule(psi, r1o > 0, r1, r2, r1o, rows, salts, draws)[:2]
+    assert ts == stride
+    assert layout_bytes(ts, G, rows, salts, r1 * r2 if psi else 0,
+                        r1o * r2) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("ts", STRIDES)

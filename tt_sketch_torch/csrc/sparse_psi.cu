@@ -74,10 +74,8 @@
 // phases of an LDS.128 (lanes of one group read consecutive A rows at one
 // column) are free of conflicts, and a column of a sign side or of the
 // generator loops is 32 consecutive words.  The launch code takes the
-// widest stride whose layout fits; with a sign side at most 124, so that
-// two rows of threads serve the sign sides: the right side on one, the
-// left and Ω's left sides on the next while rows last (the right side has
-// the most slots).
+// widest stride whose layout fits and whose sign columns the block's
+// threads can take (below).
 //
 // Where each output is stored.  loc is non-decreasing inside a plan chunk
 // and over a window's whole run, pads last (the plans pin it), so the rows
@@ -116,9 +114,15 @@
 // strides are taken only by the calls whose layout fits them.
 //
 // A sign side cannot be hashed one sample per thread-step: its column is
-// one shuffle over `rank` slots, run by one thread per tile column in
-// place on the side's rows in shared memory; a sliced side (r < rank)
-// allocates `rank` rows and contracts rows [rank_min, rank_min + r).
+// one shuffle over `rank` slots, run by one thread in place on the side's
+// rows in shared memory, and the tile waits for the slowest.  So the side
+// with the most draws gets a thread per column and a side with k times
+// fewer draws a thread per k columns, each side from a warp of its own (a
+// warp whose lanes shuffle two sides runs both one after the other): at
+// ranks 10/20 the merged kernel's right side takes 120 threads and each
+// left side 60, and Ω alone takes 160 + 80 over 160-column tiles.  A
+// sliced side (r < rank) allocates `rank` rows and contracts rows
+// [rank_min, rank_min + r).
 //
 // The window kernel.  The TPU kernel revisits one output block over
 // adjacent grid steps (init on a window's first chunk, accumulate after);
@@ -147,7 +151,7 @@ constexpr int THREADS = 256;
 // Row strides (floats) a launch picks from, widest first: each holds an odd
 // number of 16-byte quads, so eight consecutive rows fall in eight
 // different bank quads.  A stride is also the tile's column count at most.
-constexpr int STRIDES[] = {252, 124, 84, 60};
+constexpr int STRIDES[] = {252, 172, 124, 84, 60};
 constexpr int MJ = 4;      // outputs of a thread's micro-tile
 constexpr int GMAX = 15;   // thread groups per block at most
 // blocks per SM the registers must allow: the merged kernel, Ω alone, Ψ
@@ -155,8 +159,8 @@ constexpr int GMAX = 15;   // thread groups per block at most
 constexpr int MIN_BLOCKS_MERGED = 4, MIN_BLOCKS_OMEGA = 6, MIN_BLOCKS_PSI = 8;
 constexpr int OMEGA_CHUNK = 4096;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
-static_assert(2 * STRIDES[1] <= THREADS,
-              "the widest tile with sign sides leaves them two thread rows");
+static_assert(3 * STRIDES[4] <= THREADS,
+              "the narrowest tile gives three sign sides a thread a column");
 
 // One side's rows: GAUSS is lazy-Gaussian (one row per salt); SIGN a
 // sparse-sign column over `rank` slots from `nnz` salts, rows [rank_min,
@@ -183,6 +187,9 @@ struct Sched {
   int GP;   // threads per group: P when G > 1, else THREADS (P > THREADS/2
             // takes ceil(P / THREADS) passes over the range)
   int BYI;  // A is the left side
+  // sign sides (0 right, 1 left, 2 Ω's left): threads [SB, SB + SN) of a
+  // side take its tile columns u, u + SN, ... (SN = 0: not a sign side)
+  int SB[3], SN[3];
 };
 
 struct Args {
@@ -460,29 +467,30 @@ __global__ void __launch_bounds__(
     for (int it = 0; it < n_it; ++it) {
       const int64_t k = col_lo + (int64_t)it * TG;
       const bool kv = gen && k < col_end;
-      // 1a. sign sides: thread row r0 shuffles column t0 of its sign
-      // sides, the right side first (the most rows, as a rule), then the
-      // left and Ω's left sides, a row each while rows last (the last row
-      // takes the rest)
+      // 1a. sign sides: a side's threads shuffle its tile columns, one
+      // column a thread on the side with the most draws and several on a
+      // side with fewer (Schedule), so that they finish together
       {
-        int qs = 0;
-        if (HAS_R && a.rs.kind == SIGN) {
-          if (gen && r0 == min(qs, RS - 1)) {
-            sign_side(Rs + t0, ts, a.rflat, salts_r, a.rs, r2, nullptr, k,
-                      kv);
+        auto sign_cols = [&](int sd, float* rows, const uint64_t* flat,
+                             const uint64_t* sl, const Side& side, int r_out,
+                             const float* e) {
+          const int u = tid - sc.SB[sd];
+          if (u < 0 || u >= sc.SN[sd]) return;
+          for (int c = u; c < W; c += sc.SN[sd]) {
+            const int gc = c / TG;
+            const int64_t kc = start + gc * q + (int64_t)it * TG + (c - gc * TG);
+            sign_side(rows + c, ts, flat, sl, side, r_out, e, kc,
+                      kc < min(start + (gc + 1) * q, end));
           }
-          ++qs;
+        };
+        if (HAS_R && a.rs.kind == SIGN) {
+          sign_cols(0, Rs, a.rflat, salts_r, a.rs, r2, nullptr);
         }
         if (PSI && HAS_L && a.ls.kind == SIGN) {
-          if (gen && r0 == min(qs, RS - 1)) {
-            sign_side(Ls + t0, ts, a.lflat, salts_l, a.ls, r1, a.e, k, kv);
-          }
-          ++qs;
+          sign_cols(1, Ls, a.lflat, salts_l, a.ls, r1, a.e);
         }
         if (OM && a.os.kind == SIGN) {
-          if (gen && r0 == min(qs, RS - 1)) {
-            sign_side(Os + t0, ts, a.oflat, salts_o, a.os, r1o, a.e, k, kv);
-          }
+          sign_cols(2, Os, a.oflat, salts_o, a.os, r1o, a.e);
         }
       }
       // 1b. Gaussian, given and missing sides: the column's flat indices
@@ -697,12 +705,29 @@ Sched schedule(Args a) {
   s.P = (s.BYI ? a.r2 : m) * s.NA;
   s.G = 2 * s.P > THREADS ? 1 : (THREADS / s.P < GMAX ? THREADS / s.P : GMAX);
   s.GP = s.G > 1 ? s.P : THREADS;
-  const bool sign = (PSI && HAS_L && a.ls.kind == SIGN) ||
-                    (HAS_R && a.rs.kind == SIGN) || (OM && a.os.kind == SIGN);
+  // a sign side's weight is its draws; a side takes one thread per
+  // (heaviest weight / its weight) tile columns, from a warp of its own
+  const bool sign[3] = {HAS_R && a.rs.kind == SIGN,
+                        PSI && HAS_L && a.ls.kind == SIGN,
+                        OM && a.os.kind == SIGN};
+  const int draws[3] = {a.rs.nnz, a.ls.nnz, a.os.nnz};
+  int heaviest = 1;
+  for (int sd = 0; sd < 3; ++sd) {
+    if (sign[sd] && draws[sd] > heaviest) heaviest = draws[sd];
+  }
   for (int ts : STRIDES) {
     s.TS = ts;
     s.TG = ts / (4 * s.G) * 4;
-    if ((!sign || 2 * ts <= THREADS) &&
+    const int W = s.G * s.TG;
+    int used = 0;
+    for (int sd = 0; sd < 3; ++sd) {
+      const int per = sign[sd] ? heaviest / (draws[sd] > 0 ? draws[sd] : 1)
+                               : 0;
+      s.SB[sd] = (used + 31) / 32 * 32;
+      s.SN[sd] = per > 0 ? (W + per - 1) / per : 0;
+      used = s.SB[sd] + s.SN[sd];
+    }
+    if (used <= THREADS &&
         layout<HAS_L, HAS_R, PSI, OM>(a).bytes <= SMEM_LIMIT) {
       break;
     }
