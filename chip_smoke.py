@@ -52,10 +52,14 @@ Phases (the first failure raises and exits non-zero):
    bit; every kernel at every call phase 5 recorded (Gaussian and sign
    sides), at the calls of ragged sketches (nnz not a multiple of the
    chunk, odd ranks; Gaussian, sign and mixed pairs, sliced sign sides) and
-   with flat indices above 2^63; the segment kernel also at a Ψ of the most
-   values it takes (float32 and float64), without sides and with one row;
-   time the recorded calls and their plain versions (the segment kernel's
-   also against ``index_add_`` of the outer products), and bound them.
+   with flat indices above 2^63, and with Gaussian sides of 16 x 40 and
+   30 x 40 (one thread group; passes over the range); the segment kernel
+   also at a Ψ of the most values it takes (float32 and float64), without
+   sides and with one row;
+   the same bits from two calls of each ``sparse_psi.cu`` instance at the
+   recorded calls; time the recorded calls and their plain versions (the
+   segment kernel's also against ``index_add_`` of the outer products),
+   and bound them (each time also over its bound).
 7. ``sparse_sign_rows`` against its plain version bit for bit
    (``torch.equal``): uber's shapes (in phase 6), a ragged N, fewer
    non-zeros than slots, a rank slice, flats above 2^63 and a rank above
@@ -92,7 +96,8 @@ Phases (the first failure raises and exits non-zero):
     hits one row, every side combination, sign and sliced hashed sides, the
     shared-memory limit of given sides; both orientations of the
     half-fused Ψ through streaming sketches with a ``TensorTrainDRM`` on one
-    side and a ``SparseGaussianDRM`` on the other.
+    side and a ``SparseGaussianDRM`` on the other; the same bits from two
+    calls of ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``.
 11. The projector diagnostics (``kernels/projector_diag.py``): ``t_only``
     and ``u_only`` (``f32`` and ``bf16``) and ``reduce_read`` against their
     plain versions at the main-path shape, a ragged shape, a rank-split
@@ -1031,6 +1036,25 @@ def phase_sparse_kernels(paths, ops):
         for name, args in extra:
             _check(name, f"ragged variant {tag}", args)
 
+    # more micro-tiles than half the block's threads (one thread group),
+    # and more than the block's threads (passes over the range)
+    for r1_, r2_ in ((16, 40), (30, 40)):
+        gl_, gr_, go_ = (drm_salts(0, r, sd, device="cuda")
+                         for r, sd in ((r1_, 26), (r2_, 27), (r1_, 28)))
+        label = f"gauss {r1_} x {r2_}"
+        for name, args in (
+                ("psi_omega_merged_slabs", (
+                    p.local_idx, p.sorted_entries, p.flat_left, p.flat_right,
+                    p.flat_left_om, gl_, gr_, go_, *geom, GAUSS, GAUSS,
+                    GAUSS)),
+                ("psi_fused_slabs", (p.local_idx, p.sorted_entries,
+                                     p.flat_left, p.flat_right, gl_, gr_,
+                                     *geom)),
+                ("omega_fused", (p.sorted_entries, p.flat_left_om,
+                                 p.flat_right, go_, gr_))):
+            _check(name, label, args)
+            _same_bits(name, label, args)
+
     # the rank limit of sign sides: the most rows a block's shared memory
     # holds run and agree; one more raises before the launch
     def wide(rank):
@@ -1089,7 +1113,7 @@ def phase_sparse_kernels(paths, ops):
             res[name][label] = {
                 "launches": len(calls), "max_abs_err": abs_err,
                 "max_rel_err": rel_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "over_bound": ms / b_ms}
+                "bound_ms": b_ms, "bound_by": b_by}
             lib = ""
             if name == "psi_segment":
                 lib_ms = segment_library_ms(calls)

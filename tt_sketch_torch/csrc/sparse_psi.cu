@@ -68,14 +68,14 @@
 // for 16, 0.38), against 2 scalar loads per FMA before.  A run that ends
 // inside 4 columns reloads those A values one by one.
 //
-// Row stride.  Rows are TS floats apart, TS one of STRIDES = 252, 124, 84,
-// 60 (63, 31, 21, 15 quads): an odd number of 16-byte quads puts eight
-// consecutive rows in eight different bank quads, so the quarter-warp
-// phases of an LDS.128 (lanes of one group read consecutive A rows at one
-// column) are free of conflicts, and a column of a sign side or of the
-// generator loops is 32 consecutive words.  The launch code takes the
-// widest stride whose layout fits and whose sign columns the block's
-// threads can take (below).
+// Row stride.  Rows are TS floats apart, TS one of STRIDES = 252, 172,
+// 124, 84, 60 (63, 43, 31, 21, 15 quads): an odd number of 16-byte quads
+// puts eight consecutive rows in eight different bank quads, so the
+// quarter-warp phases of an LDS.128 (lanes of one group read consecutive A
+// rows at one column) are free of conflicts, and a column of a sign side
+// or of the generator loops is 32 consecutive words.  The launch code
+// takes the widest stride whose layout fits and whose sign columns the
+// block's threads can take (below).
 //
 // Where each output is stored.  loc is non-decreasing inside a plan chunk
 // and over a window's whole run, pads last (the plans pin it), so the rows
@@ -96,11 +96,12 @@
 // Registers.  Between one tile's contraction and the next a thread's sums
 // and run wait in shared memory (a float4 each for Ψ and Ω, an int2): the
 // generator's registers and the contraction's are then not live at once,
-// and each instance has its own budget (the merged kernel 64 registers,
-// four blocks an SM; Ω alone 40; Ψ alone 32).  Held in registers across
-// the tile loop instead (94-112 registers, two blocks an SM) the merged
-// kernel was no faster and the sign and window calls were slower (NVIDIA
-// H100 80GB HBM3, 700 W; PERF.md, PR 9).
+// and each instance has its own budget: the merged kernel 64 registers,
+// four blocks an SM; Ω alone 40, six; Ψ alone 32, eight (ptxas spills
+// 80-190 bytes there, which measured faster than fewer blocks).  Held in
+// registers across the tile loop instead (94-112 registers, two blocks an
+// SM) the merged kernel was no faster and the sign and window calls were
+// slower on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
 //
 // Threads without an output element.  A group has P micro-tiles (P*G <=
 // 256 threads; at ranks 10/20, G = 5 groups of 50); the rest wait at the
