@@ -997,7 +997,7 @@ def phase_sparse_kernels(paths, ops):
                 if label in paths:
                     m = worst.setdefault((name, label), [0.0, 0.0])
                     m[0], m[1] = max(m[0], a), max(m[1], r)
-                    if name in SPARSE_PSI_INSTANCES[:4]:
+                    if name in SPARSE_PSI_INSTANCES[:4] + ("chain_step_t",):
                         _same_bits(name, f"{label} call {i}", args)
 
     # the variants no sketch above launches: Ψ with both sides and without
@@ -1124,7 +1124,43 @@ def phase_sparse_kernels(paths, ops):
                   f"{label} sketch in {ms:.3f} ms (bound {b_ms:.3f} ms by "
                   f"{b_by}; {ms / b_ms:.2f}x the bound), plain version "
                   f"{plain_ms:.3f} ms{lib}")
+            if name == "chain_step_t":
+                res[name][label]["per_launch"] = chain_launches(
+                    label, calls, paths[label]["shape"], ops)
     return res
+
+
+def chain_launches(label, calls, shape, ops):
+    """Each recorded ``chain_step_t`` launch of one sketch on its own
+    line: the mode (found by its size), ``n``, the ranks, where the core
+    lives (``chain_schedule``), its time, bound and ratio, and the bytes of
+    core rows the kernel gathers (a row of the padded layout per nonzero
+    inside the mode)."""
+    from tt_sketch_torch.kernels.chain_step import chain_schedule
+
+    kern = _kernel_fns()["chain_step_t"][0]
+    out = []
+    for i, args in enumerate(calls):
+        state, core, idx = args
+        r1, n, r2 = core.shape
+        sched = chain_schedule(n, r1, r2, state is None)
+        where = sched.place + (f" of {sched.cluster} x {sched.rows_per_block}"
+                               f" rows" if sched.place == "cluster" else "")
+        ms = time_ms(lambda: kern(*args))
+        b_ms, b_by = sparse_bound("chain_step_t", args, ops)
+        inside = int(((idx >= 0) & (idx < n)).sum())
+        gathered = 4 * sched.row * inside
+        mode = shape.index(n) if shape.count(n) == 1 else "?"
+        print(f"# phase 6: chain_step_t {label} call {i}: mode {mode}, n "
+              f"{n}, ranks {'-' if state is None else r1} -> {r2}, core in "
+              f"{where}: {ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
+              f"({ms / b_ms:.2f}x), {gathered / 1e6:.1f} MB of core rows "
+              f"gathered")
+        out.append({"call": i, "mode": mode, "n": n, "r1": r1, "r2": r2,
+                    "first": state is None, "place": sched.place,
+                    "cluster": sched.cluster, "ms": ms, "bound_ms": b_ms,
+                    "gathered_bytes": gathered})
+    return out
 
 
 def phase_sign_rows():
@@ -1719,7 +1755,7 @@ def phase_seq_main(label, tensor, timed=True, groups=3, inner=3):
     del ref
     err = sample_error(tt, tensor)
     out = {"launches": launches, "calls": calls, "sample_error": err,
-           "worst_rel": worst}
+           "worst_rel": worst, "shape": tuple(tensor.shape)}
     if label.startswith("uber") and method == "hmt":
         lo, hi = HMT_ERROR_RANGE
         print(f"{tag} sample_error = {err:.4f} (guard {lo}-{hi})")
@@ -1794,7 +1830,7 @@ def phase_seq_kernels():
         TensorTrainDRM,
         stream_sketch,
     )
-    from tt_sketch_torch.kernels.chain_step import _library as chain_library
+    from tt_sketch_torch.kernels import chain_step as CS
     from tt_sketch_torch.rng.hash_rng import drm_salts
 
     f32 = torch.float32
@@ -1806,36 +1842,75 @@ def phase_seq_kernels():
     def randint(n, size):
         return torch.randint(0, n, (size,), generator=g, device="cuda")
 
-    # -- chain_step_t
-    staged = chain_library().tt_chain_step_staged_bytes()
+    # -- chain_step_t: odd shapes, the edges of the launch decisions (the
+    # block budget, the cluster's capacity, each rank bucket) and ranks
+    # past the largest bucket (the generic instance)
+    at_budget = CS.BLOCK_BUDGET // (4 * 100)
     chain_cases = [
         ("ragged nnz 100003, n 37, ranks 7 -> 11", 100_003, 37, 7, 11),
         ("n = 1", 5_001, 1, 5, 6),
         ("ranks 1 -> 1", 4_097, 50, 1, 1),
         ("ranks 20 -> 1", 70_001, 300, 20, 1),
         ("ranks 1 -> 20, one nonzero", 1, 9, 1, 20),
-        ("ranks 9 -> 17 (three register tiles)", 33_333, 64, 9, 17),
-        ("core of 1140 x 10 x 10 read through the cache", 250_007, 1140, 10,
-         10),
+        ("ranks 9 -> 17", 33_333, 64, 9, 17),
+        ("core of 1140 x 10 x 10", 250_007, 1140, 10, 10),
         ("core of 5000 x 20 x 20", 120_001, 5000, 20, 20),
+        (f"core at the block budget, n {at_budget}", 200_003, at_budget, 10,
+         10),
+        ("one row above the block budget", 200_003, at_budget + 1, 10, 10),
+        ("core at the cluster's capacity", 300_007,
+         CS.CLUSTER_MAX * at_budget, 10, 10),
+        ("one row above the cluster's capacity", 300_007,
+         CS.CLUSTER_MAX * at_budget + 1, 10, 10),
+        ("ranks 4 -> 4 (smallest buckets)", 50_001, 70, 4, 4),
+        ("ranks 5 -> 5 (one past them)", 50_001, 70, 5, 5),
+        ("ranks 8 -> 12", 50_001, 70, 8, 12),
+        ("ranks 16 -> 13", 50_001, 70, 16, 13),
+        ("ranks 17 -> 16", 50_001, 70, 17, 16),
+        ("ranks 32 -> 32 (largest buckets)", 50_001, 70, 32, 32),
+        ("ranks 33 -> 3 (generic)", 50_001, 70, 33, 3),
+        ("ranks 3 -> 33 (generic)", 50_001, 70, 3, 33),
+        ("ranks 1 -> 32", 50_001, 70, 1, 32),
+        ("ranks 1 -> 33 (generic)", 50_001, 70, 1, 33),
+        ("ranks 100 -> 40 (generic, fewer staged columns)", 20_001, 30, 100,
+         40),
     ]
     for label, nnz, n, r1, r2 in chain_cases:
         core, state, idx = randn(r1, n, r2), randn(r1, nnz), randint(n, nnz)
-        idx[: min(nnz, 3)] = n - 1  # the last row of the core
-        where = ("shared memory" if 4 * n * r1 * r2 <= staged
-                 else "the cache")
+        sched = CS.chain_schedule(n, r1, r2, False)
+        # the core's last row, and the rows on both sides of a block's share
+        edge = [n - 1] * 3 + [max(sched.rows_per_block - 1, 0),
+                              min(sched.rows_per_block, n - 1), 0]
+        idx[: min(nnz, 6)] = torch.tensor(edge[:min(nnz, 6)], device="cuda")
+        where = sched.place + (f" of {sched.cluster}" if sched.cluster > 1
+                               else "")
         _check("chain_step_t", f"{label}, core in {where}",
                (state, core, idx), phase=10)
         if r1 == 1:
             a, b = (fn(None, core, idx)
                     for fn in _kernel_fns()["chain_step_t"])
             torch.cuda.synchronize()
-            print(f"# phase 10: chain_step_t {label}, first step: "
+            first = CS.chain_schedule(n, 1, r2, True)
+            print(f"# phase 10: chain_step_t {label}, first step (core in "
+                  f"{first.place}): "
                   f"{'equal' if torch.equal(a, b) else 'DIFFERENT'} bit for "
                   f"bit")
             if not torch.equal(a, b):
                 raise AssertionError("chain_step_t first step is a gather "
                                      "and must be exact")
+    # the first step with a core above the block budget and above the
+    # cluster's capacity
+    for n in (30_000, 200_000):
+        core, idx = randn(1, n, 10), randint(n, 300_001)
+        a, b = (fn(None, core, idx) for fn in _kernel_fns()["chain_step_t"])
+        torch.cuda.synchronize()
+        place = CS.chain_schedule(n, 1, 10, True).place
+        print(f"# phase 10: chain_step_t first step, n {n} (core in "
+              f"{place}): {'equal' if torch.equal(a, b) else 'DIFFERENT'} "
+              f"bit for bit")
+        if not torch.equal(a, b):
+            raise AssertionError(f"chain_step_t first step (n {n}) is not "
+                                 f"exact")
     core, state, idx = randn(1, 183, 10), None, randint(183, 300_001)
     a, b = (fn(state, core, idx) for fn in _kernel_fns()["chain_step_t"])
     if not torch.equal(a, b):
@@ -1849,18 +1924,29 @@ def phase_seq_kernels():
           f"(tol {BF16_TOL:g})")
     if not (a.dtype == torch.bfloat16 and rel <= BF16_TOL):
         raise AssertionError("chain_step_t bfloat16")
-    out_of_range = randint(40, 1_000)
-    out_of_range[::7] = 40
-    out_of_range[3] = -1
-    z = _kernel_fns()["chain_step_t"][0](randn(6, 1_000), randn(6, 40, 9),
-                                         out_of_range)
-    torch.cuda.synchronize()
-    bad = (out_of_range < 0) | (out_of_range >= 40)
-    if not (bool((z[:, bad] == 0).all()) and bool(torch.isfinite(z).all())):
-        raise AssertionError("chain_step_t: an index outside the mode must "
-                             "give a zero column")
-    print(f"# phase 10: chain_step_t: {int(bad.sum())} indices outside "
-          f"[0, 40) give zero columns")
+    # an index outside the mode gives a zero column, wherever the core
+    # lives and on the generic instance, with a state and on the first step
+    for r1, n, r2 in ((6, 40, 9), (10, 1140, 10), (20, 5000, 20),
+                      (33, 70, 3), (1, 40, 9), (1, 200_000, 9), (1, 70, 33)):
+        out_of_range = randint(n, 1_000)
+        out_of_range[::7] = n
+        out_of_range[3] = -1
+        out_of_range[5] = -(1 << 40)
+        first = r1 == 1
+        z = _kernel_fns()["chain_step_t"][0](
+            None if first else randn(r1, 1_000), randn(r1, n, r2),
+            out_of_range)
+        torch.cuda.synchronize()
+        bad = (out_of_range < 0) | (out_of_range >= n)
+        sched = CS.chain_schedule(n, r1, r2, first)
+        if not (bool((z[:, bad] == 0).all())
+                and bool(torch.isfinite(z).all())):
+            raise AssertionError(f"chain_step_t: an index outside the mode "
+                                 f"must give a zero column ({r1}, {n}, {r2})")
+        print(f"# phase 10: chain_step_t ({r1}, {n}, {r2}){' first' * first}"
+              f", core in {sched.place}: {int(bad.sum())} indices outside "
+              f"[0, {n}) give zero columns")
+    chain_placements(randn, randint)
 
     # -- the slab kernels over given rows, on the ragged tensor's plan
     t, _, _ = _ragged_case(SparseGaussianDRM, SparseGaussianDRM)
@@ -1951,6 +2037,52 @@ def phase_seq_kernels():
         if not worst <= PSI_TOL:
             raise AssertionError(f"streaming {tag} disagrees with its plain "
                                  f"version")
+
+
+#: (label, budget, cluster_max) of the placements phase 10 times: the
+#: package's choice, blocks half full (twice the cluster), the cache alone
+CHAIN_PLACEMENTS = (("budget 227 KB", None, None),
+                    ("budget 113 KB", 232448 // 2, None),
+                    ("cache", 0, 1))
+
+
+def chain_placements(randn, randint, nnz=3_309_696):
+    """``chain_step_t`` at ranks 10/10 over uber's nnz with cores of 400
+    rows (160 KB: one block's shared memory at the budget of 227 KB, a
+    cluster of 2 at half of it), 1140 (uber's mode 2) and 4198 (lbnl's mode
+    1), each where the package puts it and where the other budgets put it,
+    checked against the plain version and timed (ten calls back to back:
+    the kernels' time, not the host's)."""
+    import torch
+
+    from tt_sketch_torch.kernels import chain_step as CS
+
+    out = {}
+    state = randn(10, nnz)
+    for n in (400, 1140, 4198):
+        core, idx = randn(10, n, 10), randint(n, nnz)
+        seen = set()
+        for label, budget, cmax in CHAIN_PLACEMENTS:
+            kw = {k: v for k, v in (("budget", budget), ("cluster_max", cmax))
+                  if v is not None}
+            sched = CS.chain_schedule(n, 10, 10, False, **kw)
+            if sched in seen:
+                continue
+            seen.add(sched)
+            where = sched.place + (f" of {sched.cluster}"
+                                   if sched.cluster > 1 else "")
+            got = CS._launch(state, core, idx, sched)
+            ref = CS.chain_step_t_reference(state, core, idx)
+            torch.cuda.synchronize()
+            _compare("chain_step_t", f"n {n}, {label}, core in {where}",
+                     (got,), (ref,), phase=10)
+            ms = time_ms(lambda: [CS._launch(state, core, idx, sched)
+                                  for _ in range(10)]) / 10
+            out[(n, where)] = ms
+            print(f"# phase 10: chain_step_t placement n {n}, ranks 10 -> "
+                  f"10, {nnz} nnz, {label}: core in {where}, "
+                  f"{sched.smem_bytes} bytes a block: {ms:.3f} ms")
+    return out
 
 
 def _bound(nbytes, n_ops, ops_per_s):

@@ -1,20 +1,26 @@
-"""Time variants of ``tt_sketch_torch/csrc/sparse_psi.cu`` against each
-other on one card, in turns, at the calls the sparse main paths make.
+"""Time variants of a kernel library of ``tt_sketch_torch/csrc`` against
+each other on one card, in turns, at the calls the sparse main paths make.
 
 Put each variant's full source under ``build/exp/<tag>.cu`` (``build/`` is
 git-ignored), then run from the repo root on a machine with a card::
 
-    python3 tools/sparse_psi_ab.py [seq]
+    python3 tools/sparse_psi_ab.py [seq] [LIBRARY[:KERNEL,...]]
 
-Each variant is built with the package's nvcc flags; the uber and lbnl
-STTA paths of ``chip_smoke.py`` (and with ``seq`` uber's OTTS and HMT) are
-run once through the package's own kernels to record their calls; then
-every variant in turn, the list forward and back, checks the first
-recorded call of each kernel against its plain version and times all of
-them (``chip_smoke.time_ms``).  A variant whose tag starts with ``x_`` is
-a diagnostic that computes something else (a phase switched off): it is
-timed and not checked.  The last lines give, per kernel and path, each
-variant's ms for one sketch's launches in both turns.
+``LIBRARY`` is ``sparse_psi`` (the default; its six kernels) or
+``chain_step`` (``chain_step_t``); ``:KERNEL,...`` times only the kernels
+named.  Each variant is built with the package's nvcc flags.  For
+``sparse_psi`` the uber and lbnl STTA paths of ``chip_smoke.py`` (and with
+``seq`` uber's OTTS and HMT) are run once through the package's own
+kernels to record their calls; for ``chain_step`` the sequential paths
+that launch the chain step (uber HMT Gaussian and TT-DRM, OTTS, lbnl HMT).
+Then every variant in turn, the list forward and back, checks every
+recorded call of each kernel against its plain version and times each
+recorded call (alone, and ten back to back) and all of them
+(``chip_smoke.time_ms``).  A variant whose
+tag starts with ``x_`` is a diagnostic that computes something else (a
+phase switched off): it is timed and not checked.  The last lines give,
+per kernel and path, each variant's ms for one sketch's launches in both
+turns, and before them the same per recorded call.
 """
 import ctypes
 import glob
@@ -27,11 +33,18 @@ import torch  # noqa: E402
 
 import chip_smoke as c  # noqa: E402
 from tt_sketch_torch import SparseGaussianDRM, SparseSignDRM  # noqa: E402
+from tt_sketch_torch.kernels import chain_step as CS  # noqa: E402
 from tt_sketch_torch.kernels import cuda_build  # noqa: E402
 from tt_sketch_torch.kernels import sparse_psi as SP  # noqa: E402
 
-NAMES = ("psi_omega_merged_slabs", "omega_fused", "psi_fused_slabs",
-         "psi_window_direct", "psi_chunk_slabs", "psi_chunk_slabs_genright")
+#: per library: its wrapper module and the kernels it launches
+LIBRARIES = {
+    "sparse_psi": (SP, ("psi_omega_merged_slabs", "omega_fused",
+                        "psi_fused_slabs", "psi_window_direct",
+                        "psi_chunk_slabs", "psi_chunk_slabs_genright")),
+    "chain_step": (CS, ("chain_step_t",)),
+}
+SEQ_LABELS = ("uber otts gauss", "uber hmt gauss", "uber hmt tt")
 
 
 def build(variants):
@@ -54,42 +67,76 @@ def main():
         sys.exit("sparse_psi_ab: no card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    args = sys.argv[1:]
+    seq = "seq" in args
+    spec = next((a for a in args if a != "seq"), "sparse_psi")
+    lib, _, only = spec.partition(":")
+    module, names = LIBRARIES[lib]
+    if only:
+        names = tuple(n for n in only.split(",") if n in names)
     variants = sorted(glob.glob("build/exp/*.cu"))
     build(variants)
     print(f"# card: {c.phase_build()}")
+    stta = lib == "sparse_psi"
     u = c.load_sparse("uber-synthetic")
-    paths = {
-        "uber gauss": c.phase_sparse_main("uber gauss", u, SparseGaussianDRM,
-                                          groups=1),
-        "uber sign": c.phase_sparse_main("uber sign", u, SparseSignDRM,
-                                         groups=1)}
-    if "seq" in sys.argv[1:]:
-        for label in ("uber otts gauss", "uber hmt gauss"):
-            paths[label] = c.phase_seq_main(label, u, groups=1)
+    paths = {}
+    if stta:
+        for label, drm in (("uber gauss", SparseGaussianDRM),
+                           ("uber sign", SparseSignDRM)):
+            paths[label] = c.phase_sparse_main(label, u, drm, groups=1)
+    if seq or not stta:
+        for label in SEQ_LABELS[:2] if stta else SEQ_LABELS:
+            paths[label] = c.phase_seq_main(label, u, timed=False)
     del u
     lb = c.load_sparse("lbnl-synthetic")
-    for label, drm in (("lbnl gauss", SparseGaussianDRM),
-                       ("lbnl sign", SparseSignDRM)):
-        paths[label] = c.phase_sparse_main(label, lb, drm, groups=1)
+    if stta:
+        for label, drm in (("lbnl gauss", SparseGaussianDRM),
+                           ("lbnl sign", SparseSignDRM)):
+            paths[label] = c.phase_sparse_main(label, lb, drm, groups=1)
+    else:
+        paths["lbnl hmt gauss"] = c.phase_seq_main("lbnl hmt gauss", lb,
+                                                   timed=False)
     del lb
     fns = c._kernel_fns()
-    res = {}
+    res, per_call = {}, {}
     for v in variants + variants[::-1]:
         cuda_build.load_library = lambda name, v=v: ctypes.CDLL(v[:-3] + ".so")
-        SP._library.cache_clear()
-        for name in NAMES:
+        module._library.cache_clear()
+        for name in names:
             kern, plain = fns[name]
             for label, m in paths.items():
                 calls = m["calls"].get(name, [])
                 if not calls:
                     continue
                 if not v.split("/")[-1].startswith("x_"):
-                    c._check(name, f"{v} {label}", calls[0], phase="ab")
+                    for i, a in enumerate(calls):
+                        c._check(name, f"{v} {label} call {i}", a,
+                                 phase="ab")
                 ms = c.time_ms(lambda: [kern(*a) for a in calls])
                 res.setdefault((name, label), {}).setdefault(v, []).append(ms)
+                for i, a in enumerate(calls):
+                    # alone (the card waits for the host between calls, as
+                    # in a sketch) and ten back to back (the kernels' time)
+                    one = c.time_ms(lambda: kern(*a))
+                    b2b = c.time_ms(lambda: [kern(*a) for _ in range(10)]) / 10
+                    for how, ms in (("alone", one), ("b2b", b2b)):
+                        per_call.setdefault((name, label, i, _shape(a), how),
+                                            {}).setdefault(v, []).append(ms)
+    print("# A/B per recorded call (ms, two turns):")
+    _table(per_call)
     print("# A/B (ms per sketch's launches, two turns):")
-    for (name, label), d in res.items():
-        print(f"# {name:26s} {label:16s} " + "  ".join(
+    _table(res)
+
+
+def _shape(args):
+    """A short description of a call's operand shapes."""
+    return " ".join("x".join(map(str, a.shape)) for a in args
+                    if isinstance(a, torch.Tensor))
+
+
+def _table(res):
+    for key, d in res.items():
+        print("# " + " ".join(f"{k}" for k in key) + "  " + "  ".join(
             f"{v.split('/')[-1][:-3]}: " + "/".join(f"{x:.3f}" for x in xs)
             for v, xs in d.items()))
 

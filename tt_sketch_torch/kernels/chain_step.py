@@ -16,12 +16,23 @@ and no gate on the mode size, the number of nonzeros or the ranks (the TPU
 kernel's one-hot product is gated to ``n ≤ 4096`` and ``nnz ≥ 4096``; a
 gather costs the same at any mode size).  The kernel computes in float32;
 bfloat16 operands are widened and the result rounded back.
+
+Every launch decision is made here, by the pure function
+``chain_schedule`` (tested on the CPU): the core's layout in rows of
+16-byte quads (the kernel packs them into scratch the wrapper allocates)
+and its padded row stride, the register
+buckets of the ranks (a rank past the largest bucket takes the kernel's
+generic instance), and where the core lives: in each block's shared memory
+up to ``BLOCK_BUDGET`` bytes, split across the shared memory of a
+thread-block cluster of up to ``CLUSTER_MAX`` blocks up to that many
+budgets, and read through the cache above.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,6 +46,89 @@ _REF_BLOCK = 1 << 18
 #: the card, the plain version on the CPU); float64 is the parity path, the
 #: plain einsum on whichever device
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+#: register buckets of the kernel's templates (``csrc/chain_step.cu``): the
+#: state's rank padded to even, and the first step's row (padded to 4) or
+#: a step's output rank padded to even
+R1_BUCKETS = (4, 8, 16, 32)
+R2_BUCKETS = (4, 8, 12, 16, 32)
+#: shared memory a block may hold core rows in: the most an H100 block can
+#: opt in to (227 KB)
+BLOCK_BUDGET = 232448
+#: the largest portable thread-block cluster
+CLUSTER_MAX = 8
+#: threads of a block (the kernel's ``THREADS``)
+THREADS = 256
+#: shared memory the generic instance stages state columns in
+GENERIC_STATE_BYTES = 64 * 1024
+#: where the core lives, as the kernel numbers it
+PLACES = {"block": 0, "cluster": 1, "cache": 2}
+
+
+class ChainSchedule(NamedTuple):
+    """The launch decisions of one chain step (``chain_schedule``)."""
+
+    first: bool
+    row: int            # floats of a row's data (ranks padded)
+    stride: int         # floats between rows: a multiple of 4, odd in quads
+    r1_bucket: int      # 0 with r2_bucket 0: the generic instance
+    r2_bucket: int
+    place: str          # "block", "cluster" or "cache"
+    cluster: int        # blocks of a cluster (1 outside "cluster")
+    rows_per_block: int  # core rows a block holds (0 on the cache path)
+    smem_bytes: int     # dynamic shared memory of a block
+    state_cols: int     # generic step: nonzeros whose state a block stages
+
+
+def _bucket(v, buckets):
+    return next((b for b in buckets if v <= b), 0)
+
+
+def chain_schedule(n: int, r1: int, r2: int, first: bool, *,
+                   budget: int = BLOCK_BUDGET,
+                   cluster_max: int = CLUSTER_MAX) -> ChainSchedule:
+    """Where and how the kernel runs one step of a core ``(r1, n, r2)``.
+
+    The core is laid out in rows of 16-byte quads: the first step's row is
+    ``core[0, row, :]`` padded to a multiple of 4 floats; quad
+    ``i2 * nk2 + k2`` of a step's row holds ``core[2i2 + di, row, 2k2 +
+    dk]`` at ``2·dk + di`` (ranks padded to even with zeros), so one
+    16-byte load feeds two outputs over two state values in increasing
+    ``i``.
+    The row stride adds one quad when the row has an even number of them,
+    so rows start on every bank quad.  A row's floats pick the register
+    buckets; a rank past the largest takes the generic instance, which
+    reads the core through the cache and stages the state of
+    ``state_cols`` nonzeros.  Otherwise a core of at most ``budget`` bytes
+    lives in each block's shared memory, one of at most ``cluster_max``
+    budgets is split over the smallest cluster that holds it
+    (``rows_per_block`` rows each), and a larger one is read through the
+    cache."""
+    if first:
+        row = 4 * math.ceil(r2 / 4)
+        b1, b2 = (1, _bucket(row, R2_BUCKETS))
+    else:
+        r1e, r2e = 2 * math.ceil(r1 / 2), 2 * math.ceil(r2 / 2)
+        row = r1e * r2e
+        b1, b2 = _bucket(r1e, R1_BUCKETS), _bucket(r2e, R2_BUCKETS)
+    stride = row if (row // 4) % 2 else row + 4
+    row_bytes = 4 * stride
+    if b1 == 0 or b2 == 0:
+        cols = 0
+        if not first:
+            cols = min(THREADS, max(1, GENERIC_STATE_BYTES // (4 * r1)))
+            cols = cols // 32 * 32 if cols >= 32 else cols
+        return ChainSchedule(first, row, stride, 0, 0, "cache", 1, 0,
+                             4 * r1 * cols, cols)
+    if n * row_bytes <= budget:
+        return ChainSchedule(first, row, stride, b1, b2, "block", 1, n,
+                             n * row_bytes, 0)
+    for c in range(2, cluster_max + 1):
+        per = math.ceil(n / c)
+        if per * row_bytes <= budget:
+            return ChainSchedule(first, row, stride, b1, b2, "cluster", c,
+                                 per, per * row_bytes, 0)
+    return ChainSchedule(first, row, stride, b1, b2, "cache", 1, 0, 0, 0)
 
 
 def chain_step_t_reference(state_t: Optional[torch.Tensor],
@@ -63,10 +157,8 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("chain_step")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tt_chain_step.argtypes = [ptr] * 4 + [i64] + [i32] * 3 + [ptr]
+    lib.tt_chain_step.argtypes = [ptr] * 5 + [i64] + [i32] * 11 + [ptr]
     lib.tt_chain_step.restype = i32
-    lib.tt_chain_step_staged_bytes.argtypes = []
-    lib.tt_chain_step_staged_bytes.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
     lib.tt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,20 +201,35 @@ def chain_step_t(state_t: Optional[torch.Tensor], core: torch.Tensor,
         raise ValueError(f"indices must be a 1-D int64 tensor, got "
                          f"{indices_mu.dtype} of shape "
                          f"{tuple(indices_mu.shape)}")
-    out = torch.empty((r2, nnz), dtype=torch.float32, device=device)
     if nnz == 0:
-        return out.to(core.dtype)
-    # the core as (n, r1·r2): one contiguous run per nonzero
-    core_t = core.to(torch.float32).permute(1, 0, 2).contiguous()
+        return torch.empty((r2, 0), dtype=core.dtype, device=device)
+    sched = chain_schedule(n, r1, r2, state_t is None)
+    return _launch(state_t, core, indices_mu.contiguous(), sched)
+
+
+def _launch(state_t: Optional[torch.Tensor], core: torch.Tensor,
+            idx: torch.Tensor, sched: ChainSchedule) -> torch.Tensor:
+    """Launch the kernel on checked CUDA operands with the decisions
+    ``sched`` (``chain_step_t`` passes ``chain_schedule``'s)."""
+    r1, n, r2 = core.shape
+    nnz = idx.shape[0]
+    device = core.device
+    out = torch.empty((r2, nnz), dtype=torch.float32, device=device)
+    # scratch for the core in rows of quads, written by the kernel's pack
+    rows = torch.empty((n, sched.stride), dtype=torch.float32, device=device)
+    core32 = core.to(torch.float32).contiguous()
     state = (None if state_t is None
              else state_t.to(torch.float32).contiguous())
-    idx = indices_mu.contiguous()
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tt_chain_step(
-            None if state is None else state.data_ptr(), core_t.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), nnz, n, r1, r2, stream)
+            None if state is None else state.data_ptr(), core32.data_ptr(),
+            rows.data_ptr(), idx.data_ptr(), out.data_ptr(), nnz, n, r1, r2,
+            sched.stride,
+            sched.r1_bucket, sched.r2_bucket, PLACES[sched.place],
+            sched.cluster, sched.rows_per_block, sched.smem_bytes,
+            sched.state_cols, stream)
     _raise_on(lib, err, "chain_step_t")
     chain_step_t.launches += 1
     return out.to(core.dtype)
