@@ -1144,8 +1144,6 @@ def chain_launches(label, calls, shape, ops):
         state, core, idx = args
         r1, n, r2 = core.shape
         sched = chain_schedule(n, r1, r2, state is None)
-        where = sched.place + (f" of {sched.cluster} x {sched.rows_per_block}"
-                               f" rows" if sched.place == "cluster" else "")
         ms = time_ms(lambda: kern(*args))
         b_ms, b_by = sparse_bound("chain_step_t", args, ops)
         inside = int(((idx >= 0) & (idx < n)).sum())
@@ -1153,12 +1151,12 @@ def chain_launches(label, calls, shape, ops):
         mode = shape.index(n) if shape.count(n) == 1 else "?"
         print(f"# phase 6: chain_step_t {label} call {i}: mode {mode}, n "
               f"{n}, ranks {'-' if state is None else r1} -> {r2}, core in "
-              f"{where}: {ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
+              f"{sched.place}: {ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
               f"({ms / b_ms:.2f}x), {gathered / 1e6:.1f} MB of core rows "
               f"gathered")
         out.append({"call": i, "mode": mode, "n": n, "r1": r1, "r2": r2,
                     "first": state is None, "place": sched.place,
-                    "cluster": sched.cluster, "ms": ms, "bound_ms": b_ms,
+                    "ms": ms, "bound_ms": b_ms,
                     "gathered_bytes": gathered})
     return out
 
@@ -1843,8 +1841,8 @@ def phase_seq_kernels():
         return torch.randint(0, n, (size,), generator=g, device="cuda")
 
     # -- chain_step_t: odd shapes, the edges of the launch decisions (the
-    # block budget, the cluster's capacity, each rank bucket) and ranks
-    # past the largest bucket (the generic instance)
+    # block budget, each rank bucket) and ranks past the largest bucket
+    # (the generic instance)
     at_budget = CS.BLOCK_BUDGET // (4 * 100)
     chain_cases = [
         ("ragged nnz 100003, n 37, ranks 7 -> 11", 100_003, 37, 7, 11),
@@ -1858,10 +1856,6 @@ def phase_seq_kernels():
         (f"core at the block budget, n {at_budget}", 200_003, at_budget, 10,
          10),
         ("one row above the block budget", 200_003, at_budget + 1, 10, 10),
-        ("core at the cluster's capacity", 300_007,
-         CS.CLUSTER_MAX * at_budget, 10, 10),
-        ("one row above the cluster's capacity", 300_007,
-         CS.CLUSTER_MAX * at_budget + 1, 10, 10),
         ("ranks 4 -> 4 (smallest buckets)", 50_001, 70, 4, 4),
         ("ranks 5 -> 5 (one past them)", 50_001, 70, 5, 5),
         ("ranks 8 -> 12", 50_001, 70, 8, 12),
@@ -1878,13 +1872,8 @@ def phase_seq_kernels():
     for label, nnz, n, r1, r2 in chain_cases:
         core, state, idx = randn(r1, n, r2), randn(r1, nnz), randint(n, nnz)
         sched = CS.chain_schedule(n, r1, r2, False)
-        # the core's last row, and the rows on both sides of a block's share
-        edge = [n - 1] * 3 + [max(sched.rows_per_block - 1, 0),
-                              min(sched.rows_per_block, n - 1), 0]
-        idx[: min(nnz, 6)] = torch.tensor(edge[:min(nnz, 6)], device="cuda")
-        where = sched.place + (f" of {sched.cluster}" if sched.cluster > 1
-                               else "")
-        _check("chain_step_t", f"{label}, core in {where}",
+        idx[: min(nnz, 3)] = n - 1  # the last row of the core
+        _check("chain_step_t", f"{label}, core in {sched.place}",
                (state, core, idx), phase=10)
         if r1 == 1:
             a, b = (fn(None, core, idx)
@@ -1898,9 +1887,9 @@ def phase_seq_kernels():
             if not torch.equal(a, b):
                 raise AssertionError("chain_step_t first step is a gather "
                                      "and must be exact")
-    # the first step with a core above the block budget and above the
-    # cluster's capacity
-    for n in (30_000, 200_000):
+    # the first step with a core at the block budget and one row above
+    at_first = CS.BLOCK_BUDGET // (4 * 12)
+    for n in (at_first, at_first + 1, 200_000):
         core, idx = randn(1, n, 10), randint(n, 300_001)
         a, b = (fn(None, core, idx) for fn in _kernel_fns()["chain_step_t"])
         torch.cuda.synchronize()
@@ -1926,8 +1915,8 @@ def phase_seq_kernels():
         raise AssertionError("chain_step_t bfloat16")
     # an index outside the mode gives a zero column, wherever the core
     # lives and on the generic instance, with a state and on the first step
-    for r1, n, r2 in ((6, 40, 9), (10, 1140, 10), (20, 5000, 20),
-                      (33, 70, 3), (1, 40, 9), (1, 200_000, 9), (1, 70, 33)):
+    for r1, n, r2 in ((6, 40, 9), (20, 5000, 20), (33, 70, 3), (1, 40, 9),
+                      (1, 200_000, 9), (1, 70, 33)):
         out_of_range = randint(n, 1_000)
         out_of_range[::7] = n
         out_of_range[3] = -1
@@ -2039,49 +2028,48 @@ def phase_seq_kernels():
                                  f"version")
 
 
-#: (label, budget, cluster_max) of the placements phase 10 times: the
-#: package's choice, blocks half full (twice the cluster), the cache alone
-CHAIN_PLACEMENTS = (("budget 227 KB", None, None),
-                    ("budget 113 KB", 232448 // 2, None),
-                    ("cache", 0, 1))
+#: (r1, n, r2, first) of the cores phase 10 times in both places: uber's
+#: and lbnl's recorded cores and the sizes between (ranks 10/10: 400 bytes
+#: a row; first steps: 48)
+CHAIN_PLACEMENTS = ((10, 24, 10, False), (10, 100, 10, False),
+                    (10, 140, 10, False), (10, 200, 10, False),
+                    (10, 400, 10, False), (10, 560, 10, False),
+                    (10, 1140, 10, False), (10, 4198, 10, False),
+                    (1, 183, 10, True), (1, 1605, 10, True),
+                    (1, 4000, 10, True))
 
 
 def chain_placements(randn, randint, nnz=3_309_696):
-    """``chain_step_t`` at ranks 10/10 over uber's nnz with cores of 400
-    rows (160 KB: one block's shared memory at the budget of 227 KB, a
-    cluster of 2 at half of it), 1140 (uber's mode 2) and 4198 (lbnl's mode
-    1), each where the package puts it and where the other budgets put it,
-    checked against the plain version and timed (ten calls back to back:
-    the kernels' time, not the host's)."""
+    """``chain_step_t`` over uber's nnz with each core of
+    ``CHAIN_PLACEMENTS`` held in each block's shared memory (where it
+    fits) and read through the cache, checked against the plain version and
+    timed (ten calls back to back: the kernels' time, not the host's): the
+    measurement behind ``BLOCK_BUDGET``."""
     import torch
 
     from tt_sketch_torch.kernels import chain_step as CS
 
     out = {}
     state = randn(10, nnz)
-    for n in (400, 1140, 4198):
-        core, idx = randn(10, n, 10), randint(n, nnz)
-        seen = set()
-        for label, budget, cmax in CHAIN_PLACEMENTS:
-            kw = {k: v for k, v in (("budget", budget), ("cluster_max", cmax))
-                  if v is not None}
-            sched = CS.chain_schedule(n, 10, 10, False, **kw)
-            if sched in seen:
+    for r1, n, r2, first in CHAIN_PLACEMENTS:
+        core, idx = randn(r1, n, r2), randint(n, nnz)
+        st = None if first else state
+        ref = CS.chain_step_t_reference(st, core, idx)
+        for budget in (232448, 0):
+            sched = CS.chain_schedule(n, r1, r2, first, budget=budget)
+            if budget and sched.place != "block":
                 continue
-            seen.add(sched)
-            where = sched.place + (f" of {sched.cluster}"
-                                   if sched.cluster > 1 else "")
-            got = CS._launch(state, core, idx, sched)
-            ref = CS.chain_step_t_reference(state, core, idx)
+            got = CS._launch(st, core, idx, sched)
             torch.cuda.synchronize()
-            _compare("chain_step_t", f"n {n}, {label}, core in {where}",
-                     (got,), (ref,), phase=10)
-            ms = time_ms(lambda: [CS._launch(state, core, idx, sched)
+            label = f"({r1}, {n}, {r2}){' first' * first}, core in " \
+                    f"{sched.place}"
+            _compare("chain_step_t", label, (got,), (ref,), phase=10)
+            ms = time_ms(lambda: [CS._launch(st, core, idx, sched)
                                   for _ in range(10)]) / 10
-            out[(n, where)] = ms
-            print(f"# phase 10: chain_step_t placement n {n}, ranks 10 -> "
-                  f"10, {nnz} nnz, {label}: core in {where}, "
-                  f"{sched.smem_bytes} bytes a block: {ms:.3f} ms")
+            out[(r1, n, r2, first, sched.place)] = ms
+            print(f"# phase 10: chain_step_t placement {label} "
+                  f"({sched.smem_bytes} bytes a block), {nnz} nnz: "
+                  f"{ms:.3f} ms")
     return out
 
 

@@ -3,12 +3,10 @@ relies on, pinned on the CPU (the kernel itself runs only on the card).
 
 1. ``chain_schedule``, the wrapper's one function of launch decisions: the
    padded row stride, the rank buckets, where the core lives (each block's
-   shared memory, a cluster's, the cache), the cluster size and the rows
-   each of its blocks holds, at every shape the sequential main paths
+   shared memory or the cache), at every shape the sequential main paths
    record (FROSTT-uber HMT/OTTS and its TT-DRM's chain, FROSTT-lbnl HMT, all
    at rank 10) and at the edges: a core at the block budget and one row
-   above, at the cluster's capacity and one row above, each bucket's edge,
-   one rank past the largest bucket.
+   above, each bucket's edge, one rank past the largest bucket.
 2. The kernel's layout of the core in rows of quads (``pack_rows``) and
    its bucketed register sums, emulated in float32 torch index for index
    (the bucket's loops and guards, 16-byte quads, sums over ``i`` in
@@ -52,61 +50,58 @@ def _cpu_default():
 
 # -- 1. the launch decisions ---------------------------------------------------
 
-#: (n, r1, r2, first) -> (place, cluster, rows_per_block, stride, buckets)
+#: (n, r1, r2, first) -> (place, stride, buckets)
 RECORDED = {
     # uber (183, 24, 1140, 1717): the HMT/OTTS left chain over modes 0-2
-    (183, 1, 10, True): ("block", 1, 183, 12, (1, 12)),
-    (24, 10, 10, False): ("block", 1, 24, 100, (16, 12)),
-    (1140, 10, 10, False): ("cluster", 2, 570, 100, (16, 12)),
+    (183, 1, 10, True): ("block", 12, (1, 12)),
+    (24, 10, 10, False): ("block", 100, (16, 12)),
+    (1140, 10, 10, False): ("cache", 100, (16, 12)),
     # the right TT-DRM's chain runs over modes 3-1
-    (1717, 1, 10, True): ("block", 1, 1717, 12, (1, 12)),
+    (1717, 1, 10, True): ("block", 12, (1, 12)),
     # lbnl (1605, 4198, 1631, 4209, 868131): the left chain over modes 0-3
-    (1605, 1, 10, True): ("block", 1, 1605, 12, (1, 12)),
-    (4198, 10, 10, False): ("cluster", 8, 525, 100, (16, 12)),
-    (1631, 10, 10, False): ("cluster", 3, 544, 100, (16, 12)),
-    (4209, 10, 10, False): ("cluster", 8, 527, 100, (16, 12)),
+    (1605, 1, 10, True): ("block", 12, (1, 12)),
+    (4198, 10, 10, False): ("cache", 100, (16, 12)),
+    (1631, 10, 10, False): ("cache", 100, (16, 12)),
+    (4209, 10, 10, False): ("cache", 100, (16, 12)),
 }
 
 
 @pytest.mark.parametrize("shape", list(RECORDED), ids=str)
 def test_schedule_at_recorded_shapes(shape):
-    place, cluster, per, stride, buckets = RECORDED[shape]
+    place, stride, buckets = RECORDED[shape]
     s = CS.chain_schedule(*shape)
-    assert (s.place, s.cluster, s.rows_per_block, s.stride,
-            (s.r1_bucket, s.r2_bucket)) == (place, cluster, per, stride,
-                                            buckets)
-    assert s.smem_bytes == 4 * per * stride <= CS.BLOCK_BUDGET
-    # the smallest cluster that holds the core
-    if place == "cluster":
-        assert math.ceil(shape[0] / (cluster - 1)) * 4 * stride \
-            > CS.BLOCK_BUDGET
+    assert (s.place, s.stride, (s.r1_bucket, s.r2_bucket)) == (
+        place, stride, buckets)
+    assert s.smem_bytes == (4 * shape[0] * stride if place == "block"
+                            else 0) <= CS.BLOCK_BUDGET
+    assert s.state_cols == 0
 
 
-@pytest.mark.parametrize("n,place,cluster,per", [
-    (ROWS_AT_BUDGET, "block", 1, ROWS_AT_BUDGET),
-    (ROWS_AT_BUDGET + 1, "cluster", 2, ROWS_AT_BUDGET // 2 + 1),
-    (CS.CLUSTER_MAX * ROWS_AT_BUDGET, "cluster", CS.CLUSTER_MAX,
-     ROWS_AT_BUDGET),
-    (CS.CLUSTER_MAX * ROWS_AT_BUDGET + 1, "cache", 1, 0),
-    (5000, "cache", 1, 0),
-], ids=["at block budget", "one row above", "at cluster capacity",
-        "one row above capacity", "phase 10 cache core"])
-def test_schedule_at_the_budget_edges(n, place, cluster, per):
-    s = CS.chain_schedule(n, 10, 10, False)
-    assert (s.place, s.cluster, s.rows_per_block) == (place, cluster, per)
-    assert s.smem_bytes == 4 * per * ROW10 <= CS.BLOCK_BUDGET
-    assert ROWS_AT_BUDGET * 4 * ROW10 <= CS.BLOCK_BUDGET \
-        < (ROWS_AT_BUDGET + 1) * 4 * ROW10
+@pytest.mark.parametrize("n,row,first,place", [
+    (ROWS_AT_BUDGET, ROW10, False, "block"),
+    (ROWS_AT_BUDGET + 1, ROW10, False, "cache"),
+    (CS.BLOCK_BUDGET // 48, 12, True, "block"),
+    (CS.BLOCK_BUDGET // 48 + 1, 12, True, "cache"),
+    (5000, ROW10, False, "cache"),
+], ids=["at block budget", "one row above", "first step at the budget",
+        "first step one row above", "a large core"])
+def test_schedule_at_the_budget_edges(n, row, first, place):
+    """A core lives in each block's shared memory up to the budget and is
+    read through the cache one row above it."""
+    s = CS.chain_schedule(n, 1 if first else 10, 10, first)
+    assert (s.place, s.stride) == (place, row)
+    assert s.smem_bytes == (4 * n * row if place == "block" else 0)
+    assert (4 * n * row <= CS.BLOCK_BUDGET) == (place == "block")
 
 
-def test_a_smaller_budget_moves_the_core_out():
-    """``budget`` and ``cluster_max`` are the knobs the card measures the
-    placements with: without clusters a core above the budget is read
-    through the cache."""
-    assert CS.chain_schedule(300, 10, 10, False, budget=96 * 1024).place \
-        == "cluster"
-    s = CS.chain_schedule(300, 10, 10, False, budget=96 * 1024,
-                          cluster_max=1)
+def test_budget_is_the_knob_the_card_measures_with():
+    """``budget`` moves a core between the two places (phase 10 of
+    ``chip_smoke.py`` times both)."""
+    assert CS.chain_schedule(200, 10, 10, False).place == "block"
+    assert CS.chain_schedule(400, 10, 10, False).place == "cache"
+    assert CS.chain_schedule(400, 10, 10, False,
+                             budget=232448).place == "block"
+    s = CS.chain_schedule(200, 10, 10, False, budget=0)
     assert (s.place, s.smem_bytes) == ("cache", 0)
 
 
@@ -283,17 +278,13 @@ def test_emulation_matches_reference_and_pallas(r1, n, r2, nnz):
         _within_ulps(got, pallas)
 
 
-@pytest.mark.parametrize("n", [ROWS_AT_BUDGET, ROWS_AT_BUDGET + 1,
-                               CS.CLUSTER_MAX * ROWS_AT_BUDGET + 1])
+@pytest.mark.parametrize("n", [ROWS_AT_BUDGET, ROWS_AT_BUDGET + 1, 5000])
 def test_emulation_at_the_budget_edges(n):
     """The layout does not depend on where the core lives; the rows at
-    the edges (the last row of a block's share, the last of the core) are
-    read like any other."""
+    the edges are read like any other."""
     state, core, idx = _operands(10, n, 10, 600, seed=n)
     sched = CS.chain_schedule(n, 10, 10, False)
-    per = sched.rows_per_block or n
-    idx[2:2 + 4] = (per - 1, per, n - 2, n - 1)[:4] if per < n \
-        else (n - 1, n - 2, 1, 0)
+    idx[2:6] = (n - 1, n - 2, 1, 0)
     st, c, i = (torch.from_numpy(a) for a in (state, core, idx))
     _within_ulps(emulate(st, c, i, sched),
                  CS.chain_step_t_reference(st, c, i).numpy())
@@ -366,13 +357,12 @@ def test_constants_match_the_kernel():
     assert _array("R1_BUCKETS") == CS.R1_BUCKETS
     assert _array("R2_BUCKETS") == CS.R2_BUCKETS
     assert _const("THREADS") == CS.THREADS
-    assert _const("CLUSTER_MAX") == CS.CLUSTER_MAX
     # the kernel instantiates every bucket: a `case` of its dispatch each
     for b in CS.R2_BUCKETS:
         assert f"case {b}: return by_place<FIRST, B1, {b}>" in SRC
-    for b in CS.R1_BUCKETS[:-1]:
-        assert f"case {b}: err = by_r2<false, {b}>" in SRC
-    assert f"default: err = by_r2<false, {CS.R1_BUCKETS[-1]}>" in SRC
-    assert CS.PLACES == {"block": 0, "cluster": 1, "cache": 2}
-    assert "PLACE_BLOCK = 0, PLACE_CLUSTER = 1, PLACE_CACHE = 2" in SRC
-    assert CS.BLOCK_BUDGET == 232448  # H100's opt-in shared memory a block
+    for b in CS.R1_BUCKETS:
+        assert f"by_r2<false, {b}>(a, r2_bucket" in SRC
+    assert CS.PLACES == {"block": 0, "cache": 1}
+    assert "PLACE_BLOCK = 0, PLACE_CACHE = 1" in SRC
+    # two blocks an SM: 233,472 bytes of shared memory, 1 KB kept per block
+    assert 2 * (CS.BLOCK_BUDGET + 1024) <= 233472

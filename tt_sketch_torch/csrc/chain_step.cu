@@ -30,43 +30,40 @@
 //     row-major), keeps all r2 sums in registers, and stores each output
 //     once, streaming (__ldcs/__stcs keep the single-use state and output
 //     out of the way of the core's lines in L2).  Templates on rank buckets
-//     (r1 in R1_BUCKETS, r2 in R2_BUCKETS) fix the register arrays; a rank
-//     past the largest bucket takes the generic instance, which tiles the
-//     outputs by 32 and reads each state value from device memory once
-//     into a shared-memory stage.
-//   - 16-byte core rows.  The wrapper lays the core out as rows of quads:
-//     the first step's row is core[0, row, :] padded to a multiple of 4;
-//     a step's row holds quad (i2, k2) = {c[2i2, 2k2], c[2i2+1, 2k2],
+//     (r1 in R1_BUCKETS, r2 in R2_BUCKETS) fix the register arrays, and a
+//     register budget per instance keeps four blocks on an SM (unbounded,
+//     ptxas held a whole row in registers and left one); a rank past the
+//     largest bucket takes the generic instance, which tiles the outputs
+//     by 32 and reads each state value from device memory once into a
+//     shared-memory stage.
+//   - 16-byte core rows.  pack_rows lays the core out as rows of quads: the
+//     first step's row is core[0, row, :] padded to a multiple of 4; a
+//     step's row holds quad (i2, k2) = {c[2i2, 2k2], c[2i2+1, 2k2],
 //     c[2i2, 2k2+1], c[2i2+1, 2k2+1]} at i2 * nk2 + k2 (ranks padded to
 //     even with zeros).  One LDS.128 / LDG.128 feeds four FMAs and the sums
 //     over i still run in increasing order: at ranks 10/10, 25 loads a
 //     nonzero where a float at a time took 100.  The row stride is an odd
 //     number of quads, so the rows a quarter-warp gathers start on all
-//     eight quad positions of the banks (a stride of 100 floats put every
-//     row start on 8 of the 32 banks).
+//     eight quad positions of the banks.
 //   - Persistent blocks.  The grid is the blocks that fit on the card at
 //     once (the occupancy calculator times the SM count); each block walks
-//     a contiguous share of the nonzeros, THREADS at a time, and loads the
-//     next index and state while it gathers and stores the current ones.
-//   - Where the core lives.  A core of at most one block's budget is copied
-//     into each block's shared memory once, by 16-byte cp.async, while the
-//     block's first indices and state load.  A larger one is split across
-//     the shared memory of a thread-block cluster of 2-8 blocks, each block
-//     holding rows_per_block consecutive rows, and every nonzero reads its
-//     row from the owning block through distributed shared memory
-//     (mapa + ld.shared::cluster); blocks meet at a cluster barrier after
-//     staging and before leaving, so no block's rows vanish while another
-//     reads them.  A core above the cluster's capacity (and every generic
-//     instance) reads its rows through the read-only cache (ld.global.nc).
+//     a contiguous share of the nonzeros, THREADS at a time.
+//   - Where the core lives (the wrapper decides, by size).  A small core is
+//     copied into each block's shared memory once, by 16-byte cp.async,
+//     while the block's first indices and state load.  A larger one is read
+//     through the read-only cache (ld.global.nc), where L1 and the 50 MB L2
+//     hold it; on the card that is as fast as a stage that leaves fewer
+//     blocks on an SM.  Splitting a large core across a thread-block
+//     cluster's shared memory (read through distributed shared memory) was
+//     measured slower than the cache and is not kept.
 //   - Sums over i run in increasing order with fmaf and no atomics: two
 //     calls give the same bits.  The first step copies: it is exact.  An
 //     index outside [0, n) gives a column of zeros and reads nothing.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include <mutex>
 
 namespace {
 
@@ -74,16 +71,14 @@ constexpr int THREADS = 256;
 constexpr int R1_BUCKETS[] = {4, 8, 16, 32};
 constexpr int R2_BUCKETS[] = {4, 8, 12, 16, 32};
 constexpr int GENERIC_TILE = 32;  // outputs a generic thread sums at a time
-constexpr int CLUSTER_MAX = 8;    // the portable cluster size
 
-// Blocks an SM must hold at once (__launch_bounds__): caps the registers an
-// instance may take (ptxas otherwise batches a whole row of quads in
-// registers and leaves one block an SM).
+// Blocks an SM must hold at once (__launch_bounds__): caps the registers of
+// an instance at 64 for buckets up to 16 + 16.
 constexpr int min_blocks(int b1, int b2) {
-  return b1 + b2 <= 16 ? 4 : b1 + b2 <= 32 ? 3 : 2;
+  return b1 + b2 <= 32 ? 4 : 2;
 }
 
-enum Place : int { PLACE_BLOCK = 0, PLACE_CLUSTER = 1, PLACE_CACHE = 2 };
+enum Place : int { PLACE_BLOCK = 0, PLACE_CACHE = 1 };
 
 struct Args {
   const float* state;     // (r1, nnz); NULL on the first step
@@ -95,7 +90,6 @@ struct Args {
   int n, r1, r2;
   int stride4;            // quads between rows
   int nq;                 // quads of a first-step row; nk2 of a step
-  int rows_per_block;     // rows each block of a cluster holds
   int state_cols;         // generic step: nonzeros whose state is staged
 };
 
@@ -117,43 +111,21 @@ __device__ __forceinline__ float4 lds128(uint32_t a) {
   return v;
 }
 
-__device__ __forceinline__ float4 ldsc128(uint32_t a) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
-
 // One core row, wherever the core lives: get(q) is its q-th quad.
 template <int PLACE>
 struct Row {
-  uint32_t s;        // shared (cluster) address of the row
+  uint32_t s;        // shared address of the row
   const float4* g;   // the row in device memory
   __device__ __forceinline__ void at(const Args& a, uint32_t s_base,
                                      int64_t row) {
     if (PLACE == PLACE_BLOCK) {
       s = s_base + (uint32_t)row * (uint32_t)a.stride4 * 16u;
-    } else if (PLACE == PLACE_CLUSTER) {
-      const int owner = (int)row / a.rows_per_block;
-      const int local = (int)row - owner * a.rows_per_block;
-      s = mapa(s_base + (uint32_t)local * (uint32_t)a.stride4 * 16u,
-               (uint32_t)owner);
     } else {
       g = a.core + row * a.stride4;
     }
   }
   __device__ __forceinline__ float4 get(int q) const {
     if (PLACE == PLACE_BLOCK) return lds128(s + 16u * q);
-    if (PLACE == PLACE_CLUSTER) return ldsc128(s + 16u * q);
     return __ldg(g + q);
   }
 };
@@ -221,14 +193,12 @@ __device__ __forceinline__ void gather_store(const Args& a, uint32_t s_base,
   }
 }
 
-// Copy rows [lo, hi) of the core into this block's shared memory (16-byte
-// cp.async, in flight until cp_async_wait_all).
-__device__ __forceinline__ void stage_rows(const Args& a, uint32_t s_base,
-                                           int lo, int hi) {
-  const int64_t q0 = (int64_t)lo * a.stride4;
-  const int64_t nq = hi > lo ? (int64_t)(hi - lo) * a.stride4 : 0;
-  for (int64_t q = threadIdx.x; q < nq; q += THREADS) {
-    cp_async16(s_base + 16u * (uint32_t)q, a.core + q0 + q);
+// Copy the core into this block's shared memory (16-byte cp.async, in
+// flight until cp_async_wait_all).
+__device__ __forceinline__ void stage_core(const Args& a, uint32_t s_base) {
+  const int nq = a.n * a.stride4;
+  for (int q = threadIdx.x; q < nq; q += THREADS) {
+    cp_async16(s_base + 16u * (uint32_t)q, a.core + q);
   }
 }
 
@@ -258,12 +228,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(FIRST ? 0 : B1, B2))
 chain_step_kernel(const Args a) {
   extern __shared__ __align__(16) float4 core_s[];
   const uint32_t s_base = (uint32_t)__cvta_generic_to_shared(core_s);
-  if (PLACE == PLACE_BLOCK) {
-    stage_rows(a, s_base, 0, a.n);
-  } else if (PLACE == PLACE_CLUSTER) {
-    const int lo = (int)cg::this_cluster().block_rank() * a.rows_per_block;
-    stage_rows(a, s_base, lo, min(a.n, lo + a.rows_per_block));
-  }
+  if (PLACE == PLACE_BLOCK) stage_core(a, s_base);
   const int64_t j_lo = (int64_t)blockIdx.x * a.share;
   const int64_t j_hi = a.nnz < j_lo + a.share ? a.nnz : j_lo + a.share;
   // the first column loads while the stage copies
@@ -273,22 +238,11 @@ chain_step_kernel(const Args a) {
   if (PLACE == PLACE_BLOCK) {
     cp_async_wait_all();
     __syncthreads();
-  } else if (PLACE == PLACE_CLUSTER) {
-    cp_async_wait_all();
-    cg::this_cluster().sync();
   }
-  for (int64_t j0 = j_lo; j0 < j_hi; j0 += THREADS) {
-    int64_t row_n;
-    float s_n[B1];
-    load_column<FIRST, B1>(a, j + THREADS, j_hi, row_n, s_n);
-    if (j < j_hi) gather_store<FIRST, B1, B2, PLACE>(a, s_base, j, row, s);
-    j += THREADS;
-    row = row_n;
-#pragma unroll
-    for (int i = 0; i < B1; ++i) s[i] = s_n[i];
+  for (; j < j_hi; j += THREADS) {
+    gather_store<FIRST, B1, B2, PLACE>(a, s_base, j, row, s);
+    load_column<FIRST, B1>(a, j + THREADS, j_hi, row, s);
   }
-  // no block leaves while another may still read its rows
-  if (PLACE == PLACE_CLUSTER) cg::this_cluster().sync();
 }
 
 // Ranks past the largest bucket: the core through the cache, outputs in
@@ -359,10 +313,41 @@ chain_step_generic(const Args a) {
   }
 }
 
-// Launch a persistent grid of `kernel`: as many blocks (clusters) as fit
-// on the card at once, each with a contiguous share of the nonzeros.
+// Blocks of `kernel` an SM of device `dev` holds with `smem` bytes of
+// dynamic shared memory, from the occupancy calculator, remembered per
+// (device, kernel, bytes): the host's time per step is what the sequential
+// sketches wait on.
 template <class Kernel>
-cudaError_t launch(Kernel kernel, Args a, int cluster, size_t smem,
+cudaError_t blocks_per_sm(Kernel kernel, int dev, size_t smem, int* per_sm) {
+  struct Seen {
+    int dev;
+    const void* fn;
+    size_t smem;
+    int per_sm;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].dev == dev && seen[i].fn == fn && seen[i].smem == smem) {
+      *per_sm = seen[i].per_sm;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel, THREADS, smem);
+  if (err == cudaSuccess && n_seen < 64) {
+    seen[n_seen++] = {dev, fn, smem, *per_sm};
+  }
+  return err;
+}
+
+// Launch a persistent grid of `kernel`: as many blocks as fit on the card
+// at once, each with a contiguous share of the nonzeros.
+template <class Kernel>
+cudaError_t launch(Kernel kernel, Args a, size_t smem, int dev, int sms,
                    cudaStream_t stream) {
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -370,71 +355,39 @@ cudaError_t launch(Kernel kernel, Args a, int cluster, size_t smem,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int64_t chunks = (a.nnz + THREADS - 1) / THREADS;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  int64_t blocks;
-  if (cluster > 1) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cfg.gridDim = dim3(cluster);
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-    const int64_t want = (chunks + cluster - 1) / cluster;
-    blocks = (int64_t)cluster * (want < clusters ? want : clusters);
-  } else {
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    blocks = (int64_t)per_sm * sms < chunks ? (int64_t)per_sm * sms : chunks;
+  int per_sm = 0;
+  if ((err = blocks_per_sm(kernel, dev, smem, &per_sm)) != cudaSuccess) {
+    return err;
   }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t chunks = (a.nnz + THREADS - 1) / THREADS;
+  const int64_t blocks =
+      (int64_t)per_sm * sms < chunks ? (int64_t)per_sm * sms : chunks;
   const int64_t per = (a.nnz + blocks - 1) / blocks;
   a.share = (per + 31) / 32 * 32;
-  cfg.gridDim = dim3((unsigned)blocks);
-  return cudaLaunchKernelEx(&cfg, kernel, a);
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <bool FIRST, int B1, int B2>
-cudaError_t by_place(const Args& a, int place, int cluster, size_t smem,
+cudaError_t by_place(const Args& a, int place, size_t smem, int dev, int sms,
                      cudaStream_t st) {
-  switch (place) {
-    case PLACE_BLOCK:
-      return launch(chain_step_kernel<FIRST, B1, B2, PLACE_BLOCK>, a, 1,
-                    smem, st);
-    case PLACE_CLUSTER:
-      return launch(chain_step_kernel<FIRST, B1, B2, PLACE_CLUSTER>, a,
-                    cluster, smem, st);
-    case PLACE_CACHE:
-      return launch(chain_step_kernel<FIRST, B1, B2, PLACE_CACHE>, a, 1, 0,
-                    st);
-  }
-  return cudaErrorInvalidValue;
+  return place == PLACE_BLOCK
+             ? launch(chain_step_kernel<FIRST, B1, B2, PLACE_BLOCK>, a, smem,
+                      dev, sms, st)
+             : launch(chain_step_kernel<FIRST, B1, B2, PLACE_CACHE>, a, 0,
+                      dev, sms, st);
 }
 
 template <bool FIRST, int B1>
-cudaError_t by_r2(const Args& a, int b2, int place, int cluster, size_t smem,
-                  cudaStream_t st) {
+cudaError_t by_r2(const Args& a, int b2, int place, size_t smem, int dev,
+                  int sms, cudaStream_t st) {
   switch (b2) {
-    case 4: return by_place<FIRST, B1, 4>(a, place, cluster, smem, st);
-    case 8: return by_place<FIRST, B1, 8>(a, place, cluster, smem, st);
-    case 12: return by_place<FIRST, B1, 12>(a, place, cluster, smem, st);
-    case 16: return by_place<FIRST, B1, 16>(a, place, cluster, smem, st);
-    case 32: return by_place<FIRST, B1, 32>(a, place, cluster, smem, st);
+    case 4: return by_place<FIRST, B1, 4>(a, place, smem, dev, sms, st);
+    case 8: return by_place<FIRST, B1, 8>(a, place, smem, dev, sms, st);
+    case 12: return by_place<FIRST, B1, 12>(a, place, smem, dev, sms, st);
+    case 16: return by_place<FIRST, B1, 16>(a, place, smem, dev, sms, st);
+    case 32: return by_place<FIRST, B1, 32>(a, place, smem, dev, sms, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -453,44 +406,49 @@ extern "C" {
 
 // out (r2, nnz) from state (r1, nnz) (NULL: the first step, r1 must be 1),
 // the core (r1, n, r2) contiguous, and idx (nnz,) int64; `rows` (n, stride)
-// floats is scratch for the core laid out in rows of quads, written here
-// by pack_rows before the step reads it.  The
-// launch decisions come from the wrapper's chain_schedule: the rank
-// buckets (0 and 0: the generic instance), where the core lives (place:
-// 0 each block's shared memory, 1 a cluster of `cluster` blocks holding
-// rows_per_block rows each, 2 the cache), the dynamic shared memory of a
-// block and, for a generic step, the nonzeros whose state a block stages.
-// Returns the cudaError_t of the launch (0 on success).
+// floats is scratch for the core in rows of quads, written here by
+// pack_rows before the step reads it.  The launch decisions come from the
+// wrapper's chain_schedule: the rank buckets (0 and 0: the generic
+// instance), where the core lives (place: 0 each block's shared memory,
+// 1 the cache), the dynamic shared memory of a block and, for a generic
+// step, the nonzeros whose state a block stages.  Returns the cudaError_t
+// of the launches (0 on success).
 int tt_chain_step(const float* state, const float* core, float* rows,
                   const int64_t* idx, float* out, int64_t nnz, int n, int r1,
-                  int r2, int stride,
-                  int r1_bucket, int r2_bucket, int place, int cluster,
-                  int rows_per_block, int smem_bytes, int state_cols,
-                  void* stream) {
+                  int r2, int stride, int r1_bucket, int r2_bucket, int place,
+                  int smem_bytes, int state_cols, void* stream) {
   const bool first = state == nullptr;
   const int r1e = (r1 + 1) / 2 * 2, r2e = (r2 + 1) / 2 * 2;
   const int row = first ? (r2 + 3) / 4 * 4 : r1e * r2e;
   const bool generic = r1_bucket == 0 && r2_bucket == 0;
+  const size_t smem = (size_t)smem_bytes;
   if (nnz <= 0 || n <= 0 || r1 <= 0 || r2 <= 0 || (first && r1 != 1) ||
       stride % 4 != 0 || stride < row || (int64_t)n * stride > 0x7FFFFFFF ||
-      smem_bytes < 0 || place < PLACE_BLOCK || place > PLACE_CACHE) {
+      smem_bytes < 0 || (place != PLACE_BLOCK && place != PLACE_CACHE)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (generic ? place != PLACE_CACHE ||
+                    (!first && (state_cols < 1 || state_cols > THREADS ||
+                                smem < (size_t)r1 * state_cols * 4))
+              : !in(R2_BUCKETS, r2_bucket) ||
+                    (first ? row : r2e) > r2_bucket ||
+                    (!first && (!in(R1_BUCKETS, r1_bucket) ||
+                                r1e > r1_bucket)) ||
+                    (place == PLACE_BLOCK && smem < (size_t)n * stride * 4)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return (int)err;
-    const int64_t total = (int64_t)n * stride;
-    const int64_t want = (total + THREADS - 1) / THREADS;
-    const int blocks = (int)(want < 4 * sms ? want : 4 * sms);
-    pack_rows<<<blocks, THREADS, 0, st>>>(core, rows, n, r1, r2, stride,
-                                          (r2 + 1) / 2, first);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  if (err != cudaSuccess) return (int)err;
+  const int64_t quads = ((int64_t)n * stride + THREADS - 1) / THREADS;
+  pack_rows<<<(unsigned)(quads < 4 * sms ? quads : 4 * sms), THREADS, 0,
+              st>>>(core, rows, n, r1, r2, stride, r2e / 2, first);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
   Args a = {};
   a.state = state;
   a.core = reinterpret_cast<const float4*>(rows);
@@ -502,44 +460,26 @@ int tt_chain_step(const float* state, const float* core, float* rows,
   a.r2 = r2;
   a.stride4 = stride / 4;
   a.nq = first ? row / 4 : r2e / 2;
-  a.rows_per_block = rows_per_block;
   a.state_cols = state_cols;
-  const size_t smem = (size_t)smem_bytes;
   if (generic) {
-    if (place != PLACE_CACHE ||
-        (!first && (state_cols < 1 || state_cols > THREADS ||
-                    smem < (size_t)r1 * state_cols * sizeof(float)))) {
-      return (int)cudaErrorInvalidValue;
-    }
-    return (int)(first ? launch(chain_step_generic<true>, a, 1, 0, st)
-                       : launch(chain_step_generic<false>, a, 1, smem, st));
+    return (int)(first
+                     ? launch(chain_step_generic<true>, a, 0, dev, sms, st)
+                     : launch(chain_step_generic<false>, a, smem, dev, sms,
+                              st));
   }
-  if (!in(R2_BUCKETS, r2_bucket) || (first ? row : r2e) > r2_bucket ||
-      (!first && (!in(R1_BUCKETS, r1_bucket) || r1e > r1_bucket))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (place == PLACE_BLOCK &&
-      (rows_per_block != n || smem < (size_t)n * stride * sizeof(float))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (place == PLACE_CLUSTER &&
-      (cluster < 2 || cluster > CLUSTER_MAX || rows_per_block < 1 ||
-       (int64_t)rows_per_block * cluster < n ||
-       smem < (size_t)rows_per_block * stride * sizeof(float))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err;
   if (first) {
-    err = by_r2<true, 2>(a, r2_bucket, place, cluster, smem, st);
-  } else {
-    switch (r1_bucket) {
-      case 4: err = by_r2<false, 4>(a, r2_bucket, place, cluster, smem, st); break;
-      case 8: err = by_r2<false, 8>(a, r2_bucket, place, cluster, smem, st); break;
-      case 16: err = by_r2<false, 16>(a, r2_bucket, place, cluster, smem, st); break;
-      default: err = by_r2<false, 32>(a, r2_bucket, place, cluster, smem, st); break;
-    }
+    return (int)by_r2<true, 2>(a, r2_bucket, place, smem, dev, sms, st);
   }
-  return (int)err;
+  switch (r1_bucket) {
+    case 4:
+      return (int)by_r2<false, 4>(a, r2_bucket, place, smem, dev, sms, st);
+    case 8:
+      return (int)by_r2<false, 8>(a, r2_bucket, place, smem, dev, sms, st);
+    case 16:
+      return (int)by_r2<false, 16>(a, r2_bucket, place, smem, dev, sms, st);
+    default:
+      return (int)by_r2<false, 32>(a, r2_bucket, place, smem, dev, sms, st);
+  }
 }
 
 const char* tt_cuda_error_string(int err) {

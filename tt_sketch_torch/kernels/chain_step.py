@@ -23,9 +23,7 @@ Every launch decision is made here, by the pure function
 and its padded row stride, the register
 buckets of the ranks (a rank past the largest bucket takes the kernel's
 generic instance), and where the core lives: in each block's shared memory
-up to ``BLOCK_BUDGET`` bytes, split across the shared memory of a
-thread-block cluster of up to ``CLUSTER_MAX`` blocks up to that many
-budgets, and read through the cache above.
+up to ``BLOCK_BUDGET`` bytes, read through the cache above.
 """
 from __future__ import annotations
 
@@ -52,17 +50,16 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: a step's output rank padded to even
 R1_BUCKETS = (4, 8, 16, 32)
 R2_BUCKETS = (4, 8, 12, 16, 32)
-#: shared memory a block may hold core rows in: the most an H100 block can
-#: opt in to (227 KB)
-BLOCK_BUDGET = 232448
-#: the largest portable thread-block cluster
-CLUSTER_MAX = 8
+#: the largest core a block holds in its shared memory, in bytes: two
+#: blocks an SM.  On an H100 a core staged so beat the cache up to 80 KB and
+#: lost to it at 160 KB, one block an SM (``chip_smoke.py`` phase 10)
+BLOCK_BUDGET = 96 * 1024
 #: threads of a block (the kernel's ``THREADS``)
 THREADS = 256
 #: shared memory the generic instance stages state columns in
 GENERIC_STATE_BYTES = 64 * 1024
 #: where the core lives, as the kernel numbers it
-PLACES = {"block": 0, "cluster": 1, "cache": 2}
+PLACES = {"block": 0, "cache": 1}
 
 
 class ChainSchedule(NamedTuple):
@@ -73,9 +70,7 @@ class ChainSchedule(NamedTuple):
     stride: int         # floats between rows: a multiple of 4, odd in quads
     r1_bucket: int      # 0 with r2_bucket 0: the generic instance
     r2_bucket: int
-    place: str          # "block", "cluster" or "cache"
-    cluster: int        # blocks of a cluster (1 outside "cluster")
-    rows_per_block: int  # core rows a block holds (0 on the cache path)
+    place: str          # "block" or "cache"
     smem_bytes: int     # dynamic shared memory of a block
     state_cols: int     # generic step: nonzeros whose state a block stages
 
@@ -85,8 +80,7 @@ def _bucket(v, buckets):
 
 
 def chain_schedule(n: int, r1: int, r2: int, first: bool, *,
-                   budget: int = BLOCK_BUDGET,
-                   cluster_max: int = CLUSTER_MAX) -> ChainSchedule:
+                   budget: int = BLOCK_BUDGET) -> ChainSchedule:
     """Where and how the kernel runs one step of a core ``(r1, n, r2)``.
 
     The core is laid out in rows of 16-byte quads: the first step's row is
@@ -100,10 +94,8 @@ def chain_schedule(n: int, r1: int, r2: int, first: bool, *,
     buckets; a rank past the largest takes the generic instance, which
     reads the core through the cache and stages the state of
     ``state_cols`` nonzeros.  Otherwise a core of at most ``budget`` bytes
-    lives in each block's shared memory, one of at most ``cluster_max``
-    budgets is split over the smallest cluster that holds it
-    (``rows_per_block`` rows each), and a larger one is read through the
-    cache."""
+    lives in each block's shared memory and a larger one is read through
+    the cache."""
     if first:
         row = 4 * math.ceil(r2 / 4)
         b1, b2 = (1, _bucket(row, R2_BUCKETS))
@@ -118,17 +110,12 @@ def chain_schedule(n: int, r1: int, r2: int, first: bool, *,
         if not first:
             cols = min(THREADS, max(1, GENERIC_STATE_BYTES // (4 * r1)))
             cols = cols // 32 * 32 if cols >= 32 else cols
-        return ChainSchedule(first, row, stride, 0, 0, "cache", 1, 0,
+        return ChainSchedule(first, row, stride, 0, 0, "cache",
                              4 * r1 * cols, cols)
     if n * row_bytes <= budget:
-        return ChainSchedule(first, row, stride, b1, b2, "block", 1, n,
+        return ChainSchedule(first, row, stride, b1, b2, "block",
                              n * row_bytes, 0)
-    for c in range(2, cluster_max + 1):
-        per = math.ceil(n / c)
-        if per * row_bytes <= budget:
-            return ChainSchedule(first, row, stride, b1, b2, "cluster", c,
-                                 per, per * row_bytes, 0)
-    return ChainSchedule(first, row, stride, b1, b2, "cache", 1, 0, 0, 0)
+    return ChainSchedule(first, row, stride, b1, b2, "cache", 0, 0)
 
 
 def chain_step_t_reference(state_t: Optional[torch.Tensor],
@@ -157,7 +144,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("chain_step")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tt_chain_step.argtypes = [ptr] * 5 + [i64] + [i32] * 11 + [ptr]
+    lib.tt_chain_step.argtypes = [ptr] * 5 + [i64] + [i32] * 9 + [ptr]
     lib.tt_chain_step.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
     lib.tt_cuda_error_string.restype = ctypes.c_char_p
@@ -226,10 +213,8 @@ def _launch(state_t: Optional[torch.Tensor], core: torch.Tensor,
         err = lib.tt_chain_step(
             None if state is None else state.data_ptr(), core32.data_ptr(),
             rows.data_ptr(), idx.data_ptr(), out.data_ptr(), nnz, n, r1, r2,
-            sched.stride,
-            sched.r1_bucket, sched.r2_bucket, PLACES[sched.place],
-            sched.cluster, sched.rows_per_block, sched.smem_bytes,
-            sched.state_cols, stream)
+            sched.stride, sched.r1_bucket, sched.r2_bucket,
+            PLACES[sched.place], sched.smem_bytes, sched.state_cols, stream)
     _raise_on(lib, err, "chain_step_t")
     chain_step_t.launches += 1
     return out.to(core.dtype)
