@@ -56,10 +56,13 @@ Phases (the first failure raises and exits non-zero):
    30 x 40 (one thread group; passes over the range); the segment kernel
    also at a Ψ of the most values it takes (float32 and float64), without
    sides and with one row;
-   the same bits from two calls of each ``sparse_psi.cu`` instance at the
-   recorded calls; time the recorded calls and their plain versions (the
-   segment kernel's also against ``index_add_`` of the outer products),
-   and bound them (each time also over its bound).
+   the same bits from two calls of each ``sparse_psi.cu`` instance and of
+   ``chain_step_t`` at the recorded calls; time the recorded calls and
+   their plain versions (the segment kernel's also against ``index_add_``
+   of the outer products), and bound them (each time also over its bound);
+   each recorded ``chain_step_t`` launch on its own line (mode, ``n``,
+   ranks, where the core lives, ms alone and back to back, bound, the
+   bytes of core rows gathered).
 7. ``sparse_sign_rows`` against its plain version bit for bit
    (``torch.equal``): uber's shapes (in phase 6), a ragged N, fewer
    non-zeros than slots, a rank slice, flats above 2^63 and a rank above
@@ -90,14 +93,19 @@ Phases (the first failure raises and exits non-zero):
    recorded.
 10. ``chain_step_t``, ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``
     against their plain versions at odd shapes: ragged nnz, ``n = 1``,
-    ranks of 1, an index at ``n - 1``, cores staged in shared memory and
-    read through the cache, the first step bit for bit, bfloat16, indices
-    outside the mode; whole tiles of sentinels, a chunk whose every nonzero
-    hits one row, every side combination, sign and sliced hashed sides, the
-    shared-memory limit of given sides; both orientations of the
-    half-fused Ψ through streaming sketches with a ``TensorTrainDRM`` on one
-    side and a ``SparseGaussianDRM`` on the other; the same bits from two
-    calls of ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``.
+    ranks of 1, an index at ``n - 1``, the edges of ``chain_schedule``
+    (a core at the block budget and one row above, each rank bucket's
+    edge, ranks past the largest bucket: the generic instance), the first
+    step bit for bit (at the budget, above it, a 9.6 MB core), bfloat16,
+    indices outside the mode wherever the core lives; the chain step's
+    cores of 24-4198 rows held in shared memory and read through the cache,
+    timed (the measurement behind its budget); whole tiles of sentinels,
+    a chunk whose every nonzero hits one row, every side combination, sign
+    and sliced hashed sides, the shared-memory limit of given sides; both
+    orientations of the half-fused Ψ through streaming sketches with a
+    ``TensorTrainDRM`` on one side and a ``SparseGaussianDRM`` on the
+    other; the same bits from two calls of ``psi_chunk_slabs`` and
+    ``psi_chunk_slabs_genright``.
 11. The projector diagnostics (``kernels/projector_diag.py``): ``t_only``
     and ``u_only`` (``f32`` and ``bf16``) and ``reduce_read`` against their
     plain versions at the main-path shape, a ragged shape, a rank-split
@@ -1133,9 +1141,11 @@ def phase_sparse_kernels(paths, ops):
 def chain_launches(label, calls, shape, ops):
     """Each recorded ``chain_step_t`` launch of one sketch on its own
     line: the mode (found by its size), ``n``, the ranks, where the core
-    lives (``chain_schedule``), its time, bound and ratio, and the bytes of
-    core rows the kernel gathers (a row of the padded layout per nonzero
-    inside the mode)."""
+    lives (``chain_schedule``), its time alone (the card waits for the
+    host's wrapper, as in a sketch) and over ten calls back to back (the
+    kernels' time), its bound and both ratios, and the bytes of core rows
+    the kernel gathers (a row of the padded layout per nonzero inside the
+    mode)."""
     from tt_sketch_torch.kernels.chain_step import chain_schedule
 
     kern = _kernel_fns()["chain_step_t"][0]
@@ -1145,18 +1155,20 @@ def chain_launches(label, calls, shape, ops):
         r1, n, r2 = core.shape
         sched = chain_schedule(n, r1, r2, state is None)
         ms = time_ms(lambda: kern(*args))
+        b2b = time_ms(lambda: [kern(*args) for _ in range(10)]) / 10
         b_ms, b_by = sparse_bound("chain_step_t", args, ops)
         inside = int(((idx >= 0) & (idx < n)).sum())
         gathered = 4 * sched.row * inside
         mode = shape.index(n) if shape.count(n) == 1 else "?"
         print(f"# phase 6: chain_step_t {label} call {i}: mode {mode}, n "
               f"{n}, ranks {'-' if state is None else r1} -> {r2}, core in "
-              f"{sched.place}: {ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
-              f"({ms / b_ms:.2f}x), {gathered / 1e6:.1f} MB of core rows "
+              f"{sched.place}: {ms:.3f} ms alone, {b2b:.3f} ms back to back, "
+              f"bound {b_ms:.3f} ms by {b_by} ({ms / b_ms:.2f}x, "
+              f"{b2b / b_ms:.2f}x), {gathered / 1e6:.1f} MB of core rows "
               f"gathered")
         out.append({"call": i, "mode": mode, "n": n, "r1": r1, "r2": r2,
                     "first": state is None, "place": sched.place,
-                    "ms": ms, "bound_ms": b_ms,
+                    "ms": ms, "back_to_back_ms": b2b, "bound_ms": b_ms,
                     "gathered_bytes": gathered})
     return out
 
@@ -2055,9 +2067,11 @@ def chain_placements(randn, randint, nnz=3_309_696):
         core, idx = randn(r1, n, r2), randint(n, nnz)
         st = None if first else state
         ref = CS.chain_step_t_reference(st, core, idx)
-        for budget in (232448, 0):
-            sched = CS.chain_schedule(n, r1, r2, first, budget=budget)
-            if budget and sched.place != "block":
+        sched = CS.chain_schedule(n, r1, r2, first)
+        held = 4 * n * sched.stride
+        for sched in (sched._replace(place="block", smem_bytes=held),
+                      sched._replace(place="cache", smem_bytes=0)):
+            if sched.smem_bytes > 232448:  # more than a block can hold
                 continue
             got = CS._launch(st, core, idx, sched)
             torch.cuda.synchronize()

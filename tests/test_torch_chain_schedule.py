@@ -48,7 +48,7 @@ def _cpu_default():
     config.set_default_device(prev)
 
 
-# -- 1. the launch decisions ---------------------------------------------------
+# -- 1. the launch decisions --------------------------------------------------
 
 #: (n, r1, r2, first) -> (place, stride, buckets)
 RECORDED = {
@@ -92,17 +92,6 @@ def test_schedule_at_the_budget_edges(n, row, first, place):
     assert (s.place, s.stride) == (place, row)
     assert s.smem_bytes == (4 * n * row if place == "block" else 0)
     assert (4 * n * row <= CS.BLOCK_BUDGET) == (place == "block")
-
-
-def test_budget_is_the_knob_the_card_measures_with():
-    """``budget`` moves a core between the two places (phase 10 of
-    ``chip_smoke.py`` times both)."""
-    assert CS.chain_schedule(200, 10, 10, False).place == "block"
-    assert CS.chain_schedule(400, 10, 10, False).place == "cache"
-    assert CS.chain_schedule(400, 10, 10, False,
-                             budget=232448).place == "block"
-    s = CS.chain_schedule(200, 10, 10, False, budget=0)
-    assert (s.place, s.smem_bytes) == ("cache", 0)
 
 
 @pytest.mark.parametrize("r,bucket", [
@@ -156,7 +145,7 @@ def test_generic_state_stage(r1, cols):
     assert s.smem_bytes <= max(CS.GENERIC_STATE_BYTES, 4 * r1)
 
 
-# -- 2. the layout and the register sums, emulated -----------------------------
+# -- 2. the layout and the register sums, emulated ----------------------------
 
 def _fma(a, b, c):
     """float32 fused multiply-add (the product of two float32 is exact in
@@ -339,7 +328,7 @@ def test_bfloat16_core_packs_exactly():
     assert torch.equal(rows[:, :7].to(torch.bfloat16), core[0])
 
 
-# -- 3. the constants the wrapper shares with the kernel -----------------------
+# -- 3. the constants the wrapper shares with the kernel ----------------------
 
 def _array(name):
     m = re.search(rf"constexpr int {name}\[\] = \{{([\d, ]+)\}};", SRC)

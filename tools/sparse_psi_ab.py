@@ -15,8 +15,8 @@ kernels to record their calls; for ``chain_step`` the sequential paths
 that launch the chain step (uber HMT Gaussian and TT-DRM, OTTS, lbnl HMT).
 Then every variant in turn, the list forward and back, checks every
 recorded call of each kernel against its plain version and times each
-recorded call (alone, and ten back to back) and all of them
-(``chip_smoke.time_ms``).  A variant whose
+recorded call (alone, ten back to back, and the host's time to enqueue
+it) and all of them (``chip_smoke.time_ms``).  A variant whose
 tag starts with ``x_`` is a diagnostic that computes something else (a
 phase switched off): it is timed and not checked.  The last lines give,
 per kernel and path, each variant's ms for one sketch's launches in both
@@ -26,6 +26,7 @@ import ctypes
 import glob
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, ".")
 
@@ -116,10 +117,18 @@ def main():
                 res.setdefault((name, label), {}).setdefault(v, []).append(ms)
                 for i, a in enumerate(calls):
                     # alone (the card waits for the host between calls, as
-                    # in a sketch) and ten back to back (the kernels' time)
+                    # in a sketch), ten back to back (the kernels' time) and
+                    # the host's time to enqueue one call
                     one = c.time_ms(lambda: kern(*a))
                     b2b = c.time_ms(lambda: [kern(*a) for _ in range(10)]) / 10
-                    for how, ms in (("alone", one), ("b2b", b2b)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        kern(*a)
+                    host = (time.perf_counter() - t0) / 20 * 1e3
+                    torch.cuda.synchronize()
+                    for how, ms in (("alone", one), ("b2b", b2b),
+                                    ("host", host)):
                         per_call.setdefault((name, label, i, _shape(a), how),
                                             {}).setdefault(v, []).append(ms)
     print("# A/B per recorded call (ms, two turns):")

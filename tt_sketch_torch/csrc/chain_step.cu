@@ -63,8 +63,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-
 namespace {
 
 constexpr int THREADS = 256;
@@ -313,41 +311,10 @@ chain_step_generic(const Args a) {
   }
 }
 
-// Blocks of `kernel` an SM of device `dev` holds with `smem` bytes of
-// dynamic shared memory, from the occupancy calculator, remembered per
-// (device, kernel, bytes): the host's time per step is what the sequential
-// sketches wait on.
-template <class Kernel>
-cudaError_t blocks_per_sm(Kernel kernel, int dev, size_t smem, int* per_sm) {
-  struct Seen {
-    int dev;
-    const void* fn;
-    size_t smem;
-    int per_sm;
-  };
-  static Seen seen[64];
-  static int n_seen = 0;
-  static std::mutex lock;
-  std::lock_guard<std::mutex> guard(lock);
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  for (int i = 0; i < n_seen; ++i) {
-    if (seen[i].dev == dev && seen[i].fn == fn && seen[i].smem == smem) {
-      *per_sm = seen[i].per_sm;
-      return cudaSuccess;
-    }
-  }
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, kernel, THREADS, smem);
-  if (err == cudaSuccess && n_seen < 64) {
-    seen[n_seen++] = {dev, fn, smem, *per_sm};
-  }
-  return err;
-}
-
 // Launch a persistent grid of `kernel`: as many blocks as fit on the card
 // at once, each with a contiguous share of the nonzeros.
 template <class Kernel>
-cudaError_t launch(Kernel kernel, Args a, size_t smem, int dev, int sms,
+cudaError_t launch(Kernel kernel, Args a, size_t smem, int sms,
                    cudaStream_t stream) {
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -356,9 +323,9 @@ cudaError_t launch(Kernel kernel, Args a, size_t smem, int dev, int sms,
     if (err != cudaSuccess) return err;
   }
   int per_sm = 0;
-  if ((err = blocks_per_sm(kernel, dev, smem, &per_sm)) != cudaSuccess) {
-    return err;
-  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int64_t chunks = (a.nnz + THREADS - 1) / THREADS;
   const int64_t blocks =
@@ -370,24 +337,24 @@ cudaError_t launch(Kernel kernel, Args a, size_t smem, int dev, int sms,
 }
 
 template <bool FIRST, int B1, int B2>
-cudaError_t by_place(const Args& a, int place, size_t smem, int dev, int sms,
+cudaError_t by_place(const Args& a, int place, size_t smem, int sms,
                      cudaStream_t st) {
   return place == PLACE_BLOCK
              ? launch(chain_step_kernel<FIRST, B1, B2, PLACE_BLOCK>, a, smem,
-                      dev, sms, st)
+                      sms, st)
              : launch(chain_step_kernel<FIRST, B1, B2, PLACE_CACHE>, a, 0,
-                      dev, sms, st);
+                      sms, st);
 }
 
 template <bool FIRST, int B1>
-cudaError_t by_r2(const Args& a, int b2, int place, size_t smem, int dev,
-                  int sms, cudaStream_t st) {
+cudaError_t by_r2(const Args& a, int b2, int place, size_t smem, int sms,
+                  cudaStream_t st) {
   switch (b2) {
-    case 4: return by_place<FIRST, B1, 4>(a, place, smem, dev, sms, st);
-    case 8: return by_place<FIRST, B1, 8>(a, place, smem, dev, sms, st);
-    case 12: return by_place<FIRST, B1, 12>(a, place, smem, dev, sms, st);
-    case 16: return by_place<FIRST, B1, 16>(a, place, smem, dev, sms, st);
-    case 32: return by_place<FIRST, B1, 32>(a, place, smem, dev, sms, st);
+    case 4: return by_place<FIRST, B1, 4>(a, place, smem, sms, st);
+    case 8: return by_place<FIRST, B1, 8>(a, place, smem, sms, st);
+    case 12: return by_place<FIRST, B1, 12>(a, place, smem, sms, st);
+    case 16: return by_place<FIRST, B1, 16>(a, place, smem, sms, st);
+    case 32: return by_place<FIRST, B1, 32>(a, place, smem, sms, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -462,23 +429,15 @@ int tt_chain_step(const float* state, const float* core, float* rows,
   a.nq = first ? row / 4 : r2e / 2;
   a.state_cols = state_cols;
   if (generic) {
-    return (int)(first
-                     ? launch(chain_step_generic<true>, a, 0, dev, sms, st)
-                     : launch(chain_step_generic<false>, a, smem, dev, sms,
-                              st));
+    return (int)(first ? launch(chain_step_generic<true>, a, 0, sms, st)
+                       : launch(chain_step_generic<false>, a, smem, sms, st));
   }
-  if (first) {
-    return (int)by_r2<true, 2>(a, r2_bucket, place, smem, dev, sms, st);
-  }
+  if (first) return (int)by_r2<true, 2>(a, r2_bucket, place, smem, sms, st);
   switch (r1_bucket) {
-    case 4:
-      return (int)by_r2<false, 4>(a, r2_bucket, place, smem, dev, sms, st);
-    case 8:
-      return (int)by_r2<false, 8>(a, r2_bucket, place, smem, dev, sms, st);
-    case 16:
-      return (int)by_r2<false, 16>(a, r2_bucket, place, smem, dev, sms, st);
-    default:
-      return (int)by_r2<false, 32>(a, r2_bucket, place, smem, dev, sms, st);
+    case 4: return (int)by_r2<false, 4>(a, r2_bucket, place, smem, sms, st);
+    case 8: return (int)by_r2<false, 8>(a, r2_bucket, place, smem, sms, st);
+    case 16: return (int)by_r2<false, 16>(a, r2_bucket, place, smem, sms, st);
+    default: return (int)by_r2<false, 32>(a, r2_bucket, place, smem, sms, st);
   }
 }
 

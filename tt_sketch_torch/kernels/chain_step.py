@@ -20,10 +20,10 @@ bfloat16 operands are widened and the result rounded back.
 Every launch decision is made here, by the pure function
 ``chain_schedule`` (tested on the CPU): the core's layout in rows of
 16-byte quads (the kernel packs them into scratch the wrapper allocates)
-and its padded row stride, the register
-buckets of the ranks (a rank past the largest bucket takes the kernel's
-generic instance), and where the core lives: in each block's shared memory
-up to ``BLOCK_BUDGET`` bytes, read through the cache above.
+and its padded row stride, the register buckets of the ranks (a rank past
+the largest bucket takes the kernel's generic instance), and where the
+core lives: in each block's shared memory up to ``BLOCK_BUDGET`` bytes,
+read through the cache above.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ R1_BUCKETS = (4, 8, 16, 32)
 R2_BUCKETS = (4, 8, 12, 16, 32)
 #: the largest core a block holds in its shared memory, in bytes: two
 #: blocks an SM.  On an H100 a core staged so beat the cache up to 80 KB and
-#: lost to it at 160 KB, one block an SM (``chip_smoke.py`` phase 10)
+#: lost to it at 160 KB, one block an SM (``chip_smoke.py`` phase 10's
+#: placements)
 BLOCK_BUDGET = 96 * 1024
 #: threads of a block (the kernel's ``THREADS``)
 THREADS = 256
@@ -79,8 +80,7 @@ def _bucket(v, buckets):
     return next((b for b in buckets if v <= b), 0)
 
 
-def chain_schedule(n: int, r1: int, r2: int, first: bool, *,
-                   budget: int = BLOCK_BUDGET) -> ChainSchedule:
+def chain_schedule(n: int, r1: int, r2: int, first: bool) -> ChainSchedule:
     """Where and how the kernel runs one step of a core ``(r1, n, r2)``.
 
     The core is laid out in rows of 16-byte quads: the first step's row is
@@ -93,9 +93,9 @@ def chain_schedule(n: int, r1: int, r2: int, first: bool, *,
     so rows start on every bank quad.  A row's floats pick the register
     buckets; a rank past the largest takes the generic instance, which
     reads the core through the cache and stages the state of
-    ``state_cols`` nonzeros.  Otherwise a core of at most ``budget`` bytes
-    lives in each block's shared memory and a larger one is read through
-    the cache."""
+    ``state_cols`` nonzeros.  Otherwise a core of at most ``BLOCK_BUDGET``
+    bytes lives in each block's shared memory and a larger one is read
+    through the cache."""
     if first:
         row = 4 * math.ceil(r2 / 4)
         b1, b2 = (1, _bucket(row, R2_BUCKETS))
@@ -112,7 +112,7 @@ def chain_schedule(n: int, r1: int, r2: int, first: bool, *,
             cols = cols // 32 * 32 if cols >= 32 else cols
         return ChainSchedule(first, row, stride, 0, 0, "cache",
                              4 * r1 * cols, cols)
-    if n * row_bytes <= budget:
+    if n * row_bytes <= BLOCK_BUDGET:
         return ChainSchedule(first, row, stride, b1, b2, "block",
                              n * row_bytes, 0)
     return ChainSchedule(first, row, stride, b1, b2, "cache", 0, 0)
