@@ -134,6 +134,7 @@ F32_TOL = 2e-5   # relative Frobenius: fp32 sums of 16384/32768 terms in another
 BF16_TOL = 1e-2  # chain_step_t on bfloat16 operands: its output rounded to bf16 once, the einsum's at each step
 ROWS_TOL = 2e-6  # absolute: FMA-contracted erfinv polynomial vs separate ops, a few f32 ulps at |g| <= 5.5
 PSI_TOL = 2e-5   # relative Frobenius: fp32 sums over up to 3.3M nnz in another order
+SEG_F64_TOL = 1e-12  # relative Frobenius: psi_segment in float64, the same sums in another order
 SAMPLE_ERROR_LIMIT = 1.0  # sample_error(to_tt()) of a FROSTT-uber sketch at rank 10/20
 PARITY_ERROR_TOL = 1e-3   # absolute: an f32 kernel sketch's sample error vs the f64 parity path's, same seed
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -859,6 +860,8 @@ def _compare(name, label, got, ref, phase=6):
         ok = abs_err <= CHAIN_ULPS * ulp
         tol = (f"{abs_err / ulp if ulp else 0.0:.2f} ulps of the largest "
                f"value, tol {CHAIN_ULPS}")
+    elif name == "psi_segment" and got[0].dtype == torch.float64:
+        ok, tol = rel <= SEG_F64_TOL, f"rel tol {SEG_F64_TOL:g}"
     else:
         ok, tol = rel <= PSI_TOL, f"rel tol {PSI_TOL:g}"
     print(f"# phase {phase}: {name} {label}: max abs err {abs_err:.3e}, rel "
@@ -1005,7 +1008,8 @@ def phase_sparse_kernels(paths, ops):
                 if label in paths:
                     m = worst.setdefault((name, label), [0.0, 0.0])
                     m[0], m[1] = max(m[0], a), max(m[1], r)
-                    if name in SPARSE_PSI_INSTANCES[:4] + ("chain_step_t",):
+                    if name in SPARSE_PSI_INSTANCES[:4] + ("chain_step_t",
+                                                           "psi_segment"):
                         _same_bits(name, f"{label} call {i}", args)
 
     # the variants no sketch above launches: Ψ with both sides and without
@@ -1073,27 +1077,7 @@ def phase_sparse_kernels(paths, ops):
 
     _check("psi_fused_slabs", "sign sides of rank 433 + 433", wide(433))
 
-    # the segment kernel at shapes no sketch gives it: a Ψ of the most
-    # values it takes (float32: one tile of bins; float64: two), no sides,
-    # one row
-    g = torch.Generator(device="cuda").manual_seed(9)
-
-    def seg_case(n_mu, r1, r2, nnz, dtype=torch.float32):
-        def rows(r):
-            return None if r is None else torch.randn(
-                (r, nnz), generator=g, device="cuda", dtype=dtype)
-        return (rows(r1), rows(r2),
-                torch.randn(nnz, generator=g, device="cuda", dtype=dtype),
-                torch.randint(0, n_mu, (nnz,), generator=g, device="cuda"),
-                n_mu)
-
-    for label, args in (
-            ("81 rows x 10 x 20", seg_case(81, 10, 20, 300_001)),
-            ("512 rows x 4 x 8, float64", seg_case(512, 4, 8, 100_003,
-                                                   torch.float64)),
-            ("183 rows, no sides", seg_case(183, None, None, 50_001)),
-            ("one row x 3 x 5", seg_case(1, 3, 5, 1000))):
-        _check("psi_segment", label, args)
+    seg_odd = phase_segment_shapes()
     try:
         _kernel_fns()["psi_fused_slabs"][0](*wide(434))
     except ValueError as exc:
@@ -1104,7 +1088,7 @@ def phase_sparse_kernels(paths, ops):
 
     # each kernel's launches of one sketch, per main path that launches it
     fns = _kernel_fns()
-    res = {}
+    res = {"psi_segment odd shapes": seg_odd}
     for name in SPARSE_KERNELS:
         kern, plain = fns[name]
         res[name] = {}
@@ -1135,6 +1119,91 @@ def phase_sparse_kernels(paths, ops):
             if name == "chain_step_t":
                 res[name][label]["per_launch"] = chain_launches(
                     label, calls, paths[label]["shape"], ops)
+    return res
+
+
+def segment_case(n_mu, r1, r2, nnz, runs=None, dtype="float32", seed=9):
+    """Operands of ``psi_segment`` on the card: Gaussian sides (``None``:
+    absent) and entries, and indices drawn at random (``runs`` None),
+    sorted (``runs="sorted"``: equal runs in increasing row order) or in
+    runs of ``runs`` nonzeros on average (2/3 to 4/3 of it) over rows drawn
+    at random."""
+    import torch
+
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rows(r):
+        return None if r is None else torch.randn(
+            (r, nnz), generator=g, device="cuda", dtype=dtype)
+
+    if runs is None:
+        idx = torch.randint(0, n_mu, (nnz,), generator=g, device="cuda")
+    elif runs == "sorted":
+        idx = torch.arange(nnz, device="cuda") * n_mu // nnz
+    else:
+        lengths = torch.randint(2 * runs // 3, 4 * runs // 3 + 1,
+                                (nnz // runs + 2,), generator=g,
+                                device="cuda")
+        rows_ = torch.randint(0, n_mu, lengths.shape, generator=g,
+                              device="cuda")
+        idx = torch.repeat_interleave(rows_, lengths)[:nnz]
+    return (rows(r1), rows(r2),
+            torch.randn(nnz, generator=g, device="cuda", dtype=dtype),
+            idx, n_mu)
+
+
+#: ``psi_segment`` at shapes no sketch gives it: (label, segment_case
+#: arguments, timed).  uber's two segment shapes (3,309,696 nonzeros) with
+#: their indices in runs and at random; a Ψ of the most values the kernel
+#: takes (float32 and float64: two tiles of bins); no sides; one row;
+#: runs that cross the blocks' ranges with an index outside the mode in
+#: one of them
+SEGMENT_SHAPES = (
+    ("183 rows x 20, sorted", (183, None, 20, 3_309_696, "sorted"), True),
+    ("183 rows x 20, random", (183, None, 20, 3_309_696), True),
+    ("24 rows x 10 x 20, runs of 2600", (24, 10, 20, 3_309_696, 2600), True),
+    ("24 rows x 10 x 20, random", (24, 10, 20, 3_309_696), True),
+    ("81 rows x 10 x 20", (81, 10, 20, 300_001), False),
+    ("81 rows x 10 x 20, runs of 5000", (81, 10, 20, 300_001, 5000), False),
+    ("512 rows x 4 x 8, float64", (512, 4, 8, 100_003, None, "float64"),
+     False),
+    ("24 rows x 4 x 8, float64, runs of 700",
+     (24, 4, 8, 100_002, 700, "float64"), False),
+    ("183 rows, no sides", (183, None, None, 50_001), False),
+    ("one row x 3 x 5", (1, 3, 5, 1000), False),
+    ("7 rows x 16 x 40, runs of 3000", (7, 16, 40, 200_000, 3000), False),
+)
+
+
+def phase_segment_shapes():
+    """``psi_segment`` against its plain version at ``SEGMENT_SHAPES``, with
+    an index outside the mode inside a run of the run-structured cases;
+    the same bits from a second call; the timed cases' ms alone and ten
+    back to back, beside their bound."""
+    import torch
+
+    res = {}
+    for label, case, timed in SEGMENT_SHAPES:
+        args = segment_case(*case)
+        if len(case) > 4 and case[4] is not None:
+            idx = args[3]
+            idx[idx.shape[0] // 3] = case[0]  # outside [0, n_mu): dropped
+            idx[idx.shape[0] // 2] = -1
+        _check("psi_segment", label, args)
+        _same_bits("psi_segment", label, args)
+        if not timed:
+            continue
+        kern = _kernel_fns()["psi_segment"][0]
+        one = time_ms(lambda: kern(*args))
+        b2b = time_ms(lambda: [kern(*args) for _ in range(10)]) / 10
+        bound = sparse_bound("psi_segment", args, {})[0]
+        res[label] = {"ms": one, "b2b_ms": b2b, "bound_ms": bound}
+        print(f"# phase 6: psi_segment {label}: {one:.3f} ms alone, "
+              f"{b2b:.3f} ms back to back (bound {bound:.3f} ms by bytes; "
+              f"{b2b / bound:.2f}x)")
+        del args
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2123,6 +2192,37 @@ def diag_bound(name, P, S, r, rho, compute="f32"):
                   H100_TF32_FLOP_PER_S)
 
 
+def read_turns(X):
+    """``reduce_read`` and ``X.sum(dim=1, keepdim=True)`` timed in turns
+    (kernel, library, library, kernel, twice): alone (one call, the card
+    waiting for the host's wrapper), ten back to back (the card's time) and
+    the host's time to enqueue one call.  Returns per function the lists of
+    each."""
+    import torch
+
+    from tt_sketch_torch.kernels import projector_diag as PD
+
+    fns = {"reduce_read": lambda: PD.reduce_read(X),
+           "X.sum": lambda: X.sum(dim=1, keepdim=True)}
+    res = {name: {"alone": [], "b2b": [], "host": []} for name in fns}
+    for name in ("reduce_read", "X.sum", "X.sum", "reduce_read") * 2:
+        fn, m = fns[name], res[name]
+        m["alone"].append(time_ms(fn))
+        m["b2b"].append(time_ms(lambda: [fn() for _ in range(10)]) / 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        m["host"].append((time.perf_counter() - t0) / 10 * 1e3)
+        torch.cuda.synchronize()
+    for name, m in res.items():
+        print(f"# phase 11: {name} at the main-path shape, in turns: alone "
+              + "/".join(f"{x:.3f}" for x in m["alone"]) + " ms; back to "
+              "back " + "/".join(f"{x:.3f}" for x in m["b2b"]) + " ms; host "
+              "enqueue " + "/".join(f"{x:.4f}" for x in m["host"]) + " ms")
+    return res
+
+
 def phase_projector_diag():
     """``t_only``, ``u_only`` and ``reduce_read`` against their plain
     versions at every shape of ``DIAG_SHAPES`` (launch counts of the rank
@@ -2204,6 +2304,8 @@ def phase_projector_diag():
                               for c, m in ((c, res[name][c])
                                            for c in modes[name]))
                   + f"; library call {res[name]['library_ms']:.3f} ms")
+
+        res["reduce_read"]["turns"] = read_turns(X)
 
         # the diagnostics' own path
         torch.cuda.synchronize()
@@ -2335,6 +2437,8 @@ def main():
                      f"bound_ms cover its {m['launches']} launch(es) of one "
                      f"sketch",
             "by_path": skern[name],
+            **({"odd_shapes": skern["psi_segment odd shapes"]}
+               if name == "psi_segment" else {}),
             "card": smi,
         })
     for name in DIAG_KERNELS:
@@ -2360,6 +2464,7 @@ def main():
                 "bf16_max_rel_err": d["bf16"]["rel_err"]}),
             "shape": dict(zip(("P", "S", "r", "rho"), MAIN)),
             "diag": {t: diag["diag"][t] for t in DIAG_TAGS[name]},
+            **({"turns": d["turns"]} if "turns" in d else {}),
             "card": smi,
         })
     for name, ms, lib, what in (

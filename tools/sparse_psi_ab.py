@@ -6,13 +6,17 @@ git-ignored), then run from the repo root on a machine with a card::
 
     python3 tools/sparse_psi_ab.py [seq] [LIBRARY[:KERNEL,...]]
 
-``LIBRARY`` is ``sparse_psi`` (the default; its six kernels) or
-``chain_step`` (``chain_step_t``); ``:KERNEL,...`` times only the kernels
-named.  Each variant is built with the package's nvcc flags.  For
-``sparse_psi`` the uber and lbnl STTA paths of ``chip_smoke.py`` (and with
-``seq`` uber's OTTS and HMT) are run once through the package's own
-kernels to record their calls; for ``chain_step`` the sequential paths
-that launch the chain step (uber HMT Gaussian and TT-DRM, OTTS, lbnl HMT).
+``LIBRARY`` is ``sparse_psi`` (the default; its six kernels),
+``chain_step`` (``chain_step_t``) or ``segment_psi`` (``psi_segment``);
+``:KERNEL,...`` times only the kernels named.  Each variant is built with
+the package's nvcc flags.  For ``sparse_psi`` the uber and lbnl STTA paths
+of ``chip_smoke.py`` (and with ``seq`` uber's OTTS and HMT) are run once
+through the package's own kernels to record their calls; for
+``chain_step`` the sequential paths that launch the chain step (uber HMT
+Gaussian and TT-DRM, OTTS, lbnl HMT); for ``segment_psi`` every uber path
+(STTA with a Gaussian and a sign pair, HMT Gaussian, OTTS, HMT TT-DRM) and
+the timed cases of ``chip_smoke.SEGMENT_SHAPES`` (uber's two segment
+shapes with their indices in runs and at random), one call each.
 Then every variant in turn, the list forward and back, checks every
 recorded call of each kernel against its plain version and times each
 recorded call (alone, ten back to back, and the host's time to enqueue
@@ -36,6 +40,7 @@ import chip_smoke as c  # noqa: E402
 from tt_sketch_torch import SparseGaussianDRM, SparseSignDRM  # noqa: E402
 from tt_sketch_torch.kernels import chain_step as CS  # noqa: E402
 from tt_sketch_torch.kernels import cuda_build  # noqa: E402
+from tt_sketch_torch.kernels import segment_psi as SG  # noqa: E402
 from tt_sketch_torch.kernels import sparse_psi as SP  # noqa: E402
 
 #: per library: its wrapper module and the kernels it launches
@@ -44,6 +49,7 @@ LIBRARIES = {
                         "psi_fused_slabs", "psi_window_direct",
                         "psi_chunk_slabs", "psi_chunk_slabs_genright")),
     "chain_step": (CS, ("chain_step_t",)),
+    "segment_psi": (SG, ("psi_segment",)),
 }
 SEQ_LABELS = ("uber otts gauss", "uber hmt gauss", "uber hmt tt")
 
@@ -79,9 +85,10 @@ def main():
     build(variants)
     print(f"# card: {c.phase_build()}")
     stta = lib == "sparse_psi"
+    segment = lib == "segment_psi"
     u = c.load_sparse("uber-synthetic")
     paths = {}
-    if stta:
+    if stta or segment:
         for label, drm in (("uber gauss", SparseGaussianDRM),
                            ("uber sign", SparseSignDRM)):
             paths[label] = c.phase_sparse_main(label, u, drm, groups=1)
@@ -89,6 +96,13 @@ def main():
         for label in SEQ_LABELS[:2] if stta else SEQ_LABELS:
             paths[label] = c.phase_seq_main(label, u, timed=False)
     del u
+    if segment:
+        for label, case, timed in c.SEGMENT_SHAPES:
+            if timed:
+                paths[label] = {"calls": {"psi_segment": [
+                    c.segment_case(*case)]}}
+        _run(variants, module, names, paths)
+        return
     lb = c.load_sparse("lbnl-synthetic")
     if stta:
         for label, drm in (("lbnl gauss", SparseGaussianDRM),
@@ -98,11 +112,18 @@ def main():
         paths["lbnl hmt gauss"] = c.phase_seq_main("lbnl hmt gauss", lb,
                                                    timed=False)
     del lb
+    _run(variants, module, names, paths)
+
+
+def _run(variants, module, names, paths):
+    """Every variant in turn, the list forward and back: check and time
+    each kernel of ``names`` at every call recorded in ``paths``."""
     fns = c._kernel_fns()
     res, per_call = {}, {}
     for v in variants + variants[::-1]:
         cuda_build.load_library = lambda name, v=v: ctypes.CDLL(v[:-3] + ".so")
         module._library.cache_clear()
+        SG._blocks.cache_clear()
         for name in names:
             kern, plain = fns[name]
             for label, m in paths.items():

@@ -81,12 +81,19 @@
 //   - tt_reduce_read is a read-once pass that writes the row sums of X, and
 //     replaces scripts/bench_projector_diag.py:reduce_read.  It is bound by
 //     bytes (0.64 ms per slab) and its time is the card's read floor for X.
-//     One block per row, 16-byte streaming loads, four in flight per
-//     thread, sums in a fixed order (deterministic).
+//     Persistent blocks (at most as many as the card holds at once, each
+//     with as many rows as the others, up to one) walk the rows
+//     blockIdx.x, blockIdx.x + gridDim.x, ...; a row is read in rounds of
+//     eight 16-byte streaming loads a thread, and the loads of the next
+//     round (of this row or the next) are issued before the current round
+//     is summed, so a row's block reduction overlaps the next row's loads.
+//     Sums in a fixed order (deterministic).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -532,48 +539,93 @@ __global__ void reduce_u_kernel(const float* __restrict__ Upart,
   U[idx] = acc;
 }
 
-// Row sums of X, one block per row; vec: S % 4 == 0 and X 16-byte aligned,
-// so every row starts 16-byte aligned.
+// Row sums of X by persistent blocks; VEC: S % 4 == 0 and X 16-byte
+// aligned, so every row starts 16-byte aligned and is read as float4.
 constexpr int READ_THREADS = 256;
-constexpr int READ_UNROLL = 4;
+constexpr int READ_UNROLL = 8;  // loads in flight per thread
 
+template <bool VEC>
 __global__ void __launch_bounds__(READ_THREADS)
-reduce_read_kernel(const float* __restrict__ X, float* __restrict__ out, int S,
-                   bool vec) {
-  const float* x = X + (size_t)blockIdx.x * S;
-  float acc[READ_UNROLL] = {0.f, 0.f, 0.f, 0.f};
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const int n4 = S / 4;
-    int i = threadIdx.x;
-    for (; i + (READ_UNROLL - 1) * READ_THREADS < n4;
-         i += READ_UNROLL * READ_THREADS) {
-      float4 v[READ_UNROLL];
+reduce_read_kernel(const float* __restrict__ X, float* __restrict__ out, int P,
+                   int S) {
+  using V = typename std::conditional<VEC, float4, float>::type;
+  const int n = VEC ? S / 4 : S;  // loads of a row
+  constexpr int ROUND = READ_THREADS * READ_UNROLL;
+  const int rounds = (n + ROUND - 1) / ROUND;
+  if ((int)blockIdx.x >= P) return;
+  const int my_rows = (P - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int64_t total = (int64_t)my_rows * rounds;
+  const int tid = threadIdx.x;
+  V v[READ_UNROLL];
+  // issue the loads of round i of this block's rows (zero past the row)
+  auto issue = [&](int64_t i) {
+    const int64_t row = blockIdx.x + (i / rounds) * gridDim.x;
+    const int q = (int)(i % rounds);
+    const V* x = reinterpret_cast<const V*>(X + row * S);
 #pragma unroll
-      for (int u = 0; u < READ_UNROLL; ++u) v[u] = __ldcs(x4 + i + u * READ_THREADS);
-#pragma unroll
-      for (int u = 0; u < READ_UNROLL; ++u)
-        acc[u] += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+    for (int u = 0; u < READ_UNROLL; ++u) {
+      const int j = q * ROUND + u * READ_THREADS + tid;
+      if constexpr (VEC) {
+        v[u] = j < n ? __ldcs(x + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        v[u] = j < n ? __ldcs(x + j) : 0.f;
+      }
     }
-    for (; i < n4; i += READ_THREADS) {
-      const float4 v = __ldcs(x4 + i);
-      acc[0] += (v.x + v.y) + (v.z + v.w);
+  };
+  __shared__ float warp_sums[2][READ_THREADS / 32];
+  float acc = 0.f;
+  issue(0);
+  for (int64_t i = 0; i < total; ++i) {
+    float part = 0.f;
+#pragma unroll
+    for (int u = 0; u < READ_UNROLL; ++u) {
+      if constexpr (VEC) {
+        part += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+      } else {
+        part += v[u];
+      }
     }
-  } else {
-    for (int i = threadIdx.x; i < S; i += READ_THREADS) acc[0] += __ldcs(x + i);
-  }
-  float s = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    acc += part;
+    if (i + 1 < total) issue(i + 1);
+    if ((i + 1) % rounds != 0) continue;
+    // the row's last round: a block reduction in a fixed order
+    const int64_t row = blockIdx.x + (i / rounds) * gridDim.x;
+    const int buf = (int)((i / rounds) & 1);
+    float s = acc;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  __shared__ float warp_sums[READ_THREADS / 32];
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x / 32] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    }
+    if ((tid & 31) == 0) warp_sums[buf][tid / 32] = s;
+    __syncthreads();  // the other buffer is free again after this barrier
+    if (tid == 0) {
+      float t = 0.f;
 #pragma unroll
-    for (int w = 0; w < READ_THREADS / 32; ++w) t += warp_sums[w];
-    out[blockIdx.x] = t;
+      for (int w = 0; w < READ_THREADS / 32; ++w) t += warp_sums[buf][w];
+      out[row] = t;
+    }
+    acc = 0.f;
   }
+}
+
+// Blocks of reduce_read_kernel<VEC> the current device holds at once
+// (asked once per device and kept).
+template <bool VEC>
+int read_blocks() {
+  constexpr int MAX_DEVICES = 64;
+  static int held[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
+  if (dev < MAX_DEVICES && held[dev] > 0) return held[dev];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reduce_read_kernel<VEC>, READ_THREADS, 0) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
+  if (dev < MAX_DEVICES) held[dev] = per_sm * sms;
+  return per_sm * sms;
 }
 
 template <bool BF16, bool WANT_T, bool WANT_U>
@@ -658,8 +710,17 @@ int tt_u_only(const float* X, const float* L, float* U, float* Upart, int P,
 int tt_reduce_read(const float* X, float* out, int P, int S, void* stream) {
   if (P <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   const bool vec = (S % 4 == 0) && (reinterpret_cast<uintptr_t>(X) % 16 == 0);
-  reduce_read_kernel<<<P, READ_THREADS, 0,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(X, out, S, vec);
+  const int held = vec ? read_blocks<true>() : read_blocks<false>();
+  if (held <= 0) return (int)cudaErrorInvalidConfiguration;
+  // as many rows for every block: no block runs a row after the others
+  const int per_block = (P + held - 1) / held;
+  const unsigned blocks = (unsigned)((P + per_block - 1) / per_block);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (vec) {
+    reduce_read_kernel<true><<<blocks, READ_THREADS, 0, st>>>(X, out, P, S);
+  } else {
+    reduce_read_kernel<false><<<blocks, READ_THREADS, 0, st>>>(X, out, P, S);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,7 @@ and its block-size sweep of ``dual_project`` (the port's tiles are fixed).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -144,17 +145,22 @@ u_only.launches = 0
 def reduce_read(X2d: torch.Tensor) -> torch.Tensor:
     """Return the (P, 1) row sums of ``X2d`` from one read of it: the
     card's read floor for X.  CPU tensors take ``reduce_read_reference``."""
-    if X2d.device.type == "cpu":
+    device = X2d.device
+    if device.type == "cpu":
         return reduce_read_reference(X2d)
     check_cuda_operands("reduce_read", X2d)
     lib = _library()
     P, S = X2d.shape
-    out = torch.empty((P, 1), dtype=torch.float32, device=X2d.device)
-    with torch.cuda.device(X2d.device):
-        raise_on_error(lib, "reduce_read", lib.tt_reduce_read(
-            X2d.data_ptr(), out.data_ptr(), P, S,
-            torch.cuda.current_stream().cuda_stream))
-        reduce_read.launches += 1
+    out = torch.empty((P, 1), dtype=torch.float32, device=device)
+    # the device switch only where X2d is not on the current device: it
+    # costs the host a few microseconds a call
+    with (torch.cuda.device(device)
+          if device.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        err = lib.tt_reduce_read(X2d.data_ptr(), out.data_ptr(), P, S,
+                                 torch.cuda.current_stream().cuda_stream)
+    raise_on_error(lib, "reduce_read", err)
+    reduce_read.launches += 1
     return out
 
 

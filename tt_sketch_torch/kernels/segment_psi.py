@@ -34,7 +34,8 @@ MAX_CELLS = 16384
 #: nnz per step of the plain version (bounds the outer-product temporary to
 #: a few hundred MB at rank 10 x 20)
 _REF_CHUNK = 1 << 19
-#: the kernel's nonzero ranges: about this many blocks, at least this many
+#: the kernel's nonzero ranges: at most this many blocks (on the card: as
+#: many as it holds at once, ``tt_segment_psi_blocks``), at least this many
 #: nonzeros each, and partial bins of at most this many values
 _TARGET_BLOCKS = 1024
 _MIN_CHUNK = 1024
@@ -63,10 +64,12 @@ def _out_dtype(left, right, entries):
 def psi_segment_reference(left, right, entries, indices_mu, n_mu):
     """Plain PyTorch version: the outer products of ``_REF_CHUNK`` nonzeros
     at a time, summed into their rows with ``index_add_``, in the promoted
-    dtype of the operands.  Returns (n_mu, r1, r2)."""
+    dtype of the operands.  An index outside ``[0, n_mu)`` is dropped (as
+    ``jax.ops.segment_sum`` drops it): it adds to a row past the last,
+    which is cut off.  Returns (n_mu, r1, r2)."""
     r1, r2 = _ranks(left, right)
     dtype = _out_dtype(left, right, entries)
-    psi = torch.zeros((n_mu, r1, r2), dtype=dtype, device=entries.device)
+    psi = torch.zeros((n_mu + 1, r1, r2), dtype=dtype, device=entries.device)
     for k0 in range(0, entries.shape[0], _REF_CHUNK):
         sl = slice(k0, k0 + _REF_CHUNK)
         ent = entries[sl].to(dtype)
@@ -77,19 +80,24 @@ def psi_segment_reference(left, right, entries, indices_mu, n_mu):
         else:
             rows = right[:, sl].to(dtype)
             outer = weighted.T[:, :, None] * rows.T[:, None, :]
-        psi.index_add_(0, indices_mu[sl], outer)
-    return psi
+        idx = indices_mu[sl]
+        psi.index_add_(0, torch.where((idx >= 0) & (idx < n_mu), idx, n_mu),
+                       outer)
+    return psi[:n_mu]
 
 
-def segment_chunks(nnz: int, n_mu: int, n_pairs: int) -> tuple:
+def segment_chunks(nnz: int, n_mu: int, n_pairs: int,
+                   blocks: int = _TARGET_BLOCKS) -> tuple:
     """``(chunk, n_chunks)``: the kernel's blocks each take ``chunk``
-    consecutive nonzeros; about ``_TARGET_BLOCKS`` of them, none shorter
-    than ``_MIN_CHUNK`` unless there are fewer nonzeros, and the partial
-    bins ``n_chunks * n_mu * n_pairs`` at most ``_MAX_PARTIALS`` values."""
-    n_chunks = min(nnz // _MIN_CHUNK, _TARGET_BLOCKS,
+    consecutive nonzeros, a multiple of 4 (so that a block's range starts
+    on a 16-byte boundary of every row); at most ``blocks`` of them (one
+    wave: as many as the card holds at once), none shorter than
+    ``_MIN_CHUNK`` unless there are fewer nonzeros, and the partial bins
+    ``n_chunks * n_mu * n_pairs`` at most ``_MAX_PARTIALS`` values."""
+    n_chunks = min(nnz // _MIN_CHUNK, blocks,
                    _MAX_PARTIALS // (n_mu * n_pairs))
     n_chunks = max(1, n_chunks)
-    chunk = max(1, -(-nnz // n_chunks))
+    chunk = -(-max(1, -(-nnz // n_chunks)) // 4) * 4
     return chunk, max(1, -(-nnz // chunk))
 
 
@@ -104,9 +112,18 @@ def _library() -> ctypes.CDLL:
     lib.tt_segment_psi.argtypes = [i32] + [ptr] * 6 + [i64, i32, i32, i32,
                                                       i64, i32, ptr]
     lib.tt_segment_psi.restype = i32
+    lib.tt_segment_psi_blocks.argtypes = [i32] * 4
+    lib.tt_segment_psi_blocks.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
     lib.tt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _blocks(device: int, elem: int, n_mu: int, r1: int, r2: int) -> int:
+    """The kernel's blocks that fill card ``device`` once for this Ψ."""
+    with torch.cuda.device(device):
+        return _library().tt_segment_psi_blocks(elem, n_mu, r1, r2)
 
 
 def psi_segment(left, right, entries, indices_mu, n_mu):
@@ -153,7 +170,8 @@ def psi_segment(left, right, entries, indices_mu, n_mu):
         return torch.zeros((n_mu, r1, r2), dtype=dtype, device=device)
     lib = _library()
     elem = torch.finfo(kdtype).bits // 8
-    chunk, n_chunks = segment_chunks(nnz, n_mu, r1 * r2)
+    chunk, n_chunks = segment_chunks(
+        nnz, n_mu, r1 * r2, _blocks(device.index, elem, n_mu, r1, r2))
     out = torch.empty((n_mu, r1, r2), dtype=kdtype, device=device)
     partials = torch.empty((n_chunks, n_mu, r1 * r2), dtype=kdtype,
                            device=device)
