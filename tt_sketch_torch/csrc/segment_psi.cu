@@ -43,9 +43,9 @@
 //     their row if all four share it, else -2.
 //   - Summing: a thread reads, per quad of four nonzeros, one 16-byte quad
 //     of each of its rows and of the entries (TA + TB + 1 LDS.128 for
-//     4 * TA * TB FMAs), the next quad's loads issued before this quad's
-//     FMAs.  While the quad's flag is the row of its current run, it adds
-//     the four products into its registers.  Otherwise the run ends: when
+//     4 * TA * TB FMAs) through pointers set once a step, the next quad's
+//     loads issued before this quad's FMAs.  While the quad's flag is the
+//     row of its current run, it adds the four products into its registers.  Otherwise the run ends: when
 //     the first three nonzeros of the quad lie on three rows other than each
 //     other's and the run's, the run and the three are added to their four
 //     bins with all four reads first; else nonzero by nonzero, each row
@@ -438,6 +438,12 @@ __global__ void __launch_bounds__(MAX_TILES)
       const int* rw = srow(b);
       const int* fl = sflag(b);
       const int nq = cnt / 4;
+      const T* lp[TA];
+      const T* rp[TB];
+#pragma unroll
+      for (int i = 0; i < TA; ++i) lp[i] = lr + (size_t)i * nla * ts;
+#pragma unroll
+      for (int j = 0; j < TB; ++j) rp[j] = rr + (size_t)j * a.nb * ts;
       // two register sets: the next quad's loads are issued before this
       // quad's sums
       T e0[4], w0[TA][4], r0[TB][4], e1[4], w1[TA][4], r1[TB][4];
@@ -448,9 +454,9 @@ __global__ void __launch_bounds__(MAX_TILES)
         f = fl[q];
         ld4(er + t, e);
 #pragma unroll
-        for (int i = 0; i < TA; ++i) ld4(lr + (size_t)i * nla * ts + t, w[i]);
+        for (int i = 0; i < TA; ++i) ld4(lp[i] + t, w[i]);
 #pragma unroll
-        for (int j = 0; j < TB; ++j) ld4(rr + (size_t)j * a.nb * ts + t, r[j]);
+        for (int j = 0; j < TB; ++j) ld4(rp[j] + t, r[j]);
       };
       if (nq > 0) load(0, f0, e0, w0, r0);
       for (int q = 0; q < nq; q += 2) {
@@ -473,10 +479,10 @@ __global__ void __launch_bounds__(MAX_TILES)
         const T e = er[t];
 #pragma unroll
         for (int i = 0; i < TA; ++i) {
-          const T wi = mul_(lr[(size_t)i * nla * ts + t], e);
+          const T wi = mul_(lp[i][t], e);
 #pragma unroll
           for (int j = 0; j < TB; ++j)
-            acc[i][j] = fma_(wi, rr[(size_t)j * a.nb * ts + t], acc[i][j]);
+            acc[i][j] = fma_(wi, rp[j][t], acc[i][j]);
         }
       }
     }
