@@ -43,15 +43,17 @@
 //     their row if all four share it, else -2.
 //   - Summing: a thread reads, per quad of four nonzeros, one 16-byte quad
 //     of each of its rows and of the entries (TA + TB + 1 LDS.128 for
-//     4 * TA * TB FMAs) through pointers set once a step, the next quad's
-//     loads issued before this quad's FMAs.  While the quad's flag is the
-//     row of its current run, it adds the four products into its registers.  Otherwise the run ends: when
-//     the first three nonzeros of the quad lie on three rows other than each
-//     other's and the run's, the run and the three are added to their four
-//     bins with all four reads first; else nonzero by nonzero, each row
-//     change adding the run to its bins (a read-modify-write of TA * TB
-//     values the thread alone owns) and starting the next from zero.  The
-//     run of dropped indices (-1) is never added.
+//     4 * TA * TB FMAs; without a left side the entries are the weights)
+//     through pointers set once a step, the next quad's loads issued before
+//     this quad's FMAs.  While the quad's flag is the row of its current
+//     run, it adds the four products into its registers.  Otherwise the run
+//     ends: when the first three nonzeros of the quad lie on three rows
+//     other than each other's and the run's, the run and the three are
+//     added to their four bins with all four reads first; else nonzero by
+//     nonzero, each row change adding the run to its bins (a
+//     read-modify-write of TA * TB values the thread alone owns) and
+//     starting the next from zero.  The run of dropped indices (-1) is
+//     never added.
 //   - After the range, the last run is added, and the block writes its bins
 //     to partials[chunk][n][pair].
 // A second kernel sums the partials over the chunks in a fixed order: a
@@ -251,31 +253,32 @@ __global__ void __launch_bounds__(MAX_TILES)
 
   // Start copying step s (nonzeros [k0 + s tk, ...)) into its buffer: the
   // given left rows, the given right rows, the entries and the indices.
-  const int n_given = la_given + rb_given + 1;
   auto issue = [&](int64_t s) {
     if (s >= n_steps) return;
     const int64_t kt = k0 + s * tk;
     const int cnt = (int)min((int64_t)tk, k1 - kt);
     T* base = vals((int)(s % NSTAGE));
-    for (int r = 0; r < n_given; ++r) {
-      const bool is_l = r < la_given, is_r = !is_l && r < la_given + rb_given;
-      const int dst_r = is_l   ? left_at(r)
-                        : is_r ? right_at(r - la_given)
-                               : a.la + a.rb;
-      const T* src = is_l ? a.left + (int64_t)(a_lo + r) * a.nnz
-                     : is_r ? a.right + (int64_t)(r - la_given) * a.nnz
-                            : a.ent;
-      T* dst = base + (size_t)dst_r * ts;
+    // one row: its cnt values from src into the buffer's row at dst
+    auto copy_row = [&](T* dst, const T* src) {
       if (a.vec) {
         for (int u = tid * U; u < cnt; u += nth * U) {
-          cp_async16(dst + u, src + kt + u);
+          cp_async16(dst + u, src + u);
         }
       } else {
         for (int u = tid; u < cnt; u += nth) {
-          cp_async_one<sizeof(T)>(dst + u, src + kt + u);
+          cp_async_one<sizeof(T)>(dst + u, src + u);
         }
       }
+    };
+    const T* src = a.left + (int64_t)a_lo * a.nnz + kt;
+    for (int r = 0; r < la_given; ++r, src += a.nnz) {
+      copy_row(base + (size_t)left_at(r) * ts, src);
     }
+    src = a.right + kt;
+    for (int r = 0; r < rb_given; ++r, src += a.nnz) {
+      copy_row(base + (size_t)right_at(r) * ts, src);
+    }
+    copy_row(base + (size_t)(a.la + a.rb) * ts, a.ent + kt);
     int64_t* di = raw_idx((int)(s % NSTAGE));
     if (a.idx_vec && cnt % 2 == 0) {
       for (int u = 2 * tid; u < cnt; u += 2 * nth) {
@@ -346,7 +349,9 @@ __global__ void __launch_bounds__(MAX_TILES)
 #pragma unroll
     for (int i = 0; i < TA; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) w[i][c] = mul_(w[i][c], e[c]);
+      for (int c = 0; c < 4; ++c) {
+        w[i][c] = a.left ? mul_(w[i][c], e[c]) : e[c];
+      }
     if (f == cur) {  // the quad continues the run
 #pragma unroll
       for (int c = 0; c < 4; ++c)
@@ -453,8 +458,10 @@ __global__ void __launch_bounds__(MAX_TILES)
         const int t = 4 * q;
         f = fl[q];
         ld4(er + t, e);
+        if (a.left) {  // else the weights are the entries
 #pragma unroll
-        for (int i = 0; i < TA; ++i) ld4(lp[i] + t, w[i]);
+          for (int i = 0; i < TA; ++i) ld4(lp[i] + t, w[i]);
+        }
 #pragma unroll
         for (int j = 0; j < TB; ++j) ld4(rp[j] + t, r[j]);
       };
@@ -479,7 +486,7 @@ __global__ void __launch_bounds__(MAX_TILES)
         const T e = er[t];
 #pragma unroll
         for (int i = 0; i < TA; ++i) {
-          const T wi = mul_(lp[i][t], e);
+          const T wi = a.left ? mul_(lp[i][t], e) : e;
 #pragma unroll
           for (int j = 0; j < TB; ++j)
             acc[i][j] = fma_(wi, rp[j][t], acc[i][j]);
