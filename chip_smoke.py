@@ -54,10 +54,14 @@ Phases (the first failure raises and exits non-zero):
    chunk, odd ranks; Gaussian, sign and mixed pairs, sliced sign sides) and
    with flat indices above 2^63, and with Gaussian sides of 16 x 40 and
    30 x 40 (one thread group; passes over the range); the segment kernel
-   also at a Ψ of the most values it takes (float32 and float64), without
-   sides and with one row;
-   the same bits from two calls of each ``sparse_psi.cu`` instance and of
-   ``chain_step_t`` at the recorded calls; time the recorded calls and
+   also at ``SEGMENT_SHAPES``: uber's two segment shapes with their indices
+   sorted or in runs of about 2,600 (an index outside the mode inside a
+   run) and at random, each timed alone and back to back, a Ψ of the most
+   values it takes (float32 and float64, held to 1e-12), without sides,
+   with one row;
+   the same bits from two calls of each ``sparse_psi.cu`` instance, of
+   ``chain_step_t`` and of ``psi_segment`` at the recorded calls and of the
+   segment kernel at every shape; time the recorded calls and
    their plain versions (the segment kernel's also against ``index_add_``
    of the outer products), and bound them (each time also over its bound);
    each recorded ``chain_step_t`` launch on its own line (mode, ``n``,
@@ -111,8 +115,9 @@ Phases (the first failure raises and exits non-zero):
     plain versions at the main-path shape, a ragged shape, a rank-split
     shape (several launches) and a shape whose S is odd, the same bits from
     two calls at the main-path shape; their times, plain versions' and
-    library calls' times and bounds at the main-path shape;
-    then ``run_projector_diag`` at the main-path shape with the launch
+    library calls' times and bounds at the main-path shape; ``reduce_read``
+    and ``X.sum(dim=1, keepdim=True)`` in turns, alone, ten back to back and
+    the host's enqueue time of one call; then ``run_projector_diag`` at the main-path shape with the launch
     counts set to 0 just before it and read just after, printing its nine
     tagged lines.
 12. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
