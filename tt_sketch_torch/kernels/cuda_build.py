@@ -105,3 +105,13 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_target(name)))
     _libraries[name] = lib
     return lib
+
+
+def current_stream_handle(device_index: int) -> int:
+    """The raw handle of the current CUDA stream of ``device_index``: what
+    ``torch.cuda.current_stream(device_index).cuda_stream`` gives, without
+    building a ``Stream`` object (about 5 µs of host time a call on the
+    H100 machine's host)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
