@@ -1082,7 +1082,6 @@ def phase_sparse_kernels(paths, ops):
 
     _check("psi_fused_slabs", "sign sides of rank 433 + 433", wide(433))
 
-    seg_odd = phase_segment_shapes()
     try:
         _kernel_fns()["psi_fused_slabs"][0](*wide(434))
     except ValueError as exc:
@@ -1093,7 +1092,7 @@ def phase_sparse_kernels(paths, ops):
 
     # each kernel's launches of one sketch, per main path that launches it
     fns = _kernel_fns()
-    res = {"psi_segment odd shapes": seg_odd}
+    res = {}
     for name in SPARSE_KERNELS:
         kern, plain = fns[name]
         res[name] = {}
@@ -2389,6 +2388,7 @@ def main():
                                              timed=False)
     del lbnl
     skern = phase_sparse_kernels(paths, ops)
+    seg_shapes = phase_segment_shapes()
     phase_sign_rows()
     phase_window_kernel()
     phase_seq_kernels()
@@ -2442,8 +2442,7 @@ def main():
                      f"bound_ms cover its {m['launches']} launch(es) of one "
                      f"sketch",
             "by_path": skern[name],
-            **({"odd_shapes": skern["psi_segment odd shapes"]}
-               if name == "psi_segment" else {}),
+            **({"odd_shapes": seg_shapes} if name == "psi_segment" else {}),
             "card": smi,
         })
     for name in DIAG_KERNELS:

@@ -31,9 +31,9 @@
 // nonzeros (one block per range, as many ranges as the card holds blocks
 // at once: tt_segment_psi_blocks) and a set of micro-tiles of rank pairs
 // (all of them unless the bins do not fit; then blockIdx.y picks the set).
-// A thread owns one micro-tile: TA left rows against TB right rows (1 x 1,
-// 1 x 4 or 2 x 4, whichever issues the fewest instructions per nonzero for
-// the ranks).  The block walks its range in steps of tk nonzeros:
+// A thread owns one micro-tile: TA left rows against TB right rows (1 x 1
+// or 2 x 4, whichever issues the fewer instructions per nonzero for the
+// ranks).  The block walks its range in steps of tk nonzeros:
 //   - Staging, a ring of NSTAGE buffers: a step's indices, left rows, right
 //     rows and entries land in shared memory by cp.async (16 bytes where the
 //     rows are 16-byte aligned, else one value at a time), rows along k with
@@ -554,12 +554,9 @@ int quad_cost(int r1, int r2, int ta, int tb) {
   return warps * (6 + ta + tb + 4 * ta + 4 * ta * tb);
 }
 
-// The micro-tile with the fewest instructions per nonzero: 24 (2 x 4), 14
-// (1 x 4) or 11 (1 x 1).
-int instance(int r1, int r2) {
-  const int c11 = quad_cost(r1, r2, 1, 1), c14 = quad_cost(r1, r2, 1, 4),
-            c24 = quad_cost(r1, r2, 2, 4);
-  return c24 < c11 && c24 < c14 ? 24 : c14 < c11 ? 14 : 11;
+// The micro-tile with the fewer instructions per nonzero: 2 x 4 or 1 x 1.
+bool wide_tiles(int r1, int r2) {
+  return quad_cost(r1, r2, 2, 4) < quad_cost(r1, r2, 1, 1);
 }
 
 // A launch's geometry: micro-tiles a block (np), its threads, the left
@@ -670,25 +667,17 @@ int launch_any(const int64_t* idx, const void* ent, const void* left,
   const T* r = static_cast<const T*>(right);
   T* p = static_cast<T*>(partials);
   T* o = static_cast<T*>(out);
-  switch (instance(r1, r2)) {
-    case 24:
-      return launch<T, 2, 4>(idx, e, l, r, p, o, nnz, n_mu, r1, r2, chunk,
-                             n_chunks, s);
-    case 14:
-      return launch<T, 1, 4>(idx, e, l, r, p, o, nnz, n_mu, r1, r2, chunk,
-                             n_chunks, s);
-  }
-  return launch<T, 1, 1>(idx, e, l, r, p, o, nnz, n_mu, r1, r2, chunk,
-                         n_chunks, s);
+  return wide_tiles(r1, r2)
+             ? launch<T, 2, 4>(idx, e, l, r, p, o, nnz, n_mu, r1, r2, chunk,
+                               n_chunks, s)
+             : launch<T, 1, 1>(idx, e, l, r, p, o, nnz, n_mu, r1, r2, chunk,
+                               n_chunks, s);
 }
 
 template <typename T>
 int blocks_any(int n_mu, int r1, int r2) {
-  switch (instance(r1, r2)) {
-    case 24: return blocks_of<T, 2, 4>(n_mu, r1, r2);
-    case 14: return blocks_of<T, 1, 4>(n_mu, r1, r2);
-  }
-  return blocks_of<T, 1, 1>(n_mu, r1, r2);
+  return wide_tiles(r1, r2) ? blocks_of<T, 2, 4>(n_mu, r1, r2)
+                            : blocks_of<T, 1, 1>(n_mu, r1, r2);
 }
 
 }  // namespace
