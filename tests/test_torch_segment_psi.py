@@ -171,7 +171,8 @@ def emulate_kernel(left, right, ent, idx, n_mu, chunk, n_chunks):
         for s, e in zip(np.r_[k0, cut], np.r_[cut, k1]):
             if rows[s] >= 0:
                 parts[c, rows[s]] += w[:, s:e] @ r[:, s:e].T
-    src = (Path(SG.__file__).parents[1] / "csrc" / "segment_psi.cu").read_text()
+    src = (Path(SG.__file__).parents[1] / "csrc"
+           / "segment_psi.cu").read_text()
     warps = int(re.search(r"constexpr int REDUCE_WARPS = (\d+);", src)[1])
     sums = [parts[q::warps].sum(axis=0) for q in range(min(warps, n_chunks))]
     return functools.reduce(np.add, sums)

@@ -26,12 +26,11 @@ and its block-size sweep of ``dual_project`` (the port's tiles are fixed).
 """
 from __future__ import annotations
 
-import contextlib
 import time
 
 import torch
 
-from tt_sketch_torch.kernels.cuda_build import current_stream_handle
+from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.dual_project import (
     _library,
     check_compute,
@@ -153,11 +152,7 @@ def reduce_read(X2d: torch.Tensor) -> torch.Tensor:
     lib = _library()
     P, S = X2d.shape
     out = torch.empty((P, 1), dtype=torch.float32, device=device)
-    # the device switch only where X2d is not on the current device, and
-    # the stream's raw handle: each costs the host a few microseconds a call
-    with (torch.cuda.device(device)
-          if device.index != torch.cuda.current_device()
-          else contextlib.nullcontext()):
+    with on_device(device):
         err = lib.tt_reduce_read(X2d.data_ptr(), out.data_ptr(), P, S,
                                  current_stream_handle(device.index))
     raise_on_error(lib, "reduce_read", err)

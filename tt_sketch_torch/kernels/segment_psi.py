@@ -21,13 +21,12 @@ one address.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
 import torch
 
-from tt_sketch_torch.kernels.cuda_build import current_stream_handle
+from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
 
 #: the most values (rows x rank pairs) of a Ψ the kernel takes: 64 KB of
@@ -177,9 +176,7 @@ def psi_segment(left, right, entries, indices_mu, n_mu):
     out = torch.empty((n_mu, r1, r2), dtype=kdtype, device=device)
     partials = torch.empty((n_chunks, n_mu, r1 * r2), dtype=kdtype,
                            device=device)
-    with (torch.cuda.device(device)
-          if device.index != torch.cuda.current_device()
-          else contextlib.nullcontext()):
+    with on_device(device):
         err = lib.tt_segment_psi(
             elem, indices_mu.data_ptr(), entries.data_ptr(),
             None if left is None else left.data_ptr(),
