@@ -117,9 +117,9 @@ Phases (the first failure raises and exits non-zero):
     two calls at the main-path shape; their times, plain versions' and
     library calls' times and bounds at the main-path shape; ``reduce_read``
     and ``X.sum(dim=1, keepdim=True)`` in turns, alone, ten back to back and
-    the host's enqueue time of one call; then ``run_projector_diag`` at the main-path shape with the launch
-    counts set to 0 just before it and read just after, printing its nine
-    tagged lines.
+    the host's enqueue time of one call; then ``run_projector_diag`` at
+    the main-path shape with the launch counts set to 0 just before it and
+    read just after, printing its nine tagged lines.
 12. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
     every path; the diagnostics' launches are those of their run), then the
