@@ -11,10 +11,12 @@ Phases (the first failure raises and exits non-zero):
    ``tt_sketch_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once), print each ptxas report
    and the card's name and power limit; count in the built SASS the
-   instructions per lazy-Gaussian sample (``lazy_gaussian`` kernel) and per
-   draw of a sparse-sign column (``sparse_sign`` kernel, one hash per
-   draw): the sparse bounds use those counts; and per instance of the
-   projection kernel its instructions, tensor-core products and
+   instructions per lazy-Gaussian sample (``lazy_gaussian`` kernel), which
+   the sparse bounds use beside a fixed charge per draw of a sparse-sign
+   column (``SIGN_DRAW_OPS``); census the ``sparse_sign`` kernels (the
+   shared-memory instance's loops; each register instance free of local
+   memory, one hash a draw, its instructions per draw); and per instance
+   of the projection kernel its instructions, tensor-core products and
    shared-memory loads.
 2. Hold ``dual_project`` against its plain PyTorch version, ``f32`` and
    ``bf16`` modes both at ``F32_TOL``, at the main-path shape, a ragged
@@ -60,17 +62,19 @@ Phases (the first failure raises and exits non-zero):
    values it takes (float32 and float64, held to 1e-12), without sides,
    with one row;
    the same bits from two calls of each ``sparse_psi.cu`` instance, of
-   ``chain_step_t`` and of ``psi_segment`` at the recorded calls and of the
-   segment kernel at every shape; time the recorded calls and
+   ``chain_step_t``, ``psi_segment`` and ``sparse_sign_rows`` at the
+   recorded calls and of the segment kernel at every shape; time the recorded calls and
    their plain versions (the segment kernel's also against ``index_add_``
    of the outer products), and bound them (each time also over its bound);
    each recorded ``chain_step_t`` launch on its own line (mode, ``n``,
    ranks, where the core lives, ms alone and back to back, bound, the
    bytes of core rows gathered).
 7. ``sparse_sign_rows`` against its plain version bit for bit
-   (``torch.equal``): uber's shapes (in phase 6), a ragged N, fewer
-   non-zeros than slots, a rank slice, flats above 2^63 and a rank above
-   4096 (the exact 128-bit swap product).
+   (``torch.equal``), and the same bits from two calls: uber's shapes (in
+   phase 6), a ragged N, fewer non-zeros than slots, rank slices, flats
+   above 2^63, both sides of each rank bucket's edge (16, 17, 32, 33: the
+   register instances and the shared-memory one) and ranks above 4096
+   (the exact 128-bit swap product).
 8. ``psi_window_direct``, both variants: at lbnl's recorded calls (in
    phase 6, one-sided), at the calls of a sketch of lbnl with its modes
    rolled so that the 868131-row mode is interior (two-sided; Gaussian
@@ -148,6 +152,13 @@ H100_TF32_FLOP_PER_S = 495e12   # H100 SXM data sheet, TF32 tensor cores, dense
 # Lane instructions per second of the CUDA cores: the fp32 peak counts an
 # FMA as two flops; integer instructions share the same dispatch slots.
 H100_LANE_OPS_PER_S = H100_FP32_FLOP_PER_S / 2
+#: instructions charged per draw of a sparse-sign column in the sparse
+#: bounds (one hash, its swap position and the swap): one trip of the
+#: shuffle pass of the shared-memory column kernel (``sparse_sign_kernel``,
+#: from its loop head to its back branch in ``cuobjdump -sass``, sm_90a),
+#: counted before the register instances existed.  Fixed, so that a leaner
+#: kernel does not lower its own bound; phase 1 prints today's counts.
+SIGN_DRAW_OPS = 44
 SEQ_TOL = 2e-4   # max abs over 20,000 recovered values / largest value: two f32 sweeps whose sums differ in order, through a QR per mode
 CHAIN_ULPS = 8   # chain_step_t: max abs err in ulps (2^-23) of the largest output; sums of at most 20 f32 products in another order
 HMT_ERROR_RANGE = (0.45, 0.60)  # sample_error of an HMT sketch of FROSTT-uber at rank 10
@@ -667,26 +678,17 @@ def sass_ops_per_sample():
     return n / n_st
 
 
-def sass_sign_ops():
-    """Instructions per draw of a sparse-sign column, counted in the built
-    ``sparse_sign`` kernel's SASS.  The function needs one hash per draw,
-    its swap position and the swap: that is one trip of the kernel's shuffle
-    pass, from the loop's head to its back branch (bookkeeping included, as
-    for the Gaussian sample).  The kernel hashes every draw a second time in
-    its sign pass and spends further instructions zeroing empty slots and
-    copying rows out; none of that is work the function needs, so the bound
-    leaves it out (reading bit 52 of the hash, a few instructions, with it).
-
-    The kernel's loops are kept rolled (``#pragma unroll 1``): the loop that
-    stores to global memory is the output loop, the loop that reads global
-    memory the per-block salt copy, the two loops that multiply (the 64-bit
-    hash) the sign pass and the longer shuffle pass, the remaining one
-    zeroes the empty slots."""
+def _sign_loops():
+    """The loops of the shared-memory sign kernel (``sparse_sign_kernel``),
+    kept rolled (``#pragma unroll 1``), as ``[(kind, instructions per
+    trip)]``: the loop that stores to global memory is the output loop, the
+    one that reads global memory the per-block salt copy, the two that
+    multiply (the 64-bit hash) the sign pass and the longer shuffle pass,
+    the remaining one zeroes the empty slots."""
     ins, op, target = _sass("sparse_sign", "sparse_sign_kernel")
     loops = sorted((target(t), i) for i, (_, t) in enumerate(ins)
                    if op(t) == "BRA" and target(t) < i)
-    hashing = []
-    summary = []
+    out = []
     for head, back in loops:
         ops = [op(t) for _, t in ins[head:back + 1]]
         if any(o.startswith("STG") for o in ops):
@@ -695,20 +697,63 @@ def sass_sign_ops():
             kind = "salt copy"
         elif sum(o.startswith("IMAD") for o in ops) >= 4:
             kind = "hash"
-            hashing.append(len(ops))
         else:
             kind = "slot"
-        summary.append(f"{kind} {len(ops)}")
-    print(f"# phase 1: sparse_sign SASS loops (kind, instructions per "
-          f"trip): {', '.join(summary)}")
+        out.append((kind, len(ops)))
+    return out
+
+
+def sass_sign_ops():
+    """The charge per draw of a sparse-sign column in the sparse bounds,
+    ``SIGN_DRAW_OPS``, with phase 1's census of the built ``sparse_sign``
+    kernels beside it (diagnostics; they do not move the bound).
+
+    The shared-memory instance (ranks above 32): its loops, with its
+    shuffle pass (the longer hashing loop, one hash, the swap position and
+    the swap), the trip the charge was counted on.  Each register instance
+    ``sparse_sign_regs<RB>`` (ranks up to RB = 16, 32; unrolled, so counted
+    statically): asserted to use no local memory (no ``LDL``/``STL``) and to
+    hash each draw once (the 64-bit multiplies, ``IMAD.WIDE.U32``, from the
+    salt barrier to the first output store: two a hash, asserted fewer
+    than three a draw); its instructions per draw are those of that
+    stretch, both passes at nnz = RB, over RB."""
+    loops = _sign_loops()
+    print(f"# phase 1: sparse_sign SASS, shared-memory instance, loops "
+          f"(kind, instructions per trip): "
+          f"{', '.join(f'{k} {n}' for k, n in loops)}")
+    hashing = [n for k, n in loops if k == "hash"]
     if len(hashing) != 2:
         raise AssertionError(f"sparse_sign SASS: expected two hashing loops "
-                             f"(sign pass, shuffle pass), found {summary}")
-    print(f"# phase 1: sparse_sign SASS: {max(hashing)} instructions per "
-          f"draw (the shuffle pass: one hash, the swap position, the swap); "
-          f"the sign pass's second hash ({min(hashing)}) is not charged to "
-          f"the bound")
-    return max(hashing)
+                             f"(sign pass, shuffle pass) in the shared-memory "
+                             f"instance, found {loops}")
+    for rb in (16, 32):
+        ins, op, _ = _sass("sparse_sign", f"sparse_sign_regsILi{rb}E")
+        ops = [op(t) for _, t in ins]
+        local = [o for o in ops if o.startswith(("LDL", "STL"))]
+        if local:
+            raise AssertionError(f"sparse_sign_regs<{rb}> uses local memory: "
+                                 f"{local[:4]}")
+        bar = next(i for i, o in enumerate(ops) if o.startswith("BAR"))
+        first_st = next(i for i, o in enumerate(ops) if o.startswith("STG"))
+        passes = ops[bar + 1:first_st]
+        wide = sum(o == "IMAD.WIDE.U32" for o in passes)
+        if wide >= 3 * rb:
+            raise AssertionError(f"sparse_sign_regs<{rb}>: {wide} 64-bit "
+                                 f"multiplies for {rb} draws: more than one "
+                                 f"hash a draw")
+        stores = sum(o.startswith("STG") for o in ops)
+        print(f"# phase 1: sparse_sign SASS, register instance RB={rb}: "
+              f"{len(ops)} instructions, no local memory, {wide} IMAD.WIDE.U32 "
+              f"in the passes ({wide / (2 * rb):.2f} hashes a draw), "
+              f"{len(passes) / rb:.1f} instructions per draw (both passes at "
+              f"nnz = {rb}), {stores} output stores "
+              f"({(len(ops) - first_st) / rb:.1f} instructions a slot from "
+              f"the first store on)")
+    print(f"# phase 1: sparse_sign: the bounds charge {SIGN_DRAW_OPS} "
+          f"instructions per draw (fixed; the shared-memory instance's "
+          f"shuffle trip is {max(hashing)} today, its sign pass's second "
+          f"hash {min(hashing)})")
+    return SIGN_DRAW_OPS
 
 
 def sass_projection_census():
@@ -1013,8 +1058,9 @@ def phase_sparse_kernels(paths, ops):
                 if label in paths:
                     m = worst.setdefault((name, label), [0.0, 0.0])
                     m[0], m[1] = max(m[0], a), max(m[1], r)
-                    if name in SPARSE_PSI_INSTANCES[:4] + ("chain_step_t",
-                                                           "psi_segment"):
+                    if name in SPARSE_PSI_INSTANCES[:4] + (
+                            "chain_step_t", "psi_segment",
+                            "sparse_sign_rows"):
                         _same_bits(name, f"{label} call {i}", args)
 
     # the variants no sketch above launches: Ψ with both sides and without
@@ -1246,9 +1292,11 @@ def chain_launches(label, calls, shape, ops):
     return out
 
 
-def phase_sign_rows():
-    """``sparse_sign_rows`` against its plain version bit for bit at the
-    shapes no sketch gives it."""
+def sign_row_cases():
+    """``[(label, args)]``: ``sparse_sign_rows`` at the shapes no sketch
+    gives it: odd N, fewer non-zeros than slots, rank slices, flats above
+    2^63, both sides of each rank bucket's edge (16 | 17, 32 | 33: the
+    register instances and the shared-memory one) and ranks above 4096."""
     import torch
 
     from tt_sketch_torch.rng.hash_rng import drm_salts
@@ -1271,10 +1319,26 @@ def phase_sign_rows():
          4090, 4130),
         ("one column, rank 1", flats(1), 1, 1, 0, 1),
     ]
-    for seed, (label, flat, rank, nnz, lo, hi) in enumerate(cases):
-        salts = drm_salts(0, nnz, 1000 + seed, device="cuda")
-        _check("sparse_sign_rows", label, (flat, salts, rank, nnz, lo, hi),
-               phase=7)
+    for rank in (16, 17, 32, 33):
+        cases += [
+            (f"rank {rank}", flats(65_537), rank, rank, 0, rank),
+            (f"rank {rank}, {rank // 2} non-zeros", flats(65_539), rank,
+             rank // 2, 0, rank),
+            (f"rank {rank}, slice [{rank - 9}, {rank}), {rank - 2} "
+             f"non-zeros, flats above 2^63", flats(50_021, high=True), rank,
+             rank - 2, rank - 9, rank),
+        ]
+    return [(label, (flat, drm_salts(0, nnz, 1000 + seed, device="cuda"),
+                     rank, nnz, lo, hi))
+            for seed, (label, flat, rank, nnz, lo, hi) in enumerate(cases)]
+
+
+def phase_sign_rows():
+    """``sparse_sign_rows`` against its plain version bit for bit at
+    ``sign_row_cases``, and the same bits from two calls of each."""
+    for label, args in sign_row_cases():
+        _check("sparse_sign_rows", label, args, phase=7)
+        _same_bits("sparse_sign_rows", label, args, phase=7)
 
 
 def load_lbnl_host():

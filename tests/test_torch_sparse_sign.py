@@ -15,6 +15,9 @@ the JAX package's float64 parity path.  Tolerances, with their reasons:
   ``tests/test_torch_sparse_kernels.py``);
 - float64 sketches: 1e-10 (the same rows, summed in another order).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,6 +141,110 @@ def test_sign_rows_take_flats_above_2_63():
         pair, 9, 0, 9, 4, 123, interpret=True))
     got = SS.sparse_sign_rows(_i64(flat), H.drm_salts(0, 4, 123), 9, 4, 0, 9)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# -- the kernel's register algorithm for rank <= 32, emulated in numpy ---------
+#
+# csrc/sparse_sign.cu hashes each draw once (hash_rng.cuh:sign_column_word):
+# the flat index carries the hash's first constant; the fields j < nnz of
+# one word start at 11 (-1, 2 bits a slot: 00 = 0, 01 = +1) and bit 52 of
+# draw j flips the high bit of field j; twice the swap position (32-bit limb
+# form) is kept; then the swaps exchange fields by an XOR and the output
+# reads fields as float bit patterns (sign_slot).  The rank buckets are read
+# from the source.
+
+SIGN_SRC = (Path(__file__).resolve().parents[1] / "tt_sketch_torch" / "csrc"
+            / "sparse_sign.cu").read_text()
+SIGN_BUCKETS = sorted({int(b) for b in
+                       re.findall(r"launch_regs<(\d+)>\(", SIGN_SRC)})
+
+
+def _mix64(x):
+    """splitmix64 after its first add (hash_rng.cuh:mix64), uint64."""
+    x = x ^ (x >> np.uint64(30))
+    x = x * np.uint64(0xBF58476D1CE4E5B9)
+    x = x ^ (x >> np.uint64(27))
+    x = x * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _emulate_sign_word(flat, salts, rank, nnz, rank_min, rank_max):
+    """The register kernel's rows, step for step, on uint64 flats and
+    salts: (rank_max - rank_min, N) float32."""
+    bucket = next(b for b in SIGN_BUCKETS if rank <= b)
+    base = flat + np.uint64(0x4BE98134A5976FD3)
+    w = np.full(flat.shape, (1 << 2 * nnz) - 1, np.uint64)
+    at = []
+    for j in range(nnz):                                   # pass 1
+        h = _mix64(base + salts[j])
+        hi = h >> np.uint64(32)
+        lo = h & np.uint64(0xFFFFFFFF)
+        w ^= ((h >> np.uint64(52)) & np.uint64(1)) << np.uint64(2 * j + 1)
+        m = np.uint64(rank - j)
+        s32 = (hi & np.uint64(0xFFFFF)) * m + ((lo * m) >> np.uint64(32))
+        assert (s32 < np.uint64(1 << 32)).all()       # fits 32 bits
+        rp = (s32 >> np.uint64(20)) + np.uint64(j)
+        assert (rp >= j).all() and (rp < rank).all()
+        at.append(np.uint64(2) * rp)
+    for j in range(nnz):                                   # pass 2
+        x = ((w >> np.uint64(2 * j)) ^ (w >> at[j])) & np.uint64(3)
+        w ^= (x << np.uint64(2 * j)) | (x << at[j])
+    if bucket <= 16:                        # one 32-bit word of 16 fields
+        assert (w >> np.uint64(32) == 0).all()
+    v = w >> np.uint64(2 * rank_min)
+    out = np.empty((rank_max - rank_min, flat.shape[0]), np.uint32)
+    for r in range(rank_max - rank_min):                   # sign_slot
+        f = ((v >> np.uint64(2 * r)) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        out[r] = (f << np.uint32(30)) - ((f & np.uint32(1)) << np.uint32(23))
+    return out.view(np.float32)
+
+
+SIGN_WORD_CASES = {
+    **{f"rank{r}_full": (r, r, 0, r) for r in (1, 10, 16, 17, 20, 32)},
+    **{f"rank{r}_few": (r, n, 0, r) for r, n in ((10, 3), (16, 15),
+                                                 (17, 5), (20, 1),
+                                                 (32, 31))},
+    "rank20_slice": (20, 20, 5, 13),
+    "rank17_slice_few": (17, 4, 9, 17),
+    "rank32_last_slot": (32, 32, 31, 32),
+    "rank16_slice_few": (16, 7, 0, 9),
+}
+
+
+@pytest.mark.parametrize("high", [False, True], ids=["flats", "flats>2^63"])
+@pytest.mark.parametrize("case", SIGN_WORD_CASES, ids=list(SIGN_WORD_CASES))
+def test_register_sign_column_matches_pallas(pallas_interpret, case, high):
+    rank, nnz, lo, hi = SIGN_WORD_CASES[case]
+    rng = np.random.default_rng(rank * 100 + nnz + lo)
+    flat = rng.integers(0, 2 ** 63, 1500, dtype=np.uint64)
+    if high:
+        flat |= np.uint64(1 << 63)
+    seed = 1000 + rank
+    salts = H.drm_salts(0, nnz, seed).numpy().view(np.uint64)
+    got = _emulate_sign_word(flat, salts, rank, nnz, lo, hi)
+    # the hash of the port's contract: mix64 after the first add
+    np.testing.assert_array_equal(
+        _mix64(flat + salts[0] + np.uint64(0x4BE98134A5976FD3)),
+        H.hash_int_np(flat + salts[0]))
+    pair = (jnp.asarray((flat >> np.uint64(32)).astype(np.uint32)),
+            jnp.asarray((flat & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+    pallas = np.asarray(JR.sparse_sign_pallas_from_pairs(
+        pair, rank, lo, hi, nnz, seed))
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  pallas.view(np.uint32))
+    h = H.hash_int(_i64(flat)[None, :] + H.drm_salts(0, nnz, seed)[:, None])
+    bits = H.sparse_sign_from_bits(h, rank, lo, hi).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), bits.view(np.uint32))
+    if lo == 0 and hi == rank:
+        assert (np.abs(got).sum(0) == nnz).all()
+
+
+def test_register_buckets_cover_the_paths_ranks():
+    # every rank the sketches use (10, 20) and every rank up to 32 takes a
+    # register instance; the 32-bit limb swap position holds up to 4096
+    assert SIGN_BUCKETS == [16, 32]
+    assert all(any(r <= b for b in SIGN_BUCKETS) for r in range(1, 33))
+    assert "sparse_sign_kernel<<<" in SIGN_SRC      # larger ranks
 
 
 def test_sign_rows_reject_wrong_salts_and_slices():

@@ -7,8 +7,9 @@ git-ignored), then run from the repo root on a machine with a card::
     python3 tools/sparse_psi_ab.py [seq] [LIBRARY[:KERNEL,...]]
 
 ``LIBRARY`` is ``sparse_psi`` (the default; its six kernels),
-``chain_step`` (``chain_step_t``) or ``segment_psi`` (``psi_segment``);
-``:KERNEL,...`` times only the kernels named.  Each variant is built with
+``chain_step`` (``chain_step_t``), ``segment_psi`` (``psi_segment``) or
+``sparse_sign`` (``sparse_sign_rows``); ``:KERNEL,...`` times only the
+kernels named.  Each variant is built with
 the package's nvcc flags.  For ``sparse_psi`` the uber and lbnl STTA paths
 of ``chip_smoke.py`` (and with ``seq`` uber's OTTS and HMT) are run once
 through the package's own kernels to record their calls; for
@@ -16,7 +17,10 @@ through the package's own kernels to record their calls; for
 Gaussian and TT-DRM, OTTS, lbnl HMT); for ``segment_psi`` every uber path
 (STTA with a Gaussian and a sign pair, HMT Gaussian, OTTS, HMT TT-DRM) and
 the timed cases of ``chip_smoke.SEGMENT_SHAPES`` (uber's two segment
-shapes with their indices in runs and at random), one call each.
+shapes with their indices in runs and at random), one call each; for
+``sparse_sign`` the uber STTA path with a sign pair and the cases of
+``chip_smoke.sign_row_cases`` (odd shapes, the rank buckets' edges, ranks
+above 4096), one call each.
 Then every variant in turn, the list forward and back, checks every
 recorded call of each kernel against its plain version and times each
 recorded call (alone, ten back to back, and the host's time to enqueue
@@ -42,6 +46,7 @@ from tt_sketch_torch.kernels import chain_step as CS  # noqa: E402
 from tt_sketch_torch.kernels import cuda_build  # noqa: E402
 from tt_sketch_torch.kernels import segment_psi as SG  # noqa: E402
 from tt_sketch_torch.kernels import sparse_psi as SP  # noqa: E402
+from tt_sketch_torch.kernels import sparse_sign as SS  # noqa: E402
 
 #: per library: its wrapper module and the kernels it launches
 LIBRARIES = {
@@ -50,6 +55,7 @@ LIBRARIES = {
                         "psi_chunk_slabs", "psi_chunk_slabs_genright")),
     "chain_step": (CS, ("chain_step_t",)),
     "segment_psi": (SG, ("psi_segment",)),
+    "sparse_sign": (SS, ("sparse_sign_rows",)),
 }
 SEQ_LABELS = ("uber otts gauss", "uber hmt gauss", "uber hmt tt")
 
@@ -88,6 +94,14 @@ def main():
     segment = lib == "segment_psi"
     u = c.load_sparse("uber-synthetic")
     paths = {}
+    if lib == "sparse_sign":
+        paths["uber sign"] = c.phase_sparse_main("uber sign", u,
+                                                 SparseSignDRM, groups=1)
+        del u
+        for label, args in c.sign_row_cases():
+            paths[label] = {"calls": {"sparse_sign_rows": [args]}}
+        _run(variants, module, names, paths)
+        return
     if stta or segment:
         for label, drm in (("uber gauss", SparseGaussianDRM),
                            ("uber sign", SparseSignDRM)):

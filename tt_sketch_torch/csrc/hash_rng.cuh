@@ -24,30 +24,45 @@
 // when it misses the rare erfinv tail (|x| > 0.9966, ~0.3 % of samples,
 // which adds sqrtf and its own constants).
 //
-// A sparse-sign column (sign_column below) is nnz hashed +-1 shuffled over
-// `rank` slots, the contract of pallas_rng.py (_gen_sign_rows,
-// _swap_position): for draw j < nnz, h_j = splitmix64(flat + salt_j) with
-// the salts of columns [0, nnz); the sign is bit 52 of h_j, placed at slot
-// j; then a Fisher-Yates pass swaps slot j with slot
+// A sparse-sign column is nnz hashed +-1 shuffled over `rank` slots, the
+// contract of pallas_rng.py (_gen_sign_rows, _swap_position): for draw
+// j < nnz, h_j = splitmix64(flat + salt_j) with the salts of columns
+// [0, nnz); the sign is bit 52 of h_j, placed at slot j; then a
+// Fisher-Yates pass swaps slot j with slot
 //   floor(u52_j * (rank - j) / 2^52) + j,   u52_j = low 52 bits of h_j,
 // an exact integer.  The TPU code splits the product into uint32 limbs and
 // runs each swap as a masked select over the whole block; here one thread
-// owns one column, __umul64hi gives the high half of the 128-bit product,
-// and a swap touches two slots.  Values are exactly -1, 0 or +1.
+// owns one column and a swap touches two slots.  Values are exactly -1, 0
+// or +1.  Two generators:
+//   - sign_column_word, for rank <= 32: the column in registers, 2-bit
+//     fields of one word; each draw hashed once, its swap position kept in
+//     a register until the swaps run;
+//   - sign_column, any rank: slots in memory the caller owns (shared
+//     memory), each draw hashed twice, so that nothing is kept per draw;
+//     __umul64hi gives the high half of the 128-bit product.
 #pragma once
 
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tt_rng {
 
-__device__ __forceinline__ uint64_t hash64(uint64_t x) {
-  x += 0x4BE98134A5976FD3ull;
+// The hash's first step adds HASH_ADD; mix64 is the rest, for callers that
+// add the constant to a flat index once for all its salts.
+constexpr uint64_t HASH_ADD = 0x4BE98134A5976FD3ull;
+
+__device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x ^= x >> 30;
   x *= 0xBF58476D1CE4E5B9ull;
   x ^= x >> 27;
   x *= 0x94D049BB133111EBull;
   x ^= x >> 31;
   return x;
+}
+
+__device__ __forceinline__ uint64_t hash64(uint64_t x) {
+  return mix64(x + HASH_ADD);
 }
 
 // Giles (2010) single-precision erfinv; coefficients highest degree first
@@ -130,6 +145,62 @@ __device__ __forceinline__ void sign_column(uint64_t flat,
     slots[j * stride] = slots[rp * stride];
     slots[rp * stride] = vj;
   }
+}
+
+// The swap position of swap_position for m <= 4096, in 32-bit arithmetic:
+// with u52 = hi20 * 2^32 + lo32, floor(u52 * m / 2^52) =
+// (hi20 * m + floor(lo32 * m / 2^32)) >> 20, which is below 2^32 for
+// m <= 4096 (the limb form of pallas_rng.py:_swap_position).
+__device__ __forceinline__ int swap_position_small(uint64_t h, int m, int j) {
+  const uint32_t hi20 = (uint32_t)(h >> 32) & 0xFFFFFu;
+  const uint32_t mm = (uint32_t)m;
+  return (int)((hi20 * mm + __umulhi((uint32_t)h, mm)) >> 20) + j;
+}
+
+// A sign column of at most RB <= 32 slots in one register word: slot s is
+// the 2-bit field at bit 2s, read as a two's complement number (00 = 0,
+// 01 = +1, 11 = -1).  A 32-bit word holds 16 slots.
+template <int RB>
+using SignWord =
+    typename std::conditional<(RB <= 16), uint32_t, uint64_t>::type;
+
+// The sparse-sign column of `flat` for rank <= RB <= 32.  `salts` are those
+// of columns [0, nnz) (any memory; every thread reads the same address).
+// Pass 1 hashes each draw once: field j starts at 11 (-1) and its high bit
+// is flipped when bit 52 is set (01, +1); twice its swap position goes to
+// at[j].  The loops are unrolled, so at[] lives in registers.  Pass 2 runs
+// the swaps in order on the fields: field j at a fixed shift, field at[j]
+// at a variable one, exchanged by an XOR.
+template <int RB>
+__device__ __forceinline__ SignWord<RB> sign_column_word(
+    uint64_t flat, const uint64_t* salts, int rank, int nnz) {
+  static_assert(RB <= 32, "a sign word holds at most 32 slots");
+  using W = SignWord<RB>;
+  const uint64_t base = flat + HASH_ADD;
+  W w = nnz == RB ? ~(W)0 : ((W)1 << (2 * nnz)) - 1;
+  int at[RB];
+#pragma unroll
+  for (int j = 0; j < RB; ++j) {
+    if (j >= nnz) break;
+    const uint64_t h = mix64(base + salts[j]);
+    w ^= (W)((h >> 52) & 1u) << (2 * j + 1);
+    at[j] = 2 * swap_position_small(h, rank - j, j);
+  }
+#pragma unroll
+  for (int j = 0; j < RB; ++j) {
+    if (j >= nnz) break;
+    const W x = ((w >> (2 * j)) ^ (w >> at[j])) & (W)3;
+    w ^= (x << (2 * j)) | (x << at[j]);
+  }
+  return w;
+}
+
+// Slot 0 of a sign word as a float: the field at the top of a 32-bit word
+// is 0x40000000 (+1) or 0xC0000000 (-1); less the field's low bit at bit 23
+// that is the float 1.0f (0x3F800000) or -1.0f (0xBF800000); 0 stays 0.
+__device__ __forceinline__ float sign_slot(uint32_t w) {
+  const uint32_t g = w << 30;
+  return __uint_as_float(g - ((w & 1u) << 23));
 }
 
 }  // namespace tt_rng

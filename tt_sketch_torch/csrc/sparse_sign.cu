@@ -14,22 +14,32 @@
 // tt_sketch_torch/kernels/sparse_sign.py through ctypes.
 //
 // What bounds it.  Per column the kernel reads 8 bytes and writes
-// 4 * (rank_max - rank_min), and runs 2 * nnz hashes, nnz swaps of two
-// shared-memory slots, rank slot initialisations and rank_max - rank_min
-// stores.  At nnz = rank = 10 or 20 that is some hundreds of instructions
-// for 48 or 88 bytes, far above the CUDA cores' ridge of ~10 instructions
-// per byte: the kernel is bound by operations (chip_smoke.py counts the
-// loops' instructions in the built SASS and charges its bound one hash per
-// draw, which is what the function needs, not the two run here).
+// 4 * (rank_max - rank_min), and runs nnz hashes, nnz swap positions and
+// nnz swaps.  At nnz = rank = 10 or 20 (the ranks the sketches use) that is
+// some hundreds of instructions for 48 or 88 bytes, far above the CUDA
+// cores' ridge of ~10 instructions per byte: the kernel is bound by its
+// instructions, and by the dependent chain of its swaps.
 //
-// What the design does about it.  One thread per column: the flat index
-// sits in a register, the column's `rank` slots are int8 in shared memory
-// at slots[s * T + thread] (a swap is two byte loads and two byte stores),
-// the salts sit in shared memory too.  The block size shrinks as rank grows
-// so that T * rank bytes fit (down to 32 threads at rank 5811 with nnz =
-// rank, the largest it takes: tt_sparse_sign_max_rank).  Stores of
-// out[r, n] by a warp are 32 consecutive floats.  No state is shared
-// between threads.
+// What the design does about it.  One thread per column; the flat index
+// sits in a register.
+//   - rank <= 32 (sparse_sign_regs, templated on the rank buckets 16 and
+//     32): the whole column lives in one register word, 2-bit fields
+//     (tt_rng::sign_column_word).  Each draw is hashed once; its sign is
+//     set into its field and twice its swap position kept in a register
+//     (the loops are unrolled, so no array goes to local memory); then the
+//     swaps run on the fields, and the output loop reads fields
+//     [rank_min, rank_max) as +-1.0f / 0.0f.  The hash's first constant is
+//     added to the flat index once; the salts sit in shared memory (one
+//     broadcast load a draw).  Nothing else touches memory: no slot
+//     initialisation, no second hash, no byte loads and stores.
+//   - larger ranks (sparse_sign_kernel): the column's `rank` slots are int8
+//     in shared memory at slots[s * T + thread] (a swap is two byte loads
+//     and two byte stores) and each draw is hashed twice
+//     (tt_rng::sign_column).  The block size shrinks as rank grows so that
+//     T * rank bytes fit (down to 32 threads at rank 5811 with
+//     nnz = rank, the largest it takes: tt_sparse_sign_max_rank).
+// Stores of out[r, n] by a warp are 32 consecutive floats.  No state is
+// shared between threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +50,31 @@ namespace {
 
 constexpr int MAX_THREADS = 256;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
+constexpr int REG_THREADS = 256;       // threads per block, rank <= 32
+
+template <int RB>
+__global__ void __launch_bounds__(REG_THREADS)
+    sparse_sign_regs(const uint64_t* __restrict__ flat,
+                     const uint64_t* __restrict__ salts,
+                     float* __restrict__ out, int64_t N, int rank, int nnz,
+                     int rank_min, int rank_max) {
+  __shared__ uint64_t salts_s[RB];
+  if ((int)threadIdx.x < nnz) salts_s[threadIdx.x] = salts[threadIdx.x];
+  __syncthreads();
+  const int64_t n = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x;
+  if (n >= N) return;
+  const tt_rng::SignWord<RB> w =
+      tt_rng::sign_column_word<RB>(flat[n], salts_s, rank, nnz);
+  // slot rank_min + r at the fixed shift 2r: one running row pointer
+  const tt_rng::SignWord<RB> v = w >> (2 * rank_min);
+  float* o = out + n;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    if (r >= rank_max - rank_min) break;
+    *o = tt_rng::sign_slot((uint32_t)(v >> (2 * r)));
+    o += N;
+  }
+}
 
 __global__ void sparse_sign_kernel(const uint64_t* __restrict__ flat,
                                    const uint64_t* __restrict__ salts,
@@ -70,6 +105,17 @@ int block_threads(int rank, int nnz) {
   return (int)(t / 32 * 32);
 }
 
+template <int RB>
+int launch_regs(const uint64_t* flat, const uint64_t* salts, float* out,
+                int64_t N, int rank, int nnz, int rank_min, int rank_max,
+                cudaStream_t stream) {
+  const int64_t blocks = (N + REG_THREADS - 1) / REG_THREADS;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  sparse_sign_regs<RB><<<(unsigned)blocks, REG_THREADS, 0, stream>>>(
+      flat, salts, out, N, rank, nnz, rank_min, rank_max);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -88,6 +134,15 @@ int tt_sparse_sign_rows(const uint64_t* flat, const uint64_t* salts,
       rank > tt_sparse_sign_max_rank()) {
     return (int)cudaErrorInvalidValue;
   }
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (rank <= 16) {
+    return launch_regs<16>(flat, salts, out, N, rank, nnz, rank_min,
+                           rank_max, s);
+  }
+  if (rank <= 32) {
+    return launch_regs<32>(flat, salts, out, N, rank, nnz, rank_min,
+                           rank_max, s);
+  }
   const int T = block_threads(rank, nnz);
   if (T < 32) return (int)cudaErrorInvalidValue;
   const size_t bytes = (size_t)nnz * sizeof(uint64_t) + (size_t)T * rank;
@@ -99,8 +154,7 @@ int tt_sparse_sign_rows(const uint64_t* flat, const uint64_t* salts,
   }
   const int64_t blocks = (N + T - 1) / T;
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  sparse_sign_kernel<<<(unsigned)blocks, T, bytes,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(
+  sparse_sign_kernel<<<(unsigned)blocks, T, bytes, s>>>(
       flat, salts, out, N, rank, nnz, rank_min, rank_max);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,8 @@ tensors ``sparse_sign_rows`` launches the hand-written kernel of
 ``cuda_build``) or raises; on CPU tensors it computes the plain version
 ``sparse_sign_rows_reference``.  There is no fallback from one to the other.
 Both give exactly -1, 0 or +1: kernel and plain version agree bit for bit.
+The kernel holds a column of rank at most 32 in registers (each draw hashed
+once) and a larger one in shared memory (up to rank 5811).
 
 ``salts`` are those of columns ``[0, nnz)`` (``hash_rng.drm_salts(0, nnz,
 seed)``), not of the rank slice, and are not padded (the JAX package pads
@@ -20,6 +22,7 @@ import functools
 
 import torch
 
+from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
 from tt_sketch_torch.rng.hash_rng import hash_int, sparse_sign_from_bits
 
@@ -103,11 +106,10 @@ def sparse_sign_rows(flat: torch.Tensor, salts: torch.Tensor, rank: int,
                       device=flat.device)
     if N == 0:
         return out
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(flat.device):
         err = lib.tt_sparse_sign_rows(
             flat.data_ptr(), salts.data_ptr(), out.data_ptr(), N, rank, nnz,
-            rank_min, rank_max, stream)
+            rank_min, rank_max, current_stream_handle(flat.device.index))
     _raise_on(lib, err, "sparse_sign_rows")
     sparse_sign_rows.launches += 1
     return out
