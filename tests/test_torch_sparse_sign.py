@@ -150,13 +150,20 @@ def test_sign_rows_take_flats_above_2_63():
 # one word start at 11 (-1, 2 bits a slot: 00 = 0, 01 = +1) and bit 52 of
 # draw j flips the high bit of field j; twice the swap position (32-bit limb
 # form) is kept; then the swaps exchange fields by an XOR and the output
-# reads fields as float bit patterns (sign_slot).  The rank buckets are read
-# from the source.
+# reads fields as float bit patterns (sign_slot).  Draws go in groups (the
+# last group's draws past nnz hash a zero salt, are masked and swap
+# nothing).  The rank buckets and group sizes are read from the source.
 
 SIGN_SRC = (Path(__file__).resolve().parents[1] / "tt_sketch_torch" / "csrc"
             / "sparse_sign.cu").read_text()
 SIGN_BUCKETS = sorted({int(b) for b in
                        re.findall(r"launch_regs<(\d+)>\(", SIGN_SRC)})
+_GROUPS = re.search(r"return rb > (\d+) \? (\d+) : (\d+);", SIGN_SRC)
+
+
+def _draw_group(bucket):
+    edge, big, small = map(int, _GROUPS.groups())
+    return big if bucket > edge else small
 
 
 def _mix64(x):
@@ -172,21 +179,26 @@ def _emulate_sign_word(flat, salts, rank, nnz, rank_min, rank_max):
     """The register kernel's rows, step for step, on uint64 flats and
     salts: (rank_max - rank_min, N) float32."""
     bucket = next(b for b in SIGN_BUCKETS if rank <= b)
+    group = _draw_group(bucket)
+    n_draws = -(-nnz // group) * group                 # whole groups
+    salts = np.concatenate([salts, np.zeros(n_draws - nnz, np.uint64)])
     base = flat + np.uint64(0x4BE98134A5976FD3)
-    w = np.full(flat.shape, (1 << 2 * nnz) - 1, np.uint64)
+    w0 = np.uint64((1 << 2 * nnz) - 1)
+    w = np.full(flat.shape, w0, np.uint64)
     at = []
-    for j in range(nnz):                                   # pass 1
+    for j in range(n_draws):                               # pass 1
         h = _mix64(base + salts[j])
         hi = h >> np.uint64(32)
         lo = h & np.uint64(0xFFFFFFFF)
-        w ^= ((h >> np.uint64(52)) & np.uint64(1)) << np.uint64(2 * j + 1)
-        m = np.uint64(rank - j)
+        w ^= (((h >> np.uint64(52)) & np.uint64(1)) << np.uint64(2 * j + 1)
+              & w0)
+        m = np.uint64(rank - j if j < nnz else 0)
         s32 = (hi & np.uint64(0xFFFFF)) * m + ((lo * m) >> np.uint64(32))
         assert (s32 < np.uint64(1 << 32)).all()       # fits 32 bits
         rp = (s32 >> np.uint64(20)) + np.uint64(j)
-        assert (rp >= j).all() and (rp < rank).all()
+        assert (rp >= j).all() and (rp < max(rank, j + 1)).all()
         at.append(np.uint64(2) * rp)
-    for j in range(nnz):                                   # pass 2
+    for j in range(n_draws):                               # pass 2
         x = ((w >> np.uint64(2 * j)) ^ (w >> at[j])) & np.uint64(3)
         w ^= (x << np.uint64(2 * j)) | (x << at[j])
     if bucket <= 16:                        # one 32-bit word of 16 fields
@@ -243,6 +255,7 @@ def test_register_buckets_cover_the_paths_ranks():
     # every rank the sketches use (10, 20) and every rank up to 32 takes a
     # register instance; the 32-bit limb swap position holds up to 4096
     assert SIGN_BUCKETS == [16, 32]
+    assert [_draw_group(b) for b in SIGN_BUCKETS] == [2, 4]
     assert all(any(r <= b for b in SIGN_BUCKETS) for r in range(1, 33))
     assert "sparse_sign_kernel<<<" in SIGN_SRC      # larger ranks
 

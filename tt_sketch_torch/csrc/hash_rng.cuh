@@ -171,26 +171,40 @@ using SignWord =
 // at[j].  The loops are unrolled, so at[] lives in registers.  Pass 2 runs
 // the swaps in order on the fields: field j at a fixed shift, field at[j]
 // at a variable one, exchanged by an XOR.
-template <int RB>
+//
+// Draws go in groups of GROUP under one test of j < nnz, so that a group's
+// hash chains interleave.  A draw of the last group past nnz hashes
+// salts[j] all the same (the caller makes salts readable up to a multiple
+// of GROUP), leaves its field 00 (the flip is masked by the initial word)
+// and swaps nothing (a swap range of 0 gives at[j] = 2j).
+template <int RB, int GROUP = 1>
 __device__ __forceinline__ SignWord<RB> sign_column_word(
     uint64_t flat, const uint64_t* salts, int rank, int nnz) {
   static_assert(RB <= 32, "a sign word holds at most 32 slots");
+  static_assert(RB % GROUP == 0, "groups of draws tile the bucket");
   using W = SignWord<RB>;
   const uint64_t base = flat + HASH_ADD;
-  W w = nnz == RB ? ~(W)0 : ((W)1 << (2 * nnz)) - 1;
+  const W w0 = nnz == RB ? ~(W)0 : ((W)1 << (2 * nnz)) - 1;
+  W w = w0;
   int at[RB];
 #pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    if (j >= nnz) break;
-    const uint64_t h = mix64(base + salts[j]);
-    w ^= (W)((h >> 52) & 1u) << (2 * j + 1);
-    at[j] = 2 * swap_position_small(h, rank - j, j);
+  for (int j0 = 0; j0 < RB; j0 += GROUP) {
+    if (j0 >= nnz) break;
+#pragma unroll
+    for (int j = j0; j < j0 + GROUP; ++j) {
+      const uint64_t h = mix64(base + salts[j]);
+      w ^= ((W)((h >> 52) & 1u) << (2 * j + 1)) & w0;
+      at[j] = 2 * swap_position_small(h, j < nnz ? rank - j : 0, j);
+    }
   }
 #pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    if (j >= nnz) break;
-    const W x = ((w >> (2 * j)) ^ (w >> at[j])) & (W)3;
-    w ^= (x << (2 * j)) | (x << at[j]);
+  for (int j0 = 0; j0 < RB; j0 += GROUP) {
+    if (j0 >= nnz) break;
+#pragma unroll
+    for (int j = j0; j < j0 + GROUP; ++j) {
+      const W x = ((w >> (2 * j)) ^ (w >> at[j])) & (W)3;
+      w ^= (x << (2 * j)) | (x << at[j]);
+    }
   }
   return w;
 }

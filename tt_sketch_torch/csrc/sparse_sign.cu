@@ -26,8 +26,10 @@
 //     32): the whole column lives in one register word, 2-bit fields
 //     (tt_rng::sign_column_word).  Each draw is hashed once; its sign is
 //     set into its field and twice its swap position kept in a register
-//     (the loops are unrolled, so no array goes to local memory); then the
-//     swaps run on the fields, and the output loop reads fields
+//     (the loops are unrolled, so no array goes to local memory; draws go
+//     in pairs at RB = 16 and fours at RB = 32 under one test of j < nnz,
+//     so that their hash chains interleave); then the swaps run on the
+//     fields, and the output loop reads fields
 //     [rank_min, rank_max) as +-1.0f / 0.0f.  The hash's first constant is
 //     added to the flat index once; the salts sit in shared memory (one
 //     broadcast load a draw).  Nothing else touches memory: no slot
@@ -52,19 +54,26 @@ constexpr int MAX_THREADS = 256;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
 constexpr int REG_THREADS = 256;       // threads per block, rank <= 32
 
+// draws under one test of j < nnz in the register instance of bucket rb
+__host__ __device__ constexpr int draw_group(int rb) {
+  return rb > 16 ? 4 : 2;
+}
+
 template <int RB>
 __global__ void __launch_bounds__(REG_THREADS)
     sparse_sign_regs(const uint64_t* __restrict__ flat,
                      const uint64_t* __restrict__ salts,
                      float* __restrict__ out, int64_t N, int rank, int nnz,
                      int rank_min, int rank_max) {
-  __shared__ uint64_t salts_s[RB];
-  if ((int)threadIdx.x < nnz) salts_s[threadIdx.x] = salts[threadIdx.x];
+  __shared__ uint64_t salts_s[RB];  // zero past nnz: a group's tail
+  if ((int)threadIdx.x < RB) {
+    salts_s[threadIdx.x] = (int)threadIdx.x < nnz ? salts[threadIdx.x] : 0;
+  }
   __syncthreads();
   const int64_t n = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x;
   if (n >= N) return;
-  const tt_rng::SignWord<RB> w =
-      tt_rng::sign_column_word<RB>(flat[n], salts_s, rank, nnz);
+  const tt_rng::SignWord<RB> w = tt_rng::sign_column_word<RB, draw_group(RB)>(
+      flat[n], salts_s, rank, nnz);
   // slot rank_min + r at the fixed shift 2r: one running row pointer
   const tt_rng::SignWord<RB> v = w >> (2 * rank_min);
   float* o = out + n;
