@@ -154,8 +154,8 @@ def test_sign_rows_take_flats_above_2_63():
 # last group's draws past nnz hash a zero salt, are masked and swap
 # nothing).  The rank buckets and group sizes are read from the source.
 
-SIGN_SRC = (Path(__file__).resolve().parents[1] / "tt_sketch_torch" / "csrc"
-            / "sparse_sign.cu").read_text()
+SIGN_SRC_DIR = Path(__file__).resolve().parents[1] / "tt_sketch_torch" / "csrc"
+SIGN_SRC = (SIGN_SRC_DIR / "sparse_sign.cu").read_text()
 SIGN_BUCKETS = sorted({int(b) for b in
                        re.findall(r"launch_regs<(\d+)>\(", SIGN_SRC)})
 _GROUPS = re.search(r"return rb > (\d+) \? (\d+) : (\d+);", SIGN_SRC)
@@ -258,6 +258,33 @@ def test_register_buckets_cover_the_paths_ranks():
     assert [_draw_group(b) for b in SIGN_BUCKETS] == [2, 4]
     assert all(any(r <= b for b in SIGN_BUCKETS) for r in range(1, 33))
     assert "sparse_sign_kernel<<<" in SIGN_SRC      # larger ranks
+
+
+def _byte_perm(x, y, s):
+    """CUDA's ``__byte_perm(x, y, s)``: byte i of the result is byte
+    ``(s >> 4i) & 7`` of the eight bytes of ``y:x``."""
+    b = [(x >> 8 * i) & 0xFF for i in range(4)] + \
+        [(y >> 8 * i) & 0xFF for i in range(4)]
+    return sum(b[(s >> 4 * i) & 7] << 8 * i for i in range(4))
+
+
+@pytest.mark.parametrize("bucket", [16, 32])
+def test_packed_swap_slots_round_trip(bucket):
+    # hash_rng.cuh:SwapSlots<RB, true>, the fused kernels' sign words: twice
+    # each swap position (at most 62) as one byte, four to a register, set
+    # in draw order and read back; selectors as written in the header
+    src = (SIGN_SRC_DIR / "hash_rng.cuh").read_text()
+    assert "(0x3210u & ~(0xFu << k)) | (4u << k)" in src
+    assert "__byte_perm(v[j >> 2], 0u, 0x4440u | (j & 3))" in src
+    rng = np.random.default_rng(bucket)
+    values = [int(v) for v in 2 * rng.integers(0, 32, bucket)]
+    words = [0] * (bucket // 4)
+    for j, a in enumerate(values):
+        k = 4 * (j & 3)
+        words[j >> 2] = a if k == 0 else _byte_perm(
+            words[j >> 2], a, (0x3210 & ~(0xF << k)) | (4 << k))
+    assert [_byte_perm(words[j >> 2], 0, 0x4440 | (j & 3))
+            for j in range(bucket)] == values
 
 
 def test_sign_rows_reject_wrong_salts_and_slices():

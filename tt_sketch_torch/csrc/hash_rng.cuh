@@ -164,29 +164,53 @@ template <int RB>
 using SignWord =
     typename std::conditional<(RB <= 16), uint32_t, uint64_t>::type;
 
+// Twice the swap positions of a column's draws (each at most 62): an int
+// each, or (PACK) one byte each, four to a 32-bit register, for callers
+// whose register budget is tight.  Indices are compile-time constants once
+// the loops are unrolled, so the array stays in registers.
+template <int RB, bool PACK>
+struct SwapSlots {
+  int v[RB];
+  __device__ __forceinline__ void set(int j, int a) { v[j] = a; }
+  __device__ __forceinline__ int get(int j) const { return v[j]; }
+};
+
+template <int RB>
+struct SwapSlots<RB, true> {
+  uint32_t v[RB / 4];
+  __device__ __forceinline__ void set(int j, int a) {
+    const int k = 4 * (j & 3);  // byte j & 3 of word j / 4 takes a
+    v[j >> 2] = k == 0 ? (uint32_t)a
+                       : __byte_perm(v[j >> 2], (uint32_t)a,
+                                     (0x3210u & ~(0xFu << k)) | (4u << k));
+  }
+  __device__ __forceinline__ int get(int j) const {
+    return (int)__byte_perm(v[j >> 2], 0u, 0x4440u | (j & 3));
+  }
+};
+
 // The sparse-sign column of `flat` for rank <= RB <= 32.  `salts` are those
 // of columns [0, nnz) (any memory; every thread reads the same address).
 // Pass 1 hashes each draw once: field j starts at 11 (-1) and its high bit
-// is flipped when bit 52 is set (01, +1); twice its swap position goes to
-// at[j].  The loops are unrolled, so at[] lives in registers.  Pass 2 runs
-// the swaps in order on the fields: field j at a fixed shift, field at[j]
-// at a variable one, exchanged by an XOR.
+// is flipped when bit 52 is set (01, +1); twice its swap position is kept
+// (SwapSlots).  Pass 2 runs the swaps in order on the fields: field j at a
+// fixed shift, the other at a variable one, exchanged by an XOR.
 //
 // Draws go in groups of GROUP under one test of j < nnz, so that a group's
 // hash chains interleave.  A draw of the last group past nnz hashes
 // salts[j] all the same (the caller makes salts readable up to a multiple
 // of GROUP), leaves its field 00 (the flip is masked by the initial word)
-// and swaps nothing (a swap range of 0 gives at[j] = 2j).
-template <int RB, int GROUP = 1>
+// and swaps nothing (a swap range of 0 gives the position j).
+template <int RB, int GROUP = 1, bool PACK = false>
 __device__ __forceinline__ SignWord<RB> sign_column_word(
     uint64_t flat, const uint64_t* salts, int rank, int nnz) {
-  static_assert(RB <= 32, "a sign word holds at most 32 slots");
+  static_assert(RB <= 32 && RB % 4 == 0, "a sign word holds 4..32 slots");
   static_assert(RB % GROUP == 0, "groups of draws tile the bucket");
   using W = SignWord<RB>;
   const uint64_t base = flat + HASH_ADD;
   const W w0 = nnz == RB ? ~(W)0 : ((W)1 << (2 * nnz)) - 1;
   W w = w0;
-  int at[RB];
+  SwapSlots<RB, PACK> at;
 #pragma unroll
   for (int j0 = 0; j0 < RB; j0 += GROUP) {
     if (j0 >= nnz) break;
@@ -194,7 +218,7 @@ __device__ __forceinline__ SignWord<RB> sign_column_word(
     for (int j = j0; j < j0 + GROUP; ++j) {
       const uint64_t h = mix64(base + salts[j]);
       w ^= ((W)((h >> 52) & 1u) << (2 * j + 1)) & w0;
-      at[j] = 2 * swap_position_small(h, j < nnz ? rank - j : 0, j);
+      at.set(j, 2 * swap_position_small(h, j < nnz ? rank - j : 0, j));
     }
   }
 #pragma unroll
@@ -202,8 +226,9 @@ __device__ __forceinline__ SignWord<RB> sign_column_word(
     if (j0 >= nnz) break;
 #pragma unroll
     for (int j = j0; j < j0 + GROUP; ++j) {
-      const W x = ((w >> (2 * j)) ^ (w >> at[j])) & (W)3;
-      w ^= (x << (2 * j)) | (x << at[j]);
+      const int a = at.get(j);
+      const W x = ((w >> (2 * j)) ^ (w >> a)) & (W)3;
+      w ^= (x << (2 * j)) | (x << a);
     }
   }
   return w;

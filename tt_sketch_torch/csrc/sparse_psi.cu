@@ -115,15 +115,20 @@
 // strides are taken only by the calls whose layout fits them.
 //
 // A sign side cannot be hashed one sample per thread-step: its column is
-// one shuffle over `rank` slots, run by one thread in place on the side's
-// rows in shared memory, and the tile waits for the slowest.  So the side
-// with the most draws gets a thread per column and a side with k times
-// fewer draws a thread per k columns, each side from a warp of its own (a
-// warp whose lanes shuffle two sides runs both one after the other): at
-// ranks 10/20 the merged kernel's right side takes 120 threads and each
-// left side 60, and Ω alone takes 160 + 80 over 160-column tiles.  A
-// sliced side (r < rank) allocates `rank` rows and contracts rows
-// [rank_min, rank_min + r).
+// one shuffle over `rank` slots, run by one thread, and the tile waits for
+// the slowest.  So the side with the most draws gets a thread per column
+// and a side with k times fewer draws a thread per k columns, each side
+// from a warp of its own (a warp whose lanes shuffle two sides runs both
+// one after the other): at ranks 10/20 the merged kernel's right side
+// takes 120 threads and each left side 60, and Ω alone takes 160 + 80 over
+// 160-column tiles.  A sliced side (r < rank) allocates `rank` rows and
+// contracts rows [rank_min, rank_min + r).  Up to rank 32 a column is
+// built in registers (hash_rng.cuh:sign_column_word, each draw hashed
+// once, swap positions one byte each) and only the contracted rows are
+// written, in an instance of its own (SW) so that the registers of the
+// others are not spent on it; the merged kernel keeps the in-place
+// shuffle (each draw hashed twice), which measured faster there at lbnl's
+// three sign sides on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
 //
 // The window kernel.  The TPU kernel revisits one output block over
 // adjacent grid steps (init on a window's first chunk, accumulate after);
@@ -261,9 +266,34 @@ __host__ __device__ Layout layout(const Args& a) {
   return y;
 }
 
-// One tile column of a sign side, in place on the side's rows (`col` is
-// the column's slot 0, `ts` the row stride); a left side carries the
-// entry.  A column past the range contributes zeros.
+// Rows [rank_min, rank_min + r_out) of one sign column held in registers
+// (rank <= RB <= 32; swap positions packed, one byte each), times ek, into
+// the side's rows at `col`.
+template <int RB>
+__device__ __forceinline__ void sign_word_rows(float* col, int ts,
+                                               uint64_t flat,
+                                               const uint64_t* salts,
+                                               const Side& sd, int r_out,
+                                               float ek) {
+  const tt_rng::SignWord<RB> v =
+      tt_rng::sign_column_word<RB, 1, true>(flat, salts, sd.rank, sd.nnz) >>
+      (2 * sd.rank_min);
+  float* o = col + sd.rank_min * ts;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    if (r >= r_out) break;
+    *o = tt_rng::sign_slot((uint32_t)(v >> (2 * r))) * ek;
+    o += ts;
+  }
+}
+
+// One tile column of a sign side on the side's rows (`col` is the column's
+// slot 0, `ts` the row stride); a left side carries the entry.  In a kernel
+// instance with sign words (SW) a column of rank <= 32 is built in
+// registers and only rows [rank_min, rank_min + r_out) are written; else it
+// is shuffled in place over all `rank` rows.  A column past the range
+// contributes zeros.
+template <bool SW>
 __device__ __forceinline__ void sign_side(float* col, int ts,
                                           const uint64_t* flat,
                                           const uint64_t* salts,
@@ -274,9 +304,17 @@ __device__ __forceinline__ void sign_side(float* col, int ts,
     for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * ts] = 0.f;
     return;
   }
+  const float ek = e ? e[k] : 1.f;
+  if (SW && sd.rank <= 16) {
+    sign_word_rows<16>(col, ts, flat[k], salts, sd, r_out, ek);
+    return;
+  }
+  if (SW && sd.rank <= 32) {
+    sign_word_rows<32>(col, ts, flat[k], salts, sd, r_out, ek);
+    return;
+  }
   tt_rng::sign_column(flat[k], salts, sd.rank, sd.nnz, col, ts);
   if (e) {
-    const float ek = e[k];
     for (int s = sd.rank_min; s < sd.rank_min + r_out; ++s) col[s * ts] *= ek;
   }
 }
@@ -320,7 +358,7 @@ __device__ __forceinline__ Micro micro_tile(const Sched& sc, int p, int c0,
   return m;
 }
 
-template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN>
+template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN, bool SW>
 __global__ void __launch_bounds__(
     THREADS, PSI && OM ? MIN_BLOCKS_MERGED
              : OM      ? MIN_BLOCKS_OMEGA
@@ -480,7 +518,7 @@ __global__ void __launch_bounds__(
           for (int c = u; c < W; c += sc.SN[sd]) {
             const int gc = c / TG;
             const int64_t kc = start + gc * q + (int64_t)it * TG + (c - gc * TG);
-            sign_side(rows + c, ts, flat, sl, side, r_out, e, kc,
+            sign_side<SW>(rows + c, ts, flat, sl, side, r_out, e, kc,
                       kc < min(start + (gc + 1) * q, end));
           }
         };
@@ -745,14 +783,22 @@ cudaError_t launch(Args a, int64_t n_blocks, cudaStream_t stream) {
       (OM && bad_side(a.os, a.r1o))) {
     return cudaErrorInvalidValue;
   }
+  // the instance with sign words where a sign side has rank <= 32, but in
+  // the merged kernel (slower there at lbnl's three sign sides, PERF.md);
+  // the others keep their registers for the contraction
+  const auto word = [](bool on, const Side& sd) {
+    return on && sd.kind == SIGN && sd.rank <= 32;
+  };
+  const bool sw = !(PSI && OM) && (word(HAS_R, a.rs) ||
+                                   word(PSI && HAS_L, a.ls) || word(OM, a.os));
+  auto kernel = sw ? sparse_psi_kernel<HAS_L, HAS_R, PSI, OM, WIN, true>
+                   : sparse_psi_kernel<HAS_L, HAS_R, PSI, OM, WIN, false>;
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        sparse_psi_kernel<HAS_L, HAS_R, PSI, OM, WIN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  sparse_psi_kernel<HAS_L, HAS_R, PSI, OM, WIN>
-      <<<(unsigned)n_blocks, THREADS, bytes, stream>>>(a);
+  kernel<<<(unsigned)n_blocks, THREADS, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
