@@ -63,7 +63,8 @@ Phases (the first failure raises and exits non-zero):
    with one row;
    the same bits from two calls of each ``sparse_psi.cu`` instance, of
    ``chain_step_t``, ``psi_segment`` and ``sparse_sign_rows`` at the
-   recorded calls and of the segment kernel at every shape; time the recorded calls and
+   recorded calls and of the segment kernel at every shape; time the
+   recorded calls and
    their plain versions (the segment kernel's also against ``index_add_``
    of the outer products), and bound them (each time also over its bound);
    each recorded ``chain_step_t`` launch on its own line (mode, ``n``,
@@ -743,8 +744,9 @@ def sass_sign_ops():
                                  f"hash a draw")
         stores = sum(o.startswith("STG") for o in ops)
         print(f"# phase 1: sparse_sign SASS, register instance RB={rb}: "
-              f"{len(ops)} instructions, no local memory, {wide} IMAD.WIDE.U32 "
-              f"in the passes ({wide / (2 * rb):.2f} hashes a draw), "
+              f"{len(ops)} instructions, no local memory, {wide} "
+              f"IMAD.WIDE.U32 in the passes ({wide / (2 * rb):.2f} hashes a "
+              f"draw), "
               f"{len(passes) / rb:.1f} instructions per draw (both passes at "
               f"nnz = {rb}), {stores} output stores "
               f"({(len(ops) - first_st) / rb:.1f} instructions a slot from "

@@ -783,9 +783,9 @@ cudaError_t launch(Args a, int64_t n_blocks, cudaStream_t stream) {
       (OM && bad_side(a.os, a.r1o))) {
     return cudaErrorInvalidValue;
   }
-  // the instance with sign words where a sign side has rank <= 32, but in
-  // the merged kernel (slower there at lbnl's three sign sides, PERF.md);
-  // the others keep their registers for the contraction
+  // the instance with sign words where a sign side has rank <= 32, except
+  // for the merged kernel (slower there at lbnl's three sign sides,
+  // PERF.md); the others keep their registers for the contraction
   const auto word = [](bool on, const Side& sd) {
     return on && sd.kind == SIGN && sd.rank <= 32;
   };

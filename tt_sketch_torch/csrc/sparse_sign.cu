@@ -29,11 +29,11 @@
 //     (the loops are unrolled, so no array goes to local memory; draws go
 //     in pairs at RB = 16 and fours at RB = 32 under one test of j < nnz,
 //     so that their hash chains interleave); then the swaps run on the
-//     fields, and the output loop reads fields
-//     [rank_min, rank_max) as +-1.0f / 0.0f.  The hash's first constant is
-//     added to the flat index once; the salts sit in shared memory (one
-//     broadcast load a draw).  Nothing else touches memory: no slot
-//     initialisation, no second hash, no byte loads and stores.
+//     fields, and the output loop reads fields [rank_min, rank_max) as
+//     +-1.0f / 0.0f through one running row pointer.  The hash's first
+//     constant is added to the flat index once; the salts sit in shared
+//     memory (one broadcast load a draw).  Nothing else touches memory: no
+//     slot initialisation, no second hash, no byte loads and stores.
 //   - larger ranks (sparse_sign_kernel): the column's `rank` slots are int8
 //     in shared memory at slots[s * T + thread] (a swap is two byte loads
 //     and two byte stores) and each draw is hashed twice
