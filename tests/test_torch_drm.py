@@ -84,12 +84,28 @@ def test_transpose_and_shape_check():
 
 
 def test_other_formats_are_later_slices():
-    d = TensorTrainDRM(3, shape=SHAPE, transpose=False, seed=2)
-    # sketch_sparse came with the sequential-methods slice
-    # (tests/test_torch_chain.py); CP and Tucker are still to come
-    for method in ("sketch_cp", "sketch_tucker"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            getattr(d, method)(None)
+    """CP and Tucker input have come: ``sketch_cp`` and ``sketch_tucker``
+    equal the JAX package's (float64, 1e-12) for a left and a right DRM;
+    a tensor of another shape still raises."""
+    from tt_sketch_torch.formats import CPTensor, TuckerTensor
+    from tt_sketch_torch.interop import tucker_tensor_from_numpy
+    from tt_sketch_tpu.formats import CPTensor as JCP
+    from tt_sketch_tpu.formats import TuckerTensor as JTucker
+
+    cp, jcp = CPTensor.random(SHAPE, 4, seed=1), JCP.random(SHAPE, 4, seed=1)
+    jtk = JTucker.random(SHAPE, (2, 3, 2, 3), seed=3)
+    tk = tucker_tensor_from_numpy([np.asarray(U) for U in jtk.factors],
+                                  np.asarray(jtk.core))
+    for transpose in (False, True):
+        d = TensorTrainDRM(3, shape=SHAPE, transpose=transpose, seed=2)
+        jd = JDRM(3, shape=SHAPE, transpose=transpose, seed=2)
+        _assert_lists_close(d.sketch_cp(cp), jd.sketch_cp(jcp))
+        _assert_lists_close(d.sketch_tucker(tk), jd.sketch_tucker(jtk))
+    for method, other in (("sketch_cp", CPTensor.random((8, 5, 6), 2)),
+                          ("sketch_tucker",
+                           TuckerTensor.random((8, 5, 6), 2))):
+        with pytest.raises(ValueError, match="doesn't match"):
+            getattr(d, method)(other)
 
 
 def test_given_cores_set_the_device():

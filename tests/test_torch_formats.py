@@ -125,8 +125,23 @@ def test_zero_and_orthog_random():
 
 
 def test_lazy_sum_is_a_later_slice():
-    a, _ = _pair(0)
-    with pytest.raises(NotImplementedError, match="TensorSum"):
-        a + a
+    """The lazy sum has come: ``a + a`` builds a ``TensorSum`` equal to the
+    JAX package's (float64, 1e-12); a numpy array still is no
+    ``DenseTensor``."""
+    from tt_sketch_torch.formats import TensorSum
+    from tt_sketch_tpu.formats import TensorSum as JSum
+
+    a, ja = _pair(0)
+    b, jb = _pair(1, rank=2)
+    s, js = a + a, ja + ja
+    assert isinstance(s, TensorSum) and isinstance(js, JSum)
+    assert s.num_summands == js.num_summands == 2
+    np.testing.assert_allclose(s.to_dense().numpy(),
+                               np.asarray(js.to_dense()), atol=1e-12)
+    d = (a - b).to_dense().numpy()
+    np.testing.assert_allclose(d, np.asarray((ja - jb).to_dense()),
+                               atol=1e-12)
+    assert s.dot(b) == pytest.approx(js.dot(jb), abs=1e-12)
+    assert b.dot(s) == pytest.approx(jb.dot(js), abs=1e-12)
     with pytest.raises(TypeError, match="torch.Tensor"):
         DenseTensor(np.zeros(SHAPE))

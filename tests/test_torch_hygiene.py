@@ -53,6 +53,10 @@ def test_import_leaves_jax_out():
         "import tt_sketch_torch.kernels.chain_step\n"
         "import tt_sketch_torch.kernels.projector_diag\n"
         "import tt_sketch_torch.kernels.segment_psi\n"
+        "from tt_sketch_torch import TensorSum, CPTensor, TuckerTensor\n"
+        "from tt_sketch_torch import DenseGaussianDRM, ALL_DRM\n"
+        "from tt_sketch_torch import blocked_stream_sketch\n"
+        "from tt_sketch_torch import get_drm_capabilities\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"

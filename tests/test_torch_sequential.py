@@ -503,13 +503,18 @@ def test_orth_step_spans_what_jax_spans(with_omega):
 
 
 def test_chains_of_unported_formats_raise():
-    """CP, Tucker and ``TensorSum`` come with later slices of the port: a
-    tensor of a type the dispatch does not know raises, it is not sketched
-    as something else."""
-    class CPTensor:
+    """A tensor of a type the dispatch does not know raises, it is not
+    sketched as something else; CP, Tucker and ``TensorSum`` chains exist
+    now (a sum keeps one child chain per summand)."""
+    class Unknown:
         shape = DENSE_SHAPE
 
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        D._OrthogChain(CPTensor())
-    for fmt in (SparseTensor, TensorTrain, DenseTensor):
+    with pytest.raises(ValueError, match="Cannot chain-sketch"):
+        D._OrthogChain(Unknown())
+    for fmt in (SparseTensor, TensorTrain, DenseTensor, D.CPTensor,
+                D.TuckerTensor):
         assert fmt in D.DRM_SKETCH_METHOD_DISPATCH
+    assert D.TensorSum not in D.DRM_SKETCH_METHOD_DISPATCH
+    tt = TensorTrain.random(DENSE_SHAPE, 2, seed=0)
+    chain = D._OrthogChain(tt + tt * 2.0)
+    assert [type(c.tensor) for c in chain.children] == [TensorTrain] * 2

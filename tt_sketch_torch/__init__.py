@@ -1,9 +1,10 @@
 """tt_sketch_torch — the PyTorch/CUDA port of ``tt_sketch_tpu``.
 
-Tensor-train sketching of dense, TT and sparse COO tensors with TT-DRMs,
-lazy-Gaussian and sparse-sign DRMs: the streaming sketch (STTA) with the
-recovery of its TT cores, and the sequential sweeps ``hmt_sketch`` and
-``orthogonal_sketch`` (OTTS).  The dense slab stream's one-pass projection
+Tensor-train sketching of dense, TT, CP, Tucker, sparse COO tensors and
+lazy sums of them with TT-DRMs, dense Gaussian, lazy-Gaussian and
+sparse-sign DRMs: the streaming sketch (STTA) with the recovery of its TT
+cores, its blocked form and rank growth, and the sequential sweeps
+``hmt_sketch`` and ``orthogonal_sketch`` (OTTS).  The dense slab stream's one-pass projection
 runs a hand-written Hopper kernel (``csrc/dual_project.cu``); the sparse
 sketches run the row generators (``csrc/lazy_gaussian.cu``,
 ``csrc/sparse_sign.cu``), the Ψ/Ω kernels over hashed or given rows, among
@@ -36,9 +37,14 @@ def __getattr__(name):
         "DenseTensor": "tt_sketch_torch.formats.dense",
         "TensorTrain": "tt_sketch_torch.formats.tensor_train",
         "SparseTensor": "tt_sketch_torch.formats.sparse",
+        "TensorSum": "tt_sketch_torch.formats.tensor_sum",
+        "CPTensor": "tt_sketch_torch.formats.cp",
+        "TuckerTensor": "tt_sketch_torch.formats.tucker",
         "stream_sketch": "tt_sketch_torch.engine.sketch",
         "hmt_sketch": "tt_sketch_torch.engine.sketch",
         "orthogonal_sketch": "tt_sketch_torch.engine.sketch",
+        "blocked_stream_sketch": "tt_sketch_torch.engine.sketch",
+        "get_drm_capabilities": "tt_sketch_torch.engine.sketch",
         "assemble_sketched_tt": "tt_sketch_torch.engine.sketch",
         "SketchedTensorTrain": "tt_sketch_torch.engine.sketch",
         "SketchContainer": "tt_sketch_torch.engine.sketch_container",
@@ -47,6 +53,8 @@ def __getattr__(name):
         "TensorTrainDRM": "tt_sketch_torch.drm",
         "SparseGaussianDRM": "tt_sketch_torch.drm",
         "SparseSignDRM": "tt_sketch_torch.drm",
+        "DenseGaussianDRM": "tt_sketch_torch.drm",
+        "ALL_DRM": "tt_sketch_torch.drm",
         "build_psi_plan": "tt_sketch_torch.kernels.sparse_plan",
         "load_frostt": "tt_sketch_torch.data.frostt",
         "sample_error": "tt_sketch_torch.data.frostt",

@@ -1,7 +1,7 @@
 """Tensor-train DRM: sketches with partial contractions of a fixed random TT.
 
-Counterpart of ``tt_sketch_tpu/drm/tensor_train_drm.py`` for sparse, dense
-and TT input.  The per-mode chain *step* functions are exported because the
+Counterpart of ``tt_sketch_tpu/drm/tensor_train_drm.py`` for sparse,
+dense, TT, CP and Tucker input.  The per-mode chain *step* functions are exported because the
 orthogonal/HMT sketches reuse them with the just-orthogonalized Ψ cores in
 place of random cores.  Chain-state conventions (state after absorbing
 cores 0..mu):
@@ -11,8 +11,8 @@ cores 0..mu):
   (``chain_step_sparse_t``), the layout the Ψ kernels consume
 - tt:     ``(tensor_rank, r)``
 - dense:  ``(prod(shape[:mu+1]), r)`` — explicit prefix contraction
-
-The CP and Tucker sketches come with a later slice of the port.
+- cp:     ``(cp_rank, r)``
+- tucker: ``(prod(tucker_rank[:mu+1]), r)``
 """
 from __future__ import annotations
 
@@ -64,6 +64,20 @@ def chain_step_tt(state, core, tensor_core):
         return torch.einsum("ijk,ijl->kl", tensor_core, core)
     tmp = torch.einsum("ij,ikl->jkl", state, tensor_core)  # (r_drm, n, r_t2)
     return torch.einsum("jkl,jkm->lm", tmp, core)
+
+
+def chain_step_cp(state, core, cp_factor):
+    if state is None:
+        return torch.einsum("ij,lik->jk", cp_factor, core)
+    return torch.einsum("ij,ki,jkl->il", state, cp_factor, core)
+
+
+def chain_step_tucker(state, core, tucker_factor):
+    reduced = torch.einsum("jkl,km->jml", core, tucker_factor.T)
+    if state is None:
+        return reduced.reshape(-1, reduced.shape[-1])
+    nxt = torch.einsum("ij,jml->iml", state, reduced)
+    return nxt.reshape(-1, nxt.shape[-1])
 
 
 def chain_step_dense(state, core):
@@ -132,15 +146,21 @@ class TensorTrainDRM(
             out.append(state_t[self.rank_min[mu]: self.rank_max[mu], :])
         return out
 
+    @handle_transpose
     def sketch_cp(self, tensor) -> List[torch.Tensor]:
-        raise NotImplementedError(
-            "CP input comes with the formats-and-DRMs slice of the port"
-        )
+        out, state = [], None
+        for mu, core in enumerate(self.cores):
+            state = chain_step_cp(state, core, tensor.cores[mu])
+            out.append(self._slice(state, mu))
+        return out
 
+    @handle_transpose
     def sketch_tucker(self, tensor) -> List[torch.Tensor]:
-        raise NotImplementedError(
-            "Tucker input comes with the formats-and-DRMs slice of the port"
-        )
+        out, state = [], None
+        for mu, core in enumerate(self.cores):
+            state = chain_step_tucker(state, core, tensor.factors[mu])
+            out.append(self._slice(state, mu))
+        return out
 
     @handle_transpose
     def sketch_tt(self, tensor) -> List[torch.Tensor]:

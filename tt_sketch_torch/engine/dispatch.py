@@ -14,8 +14,10 @@ the one engine behind all three methods:
   functions as the TT-DRM.  On sparse input the chain step is the
   ``chain_step_t`` kernel and Ψ takes the half-fused and grouped kernels.
 
-Sparse, TT and dense input are ported; CP, Tucker and ``TensorSum`` chains
-come with those formats.
+A ``TensorSum`` is sketched summand by summand (linearity): each summand
+takes its own format's functions with the DRMs passed through, so a sparse
+shard with plans takes the fused kernels, and the sequential chain keeps
+one child chain per summand.
 """
 from __future__ import annotations
 
@@ -25,12 +27,21 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from tt_sketch_torch.drm.tensor_train_drm import (
+    chain_step_cp,
     chain_step_dense,
     chain_step_sparse_t,
     chain_step_tt,
+    chain_step_tucker,
 )
 from tt_sketch_torch.engine.sketch_container import SketchContainer
-from tt_sketch_torch.formats import DenseTensor, SparseTensor, TensorTrain
+from tt_sketch_torch.formats import (
+    CPTensor,
+    DenseTensor,
+    SparseTensor,
+    TensorSum,
+    TensorTrain,
+    TuckerTensor,
+)
 from tt_sketch_torch.kernels import sketch_kernels as K
 from tt_sketch_torch.utils import right_mul_pinv
 
@@ -45,24 +56,98 @@ DRM_SKETCH_METHOD_DISPATCH = {
     SparseTensor: "sketch_sparse",
     TensorTrain: "sketch_tt",
     DenseTensor: "sketch_dense",
+    CPTensor: "sketch_cp",
+    TuckerTensor: "sketch_tucker",
 }
 
 OMEGA_METHODS: Dict[type, Callable] = {
     SparseTensor: K.sketch_omega_sparse,
     TensorTrain: K.sketch_omega_tt,
     DenseTensor: K.sketch_omega_dense,
+    CPTensor: K.sketch_omega_cp,
+    TuckerTensor: K.sketch_omega_tucker,
 }
 
 PSI_METHODS: Dict[type, Callable] = {
     SparseTensor: K.sketch_psi_sparse,
     TensorTrain: K.sketch_psi_tt,
     DenseTensor: K.sketch_psi_dense,
+    CPTensor: K.sketch_psi_cp,
+    TuckerTensor: K.sketch_psi_tucker,
 }
+
+
+# -- TensorSum: distribute over summands (linearity) -------------------------
+
+class _PerSummandView:
+    """Lazy per-μ view over per-summand contraction lists: element ``i`` is
+    ``per_summand[i][mu]``, read on first access, so a sparse summand whose
+    Ψ/Ω take the fused kernels never generates its DRM rows (the lists may
+    be ``LazyModeList``s)."""
+
+    def __init__(self, per_summand, mu: int) -> None:
+        self._ps = per_summand
+        self._mu = mu
+
+    def __len__(self) -> int:
+        return len(self._ps)
+
+    def __getitem__(self, i: int):
+        return self._ps[i][self._mu]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._ps)))
+
+
+def _side(arr, i: int, summand):
+    """Element ``i`` of a per-summand side: a thunk for a sparse summand
+    (its Ψ/Ω functions may never read the rows), the array for any
+    other."""
+    if arr is None:
+        return None
+    if isinstance(summand, SparseTensor):
+        return lambda: arr[i]
+    return arr[i]
+
+
+def sketch_omega_sum(left_arr, right_arr, *, tensor, **kwargs):
+    omega = 0.0
+    for i, summand in enumerate(tensor.tensors):
+        omega = omega + OMEGA_METHODS[type(summand)](
+            _side(left_arr, i, summand), _side(right_arr, i, summand),
+            tensor=summand, **kwargs
+        )
+    return omega
+
+
+def sketch_psi_sum(left_arr, right_arr, *, tensor, **kwargs):
+    psi = 0.0
+    for i, summand in enumerate(tensor.tensors):
+        psi = psi + PSI_METHODS[type(summand)](
+            _side(left_arr, i, summand), _side(right_arr, i, summand),
+            tensor=summand, **kwargs
+        )
+    return psi
+
+
+OMEGA_METHODS[TensorSum] = sketch_omega_sum
+PSI_METHODS[TensorSum] = sketch_psi_sum
+
+
+def _sum_sketch(tensor: TensorSum, drm) -> List[_PerSummandView]:
+    """Per-μ lazy views of the per-summand contraction lists."""
+    per_summand = [
+        get_sketch_method(summand, drm)(summand) for summand in tensor.tensors
+    ]
+    return [_PerSummandView(per_summand, mu)
+            for mu in range(len(tensor.shape) - 1)]
 
 
 def get_sketch_method(tensor, drm) -> Callable:
     if type(tensor) in DRM_SKETCH_METHOD_DISPATCH:
         return getattr(drm, DRM_SKETCH_METHOD_DISPATCH[type(tensor)])
+    if isinstance(tensor, TensorSum):
+        return lambda t: _sum_sketch(t, drm)
     raise ValueError(f"DRM of type {type(drm)} can't sketch {type(tensor)}")
 
 
@@ -106,20 +191,25 @@ class _OrthogChain:
 
     ``push(core)`` absorbs one (1 if first, else r×n×r) orthogonalized core
     and returns the left contraction to use for the next Ψ, in the layout
-    the format's Ψ function expects from a left DRM.
+    the format's Ψ function expects from a left DRM.  A ``TensorSum``
+    keeps one child chain per summand and returns their outputs as a
+    tuple, which the sum's Ψ function hands out summand by summand.
     """
 
     def __init__(self, tensor) -> None:
-        if type(tensor) not in DRM_SKETCH_METHOD_DISPATCH:
-            raise NotImplementedError(
-                f"the orthogonal and HMT sketches of {type(tensor).__name__} "
-                f"input come with that format's slice of the port"
-            )
         self.tensor = tensor
         self.mu = 0
-        self.state = None
+        if isinstance(tensor, TensorSum):
+            self.children = [_OrthogChain(t) for t in tensor.tensors]
+        elif type(tensor) in DRM_SKETCH_METHOD_DISPATCH:
+            self.children = None
+            self.state = None
+        else:
+            raise ValueError(f"Cannot chain-sketch {type(tensor)}")
 
     def push(self, core: torch.Tensor):
+        if self.children is not None:
+            return tuple(child.push(core) for child in self.children)
         t, mu = self.tensor, self.mu
         if isinstance(t, SparseTensor):
             # state kept transposed (r, nnz): what the chain kernel writes
@@ -128,6 +218,12 @@ class _OrthogChain:
             out = self.state
         elif isinstance(t, TensorTrain):
             self.state = chain_step_tt(self.state, core, t.cores[mu])
+            out = self.state
+        elif isinstance(t, CPTensor):
+            self.state = chain_step_cp(self.state, core, t.cores[mu])
+            out = self.state
+        elif isinstance(t, TuckerTensor):
+            self.state = chain_step_tucker(self.state, core, t.factors[mu])
             out = self.state
         else:
             self.state = chain_step_dense(self.state, core)

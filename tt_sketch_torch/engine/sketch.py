@@ -1,23 +1,31 @@
 """Sketch API: the streaming (STTA) ``stream_sketch`` with
-``SketchedTensorTrain`` and the recovery ``assemble_sketched_tt``, and the
+``SketchedTensorTrain`` and the recovery ``assemble_sketched_tt``, the
 sequential one-pass sweeps ``hmt_sketch`` and ``orthogonal_sketch`` (OTTS),
-which return a ``TensorTrain``.
+which return a ``TensorTrain``, blocked sketches and rank growth.
 
-Counterpart of ``tt_sketch_tpu/engine/sketch.py`` on dense, TT and sparse
-input.  The right seed is derived as in the JAX package,
-``(seed + splitmix_hash(d)) mod 2^32``, so equal seeds give equal DRMs.
-Blocked sketches and rank growth come with later slices.
+Counterpart of ``tt_sketch_tpu/engine/sketch.py``.  The right seed is
+derived as in the JAX package, ``(seed + splitmix_hash(d)) mod 2^32``, so
+equal seeds give equal DRMs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Type
+from typing import Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
 
-from tt_sketch_torch.drm import TensorTrainDRM
-from tt_sketch_torch.drm.base import DRM
+from tt_sketch_torch.drm import ALL_DRM, SparseGaussianDRM, TensorTrainDRM
+from tt_sketch_torch.drm.base import (
+    DRM,
+    CanIncreaseRank,
+    CanSlice,
+    CansketchCP,
+    CansketchDense,
+    CansketchSparse,
+    CansketchTT,
+    CansketchTucker,
+)
 from tt_sketch_torch.engine.dispatch import SketchMethod, general_sketch
 from tt_sketch_torch.engine.sketch_container import SketchContainer
 from tt_sketch_torch.formats.base import Tensor
@@ -29,6 +37,16 @@ from tt_sketch_torch.utils import (
     process_tt_rank,
     right_mul_pinv,
 )
+
+DEFAULT_DRM = {
+    CansketchDense: TensorTrainDRM,
+    CansketchSparse: SparseGaussianDRM,
+    CansketchTT: TensorTrainDRM,
+    CansketchCP: TensorTrainDRM,
+    CansketchTucker: TensorTrainDRM,
+}
+
+BlockedSketch = Dict[Tuple[int, int], SketchContainer]
 
 
 def _derive_right_seed(seed: int, d: int) -> int:
@@ -314,6 +332,54 @@ class SketchedTensorTrain(Tensor):
     def dot(self, other, reverse: bool = False) -> float:
         return self.to_tt().dot(other, reverse)
 
+    def increase_rank(
+        self,
+        tensor: Tensor,
+        new_left_rank: TTRank,
+        new_right_rank: TTRank,
+    ) -> "SketchedTensorTrain":
+        """Grow the sketch ranks, computing only the new rank blocks; the
+        old container becomes block (0, 0) (prefix stability of the
+        DRMs)."""
+        new_left_rank = process_tt_rank(new_left_rank, tensor.shape,
+                                        trim=False)
+        new_right_rank = process_tt_rank(new_right_rank, tensor.shape,
+                                         trim=False)
+        for drm in (self.left_drm, self.right_drm):
+            if not isinstance(drm, CanSlice):
+                raise ValueError(
+                    f"Increasing rank is not supported for DRM "
+                    f"{drm.__class__.__name__}"
+                )
+
+        n_dims = len(tensor.shape)
+        left_rank_slices = [
+            (0,) * (n_dims - 1),
+            self.left_drm.rank,
+            new_left_rank,
+        ]
+        right_rank_slices = [
+            (0,) * (n_dims - 1),
+            self.right_drm.rank[::-1],
+            new_right_rank,
+        ]
+        left_drm = self.left_drm.increase_rank(new_left_rank)
+        right_drm = self.right_drm.increase_rank(new_right_rank)
+
+        sketch_dict = _blocked_stream_sketch_components(
+            tensor,
+            left_drm,
+            right_drm,
+            left_rank_slices,
+            right_rank_slices,
+            excluded_entries=[(0, 0)],
+        )
+        sketch_dict[(0, 0)] = self.sketch_
+        sketch = _assemble_blocked_stream_sketches(
+            left_rank_slices, right_rank_slices, tensor.shape, sketch_dict
+        )
+        return SketchedTensorTrain(sketch, left_drm, right_drm)
+
     def __repr__(self) -> str:
         return (
             f"<Sketched tensor train of shape {self.shape} with left-rank "
@@ -348,3 +414,103 @@ def assemble_sketched_tt(
     else:
         raise ValueError(f"Unknown direction {direction}")
     return tt_cores
+
+
+def _blocked_stream_sketch_components(
+    tensor: Tensor,
+    left_drm: CanSlice,
+    right_drm: CanSlice,
+    left_rank_slices: List[Tuple[int, ...]],
+    right_rank_slices: List[Tuple[int, ...]],
+    excluded_entries: Optional[Sequence[Tuple[int, int]]] = None,
+) -> BlockedSketch:
+    """The streaming sketch of every (left block, right block) pair of the
+    rank slices, but the excluded ones."""
+    if excluded_entries is None:
+        excluded_entries = []
+    left_blocks = [
+        left_drm.slice(r1, r2)
+        for r1, r2 in zip(left_rank_slices[:-1], left_rank_slices[1:])
+    ]
+    right_blocks = [
+        right_drm.slice(r1, r2)
+        for r1, r2 in zip(right_rank_slices[:-1], right_rank_slices[1:])
+    ]
+    sketch_dict: BlockedSketch = {}
+    for i, lb in enumerate(left_blocks):
+        for j, rb in enumerate(right_blocks):
+            if (i, j) in excluded_entries:
+                continue
+            sketch_dict[(i, j)] = general_sketch(
+                tensor, lb, rb, method=SketchMethod.streaming
+            )
+    return sketch_dict
+
+
+def _assemble_blocked_stream_sketches(
+    left_rank_slices: List[Tuple[int, ...]],
+    right_rank_slices: List[Tuple[int, ...]],
+    shape: Tuple[int, ...],
+    sketch_dict: BlockedSketch,
+) -> SketchContainer:
+    """One container at the last slices' ranks, each block written into
+    its slice of a zero container (pure indexing)."""
+    left_rank = tuple(left_rank_slices[-1])
+    right_rank = tuple(right_rank_slices[-1])
+    first = sketch_dict[(0, 0)].Psi_cores[0]
+
+    sketch = SketchContainer.zero(shape, left_rank, right_rank,
+                                  dtype=first.dtype, device=first.device)
+    for (i, j), block in sketch_dict.items():
+        l1 = (0,) + tuple(left_rank_slices[i])
+        l2 = (1,) + tuple(left_rank_slices[i + 1])
+        r1 = tuple(right_rank_slices[j]) + (0,)
+        r2 = tuple(right_rank_slices[j + 1]) + (1,)
+        for mu, Psi in enumerate(block.Psi_cores):
+            sketch.Psi_cores[mu][l1[mu]: l2[mu], :, r1[mu]: r2[mu]] = Psi
+        for mu, Omega in enumerate(block.Omega_mats):
+            sketch.Omega_mats[mu][l1[mu + 1]: l2[mu + 1],
+                                  r1[mu]: r2[mu]] = Omega
+    return sketch
+
+
+def blocked_stream_sketch(
+    tensor: Tensor,
+    left_drm: CanSlice,
+    right_drm: CanSlice,
+    left_rank_slices: List[Tuple[int, ...]],
+    right_rank_slices: List[Tuple[int, ...]],
+) -> SketchContainer:
+    """Streaming sketch computed in rank blocks: each block is an
+    independent sub-sketch with sliced DRMs; assembly is pure indexing."""
+    for drm in (left_drm, right_drm):
+        if not isinstance(drm, CanSlice):
+            raise ValueError(
+                f"Blocked sketch not supported for DRM "
+                f"{drm.__class__.__name__}"
+            )
+    sketch_dict = _blocked_stream_sketch_components(
+        tensor, left_drm, right_drm, left_rank_slices, right_rank_slices
+    )
+    return _assemble_blocked_stream_sketches(
+        left_rank_slices, right_rank_slices, tensor.shape, sketch_dict
+    )
+
+
+def get_drm_capabilities():
+    """Capability matrix of all DRM types."""
+    all_capabilities = {}
+    for drm in ALL_DRM:
+        caps = {}
+        for capability in (
+            CanSlice,
+            CanIncreaseRank,
+            CansketchSparse,
+            CansketchDense,
+            CansketchTT,
+            CansketchCP,
+            CansketchTucker,
+        ):
+            caps[capability.__name__] = issubclass(drm, capability)
+        all_capabilities[drm.__name__] = caps
+    return all_capabilities

@@ -1,8 +1,7 @@
 """Abstract tensor base: shared algebra (error, dot, norm, scalar ops).
 
 Counterpart of ``tt_sketch_tpu/formats/base.py``.  ``+`` between tensors
-builds a lazy ``TensorSum`` there; that format comes with a later slice of
-the port, so ``+`` and ``-`` raise here.
+builds a lazy ``TensorSum`` (``formats/tensor_sum.py``).
 """
 from __future__ import annotations
 
@@ -80,6 +79,10 @@ class Tensor(ABC):
 
     def dot(self, other, reverse: bool = False) -> float:
         """Inner product with double dispatch: give ``other`` a first shot."""
+        from tt_sketch_torch.formats.tensor_sum import TensorSum
+
+        if isinstance(other, TensorSum):
+            return other.dot(self)
         if not reverse:
             return other.dot(self, reverse=True)
         a = self.to_dense().reshape(-1)
@@ -92,12 +95,18 @@ class Tensor(ABC):
     def __matmul__(self, other) -> float:
         return self.dot(other)
 
-    # -- scalar ops ---------------------------------------------------------
+    # -- lazy sum / scalar ops ----------------------------------------------
 
     def __add__(self, other):
-        raise NotImplementedError(
-            "lazy TensorSum comes with the formats slice of the port"
-        )
+        from tt_sketch_torch.formats.tensor_sum import TensorSum
+
+        if isinstance(other, TensorSum):
+            if isinstance(self, TensorSum):
+                return TensorSum(self.tensors + other.tensors)
+            return TensorSum([self] + other.tensors)
+        if isinstance(self, TensorSum):
+            return TensorSum(self.tensors + [other])
+        return TensorSum([self, other])
 
     @abstractmethod
     def __mul__(self: TType, other: float) -> TType:

@@ -5,7 +5,8 @@
 tensor, both on one device.  ``psi_plan`` optionally carries the per-mode
 sort/chunk plans of ``kernels/sparse_plan.py`` (``ModePlan``, or
 ``WindowPlan`` for a giant mode) that the fused Ψ kernels run on.  ``split``
-(and with it ``TensorSum``) comes with a later slice.
+cuts the nonzeros into a ``TensorSum`` of shards, each with its own plans
+if asked.
 """
 from __future__ import annotations
 
@@ -115,6 +116,34 @@ class SparseTensor(Tensor):
     @property
     def size(self) -> int:
         return self.nnz * (self.ndim + 1)
+
+    def split(self, n_summands: int, psi_plan: bool = False,
+              **plan_kwargs):
+        """Split nnz into ``n_summands`` contiguous shards (a ``TensorSum``);
+        the last shard takes the remainder.
+
+        ``psi_plan=True`` attaches sort/chunk plans to every shard
+        (``with_psi_plan``, ``plan_kwargs`` forwarded), built on the host
+        from one host copy of the tensor, so that each summand takes the
+        fused kernels."""
+        from tt_sketch_torch.formats.tensor_sum import TensorSum
+
+        if psi_plan:
+            host_indices = self.indices.cpu().numpy()
+            host_entries = self.entries.cpu().numpy()
+        block = self.nnz // n_summands
+        parts = []
+        for i in range(n_summands):
+            sl = slice(i * block,
+                       (i + 1) * block if i < n_summands - 1 else self.nnz)
+            part = SparseTensor(self.shape, self.indices[:, sl],
+                                self.entries[sl])
+            if psi_plan:
+                part = part.with_psi_plan(indices=host_indices[:, sl],
+                                          entries=host_entries[sl],
+                                          **plan_kwargs)
+            parts.append(part)
+        return TensorSum(parts)
 
     def to_dense(self) -> torch.Tensor:
         X = torch.zeros(self.shape, dtype=self.entries.dtype,

@@ -1,6 +1,6 @@
 """Hand numpy arrays (e.g. the JAX package's DRM cores, sketches, sparse
-data and sort/chunk plans, read back with ``np.asarray``) to the port,
-keeping their dtype."""
+data, sort/chunk plans and CP, Tucker and sum tensors, read back with
+``np.asarray``) to the port, keeping their dtype."""
 from __future__ import annotations
 
 import functools
@@ -112,3 +112,49 @@ def window_plan_from_numpy(local_idx, chunk_window, chunk_first,
         flat_left=dev(_packed_u64(flat_left)),
         flat_right=dev(_packed_u64(flat_right)),
     )
+
+
+def cp_tensor_from_numpy(cores: Sequence[np.ndarray], device=None):
+    """A ``CPTensor`` from numpy ``(n_i, rank)`` factors (e.g.
+    ``np.asarray`` of a JAX ``CPTensor``'s ``cores``)."""
+    from tt_sketch_torch.formats.cp import CPTensor
+
+    return CPTensor(from_numpy_cores(cores, device))
+
+
+def tucker_tensor_from_numpy(factors: Sequence[np.ndarray], core,
+                             device=None):
+    """A ``TuckerTensor`` from numpy ``(s_i, n_i)`` factors and its core."""
+    from tt_sketch_torch.formats.tucker import TuckerTensor
+
+    return TuckerTensor(from_numpy_cores(factors, device),
+                        from_numpy_cores([core], device)[0])
+
+
+def tensor_sum_from_numpy(summands, device=None):
+    """A ``TensorSum`` whose summands are port tensors (kept as they are)
+    or the numpy parts of one format, as a tuple: ``("tt", cores)``,
+    ``("cp", cores)``, ``("tucker", factors, core)``, ``("sparse", shape,
+    indices, entries)`` or ``("dense", array)``."""
+    from tt_sketch_torch.formats.base import Tensor
+    from tt_sketch_torch.formats.dense import DenseTensor
+    from tt_sketch_torch.formats.tensor_sum import TensorSum
+    from tt_sketch_torch.formats.tensor_train import TensorTrain
+
+    def convert(s):
+        if isinstance(s, Tensor):
+            return s
+        kind, *parts = s
+        if kind == "tt":
+            return TensorTrain(from_numpy_cores(parts[0], device))
+        if kind == "cp":
+            return cp_tensor_from_numpy(parts[0], device)
+        if kind == "tucker":
+            return tucker_tensor_from_numpy(*parts, device=device)
+        if kind == "sparse":
+            return sparse_tensor_from_numpy(*parts, device=device)
+        if kind == "dense":
+            return DenseTensor(from_numpy_cores(parts, device)[0])
+        raise ValueError(f"unknown summand format {kind!r}")
+
+    return TensorSum([convert(s) for s in summands])

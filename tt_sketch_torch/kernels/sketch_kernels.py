@@ -1,10 +1,9 @@
-"""Ψ/Ω sketch contractions for dense, TT and sparse input.
+"""Ψ/Ω sketch contractions for dense, TT, CP, Tucker and sparse input.
 
 Ω_μ = Y_μᵀ X^{<μ>} Z_μ (small matrix) and Ψ_μ = Y_{μ-1}ᵀ X^{(μ)} Z_μ
 (order-3 core), from the DRMs' per-mode contraction outputs.  Counterpart
-of the dense, TT and sparse functions of
-``tt_sketch_tpu/kernels/sketch_kernels.py``; the CP and Tucker functions
-come with a later slice.
+of ``tt_sketch_tpu/kernels/sketch_kernels.py``.  Dense, TT, CP and Tucker
+input are ``einsum``s and matrix products.
 
 Sparse input takes two routes.  A streaming sketch with a pair of
 hash-family DRMs (``SparseGaussianDRM``, ``SparseSignDRM`` or one of each)
@@ -89,6 +88,44 @@ def sketch_psi_tt(left_sketch, right_sketch, *, tensor, mu, **kwargs):
         return torch.einsum("ij,jkl->ikl", left_sketch.T, core)
     tmp = torch.einsum("ij,jkl->ikl", left_sketch.T, core)
     return torch.einsum("ikl,lm->ikm", tmp, right_sketch)
+
+
+# -- CP ----------------------------------------------------------------------
+
+def sketch_omega_cp(left_sketch, right_sketch, **kwargs):
+    return left_sketch.T @ right_sketch
+
+
+def sketch_psi_cp(left_sketch, right_sketch, *, tensor, mu, **kwargs):
+    factor = tensor.cores[mu]  # (n_mu, cp_rank)
+    if left_sketch is None:
+        return torch.einsum("ji,il->jl", factor, right_sketch)[None, :, :]
+    if right_sketch is None:
+        return torch.einsum("il,kl->ik", left_sketch.T, factor)[:, :, None]
+    # Ψ[i,k,m] = Σ_j L[j,i] · factor[k,j] · R[j,m]
+    tmp = left_sketch.T[:, None, :] * factor[None, :, :]  # (i, k, j)
+    return torch.einsum("ikj,jm->ikm", tmp, right_sketch)
+
+
+# -- Tucker ------------------------------------------------------------------
+
+def sketch_omega_tucker(left_sketch, right_sketch, *, tensor, mu, **kwargs):
+    core_mat = matricize(tensor.core, tuple(range(mu + 1)), mat_shape=True)
+    return left_sketch.T @ core_mat @ right_sketch
+
+
+def sketch_psi_tucker(left_sketch, right_sketch, *, tensor, mu, **kwargs):
+    left_dim = left_sketch.shape[0] if left_sketch is not None else 1
+    right_dim = right_sketch.shape[0] if right_sketch is not None else 1
+    ord3 = tensor.core.reshape(left_dim, tensor.rank[mu], right_dim)
+    if left_sketch is None:
+        Psi = torch.einsum("ijk,kl->ijl", ord3, right_sketch)
+    elif right_sketch is None:
+        Psi = torch.einsum("ij,jkl->ikl", left_sketch.T, ord3)
+    else:
+        tmp = torch.einsum("ij,jkl->ikl", left_sketch.T, ord3)
+        Psi = torch.einsum("ikl,lm->ikm", tmp, right_sketch)
+    return torch.einsum("ijk,jl->ilk", Psi, tensor.factors[mu])
 
 
 # -- sparse ------------------------------------------------------------------
