@@ -125,10 +125,45 @@ Phases (the first failure raises and exits non-zero):
     the host's enqueue time of one call; then ``run_projector_diag`` at
     the main-path shape with the launch counts set to 0 just before it and
     read just after, printing its nine tagged lines.
-12. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+12. The other input formats and rank growth.  (a) ``uber-synthetic`` as
+    a ``TensorSum`` of ``SUM_SHARDS`` contiguous nnz shards
+    (``split(psi_plan=True)``, library-default plans; the host seconds of
+    the split printed), STTA at 10/20 in f32 with a Gaussian and with a
+    sign pair, each with the DRMs of the whole tensor's sketch of seed 0:
+    every Ψ/Ω against the whole tensor's fused sketch (linearity, across
+    two kernel routes) and against the same sum under ``plain_kernels()``;
+    launch counts worked out from the shards' plans (per shard: Ω through
+    ``omega_fused``, Ψ of a planned mode through ``psi_fused_slabs``, of
+    an unplanned one through the segment reduction over generated rows);
+    the sample-error guard (the sign sum held to the whole tensor's sketch
+    with the same DRMs); median time, host enqueue and busy share beside
+    phase 5's.  (b) ``hmt_sketch`` of that sum at rank 10 (Gaussian): one
+    child chain per shard; recovered values at 10,000 nonzero and 10,000
+    random index tuples against the whole tensor's HMT with the same DRM
+    and against the sum under ``plain_kernels()`` (``SEQ_TOL``), the HMT
+    guard, launch counts, median time.  (c) ``increase_rank`` of a
+    Gaussian STTA sketch of uber from 10/20 to 15/30 (three new blocks,
+    each a fused sketch with rank-sliced salts): every Ψ/Ω against a
+    sketch from scratch with the grown DRMs, the old container as block
+    (0, 0) bit for bit, launch counts, the growth's time against the
+    sketch from scratch.  Every kernel call of (a)-(c) against its plain
+    version, and each kernel's launches per path timed and bounded (they
+    join ``by_path``).  (d) The paper's TT-sum workload: ten random
+    rank-100 TTs of shape (1000,)^5 in f64 (2.25 GiB of cores, drawn on the
+    card) with coefficients ``logspace(0, -10, 10)``: STTA 24/25, OTTS
+    24/25 and HMT 24 with the default TT-DRMs; the STTA sketch against the
+    sum of the summands' sketches (``TT_SUM_TOL``); relative errors from
+    TT inner products (never densified; OTTS and HMT held to
+    ``TT_SUM_ERROR_RANGE``); median times.  (e) CP (``cp_problem``: (10,)^5,
+    CP rank 100; STTA/OTTS 30/60, HMT 30), Tucker ((30,)^4, multilinear
+    rank 5; 25/30, HMT 25) and ``tt_plus_sparse_problem`` with a
+    ``DenseGaussianDRM`` pair (30/60, HMT 30), in f64 on the card and on
+    the CPU in this process: recovered TTs within ``FORMAT_TOL`` of each
+    other, the Tucker tensor recovered within ``TUCKER_EXACT_TOL``.
+13. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
-    every path; the diagnostics' launches are those of their run), then the
-    device line last.
+    every path, phase 12's among them; the diagnostics' launches are those
+    of their run), then the device line last.
 
 Requires CUDA; exits non-zero without it.
 """
@@ -163,6 +198,15 @@ SIGN_DRAW_OPS = 44
 SEQ_TOL = 2e-4   # max abs over 20,000 recovered values / largest value: two f32 sweeps whose sums differ in order, through a QR per mode
 CHAIN_ULPS = 8   # chain_step_t: max abs err in ulps (2^-23) of the largest output; sums of at most 20 f32 products in another order
 HMT_ERROR_RANGE = (0.45, 0.60)  # sample_error of an HMT sketch of FROSTT-uber at rank 10
+SUM_SHARDS = 4   # phase 12: uber as a TensorSum of contiguous nnz shards
+TT_SUM_SHAPE, TT_SUM_RANK, TT_SUM_TERMS = (1000,) * 5, 100, 10  # the paper's TT-sum workload
+#: OTTS and HMT at rank 24 leave all but about 0.2 % of the TT sum's norm
+#: (``results/timings_vs_error.csv``: 0.99809-0.99863 over ten runs);
+#: STTA at 24/25 is not bounded (the same file: 467-1713), only finite
+TT_SUM_ERROR_RANGE = (0.99, 1.0)
+TT_SUM_TOL = 1e-10   # relative Frobenius: an f64 STTA sketch of a sum vs the sum of its summands' sketches (the same products added in another order)
+FORMAT_TOL = 1e-10   # relative: an f64 recovered TT on the card vs on the CPU (the same sketch summed in another order, through QRs and pseudo-inverses)
+TUCKER_EXACT_TOL = 1e-8  # relative error of a Tucker tensor recovered at sketch ranks above its TT ranks
 LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_sign", "sparse_psi",
              "chain_step", "segment_psi")
 SPARSE_KERNELS = ("lazy_gaussian", "sparse_sign_rows", "omega_fused",
@@ -191,6 +235,20 @@ PATH_LAUNCHES = {
                     "psi_segment": 2},
     "lbnl hmt gauss": {"chain_step_t": 4, "psi_fused_slabs": 1,
                        "psi_chunk_slabs_genright": 3},
+    # phase 12: uber as a sum of SUM_SHARDS planned shards, each sketched
+    # mode by mode (no merged kernel), and the three new blocks of a rank
+    # growth, each a whole-tensor fused sketch with rank-sliced salts
+    "uber sum gauss": {"lazy_gaussian": 12, "omega_fused": 12,
+                       "psi_fused_slabs": 8, "psi_segment": 8},
+    "uber sum sign": {"sparse_sign_rows": 12, "omega_fused": 12,
+                      "psi_fused_slabs": 8, "psi_segment": 8},
+    "uber sum hmt gauss": {"chain_step_t": 12,
+                           "psi_chunk_slabs_genright": 4,
+                           "psi_chunk_slabs": 4, "lazy_gaussian": 8,
+                           "psi_segment": 8},
+    "uber grow gauss": {"lazy_gaussian": 9, "omega_fused": 6,
+                        "psi_omega_merged_slabs": 3, "psi_fused_slabs": 3,
+                        "psi_segment": 6},
 }
 #: the sequential main paths: (method, right DRM)
 SEQ_PATHS = {"uber hmt gauss": ("hmt", "gauss"),
@@ -1138,7 +1196,13 @@ def phase_sparse_kernels(paths, ops):
         raise AssertionError("sign sides past the shared-memory limit did "
                              "not raise")
 
-    # each kernel's launches of one sketch, per main path that launches it
+    return path_figures(paths, worst, ops)
+
+
+def path_figures(paths, worst, ops, phase=6):
+    """Each kernel's launches of one sketch, per main path that launches
+    it: their time, their plain versions' time and their bound, beside the
+    worst errors ``worst[(name, label)]`` of their checks."""
     fns = _kernel_fns()
     res = {}
     for name in SPARSE_KERNELS:
@@ -1164,13 +1228,13 @@ def phase_sparse_kernels(paths, ops):
                 res[name][label]["library_ms"] = lib_ms
                 lib = (f", library index_add_ over the outer products "
                        f"{lib_ms:.3f} ms")
-            print(f"# phase 6: {name}: {len(calls)} launch(es) of one "
+            print(f"# phase {phase}: {name}: {len(calls)} launch(es) of one "
                   f"{label} sketch in {ms:.3f} ms (bound {b_ms:.3f} ms by "
                   f"{b_by}; {ms / b_ms:.2f}x the bound), plain version "
                   f"{plain_ms:.3f} ms{lib}")
             if name == "chain_step_t":
                 res[name][label]["per_launch"] = chain_launches(
-                    label, calls, paths[label]["shape"], ops)
+                    label, calls, paths[label]["shape"], ops, phase)
     return res
 
 
@@ -1259,7 +1323,7 @@ def phase_segment_shapes():
     return res
 
 
-def chain_launches(label, calls, shape, ops):
+def chain_launches(label, calls, shape, ops, phase=6):
     """Each recorded ``chain_step_t`` launch of one sketch on its own
     line: the mode (found by its size), ``n``, the ranks, where the core
     lives (``chain_schedule``), its time alone (the card waits for the
@@ -1281,8 +1345,8 @@ def chain_launches(label, calls, shape, ops):
         inside = int(((idx >= 0) & (idx < n)).sum())
         gathered = 4 * sched.row * inside
         mode = shape.index(n) if shape.count(n) == 1 else "?"
-        print(f"# phase 6: chain_step_t {label} call {i}: mode {mode}, n "
-              f"{n}, ranks {'-' if state is None else r1} -> {r2}, core in "
+        print(f"# phase {phase}: chain_step_t {label} call {i}: mode {mode}, "
+              f"n {n}, ranks {'-' if state is None else r1} -> {r2}, core in "
               f"{sched.place}: {ms:.3f} ms alone, {b2b:.3f} ms back to back, "
               f"bound {b_ms:.3f} ms by {b_by} ({ms / b_ms:.2f}x, "
               f"{b2b / b_ms:.2f}x), {gathered / 1e6:.1f} MB of core rows "
@@ -1606,13 +1670,16 @@ def _segment_kernel(n_mu, r1, r2):
     return int(n_mu * r1 * r2 <= MAX_CELLS)
 
 
-def expected_launches(tensor, ldrm, rdrm):
+def expected_launches(tensor, ldrm, rdrm, whole=True):
     """Kernel launches of one fused sketch, worked out from the tensor's
     plans: a plan with the inclusive prefix merges Ψ and Ω, a window plan
     takes the window kernel, any other plan the Ψ slab kernel; a mode
     without a plan generates its rows; Ω of modes not merged takes the Ω
     kernel; a mode without a plan takes the segment reduction, through its
-    kernel for a Ψ of at most 16384 values."""
+    kernel for a Ψ of at most 16384 values.  ``whole=False``: the tensor is
+    a summand of a ``TensorSum``, sketched mode by mode as the JAX
+    package's dispatch sketches one (no merged kernel: every Ω through the
+    Ω kernel)."""
     from tt_sketch_torch.kernels.sparse_plan import WindowPlan
 
     d = len(tensor.shape)
@@ -1629,7 +1696,7 @@ def expected_launches(tensor, ldrm, rdrm):
                 _hash_rows(rdrm, d - 2 - mu) if mu < d - 1 else 1)
         elif isinstance(p, WindowPlan):
             n["psi_window_direct"] += 1
-        elif mu < d - 1 and p.flat_left_om is not None:
+        elif whole and mu < d - 1 and p.flat_left_om is not None:
             n["psi_omega_merged_slabs"] += 1
         else:
             n["psi_fused_slabs"] += 1
@@ -2418,6 +2485,500 @@ def phase_projector_diag():
     return res
 
 
+# -- phase 12: sums, rank growth, CP, Tucker and dense Gaussian DRMs ----------
+
+def _sum_of_launches(counts):
+    n = dict.fromkeys(SPARSE_KERNELS, 0)
+    for c in counts:
+        for k, v in c.items():
+            n[k] += v
+    return n
+
+
+def _assert_launches(tag, label, launches, planned):
+    want = dict.fromkeys(SPARSE_KERNELS, 0) | PATH_LAUNCHES[label]
+    print(f"{tag} kernel launches in one sketch: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if not launches == want == planned:
+        raise AssertionError(f"{label}: launch counts {launches}, expected "
+                             f"{want}, from the plans {planned}")
+
+
+def _counted(run):
+    """``run()`` with every kernel's count set to 0 just before and read
+    just after, its kernel, segment-reduction and slab-combine calls
+    recorded; returns ``(result, launches, calls)``."""
+    import torch
+
+    fns = _kernel_fns()
+    calls = {}
+    torch.cuda.synchronize()
+    for kern, _ in fns.values():
+        kern.launches = 0
+    with recording(calls):
+        out = run()
+    torch.cuda.synchronize()
+    return out, {name: fns[name][0].launches for name in SPARSE_KERNELS}, calls
+
+
+def _worst_parts(tag, what, ours, ref, tol):
+    """The worst relative Frobenius error of the parts ``ours`` against
+    ``ref`` (shapes equal, every value finite); raises past ``tol``."""
+    import torch
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        if a.shape != b.shape or not (bool(torch.isfinite(a).all())
+                                      and bool(torch.isfinite(b).all())):
+            raise AssertionError(f"{tag} part {i}: shape or non-finite")
+        worst = max(worst, _rel(a, b))
+    print(f"{tag} {what}: worst rel err {worst:.3e} (tol {tol:g})")
+    if not worst <= tol:
+        raise AssertionError(f"{tag} {what}: {worst:.3e} > {tol:g}")
+    return worst
+
+
+def _median_sketch_ms(run, groups=3, inner=3):
+    """Median over ``groups`` of the mean CUDA-event time of ``inner`` runs
+    with fresh seeds, after one untimed run; the host's enqueue time of one
+    more run (no synchronization inside it)."""
+    import torch
+
+    run(1)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for j in range(inner):
+            run(100 + inner * i + j)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    run(7)
+    enqueue_ms = (time.perf_counter() - t_host) * 1e3
+    torch.cuda.synchronize()
+    return float(np.median(times)), times, enqueue_ms
+
+
+def split_uber(uber):
+    """``uber.split(SUM_SHARDS, psi_plan=True)`` with the library-default
+    plans; returns the sum and the host seconds its plans took."""
+    import torch
+
+    t0 = time.perf_counter()
+    shards = uber.split(SUM_SHARDS, psi_plan=True)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    print(f"# phase 12: uber split into {SUM_SHARDS} shards of "
+          f"{[t.nnz for t in shards.tensors]} nnz, plans "
+          f"{shards.tensors[0].psi_plan}, built in {plan_s:.2f} s on the "
+          f"host (split and plans together)")
+    return shards, plan_s
+
+
+def phase_sum_main(label, uber, shards, drm_type, whole):
+    """(a) STTA of the sum of planned shards at rank 10/20 in f32 with the
+    DRMs of phase 5's whole-tensor sketch of seed 0: every Ψ/Ω against the
+    whole tensor's and against the same sum under ``plain_kernels()``;
+    launch counts from the shards' plans; the sample-error guard; the
+    median time, host enqueue and busy share beside ``whole``'s (phase
+    5)."""
+    import torch
+
+    from tt_sketch_torch import stream_sketch
+    from tt_sketch_torch.data.frostt import sample_error
+
+    tag = f"# phase 12 [{label}]:"
+    kw = dict(left_drm_type=drm_type, right_drm_type=drm_type,
+              dtype=torch.float32)
+    ref, ldrm, rdrm = stream_sketch(uber, 10, 20, seed=0, return_drm=True,
+                                    **kw)
+    sk, launches, calls = _counted(lambda: stream_sketch(
+        shards, 10, 20, left_drm=ldrm, right_drm=rdrm))
+    planned = _sum_of_launches(expected_launches(t, ldrm, rdrm, whole=False)
+                               for t in shards.tensors)
+    _assert_launches(tag, label, launches, planned)
+    parts = sk.Psi_cores + sk.Omega_mats
+    lin = _worst_parts(tag, "every Psi/Omega of the sum vs the whole "
+                       "tensor's fused sketch (linearity)", parts,
+                       ref.Psi_cores + ref.Omega_mats, PSI_TOL)
+    with plain_kernels():
+        plain = stream_sketch(shards, 10, 20, left_drm=ldrm, right_drm=rdrm)
+    worst = _worst_parts(tag, "every Psi/Omega vs the same sum under the "
+                         "plain versions on the card", parts,
+                         plain.Psi_cores + plain.Omega_mats, PSI_TOL)
+    del plain
+    err = sample_error(sk.to_tt(), uber)
+    err_whole = sample_error(ref.to_tt(), uber)
+    if label == "uber sum gauss":
+        print(f"{tag} sample_error(to_tt()) = {err:.4f} (limit "
+              f"{SAMPLE_ERROR_LIMIT}; the whole tensor's {err_whole:.4f})")
+        ok = err <= SAMPLE_ERROR_LIMIT
+    else:
+        # a sign pair's error spreads between seeds (phase 5 holds each
+        # seed to the float64 parity path): the sum is held to the whole
+        # tensor's sketch with the same DRMs
+        print(f"{tag} sample_error(to_tt()) = {err:.4f}, the whole "
+              f"tensor's with the same DRMs {err_whole:.4f} (within "
+              f"{PARITY_ERROR_TOL:g})")
+        ok = abs(err - err_whole) <= PARITY_ERROR_TOL
+    if not ok:
+        raise AssertionError(f"{label}: sample error {err:.4f}")
+
+    def run(seed):
+        return stream_sketch(shards, 10, 20, seed=seed, **kw)
+
+    med, times, enqueue_ms = _median_sketch_ms(run)
+    busy = profile_sketch(lambda s: run(200 + s), phase=12)
+    print(f"{tag} sketch median {med:.3f} ms over fresh seeds "
+          f"({', '.join(f'{t:.3f}' for t in times)}), "
+          f"{uber.nnz / (med / 1e3):.6e} nnz/s; host enqueue {enqueue_ms:.3f} "
+          f"ms; device busy {100 * busy:.1f} %; the whole tensor (phase 5): "
+          f"{whole['ms']:.3f} ms, host enqueue {whole['enqueue_ms']:.3f} ms, "
+          f"busy {100 * whole['busy']:.1f} %")
+    return {"launches": launches, "calls": calls, "shape": uber.shape,
+            "linearity_rel": lin, "worst_rel": worst, "sample_error": err,
+            "ms": med, "times": times, "enqueue_ms": enqueue_ms,
+            "busy": busy, "nnz_per_s": uber.nnz / (med / 1e3)}
+
+
+def phase_sum_hmt(uber, shards):
+    """(b) ``hmt_sketch`` of the sum at rank 10 with a Gaussian DRM: one
+    child chain per shard; recovered values against the whole tensor's HMT
+    with the same DRM and against the sum under ``plain_kernels()``; the
+    HMT guard; launch counts from the shards' plans; the median time."""
+    import torch
+
+    from tt_sketch_torch import SparseGaussianDRM, hmt_sketch
+    from tt_sketch_torch.data.frostt import sample_error
+
+    label = "uber sum hmt gauss"
+    tag = f"# phase 12 [{label}]:"
+    tt, launches, calls = _counted(lambda: hmt_sketch(
+        shards, 10, seed=0, drm_type=SparseGaussianDRM, dtype=torch.float32,
+        return_drm=True))
+    tt, rdrm = tt
+    planned = _sum_of_launches(expected_seq_launches(t, "hmt", rdrm)
+                               for t in shards.tensors)
+    _assert_launches(tag, label, launches, planned)
+    vals = _recovered_values(tt, uber)
+    whole = hmt_sketch(uber, 10, drm=rdrm)
+    with plain_kernels():
+        plain = hmt_sketch(shards, 10, drm=rdrm)
+    worst = {}
+    for what, other in (("the whole tensor's HMT", whole),
+                        ("the sum under the plain versions", plain)):
+        b = _recovered_values(other, uber)
+        if not (bool(torch.isfinite(vals).all())
+                and bool(torch.isfinite(b).all())):
+            raise AssertionError(f"{label}: non-finite recovered values")
+        worst[what] = float((vals - b).abs().max() / b.abs().max())
+        print(f"{tag} recovered TT vs {what} at 10,000 nonzero and 10,000 "
+              f"random index tuples: max abs diff / largest value "
+              f"{worst[what]:.3e} (tol {SEQ_TOL:g})")
+        if not worst[what] <= SEQ_TOL:
+            raise AssertionError(f"{label} disagrees with {what}: "
+                                 f"{worst[what]:.3e}")
+    del whole, plain
+    err = sample_error(tt, uber)
+    lo, hi = HMT_ERROR_RANGE
+    print(f"{tag} sample_error = {err:.4f} (guard {lo}-{hi})")
+    if not lo <= err <= hi:
+        raise AssertionError(f"{label}: sample error {err:.4f}")
+    med, times, enqueue_ms = _median_sketch_ms(lambda s: hmt_sketch(
+        shards, 10, seed=s, drm_type=SparseGaussianDRM, dtype=torch.float32))
+    print(f"{tag} sketch median {med:.3f} ms over fresh seeds "
+          f"({', '.join(f'{t:.3f}' for t in times)}); host enqueue "
+          f"{enqueue_ms:.3f} ms")
+    return {"launches": launches, "calls": calls, "shape": uber.shape,
+            "worst_rel": max(worst.values()), "sample_error": err,
+            "ms": med, "times": times, "enqueue_ms": enqueue_ms}
+
+
+def phase_grow(uber):
+    """(c) ``increase_rank`` of a Gaussian STTA sketch of uber from 10/20
+    to 15/30: the three new blocks through the fused kernels with
+    rank-sliced salts; every Ψ/Ω against a sketch from scratch with the
+    grown DRMs; the old container as block (0, 0); the growth's time
+    against the sketch from scratch."""
+    import torch
+
+    from tt_sketch_torch import SparseGaussianDRM, stream_sketch
+
+    label = "uber grow gauss"
+    tag = f"# phase 12 [{label}]:"
+    small = stream_sketch(uber, 10, 20, seed=0,
+                          left_drm_type=SparseGaussianDRM,
+                          right_drm_type=SparseGaussianDRM,
+                          dtype=torch.float32)
+    big, launches, calls = _counted(lambda: small.increase_rank(uber, 15,
+                                                                30))
+    d = len(uber.shape)
+    left = [(0,) * (d - 1), small.left_rank, (15,) * (d - 1)]
+    right = [(0,) * (d - 1), small.right_rank, (30,) * (d - 1)]
+    planned = _sum_of_launches(
+        expected_launches(uber, big.left_drm.slice(left[i], left[i + 1]),
+                          big.right_drm.slice(right[j], right[j + 1]))
+        for i in range(2) for j in range(2) if (i, j) != (0, 0))
+    _assert_launches(tag, label, launches, planned)
+    scratch = stream_sketch(uber, 15, 30, left_drm=big.left_drm,
+                            right_drm=big.right_drm)
+    worst = _worst_parts(tag, "every Psi/Omega of the grown sketch vs a "
+                         "sketch from scratch with the grown DRMs",
+                         big.Psi_cores + big.Omega_mats,
+                         scratch.Psi_cores + scratch.Omega_mats, PSI_TOL)
+    kept = all(torch.equal(P[: Q.shape[0], :, : Q.shape[2]], Q)
+               for P, Q in zip(big.Psi_cores, small.Psi_cores)) and all(
+        torch.equal(O[: Q.shape[0], : Q.shape[1]], Q)
+        for O, Q in zip(big.Omega_mats, small.Omega_mats))
+    print(f"{tag} the old container is block (0, 0) of the grown one, bit "
+          f"for bit: {kept}")
+    if not kept:
+        raise AssertionError(f"{label}: the old container is not block "
+                             f"(0, 0)")
+    grow_ms = time_ms(lambda: small.increase_rank(uber, 15, 30))
+    scratch_ms = time_ms(lambda: stream_sketch(
+        uber, 15, 30, left_drm=big.left_drm, right_drm=big.right_drm))
+    print(f"{tag} growth 10/20 -> 15/30 {grow_ms:.3f} ms (three blocks), a "
+          f"sketch from scratch at 15/30 {scratch_ms:.3f} ms")
+    return {"launches": launches, "calls": calls, "shape": uber.shape,
+            "worst_rel": worst, "grow_ms": grow_ms,
+            "scratch_ms": scratch_ms}
+
+
+def tt_sum_problem(seed=179):
+    """The paper's TT-sum workload (``tt_sketch_tpu/experiments/problems.py
+    timings_vs_error_problem``): ``TT_SUM_TERMS`` random TTs of rank
+    ``TT_SUM_RANK`` and shape ``TT_SUM_SHAPE`` in float64, cores scaled as
+    ``TensorTrain.random``'s ``norm-1``, with coefficients
+    ``logspace(0, -10, TT_SUM_TERMS)``; drawn on the card from one seeded
+    generator (JAX parity of this path is the CPU tests')."""
+    import torch
+
+    from tt_sketch_torch.formats import TensorSum, TensorTrain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = len(TT_SUM_SHAPE)
+    ranks = (1,) + (TT_SUM_RANK,) * (d - 1) + (1,)
+    summands = []
+    for c in np.logspace(0.0, -10.0, TT_SUM_TERMS):
+        cores = [torch.randn((r1, n, r2), generator=g, device="cuda",
+                             dtype=torch.float64) / float(np.sqrt(r1 * n))
+                 for r1, n, r2 in zip(ranks, TT_SUM_SHAPE, ranks[1:])]
+        summands.append(TensorTrain(cores) * float(c))
+    return TensorSum(summands)
+
+
+def phase_tt_sum():
+    """(d) STTA at 24/25, OTTS at 24/25 and HMT at 24 of the TT-sum
+    workload with the default TT-DRMs: linearity of the STTA sketch, the
+    relative error of each from TT inner products (never densified), the
+    median time of each."""
+    import torch
+
+    from tt_sketch_torch import hmt_sketch, orthogonal_sketch, stream_sketch
+
+    tag = "# phase 12 [tt-sum]:"
+    t0 = time.perf_counter()
+    X = tt_sum_problem()
+    torch.cuda.synchronize()
+    gib = sum(c.numel() for t in X.tensors for c in t.cores) * 8 / 2 ** 30
+    print(f"{tag} {X}, {TT_SUM_TERMS} TTs of rank {TT_SUM_RANK}, "
+          f"{gib:.2f} GiB of f64 cores, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sk, ldrm, rdrm = stream_sketch(X, 24, 25, seed=0, return_drm=True)
+    parts = [stream_sketch(t, 24, 25, left_drm=ldrm, right_drm=rdrm).sketch_
+             for t in X.tensors]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    lin = _worst_parts(tag, "STTA sketch of the sum vs the sum of the "
+                       "summands' sketches (same DRMs)",
+                       sk.Psi_cores + sk.Omega_mats,
+                       total.Psi_cores + total.Omega_mats, TT_SUM_TOL)
+    t0 = time.perf_counter()
+    b2 = X.norm() ** 2
+    gram_s = time.perf_counter() - t0
+
+    def rel_error(tt):
+        a2, ab = tt.norm() ** 2, tt.dot(X)
+        return float(np.sqrt(max(a2 + b2 - 2.0 * ab, 0.0)) / np.sqrt(b2))
+
+    runs = {"STTA 24/25": lambda s: stream_sketch(X, 24, 25, seed=s),
+            "OTTS 24/25": lambda s: orthogonal_sketch(X, 24, 25, seed=s),
+            "HMT 24": lambda s: hmt_sketch(X, 24, seed=s)}
+    out = {"linearity_rel": lin, "gib": gib, "gram_s": gram_s}
+    for name, run in runs.items():
+        tt = run(0)
+        tt = tt.to_tt() if hasattr(tt, "to_tt") else tt
+        if not all(bool(torch.isfinite(c).all()) for c in tt.cores):
+            raise AssertionError(f"tt-sum {name}: non-finite cores")
+        err = rel_error(tt)
+        med, times, enqueue_ms = _median_sketch_ms(run, groups=3, inner=1)
+        lo, hi = (TT_SUM_ERROR_RANGE if not name.startswith("STTA")
+                  else (0.0, np.inf))
+        print(f"{tag} {name}: relative error {err:.6e} (TT inner products; "
+              f"guard {lo:g}-{hi:g}), sketch median {med:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in times)}), host enqueue "
+              f"{enqueue_ms:.3f} ms")
+        if not lo <= err <= hi:
+            raise AssertionError(f"tt-sum {name}: relative error {err}")
+        out[name] = {"rel_error": err, "ms": med, "times": times,
+                     "enqueue_ms": enqueue_ms}
+    print(f"{tag} |X|^2 from {TT_SUM_TERMS ** 2} TT inner products in "
+          f"{gram_s:.3f} s")
+    return out
+
+
+def cp_problem(seed=179):
+    """``tt_sketch_tpu/experiments/problems.py cp_problem``: (10,)^5, CP
+    rank 100, component norms 1/k^5, numpy draws (float64, host)."""
+    import torch
+
+    from tt_sketch_torch.formats import CPTensor
+
+    rng = np.random.default_rng(seed)
+    cp_norms = 1.0 / np.arange(1, 101) ** 5
+    cores = []
+    for n in (10,) * 5:
+        core = rng.standard_normal((n, 100))
+        cores.append(core / np.linalg.norm(core, axis=0))
+    cores[0] = cp_norms * cores[0]
+    return CPTensor([torch.from_numpy(c) for c in cores])
+
+
+def tt_plus_sparse_problem(seed=179):
+    """``problems.py tt_plus_sparse_problem``: a rank-5 TT of (10,)^5 plus
+    100 sparse outliers with magnitudes 10^-3 .. 10^-20 (host, float64)."""
+    from tt_sketch_torch.formats import SparseTensor, TensorTrain
+
+    shape = (10,) * 5
+    tensor_tt = TensorTrain.random(shape, rank=5, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    inds = np.stack(np.unravel_index(
+        rng.choice(int(np.prod(shape)), 100, replace=False), shape))
+    entries = rng.standard_normal(100) * np.logspace(-3.0, -20.0, 100)
+    return SparseTensor(shape, inds, entries, device="cpu") + tensor_tt
+
+
+def _to(t, device):
+    """The same tensor with its arrays on ``device``."""
+    from tt_sketch_torch.formats import (
+        CPTensor,
+        SparseTensor,
+        TensorSum,
+        TensorTrain,
+        TuckerTensor,
+    )
+
+    if isinstance(t, TensorSum):
+        return TensorSum([_to(x, device) for x in t.tensors])
+    if isinstance(t, SparseTensor):
+        return SparseTensor(t.shape, t.indices, t.entries, device=device)
+    if isinstance(t, TuckerTensor):
+        return TuckerTensor([U.to(device) for U in t.factors],
+                            t.core.to(device))
+    cls = CPTensor if isinstance(t, CPTensor) else TensorTrain
+    return cls([c.to(device) for c in t.cores])
+
+
+def phase_formats():
+    """(e) CP (``cp_problem``, STTA 30/60), Tucker ((30,)^4, multilinear
+    rank 5, STTA 25/30) and ``tt_plus_sparse_problem`` with a
+    ``DenseGaussianDRM`` pair (STTA 30/60) in float64: STTA, OTTS and HMT
+    on the card and on the CPU in this process, the recovered TTs within
+    ``FORMAT_TOL`` of each other; the Tucker tensor recovered exactly."""
+    import torch
+
+    from tt_sketch_torch import (
+        DenseGaussianDRM,
+        TensorTrain,
+        TuckerTensor,
+        hmt_sketch,
+        orthogonal_sketch,
+        stream_sketch,
+    )
+
+    tucker = TuckerTensor.random((30,) * 4, 5, seed=179, device="cpu")
+    cases = (("cp", cp_problem(), (30, 60), None),
+             ("tucker", tucker, (25, 30), None),
+             ("tt+sparse dense-gauss", tt_plus_sparse_problem(), (30, 60),
+              DenseGaussianDRM))
+    out = {}
+    for name, host, (lr, rr), drm in cases:
+        card = _to(host, "cuda")
+        kw = dict(left_drm_type=drm, right_drm_type=drm)
+        methods = {
+            f"STTA {lr}/{rr}": lambda t, dev: stream_sketch(
+                t, lr, rr, seed=3, device=dev, **kw).to_tt(),
+            f"OTTS {lr}/{rr}": lambda t, dev: orthogonal_sketch(
+                t, lr, rr, seed=3, device=dev, **kw),
+            f"HMT {lr}": lambda t, dev: hmt_sketch(
+                t, lr, seed=3, drm_type=drm, device=dev)}
+        for method, run in methods.items():
+            t0 = time.perf_counter()
+            on_card = run(card, "cuda")
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_host = run(host, "cpu")
+            host_s = time.perf_counter() - t0
+            moved = TensorTrain([c.cpu() for c in on_card.cores])
+            diff = moved.error(on_host, relative=True)
+            err = on_host.error(host, relative=True)
+            print(f"# phase 12 [{name}]: {method}: recovered TT on the card "
+                  f"vs on the CPU, relative {diff:.3e} (tol {FORMAT_TOL:g}); "
+                  f"relative error of the recovery {err:.3e}; card "
+                  f"{card_s * 1e3:.3f} ms, CPU {host_s * 1e3:.3f} ms (one "
+                  f"call each, host clock)")
+            if not diff <= FORMAT_TOL:
+                raise AssertionError(f"{name} {method}: card and CPU differ "
+                                     f"by {diff:.3e}")
+            if name == "tucker" and not err <= TUCKER_EXACT_TOL:
+                raise AssertionError(f"tucker {method}: recovery error "
+                                     f"{err:.3e} > {TUCKER_EXACT_TOL:g}")
+            out[f"{name} {method}"] = {"card_vs_cpu": diff, "error": err,
+                                       "card_ms": card_s * 1e3,
+                                       "cpu_ms": host_s * 1e3}
+    return out
+
+
+def phase_sums_and_formats(uber, paths, ops, skern):
+    """Phase 12: (a)-(c) on uber, their kernels' calls against the plain
+    versions and their figures added to ``skern`` (``by_path``); (d) the
+    TT-sum workload; (e) CP, Tucker and dense Gaussian DRMs."""
+    from tt_sketch_torch import SparseGaussianDRM, SparseSignDRM
+
+    t0 = time.perf_counter()
+    shards, plan_s = split_uber(uber)
+    new = {}
+    for label, drm_type, whole in (
+            ("uber sum gauss", SparseGaussianDRM, paths["uber gauss"]),
+            ("uber sum sign", SparseSignDRM, paths["uber sign"])):
+        new[label] = phase_sum_main(label, uber, shards, drm_type, whole)
+    new["uber sum hmt gauss"] = phase_sum_hmt(uber, shards)
+    new["uber grow gauss"] = phase_grow(uber)
+    del shards
+    worst = {}
+    for label, m in new.items():
+        for name in SPARSE_KERNELS:
+            for i, args in enumerate(m["calls"].get(name, [])):
+                a, r = _check(name, f"{label} call {i}", args, phase=12)
+                w = worst.setdefault((name, label), [0.0, 0.0])
+                w[0], w[1] = max(w[0], a), max(w[1], r)
+    for name, by_path in path_figures(new, worst, ops, phase=12).items():
+        skern[name].update(by_path)
+    tt_sum = phase_tt_sum()
+    formats = phase_formats()
+    print(f"# phase 12: {time.perf_counter() - t0:.1f} s (the shards' plans "
+          f"{plan_s:.2f} s)")
+    return new, tt_sum, formats
+
+
 def main():
     import torch
 
@@ -2445,7 +3006,6 @@ def main():
                                            "parity")
     for label in ("uber hmt gauss", "uber otts gauss", "uber hmt tt"):
         paths[label] = phase_seq_main(label, uber)
-    del uber
     lbnl = load_sparse("lbnl-synthetic")
     paths["lbnl gauss"] = phase_sparse_main("lbnl gauss", lbnl,
                                             SparseGaussianDRM)
@@ -2459,6 +3019,8 @@ def main():
     phase_window_kernel()
     phase_seq_kernels()
     diag = phase_projector_diag()
+    sums, tt_sum, formats = phase_sums_and_formats(uber, paths, ops, skern)
+    del uber
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     bf16_bound = bound_ms(*MAIN, compute="bf16")
@@ -2559,6 +3121,18 @@ def main():
         print(f"# sparse main path {label}: {p['ms']:.3f} ms per sketch, "
               f"{metric} {p['nnz_per_s']:.6e}, sample error "
               f"{p['sample_error']:.4f}, device busy {100 * p['busy']:.1f} %")
+    for label, p in sums.items():
+        if "ms" in p:
+            print(f"# phase 12 path {label}: {p['ms']:.3f} ms per sketch, "
+                  f"sample error {p['sample_error']:.4f}")
+        else:
+            print(f"# phase 12 path {label}: growth {p['grow_ms']:.3f} ms, "
+                  f"from scratch {p['scratch_ms']:.3f} ms")
+    print(f"# tt-sum: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms, error {v['rel_error']:.6e}"
+        for k, v in tt_sum.items() if isinstance(v, dict)))
+    print(f"# formats: worst card vs CPU "
+          f"{max(v['card_vs_cpu'] for v in formats.values()):.3e}")
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries}))
