@@ -154,10 +154,11 @@ Phases (the first failure raises and exits non-zero):
     24/25 and HMT 24 with the default TT-DRMs; the STTA sketch against the
     sum of the summands' sketches (``TT_SUM_TOL``); relative errors from
     TT inner products (never densified; OTTS and HMT held to
-    ``TT_SUM_ERROR_RANGE``); median times.  (e) CP (``cp_problem``: (10,)^5,
-    CP rank 100; STTA/OTTS 30/60, HMT 30), Tucker ((30,)^4, multilinear
-    rank 5; 25/30, HMT 25) and ``tt_plus_sparse_problem`` with a
-    ``DenseGaussianDRM`` pair (30/60, HMT 30), in f64 on the card and on
+    ``TT_SUM_ERROR_RANGE``); median times, and with the DRMs given.
+    (e) CP (``cp_problem``: (10,)^5, CP rank 100; STTA/OTTS 30/60, HMT
+    30), Tucker ((30,)^4, multilinear rank 5; 25/30, HMT 25) and
+    ``tt_plus_sparse_problem`` with a ``DenseGaussianDRM`` pair (30/60,
+    HMT 30), in f64 on the card and on
     the CPU in this process: recovered TTs within ``FORMAT_TOL`` of each
     other, the Tucker tensor recovered within ``TUCKER_EXACT_TOL``.
 13. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
@@ -2811,6 +2812,14 @@ def phase_tt_sum():
     runs = {"STTA 24/25": lambda s: stream_sketch(X, 24, 25, seed=s),
             "OTTS 24/25": lambda s: orthogonal_sketch(X, 24, 25, seed=s),
             "HMT 24": lambda s: hmt_sketch(X, 24, seed=s)}
+    # the same sketches with their DRMs given: what drawing them costs
+    _, oleft, oright = orthogonal_sketch(X, 24, 25, seed=0, return_drm=True)
+    _, hdrm = hmt_sketch(X, 24, seed=0, return_drm=True)
+    given = {"STTA 24/25": lambda: stream_sketch(X, 24, 25, left_drm=ldrm,
+                                                 right_drm=rdrm),
+             "OTTS 24/25": lambda: orthogonal_sketch(
+                 X, 24, 25, left_drm=oleft, right_drm=oright),
+             "HMT 24": lambda: hmt_sketch(X, 24, drm=hdrm)}
     out = {"linearity_rel": lin, "gib": gib, "gram_s": gram_s}
     for name, run in runs.items():
         tt = run(0)
@@ -2819,16 +2828,17 @@ def phase_tt_sum():
             raise AssertionError(f"tt-sum {name}: non-finite cores")
         err = rel_error(tt)
         med, times, enqueue_ms = _median_sketch_ms(run, groups=3, inner=1)
+        given_ms = time_ms(given[name], reps=3, warmup=1)
         lo, hi = (TT_SUM_ERROR_RANGE if not name.startswith("STTA")
                   else (0.0, np.inf))
         print(f"{tag} {name}: relative error {err:.6e} (TT inner products; "
               f"guard {lo:g}-{hi:g}), sketch median {med:.3f} ms "
               f"({', '.join(f'{t:.3f}' for t in times)}), host enqueue "
-              f"{enqueue_ms:.3f} ms")
+              f"{enqueue_ms:.3f} ms, with the DRMs given {given_ms:.3f} ms")
         if not lo <= err <= hi:
             raise AssertionError(f"tt-sum {name}: relative error {err}")
         out[name] = {"rel_error": err, "ms": med, "times": times,
-                     "enqueue_ms": enqueue_ms}
+                     "enqueue_ms": enqueue_ms, "given_ms": given_ms}
     print(f"{tag} |X|^2 from {TT_SUM_TERMS ** 2} TT inner products in "
           f"{gram_s:.3f} s")
     return out

@@ -409,3 +409,29 @@ def test_dense_gaussian_pair_matches_jax(fmt, method):
     b = np.asarray(ref.to_dense())
     np.testing.assert_allclose(ours.to_dense().numpy(), b, rtol=0,
                                atol=1e-10 * np.abs(b).max())
+
+
+def test_no_card_means_an_error_for_the_new_inputs(monkeypatch):
+    """The entry points run on the card by default: with no card and no
+    ``device=`` they raise for CP, Tucker and sum input and for a dense
+    Gaussian DRM, as for the other formats
+    (``tests/test_torch_sketch.py::test_no_card_means_an_error_not_the_cpu``),
+    and run on the CPU when asked."""
+    cp = CPTensor.random(SHAPE, 2, seed=0)
+    tk, _ = _tucker_pair()
+    total = cp + TensorTrain.random(SHAPE, 2, seed=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config.set_default_device("cuda")
+    for make in (lambda: CPTensor.random(SHAPE, 2, seed=0),
+                 lambda: TuckerTensor.random(SHAPE, 2, seed=0),
+                 lambda: DenseGaussianDRM(3, SHAPE, False, seed=0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    for t in (cp, tk, total):
+        for run in (lambda: stream_sketch(t, 3, 5, seed=0),
+                    lambda: orthogonal_sketch(t, 3, 5, seed=0),
+                    lambda: hmt_sketch(t, 3, seed=0)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                run()
+        tt = hmt_sketch(t, 3, seed=0, device="cpu")
+        assert tt.device.type == "cpu"

@@ -4,13 +4,13 @@ Tensor-train sketching of dense, TT, CP, Tucker, sparse COO tensors and
 lazy sums of them with TT-DRMs, dense Gaussian, lazy-Gaussian and
 sparse-sign DRMs: the streaming sketch (STTA) with the recovery of its TT
 cores, its blocked form and rank growth, and the sequential sweeps
-``hmt_sketch`` and ``orthogonal_sketch`` (OTTS).  The dense slab stream's one-pass projection
-runs a hand-written Hopper kernel (``csrc/dual_project.cu``); the sparse
-sketches run the row generators (``csrc/lazy_gaussian.cu``,
-``csrc/sparse_sign.cu``), the Ψ/Ω kernels over hashed or given rows, among
-them the aligned-window kernel of giant modes (``csrc/sparse_psi.cu``), and
-the sparse chain step of the sequential sweeps and of a TT-DRM
-(``csrc/chain_step.cu``).
+``hmt_sketch`` and ``orthogonal_sketch`` (OTTS).  The dense slab stream's
+one-pass projection runs a hand-written Hopper kernel
+(``csrc/dual_project.cu``); the sparse sketches run the row generators
+(``csrc/lazy_gaussian.cu``, ``csrc/sparse_sign.cu``), the Ψ/Ω kernels over
+hashed or given rows, among them the aligned-window kernel of giant modes
+(``csrc/sparse_psi.cu``), and the sparse chain step of the sequential
+sweeps and of a TT-DRM (``csrc/chain_step.cu``).
 Public names mirror ``tt_sketch_tpu``::
 
     from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
