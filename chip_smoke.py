@@ -1705,6 +1705,87 @@ def expected_launches(tensor, ldrm, rdrm, whole=True):
     return n
 
 
+def _sum_of_launches(counts):
+    """Per-kernel sums of launch-count dicts (a sum's shards, a growth's
+    blocks)."""
+    n = dict.fromkeys(SPARSE_KERNELS, 0)
+    for c in counts:
+        for k, v in c.items():
+            n[k] += v
+    return n
+
+
+def _assert_launches(tag, label, launches, planned):
+    """The counted launches must equal ``PATH_LAUNCHES[label]`` and those
+    worked out from the plans."""
+    want = dict.fromkeys(SPARSE_KERNELS, 0) | PATH_LAUNCHES[label]
+    print(f"{tag} kernel launches in one sketch: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if not launches == want == planned:
+        raise AssertionError(f"{label}: launch counts {launches}, expected "
+                             f"{want}, from the plans {planned}")
+
+
+def _counted(run):
+    """``run()`` with every kernel's count set to 0 just before and read
+    just after, its kernel, segment-reduction and slab-combine calls
+    recorded; returns ``(result, launches, calls)``."""
+    import torch
+
+    fns = _kernel_fns()
+    calls = {}
+    torch.cuda.synchronize()
+    for kern, _ in fns.values():
+        kern.launches = 0
+    with recording(calls):
+        out = run()
+    torch.cuda.synchronize()
+    return out, {name: fns[name][0].launches for name in SPARSE_KERNELS}, calls
+
+
+def _worst_parts(tag, what, ours, ref, tol):
+    """The worst relative Frobenius error of the parts ``ours`` against
+    ``ref`` (shapes equal, every value finite); raises past ``tol``."""
+    import torch
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        if a.shape != b.shape or not (bool(torch.isfinite(a).all())
+                                      and bool(torch.isfinite(b).all())):
+            raise AssertionError(f"{tag} part {i}: shape or non-finite")
+        worst = max(worst, _rel(a, b))
+    print(f"{tag} {what}: worst rel err {worst:.3e} (tol {tol:g})")
+    if not worst <= tol:
+        raise AssertionError(f"{tag} {what}: {worst:.3e} > {tol:g}")
+    return worst
+
+
+def _median_sketch_ms(run, groups=3, inner=3):
+    """Median over ``groups`` of the mean CUDA-event time of ``inner`` runs
+    with fresh seeds, after one untimed run; the host's enqueue time of one
+    more run (no synchronization inside it)."""
+    import torch
+
+    run(1)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for j in range(inner):
+            run(100 + inner * i + j)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    run(7)
+    enqueue_ms = (time.perf_counter() - t_host) * 1e3
+    torch.cuda.synchronize()
+    return float(np.median(times)), times, enqueue_ms
+
+
 def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
                       inner=3):
     """One sparse main path: ``tensor`` through ``stream_sketch`` with a
@@ -1727,40 +1808,18 @@ def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
 
     kw = dict(left_drm_type=drm_type, right_drm_type=drm_type,
               dtype=torch.float32)
-    fns = _kernel_fns()
     tag = f"# phase 5 [{label}]:"
 
-    calls = {}
-    torch.cuda.synchronize()
-    for kern, _ in fns.values():
-        kern.launches = 0
-    with recording(calls):
-        sk, ldrm, rdrm = stream_sketch(tensor, 10, 20, seed=0,
-                                       return_drm=True, **kw)
-    torch.cuda.synchronize()
-    launches = {name: fns[name][0].launches for name in SPARSE_KERNELS}
-    want = dict.fromkeys(SPARSE_KERNELS, 0) | PATH_LAUNCHES[label]
-    planned = expected_launches(tensor, ldrm, rdrm)
-    print(f"{tag} kernel launches in one sketch: {launches}")
-    if not launches == want == planned:
-        raise AssertionError(f"launch counts {launches}, expected {want}, "
-                             f"from the plans {planned}")
+    (sk, ldrm, rdrm), launches, calls = _counted(lambda: stream_sketch(
+        tensor, 10, 20, seed=0, return_drm=True, **kw))
+    _assert_launches(tag, label, launches,
+                     expected_launches(tensor, ldrm, rdrm))
     with plain_kernels():
         ref = stream_sketch(tensor, 10, 20, left_drm=ldrm, right_drm=rdrm,
                             **kw)
-    torch.cuda.synchronize()
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(sk.Psi_cores + sk.Omega_mats,
-                                   ref.Psi_cores + ref.Omega_mats)):
-        if a.shape != b.shape or not (bool(torch.isfinite(a).all())
-                                      and bool(torch.isfinite(b).all())):
-            raise AssertionError(f"sketch part {i}: shape or non-finite")
-        worst = max(worst, _rel(a, b))
-    print(f"{tag} every Psi/Omega vs the plain-version sketch on the card: "
-          f"worst rel err {worst:.3e} (tol {PSI_TOL:g})")
-    if not worst <= PSI_TOL:
-        raise AssertionError(f"sketch disagrees with its plain version: "
-                             f"{worst:.3e}")
+    worst = _worst_parts(tag, "every Psi/Omega vs the plain-version sketch "
+                         "on the card", sk.Psi_cores + sk.Omega_mats,
+                         ref.Psi_cores + ref.Omega_mats, PSI_TOL)
     del ref
     def run(seed):
         return stream_sketch(tensor, 10, 20, seed=seed, **kw)
@@ -1798,25 +1857,7 @@ def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
             raise AssertionError(f"median sample error {np.median(errs):.4f}"
                                  f" > {SAMPLE_ERROR_LIMIT}")
 
-    run(1)
-    torch.cuda.synchronize()
-    times = []
-    for i in range(groups):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for j in range(inner):
-            run(100 + inner * i + j)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    med = float(np.median(times))
-    # host enqueue of one sketch (no synchronization inside the sketch)
-    torch.cuda.synchronize()
-    t_host = time.perf_counter()
-    run(7)
-    enqueue_ms = (time.perf_counter() - t_host) * 1e3
-    torch.cuda.synchronize()
+    med, times, enqueue_ms = _median_sketch_ms(run, groups, inner)
     with plain_kernels():
         plain_ms = time_ms(lambda: run(3), reps=3, warmup=1)
     # the parts outside the kernels, replayed from the counted sketch: the
@@ -1938,24 +1979,12 @@ def phase_seq_main(label, tensor, timed=True, groups=3, inner=3):
     from tt_sketch_torch.kernels import sketch_kernels as K
 
     method, drm = SEQ_PATHS[label]
-    fns = _kernel_fns()
     tag = f"# phase 9 [{label}]:"
 
-    calls = {}
-    torch.cuda.synchronize()
-    for kern, _ in fns.values():
-        kern.launches = 0
-    with recording(calls):
-        tt, drms = _seq_sketch(method, tensor, drm, seed=0)
-    torch.cuda.synchronize()
-    launches = {name: fns[name][0].launches for name in SPARSE_KERNELS}
-    want = dict.fromkeys(SPARSE_KERNELS, 0) | PATH_LAUNCHES[label]
-    planned = expected_seq_launches(tensor, method, drms[-1])
-    print(f"{tag} kernel launches in one sketch: "
-          f"{ {k: v for k, v in launches.items() if v} }")
-    if not launches == want == planned:
-        raise AssertionError(f"launch counts {launches}, expected {want}, "
-                             f"from the plans {planned}")
+    (tt, drms), launches, calls = _counted(
+        lambda: _seq_sketch(method, tensor, drm, seed=0))
+    _assert_launches(tag, label, launches,
+                     expected_seq_launches(tensor, method, drms[-1]))
     with plain_kernels():
         ref, _ = _seq_sketch(method, tensor, drm, drms=drms)
     torch.cuda.synchronize()
@@ -1993,24 +2022,7 @@ def phase_seq_main(label, tensor, timed=True, groups=3, inner=3):
     def run(seed):
         return _seq_sketch(method, tensor, drm, seed=seed)[0]
 
-    run(1)
-    torch.cuda.synchronize()
-    times = []
-    for i in range(groups):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for j in range(inner):
-            run(100 + inner * i + j)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    med = float(np.median(times))
-    torch.cuda.synchronize()
-    t_host = time.perf_counter()
-    run(7)
-    enqueue_ms = (time.perf_counter() - t_host) * 1e3
-    torch.cuda.synchronize()
+    med, times, enqueue_ms = _median_sketch_ms(run, groups, inner)
     with plain_kernels():
         plain_ms = time_ms(lambda: run(3), reps=3, warmup=1)
     # the same sketch with its DRMs given: what making them costs
@@ -2487,83 +2499,6 @@ def phase_projector_diag():
 
 
 # -- phase 12: sums, rank growth, CP, Tucker and dense Gaussian DRMs ----------
-
-def _sum_of_launches(counts):
-    n = dict.fromkeys(SPARSE_KERNELS, 0)
-    for c in counts:
-        for k, v in c.items():
-            n[k] += v
-    return n
-
-
-def _assert_launches(tag, label, launches, planned):
-    want = dict.fromkeys(SPARSE_KERNELS, 0) | PATH_LAUNCHES[label]
-    print(f"{tag} kernel launches in one sketch: "
-          f"{ {k: v for k, v in launches.items() if v} }")
-    if not launches == want == planned:
-        raise AssertionError(f"{label}: launch counts {launches}, expected "
-                             f"{want}, from the plans {planned}")
-
-
-def _counted(run):
-    """``run()`` with every kernel's count set to 0 just before and read
-    just after, its kernel, segment-reduction and slab-combine calls
-    recorded; returns ``(result, launches, calls)``."""
-    import torch
-
-    fns = _kernel_fns()
-    calls = {}
-    torch.cuda.synchronize()
-    for kern, _ in fns.values():
-        kern.launches = 0
-    with recording(calls):
-        out = run()
-    torch.cuda.synchronize()
-    return out, {name: fns[name][0].launches for name in SPARSE_KERNELS}, calls
-
-
-def _worst_parts(tag, what, ours, ref, tol):
-    """The worst relative Frobenius error of the parts ``ours`` against
-    ``ref`` (shapes equal, every value finite); raises past ``tol``."""
-    import torch
-
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(ours, ref)):
-        if a.shape != b.shape or not (bool(torch.isfinite(a).all())
-                                      and bool(torch.isfinite(b).all())):
-            raise AssertionError(f"{tag} part {i}: shape or non-finite")
-        worst = max(worst, _rel(a, b))
-    print(f"{tag} {what}: worst rel err {worst:.3e} (tol {tol:g})")
-    if not worst <= tol:
-        raise AssertionError(f"{tag} {what}: {worst:.3e} > {tol:g}")
-    return worst
-
-
-def _median_sketch_ms(run, groups=3, inner=3):
-    """Median over ``groups`` of the mean CUDA-event time of ``inner`` runs
-    with fresh seeds, after one untimed run; the host's enqueue time of one
-    more run (no synchronization inside it)."""
-    import torch
-
-    run(1)
-    torch.cuda.synchronize()
-    times = []
-    for i in range(groups):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for j in range(inner):
-            run(100 + inner * i + j)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    torch.cuda.synchronize()
-    t_host = time.perf_counter()
-    run(7)
-    enqueue_ms = (time.perf_counter() - t_host) * 1e3
-    torch.cuda.synchronize()
-    return float(np.median(times)), times, enqueue_ms
-
 
 def split_uber(uber):
     """``uber.split(SUM_SHARDS, psi_plan=True)`` with the library-default
