@@ -161,7 +161,32 @@ Phases (the first failure raises and exits non-zero):
     HMT 30), in f64 on the card and on
     the CPU in this process: recovered TTs within ``FORMAT_TOL`` of each
     other, the Tucker tensor recovered within ``TUCKER_EXACT_TOL``.
-13. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+13. TT rounding, TT-SVD and sketched TT-GMRES (``solvers/``; no kernel of
+    ours: ``einsum``s, QRs and SVDs).  (a) ``round_tt_sum`` of the TT-sum
+    workload of phase 12 (d) at max_rank 24, pairwise, sketch and
+    orth_sketch (seed 0): relative errors from TT inner products (pairwise
+    and orth_sketch held to ``TT_SUM_ERROR_RANGE``, the STTA-based sketch
+    to be finite); ``svdvals`` of the pairwise result (every unfolding's
+    ``|S|_2`` is the TT's norm); the first two summands (rank 200) rounded
+    at eps 1e-3, max_rank 50 by ``round`` and by ``round_masked`` then
+    ``trim_to_ranks``, and on the CPU: the same ranks, tensors within
+    ``ROUND_TOL``; each call's median ms, host enqueue and busy share.
+    (b) ``tt_svd`` at ``TT_SVD_CASES`` (Hilbert tensors, the recompression
+    experiment's sqrt tensor as sparse COO) on the card and on the CPU:
+    dense tensors within ``TT_SVD_TOL``.  (c) ``tt_sum_gmres`` on the
+    synthetic cookie problem at ``run_cookie``'s full setting ((60, 20, 20,
+    20, 20), f64, preconditioned): sketch rounding at rank 50 and pairwise
+    at rank 10, ``device_resident="auto"`` (True on the card), the seed
+    of ``run_cookie``'s run 0; the final internal residual held to half the
+    smallest and twice the largest of ``results/cookie.csv``'s runs 0-4,
+    the densified true residual of the preconditioned system to
+    ``COOKIE_TRUE_RESIDUAL``; iterations, seconds, step and final-round
+    times, a short solve under the profiler (host against device per
+    iteration), the host-device syncs of one iteration of each route; then
+    the sketch solve at ``GMRES_PARITY_ITERS`` iterations on the card by
+    both routes and on the CPU: histories and solutions within
+    ``GMRES_TOL``.
+14. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
     every path, phase 12's among them; the diagnostics' launches are those
     of their run), then the device line last.
@@ -1503,10 +1528,13 @@ def phase_window_kernel():
                 GAUSS), phase=8)
 
 
-def profile_sketch(run, n=3, phase=5):
-    """Device time by kernel over ``n`` sketches (``torch.profiler``) and
-    the device's busy share of the window (kernel time over the CUDA-event
-    time of the window; one stream, so kernels do not overlap)."""
+def profile_window(run, n=3):
+    """``run(0)`` untimed, then ``run(1..n)`` under ``torch.profiler``
+    between two CUDA events: ``(device_us, window_us, rows, host)`` with
+    the device-side events by device time (kernels, copies, memsets; an
+    operator's CPU event repeats the time of the kernels it launched) and
+    the host's operators by self CPU time (under the profiler, which slows
+    the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1527,29 +1555,39 @@ def profile_sketch(run, n=3, phase=5):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # device-side events only (kernels, copies, memsets): an operator's CPU
-    # event repeats the time of the kernels it launched
     rows = sorted(((device_us(e), e.count, e.key)
                    for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")
                    and device_us(e) > 0), reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    print(f"# phase {phase}: profiler over {n} sketches: device busy "
-          f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
-          f"({100 * busy_us / window_us:.1f} % busy); per sketch, by "
-          f"device time:")
-    for us, count, key in rows[:10]:
-        print(f"#   {us / 1e3 / n:9.3f} ms  {count // n:4d} x  {key[:90]}")
-    # where the host spends its time issuing them: operators by their own
-    # CPU time (under the profiler, which slows the host)
     host = sorted(((e.self_cpu_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if not str(e.device_type).endswith("CUDA")), reverse=True)
+    return sum(r[0] for r in rows), window_us, rows, host
+
+
+def print_profile(phase, n, unit, busy_us, window_us, rows, host):
+    """Print ``profile_window``'s figures per ``unit`` (a name of what
+    ``run`` does: "sketch", "solve")."""
+    units = {"sketch": "sketches"}.get(unit, unit + "s")
+    print(f"# phase {phase}: profiler over {n} {units}: device busy "
+          f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
+          f"({100 * busy_us / window_us:.1f} % busy); per {unit}, by "
+          f"device time:")
+    for us, count, key in rows[:10]:
+        print(f"#   {us / 1e3 / n:9.3f} ms  {count // n:4d} x  {key[:90]}")
     host_us = sum(r[0] for r in host)
     print(f"# phase {phase}: host time in operators {host_us / 1e3 / n:.3f} "
-          f"ms per sketch under the profiler; by self CPU time:")
+          f"ms per {unit} under the profiler; by self CPU time:")
     for us, count, key in host[:6]:
         print(f"#   {us / 1e3 / n:9.3f} ms  {count // n:4d} x  {key[:90]}")
+
+
+def profile_sketch(run, n=3, phase=5):
+    """Device time by kernel over ``n`` sketches (``torch.profiler``) and
+    the device's busy share of the window (kernel time over the CUDA-event
+    time of the window; one stream, so kernels do not overlap)."""
+    busy_us, window_us, rows, host = profile_window(run, n)
+    print_profile(phase, n, "sketch", busy_us, window_us, rows, host)
     return busy_us / window_us
 
 
@@ -2709,6 +2747,13 @@ def tt_sum_problem(seed=179):
     return TensorSum(summands)
 
 
+def tt_sum_rel_error(tt, X, b2):
+    """Relative error of the TT ``tt`` against the sum ``X`` (``b2`` is
+    ``|X|^2``) from TT inner products, never densified."""
+    a2, ab = tt.norm() ** 2, tt.dot(X)
+    return float(np.sqrt(max(a2 + b2 - 2.0 * ab, 0.0)) / np.sqrt(b2))
+
+
 def phase_tt_sum():
     """(d) STTA at 24/25, OTTS at 24/25 and HMT at 24 of the TT-sum
     workload with the default TT-DRMs: linearity of the STTA sketch, the
@@ -2740,10 +2785,6 @@ def phase_tt_sum():
     b2 = X.norm() ** 2
     gram_s = time.perf_counter() - t0
 
-    def rel_error(tt):
-        a2, ab = tt.norm() ** 2, tt.dot(X)
-        return float(np.sqrt(max(a2 + b2 - 2.0 * ab, 0.0)) / np.sqrt(b2))
-
     runs = {"STTA 24/25": lambda s: stream_sketch(X, 24, 25, seed=s),
             "OTTS 24/25": lambda s: orthogonal_sketch(X, 24, 25, seed=s),
             "HMT 24": lambda s: hmt_sketch(X, 24, seed=s)}
@@ -2761,7 +2802,7 @@ def phase_tt_sum():
         tt = tt.to_tt() if hasattr(tt, "to_tt") else tt
         if not all(bool(torch.isfinite(c).all()) for c in tt.cores):
             raise AssertionError(f"tt-sum {name}: non-finite cores")
-        err = rel_error(tt)
+        err = tt_sum_rel_error(tt, X, b2)
         med, times, enqueue_ms = _median_sketch_ms(run, groups=3, inner=1)
         given_ms = time_ms(given[name], reps=3, warmup=1)
         lo, hi = (TT_SUM_ERROR_RANGE if not name.startswith("STTA")
@@ -2924,6 +2965,340 @@ def phase_sums_and_formats(uber, paths, ops, skern):
     return new, tt_sum, formats
 
 
+#: results/cookie.csv: the JAX package's cookie record (``run_cookie``, five
+#: runs of each solve at full size); phase 13 holds each solve's final
+#: internal residual to half the smallest and twice the largest of its runs
+COOKIE_CSV = "results/cookie.csv"
+#: ``run_cookie``'s full setting (tt_sketch_tpu/experiments/drivers.py:511-519)
+COOKIE = dict(num_coeffs=20, num_cookies=4, n=60)
+#: rounding -> (max_rank, maxiter) of the two solves
+COOKIE_SOLVES = {"sketch": (50, 50), "pairwise": (10, 50)}
+#: the true residual of the preconditioned system, densified, as
+#: ``tests/test_solvers.py::test_gmres_cookie`` bounds it
+COOKIE_TRUE_RESIDUAL = {"sketch": 0.6, "pairwise": 0.3}
+GMRES_PARITY_ITERS = 8   # the sketch solve on the card (both routes) and on the CPU
+GMRES_PROFILE_ITERS = 4  # iterations of the profiled solve
+GMRES_TOL = 1e-7   # rtol of residual histories, relative error of solutions: card vs CPU, f64 sketch rounding through SVDs and pseudo-inverses, 8 iterations
+ROUND_TOL = 1e-10  # relative: the same f64 rounding by two routes, or on the card and on the CPU (TT arithmetic, never densified)
+SVDVALS_TOL = 1e-10  # relative: |S_mu|_2 of every unfolding against |TT|
+TT_SVD_TOL = 1e-12   # relative: a TT-SVD's dense tensor on the card vs on the CPU
+#: TT-SVD at the experiments' sizes: (name, order, size, rank, bound).  The
+#: JAX test's bounds (tests/test_solvers.py::test_tt_svd_hilbert) are for
+#: (4,)^5, where rank 8 is exact; at (5,)^7 rank 8 leaves 1.35e-9 (the
+#: port on the CPU), so 1e-8 there.  sqrt: the recompression record.
+TT_SVD_CASES = (("hilbert", 5, 4, 5, 1e-4), ("hilbert", 5, 4, 8, 1e-12),
+                ("hilbert", 7, 5, 5, 1e-4), ("hilbert", 7, 5, 8, 1e-8),
+                ("sqrt", 5, 10, 10, None))
+#: results/recompression.csv, the TT-SVD row: sqrt_problem() at rank 10
+SQRT_TT_SVD_ERROR = 2.767404636802036e-09
+
+
+def cookie_records(rounding, max_rank):
+    """The final internal residuals of runs 0-4 of one solve in
+    ``COOKIE_CSV`` and the seed of run 0 (``_seed_for(max_rank, 0, 12)``
+    of ``drivers.py``)."""
+    import csv
+
+    with open(COOKIE_CSV) as f:
+        rows = sorted((r for r in csv.DictReader(f)
+                       if r["name"] == f"GMRES-{rounding}"
+                       and float(r["max_rank"]) == max_rank
+                       and float(r["run"]) < 5),
+                      key=lambda r: float(r["run"]))
+    seed = 1009 * max_rank + 12
+    if [float(r["run"]) for r in rows] != [0, 1, 2, 3, 4] or int(
+            float(rows[0]["seed"])) != seed:
+        raise AssertionError(f"{COOKIE_CSV}: no runs 0-4 of GMRES-{rounding} "
+                             f"at rank {max_rank} with seed {seed}")
+    return [float(r["error"]) for r in rows], seed
+
+
+def count_syncs(fn):
+    """The host-device synchronizations ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _finite(tag, tt):
+    import torch
+
+    if not all(bool(torch.isfinite(c).all()) for c in tt.cores):
+        raise AssertionError(f"{tag}: non-finite cores")
+
+
+def _timed_call(tag, what, run):
+    """Median ms, host enqueue ms and busy share of ``run(seed)`` with the
+    helpers of phases 5, 9 and 12; prints one line."""
+    med, times, enqueue_ms = _median_sketch_ms(run, groups=3, inner=1)
+    busy_us, window_us, _, _ = profile_window(run, n=1)
+    print(f"{tag} {what}: median {med:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times)}), host enqueue "
+          f"{enqueue_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms of "
+          f"{window_us / 1e3:.3f} ({100 * busy_us / window_us:.1f} %)")
+    return {"ms": med, "times": times, "enqueue_ms": enqueue_ms,
+            "busy": busy_us / window_us, "device_ms": busy_us / 1e3}
+
+
+def phase_rounding():
+    """(a) ``round_tt_sum`` of the TT-sum workload at max_rank 24 by the
+    pairwise, sketch and orth_sketch modes (relative errors from TT inner
+    products), ``svdvals`` of the pairwise result, and the first two
+    summands rounded at eps 1e-3, max_rank 50 by the host-read and the
+    masked sweeps, on the card and on the CPU."""
+    import torch
+
+    from tt_sketch_torch import round_tt_sum
+
+    tag = "# phase 13 [rounding]:"
+    X = tt_sum_problem()
+    b2 = X.norm() ** 2
+    out = {}
+    for method in ("pairwise", "sketch", "orth_sketch"):
+        def run(seed, method=method):
+            return round_tt_sum(X, 24, method=method, seed=seed)
+
+        tt = run(0)
+        _finite(f"round_tt_sum {method}", tt)
+        err = tt_sum_rel_error(tt, X, b2)
+        lo, hi = (0.0, np.inf) if method == "sketch" else TT_SUM_ERROR_RANGE
+        print(f"{tag} round_tt_sum {method} at 24: ranks {tt.rank}, relative "
+              f"error {err:.6e} (TT inner products; guard {lo:g}-{hi:g})")
+        if not lo <= err <= hi:
+            raise AssertionError(f"round_tt_sum {method}: error {err}")
+        out[method] = {"rel_error": err,
+                       **_timed_call(tag, f"round_tt_sum {method}", run)}
+        if method == "pairwise":
+            norm = tt.norm()
+            svs = tt.svdvals()
+            worst = max(abs(float(np.linalg.norm(s)) - norm) / norm
+                        for s in svs)
+            print(f"{tag} svdvals of the pairwise result: {len(svs)} "
+                  f"unfoldings, worst | |S|_2 - |TT| | / |TT| {worst:.3e} "
+                  f"(tol {SVDVALS_TOL:g})")
+            if not worst <= SVDVALS_TOL:
+                raise AssertionError(f"svdvals: {worst:.3e}")
+            out["svdvals_worst"] = worst
+    two = X.tensors[0].add(X.tensors[1])
+    del X
+    host = two.round(eps=1e-3, max_rank=50)
+    masked, eff = two.round_masked(eps=1e-3, max_rank=50)
+    trimmed = masked.trim_to_ranks(eff)
+    diff = trimmed.error(host, relative=True)
+    t0 = time.perf_counter()
+    on_cpu = _to(two, "cpu").round(eps=1e-3, max_rank=50)
+    cpu_s = time.perf_counter() - t0
+    cpu_diff = _to(host, "cpu").error(on_cpu, relative=True)
+    print(f"{tag} two summands (ranks {two.rank}) at eps 1e-3, max_rank 50: "
+          f"host-read ranks {host.rank}, masked ranks {tuple(eff.tolist())} "
+          f"(static {masked.rank}), trimmed vs host-read {diff:.3e}; CPU "
+          f"ranks {on_cpu.rank}, card vs CPU {cpu_diff:.3e} (tol "
+          f"{ROUND_TOL:g}; CPU {cpu_s:.2f} s, host clock)")
+    if not (tuple(eff.tolist()) == host.rank == on_cpu.rank
+            and diff <= ROUND_TOL and cpu_diff <= ROUND_TOL):
+        raise AssertionError("eps rounding: routes or devices differ")
+    out["eps"] = {
+        "ranks": host.rank, "trimmed_vs_host": diff, "card_vs_cpu": cpu_diff,
+        "cpu_s": cpu_s,
+        "round": _timed_call(tag, "round(eps=1e-3, max_rank=50)",
+                             lambda s: two.round(eps=1e-3, max_rank=50)),
+        "round_masked": _timed_call(
+            tag, "round_masked(eps=1e-3, max_rank=50) + trim_to_ranks",
+            lambda s: two.round_masked(eps=1e-3, max_rank=50)[0]
+            .trim_to_ranks(eff)),
+    }
+    del two, host, masked, trimmed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tt_svd():
+    """(b) ``tt_svd`` at the experiments' sizes (``TT_SVD_CASES``) on the
+    card and on the CPU in this process: dense tensors within
+    ``TT_SVD_TOL``, the errors under their bounds."""
+    import torch
+
+    from tt_sketch_torch import hilbert_tensor, sqrt_tensor, tt_svd
+    from tt_sketch_torch.formats import DenseTensor
+
+    tag = "# phase 13 [tt-svd]:"
+    out = {}
+    for name, order, size, rank, bound in TT_SVD_CASES:
+        def make(dev):
+            if name == "hilbert":
+                return DenseTensor(hilbert_tensor(order, size, device=dev))
+            # sqrt_problem(): the dense tensor as sparse COO
+            return DenseTensor(sqrt_tensor((size,) * order,
+                                           device=dev)).to_sparse()
+
+        card_t, host_t = make("cuda"), make("cpu")
+        card, host = tt_svd(card_t, rank), tt_svd(host_t, rank)
+        a, b = card.to_dense().cpu(), host.to_dense()
+        diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        err = card.error(card_t, relative=True)
+        ms = time_ms(lambda: tt_svd(card_t, rank), reps=3, warmup=1)
+        label = f"{name} ({size},)^{order} rank {rank}"
+        print(f"{tag} {label}: ranks {card.rank}, relative error {err:.3e}"
+              f" (bound {bound if bound else SQRT_TT_SVD_ERROR}), card vs "
+              f"CPU {diff:.3e} (tol {TT_SVD_TOL:g}), {ms:.3f} ms on the card")
+        if bound is None:
+            ok = abs(err - SQRT_TT_SVD_ERROR) <= 1e-3 * SQRT_TT_SVD_ERROR
+        else:
+            ok = err < bound
+        if not (ok and diff <= TT_SVD_TOL and card.rank == host.rank):
+            raise AssertionError(f"tt_svd {label}: error {err:.3e}, card vs "
+                                 f"CPU {diff:.3e}")
+        out[label] = {"rel_error": err, "card_vs_cpu": diff, "ms": ms}
+    return out
+
+
+def phase_gmres():
+    """(c) Sketched and pairwise TT-GMRES on the synthetic cookie problem at
+    ``run_cookie``'s full setting with ``device_resident="auto"`` (True on
+    the card): the final internal residual against the JAX package's record,
+    the densified true residual, times, a profiled short solve, the syncs
+    of one iteration of each route; then the sketch solve at
+    ``GMRES_PARITY_ITERS`` iterations on the card by both routes and on the
+    CPU."""
+    import torch
+
+    from tt_sketch_torch import tt_sum_gmres
+    from tt_sketch_torch.formats import TensorSum
+    from tt_sketch_torch.solvers import prepare_synthetic_cookie_problem
+
+    tag = "# phase 13 [gmres]:"
+    A, b, pre = prepare_synthetic_cookie_problem(**COOKIE, device="cuda")
+    print(f"{tag} cookie problem {A.in_shape}, {len(A.linear_maps)} maps, "
+          f"float64, preconditioned, tolerance 1e-6")
+    out = {}
+    for rounding, (max_rank, maxiter) in COOKIE_SOLVES.items():
+        records, seed = cookie_records(rounding, max_rank)
+        lo, hi = 0.5 * min(records), 2.0 * max(records)
+        kw = dict(max_rank=max_rank, precond=pre, tolerance=1e-6,
+                  rounding_method=rounding, seed=seed)
+        label = f"{rounding} at rank {max_rank}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, hist = tt_sum_gmres(A, b, maxiter=maxiter, **kw)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        _finite(f"gmres {label}", x)
+        final = hist["residual_norm"][-1]
+        b_pr = pre(b)
+        Ax_pr = TensorSum([pre(t) for t in A(x).tensors])
+        true = float(torch.linalg.norm((b_pr + Ax_pr * (-1.0)).to_dense())
+                     / torch.linalg.norm(b_pr.to_dense()))
+        del b_pr, Ax_pr
+        steps = hist["step_time"][1:]
+        print(f"{tag} {label}, maxiter {maxiter}, seed {seed}: "
+              f"{len(hist['residual_norm']) - 1} iterations, {total_s:.3f} s "
+              f"total (history {hist['total_time']:.3f} s), step median "
+              f"{1e3 * float(np.median(steps)):.3f} ms, final round "
+              f"{1e3 * hist['final_round_time']:.3f} ms, ranks {x.rank}; "
+              f"final internal residual {final:.6e} (guard {lo:.3e}-"
+              f"{hi:.3e}; {COOKIE_CSV} runs 0-4: "
+              f"{', '.join(f'{r:.4e}' for r in records)}); true residual of "
+              f"the preconditioned system {true:.4e} (bound "
+              f"{COOKIE_TRUE_RESIDUAL[rounding]})")
+        if not (lo <= final <= hi and true < COOKIE_TRUE_RESIDUAL[rounding]):
+            raise AssertionError(f"gmres {label}: residual {final:.3e}, "
+                                 f"true {true:.3e}")
+        busy_us, window_us, rows, host = profile_window(
+            lambda s: tt_sum_gmres(A, b, maxiter=GMRES_PROFILE_ITERS, **kw),
+            n=1)
+        print(f"{tag} {label}: a {GMRES_PROFILE_ITERS}-iteration solve under "
+              f"the profiler, per iteration: window {window_us / 1e3 / GMRES_PROFILE_ITERS:.3f} "
+              f"ms (host), device busy {busy_us / 1e3 / GMRES_PROFILE_ITERS:.3f}"
+              f" ms ({100 * busy_us / window_us:.1f} %)")
+        print_profile(13, 1, "solve", busy_us, window_us, rows, host)
+        syncs = {}
+        for dr in (True, False):
+            one, two = (count_syncs(lambda m=m: tt_sum_gmres(
+                A, b, maxiter=m, device_resident=dr, **kw)) for m in (1, 2))
+            syncs["device-resident" if dr else "eager"] = two - one
+        print(f"{tag} {label}: host-device syncs of one iteration "
+              f"(set_sync_debug_mode, a 2-iteration solve less a 1-iteration"
+              f" one): {syncs}")
+        out[label] = {"iterations": len(hist["residual_norm"]) - 1,
+                      "total_s": total_s, "final_residual": final,
+                      "records": records, "true_residual": true,
+                      "step_ms": 1e3 * float(np.median(steps)),
+                      "final_round_ms": 1e3 * hist["final_round_time"],
+                      "busy": busy_us / window_us,
+                      "iter_device_ms": busy_us / 1e3 / GMRES_PROFILE_ITERS,
+                      "iter_window_ms": window_us / 1e3 / GMRES_PROFILE_ITERS,
+                      "syncs": syncs}
+    # where the syncs come from: one QR and one SVD at a pairwise round's
+    # shapes, the SVD with torch's default CUDA solver and with gesvdj
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    attrib = {}
+    for shape in ((20, 400), (400, 20), (50, 1000)):
+        M = torch.randn(shape, generator=rng, device="cuda",
+                        dtype=torch.float64)
+        for what, fn in (
+                ("qr", lambda: torch.linalg.qr(M)),
+                ("svd", lambda: torch.linalg.svd(M, full_matrices=False)),
+                ("svd gesvdj", lambda: torch.linalg.svd(
+                    M, full_matrices=False, driver="gesvdj"))):
+            attrib[f"{what} {shape}"] = count_syncs(fn)
+    print(f"{tag} host-device syncs of one call: {attrib}")
+    out["syncs_per_call"] = attrib
+    max_rank, _ = COOKIE_SOLVES["sketch"]
+    _, seed = cookie_records("sketch", max_rank)
+    kw = dict(max_rank=max_rank, tolerance=1e-6, rounding_method="sketch",
+              seed=seed, maxiter=GMRES_PARITY_ITERS)
+    A_h, b_h, pre_h = prepare_synthetic_cookie_problem(**COOKIE,
+                                                       device="cpu")
+    runs = {"card, device-resident": lambda: tt_sum_gmres(
+                A, b, precond=pre, device_resident=True, **kw),
+            "card, eager": lambda: tt_sum_gmres(
+                A, b, precond=pre, device_resident=False, **kw),
+            "cpu": lambda: tt_sum_gmres(A_h, b_h, precond=pre_h, **kw)}
+    got = {}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        x, hist = run()
+        torch.cuda.synchronize()
+        got[name] = (_to(x, "cpu"), np.asarray(hist["residual_norm"]),
+                     time.perf_counter() - t0)
+    x_ref, res_ref, _ = got["cpu"]
+    parity = {}
+    for name, (x, res, secs) in got.items():
+        hist_rel = float(np.max(np.abs(res / res_ref - 1.0)))
+        sol_rel = x.error(x_ref, relative=True)
+        print(f"{tag} sketch at rank {max_rank}, {GMRES_PARITY_ITERS} "
+              f"iterations, {name}: {secs:.3f} s, final residual "
+              f"{res[-1]:.6e}; against the CPU: history {hist_rel:.3e}, "
+              f"solution {sol_rel:.3e} (tol {GMRES_TOL:g})")
+        if not (res.shape == res_ref.shape and hist_rel <= GMRES_TOL
+                and sol_rel <= GMRES_TOL):
+            raise AssertionError(f"gmres {name} differs from the CPU")
+        parity[name] = {"s": secs, "history_rel": hist_rel,
+                        "solution_rel": sol_rel}
+    out["parity"] = parity
+    return out
+
+
+def phase_rounding_and_solvers():
+    """Phase 13: (a) rounding at the TT-sum size, (b) TT-SVD, (c)
+    TT-GMRES on the cookie problem."""
+    t0 = time.perf_counter()
+    out = {"rounding": phase_rounding(), "tt_svd": phase_tt_svd(),
+           "gmres": phase_gmres()}
+    print(f"# phase 13: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -2966,6 +3341,7 @@ def main():
     diag = phase_projector_diag()
     sums, tt_sum, formats = phase_sums_and_formats(uber, paths, ops, skern)
     del uber
+    solvers = phase_rounding_and_solvers()
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     bf16_bound = bound_ms(*MAIN, compute="bf16")
@@ -3078,6 +3454,15 @@ def main():
         for k, v in tt_sum.items() if isinstance(v, dict)))
     print(f"# formats: worst card vs CPU "
           f"{max(v['card_vs_cpu'] for v in formats.values()):.3e}")
+    rnd = solvers["rounding"]
+    print("# rounding at 24: " + "; ".join(
+        f"{k} {rnd[k]['ms']:.3f} ms, error {rnd[k]['rel_error']:.6e}"
+        for k in ("pairwise", "sketch", "orth_sketch")))
+    for label, g in solvers["gmres"].items():
+        if "iterations" in g:
+            print(f"# gmres {label}: {g['iterations']} iterations, "
+                  f"{g['total_s']:.3f} s, residual {g['final_residual']:.4e}"
+                  f", busy {100 * g['busy']:.1f} %")
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -57,6 +57,14 @@ def test_import_leaves_jax_out():
         "from tt_sketch_torch import DenseGaussianDRM, ALL_DRM\n"
         "from tt_sketch_torch import blocked_stream_sketch\n"
         "from tt_sketch_torch import get_drm_capabilities\n"
+        "from tt_sketch_torch import tt_svd, MPO, TTLinearMap, TTPrecond\n"
+        "from tt_sketch_torch import TTLinearMapSum, round_tt_sum\n"
+        "from tt_sketch_torch import tt_sum_gmres, hilbert_tensor\n"
+        "from tt_sketch_torch import sqrt_tensor, power_decay_tensor\n"
+        "from tt_sketch_torch.solvers import CookieMap\n"
+        "from tt_sketch_torch.solvers import prepare_synthetic_cookie_problem\n"
+        "from tt_sketch_torch.utils import projector, reference_random_normal\n"
+        "from tt_sketch_torch.interop import mpo_from_numpy\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"

@@ -10,7 +10,8 @@ one-pass projection runs a hand-written Hopper kernel
 (``csrc/lazy_gaussian.cu``, ``csrc/sparse_sign.cu``), the Ψ/Ω kernels over
 hashed or given rows, among them the aligned-window kernel of giant modes
 (``csrc/sparse_psi.cu``), and the sparse chain step of the sequential
-sweeps and of a TT-DRM (``csrc/chain_step.cu``).
+sweeps and of a TT-DRM (``csrc/chain_step.cu``).  TT rounding, TT-SVD and
+sketched TT-GMRES (``solvers/``) are ``einsum``s, QRs and SVDs.
 Public names mirror ``tt_sketch_tpu``::
 
     from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
@@ -20,8 +21,11 @@ Entry points run on ``"cuda"`` unless given ``device=`` or after
 """
 from tt_sketch_torch.utils import (  # noqa: F401
     dematricize,
+    hilbert_tensor,
     matricize,
+    power_decay_tensor,
     process_tt_rank,
+    sqrt_tensor,
     trim_ranks,
 )
 
@@ -60,6 +64,13 @@ def __getattr__(name):
         "sample_error": "tt_sketch_torch.data.frostt",
         "dense_stream_sketch_bisect": "tt_sketch_torch.kernels.dense_engine",
         "slab_stream_sketch": "tt_sketch_torch.kernels.dense_engine",
+        "tt_svd": "tt_sketch_torch.solvers.tt_svd",
+        "MPO": "tt_sketch_torch.solvers.tt_gmres",
+        "TTLinearMap": "tt_sketch_torch.solvers.tt_gmres",
+        "TTLinearMapSum": "tt_sketch_torch.solvers.tt_gmres",
+        "TTPrecond": "tt_sketch_torch.solvers.tt_gmres",
+        "round_tt_sum": "tt_sketch_torch.solvers.tt_gmres",
+        "tt_sum_gmres": "tt_sketch_torch.solvers.tt_gmres",
     }
     if name in _API:
         return getattr(import_module(_API[name]), name)

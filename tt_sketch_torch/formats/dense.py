@@ -41,6 +41,18 @@ class DenseTensor(Tensor):
     def to_dense(self) -> torch.Tensor:
         return self.data
 
+    def to_sparse(self):
+        """COO view of all entries, row-major, with int64 indices on the
+        tensor's device (``tt_sketch_tpu/formats/dense.py:41-46``)."""
+        from tt_sketch_torch.formats.sparse import SparseTensor
+
+        grids = torch.meshgrid(
+            *[torch.arange(n, device=self.device) for n in self.shape],
+            indexing="ij",
+        )
+        inds = torch.stack(grids).reshape(len(self.shape), -1)
+        return SparseTensor(self.shape, inds, self.data.reshape(-1))
+
     def __mul__(self, other: float) -> DenseTensor:
         return DenseTensor(self.data * other)
 

@@ -53,6 +53,56 @@ class TensorTrain(Tensor):
     def orthogonalize(self) -> TensorTrain:
         return TensorTrain(tt_ops.tt_orthogonalize(self.cores))
 
+    def round(
+        self,
+        eps: Optional[float] = None,
+        max_rank: Optional[TTRank] = None,
+        orthogonalized: bool = False,
+    ) -> TensorTrain:
+        """TT-SVD rounding (``tt_sketch_tpu/formats/tensor_train.py:65-83``).
+
+        With ``eps=None`` and a ``max_rank`` the cut is the rank cap alone,
+        so the sweep with no host read of singular values is used
+        (``tt_ops.tt_round_fixed_rank``); otherwise ``tt_ops.tt_round``."""
+        if eps is None and max_rank is not None:
+            return TensorTrain(
+                tt_ops.tt_round_fixed_rank(self.cores, max_rank,
+                                           orthogonalized)
+            )
+        return TensorTrain(
+            tt_ops.tt_round(self.cores, eps, max_rank, orthogonalized)
+        )
+
+    def round_masked(
+        self,
+        eps=None,
+        max_rank: Optional[TTRank] = None,
+        orthogonalized: bool = False,
+    ) -> Tuple[TensorTrain, torch.Tensor]:
+        """Device-resident eps-rounding with static shapes
+        (``tt_ops.tt_round_masked``): ``(rounded, eff_ranks)``, the entries
+        past the effective ranks exact zeros; ``trim_to_ranks`` slices them
+        off after one host read."""
+        cores, eff = tt_ops.tt_round_masked(
+            self.cores, eps, max_rank, orthogonalized
+        )
+        return TensorTrain(cores), eff
+
+    def trim_to_ranks(self, ranks) -> TensorTrain:
+        """Slice cores to the given ranks (exact on masked TTs)."""
+        return TensorTrain(tt_ops.tt_slice_to_ranks(self.cores, ranks))
+
+    def norm_device(self) -> torch.Tensor:
+        """``norm()`` as a 0-d device tensor (no host sync)."""
+        return tt_ops.tt_norm_device(self.cores)
+
+    def dot_device(self, other: TensorTrain) -> torch.Tensor:
+        """TT-TT inner product as a 0-d device tensor (no host sync)."""
+        return tt_ops.tt_dot(self.cores, other.cores)
+
+    def svdvals(self) -> List[np.ndarray]:
+        return tt_ops.tt_svdvals(self.cores)
+
     def add(self, other: TensorTrain) -> TensorTrain:
         """Direct-sum addition."""
         return TensorTrain(tt_ops.tt_add(self.cores, other.cores))

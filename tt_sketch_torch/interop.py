@@ -1,5 +1,5 @@
 """Hand numpy arrays (e.g. the JAX package's DRM cores, sketches, sparse
-data, sort/chunk plans and CP, Tucker and sum tensors, read back with
+data, sort/chunk plans and CP, Tucker, sum tensors and MPOs, read back with
 ``np.asarray``) to the port, keeping their dtype."""
 from __future__ import annotations
 
@@ -158,3 +158,11 @@ def tensor_sum_from_numpy(summands, device=None):
         raise ValueError(f"unknown summand format {kind!r}")
 
     return TensorSum([convert(s) for s in summands])
+
+
+def mpo_from_numpy(cores: Sequence[np.ndarray], device=None):
+    """An ``MPO`` from numpy order-4 cores ``(r0, n_in, n_out, r1)`` (e.g.
+    ``np.asarray`` of a JAX ``MPO``'s ``cores``)."""
+    from tt_sketch_torch.solvers.tt_gmres import MPO
+
+    return MPO(from_numpy_cores(cores, device))

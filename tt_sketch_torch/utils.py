@@ -1,9 +1,11 @@
-"""Numeric utilities: matricization, TT-rank processing, pinv products and
-the deterministic host RNG.
+"""Numeric utilities: matricization, TT-rank processing, pinv products,
+the deterministic host RNG and synthetic test tensors.
 
 Counterpart of ``tt_sketch_tpu/utils.py``.  ``random_normal`` draws from the
 same NumPy PCG64 stream, so DRM cores and random TTs are bit-identical to
-the JAX package's for equal seeds and dtypes.
+the JAX package's for equal seeds and dtypes.  The synthetic tensors
+(``tt_sketch_tpu/utils.py:191-228``) are made with numpy on the host, as
+the JAX package makes them, then moved to ``device``.
 """
 from __future__ import annotations
 
@@ -90,6 +92,15 @@ def left_mul_pinv(A: torch.Tensor, B: torch.Tensor,
     return _lstsq(A, B, rcond=rcond)
 
 
+def projector(X: torch.Tensor, Y: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    r"""Oblique projector :math:`P_{X,Y} = X (Y^T X)^+ Y^T`
+    (``tt_sketch_tpu/utils.py:93-97``)."""
+    if Y is None:
+        Y = X
+    return X @ torch.linalg.pinv(Y.mT @ X) @ Y.mT
+
+
 # ---------------------------------------------------------------------------
 # TT-rank processing (pure Python)
 # ---------------------------------------------------------------------------
@@ -157,3 +168,72 @@ def random_normal(shape, seed: Optional[int] = None, dtype=None,
     rng = np.random.default_rng(np.random.SeedSequence(seed))
     vals = rng.standard_normal(size=int(np.prod(shape)))
     return torch.from_numpy(vals.reshape(shape)).to(device=device, dtype=dtype)
+
+
+def reference_random_normal(shape, seed: Optional[int],
+                            threads: int) -> np.ndarray:
+    """Bit-reproduce the reference's ``MultithreadedRNG`` for a pinned thread
+    count (``tt_sketch_tpu/utils.py:168-186``): the flat array is filled in
+    ``threads`` contiguous chunks of size ``ceil(n/threads)``, chunk ``i``
+    drawn from ``SeedSequence(seed).spawn(threads)[i]``.  Returns numpy, as
+    the JAX package's does.
+    """
+    n = int(np.prod(shape))
+    seq = np.random.SeedSequence(seed)
+    gens = [np.random.default_rng(s) for s in seq.spawn(threads)]
+    values = np.empty(n)
+    step = int(np.ceil(n / threads))
+    for i, g in enumerate(gens):
+        first, last = i * step, min((i + 1) * step, n)
+        if first >= n:
+            break
+        g.standard_normal(out=values[first:last])
+    return values.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Synthetic tensors (values made with numpy on the host)
+# ---------------------------------------------------------------------------
+
+def _from_host(values: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(values).to(device=resolve_device(device),
+                                       dtype=dtype or DEFAULT_DTYPE)
+
+
+def hilbert_tensor(n_dims: int, size: int, dtype=None,
+                   device=None) -> torch.Tensor:
+    """Hilbert tensor ``X[i1..id] = 1 / (i1 + ... + id + 1)``."""
+    grid = np.indices((size,) * n_dims).sum(axis=0)
+    return _from_host(1.0 / (grid + 1), dtype, device)
+
+
+def sqrt_tensor(shape: Tuple[int, ...], a=-0.2, b=2, dtype=None,
+                device=None) -> torch.Tensor:
+    """``sqrt(|sum of grid values|)`` tensor, normalized to unit norm."""
+    vals = [np.linspace(a, b, s) for s in shape]
+    grid = np.stack(np.meshgrid(*vals, indexing="ij"))
+    X = np.sqrt(np.abs(np.sum(grid, axis=0)))
+    X /= np.linalg.norm(X)
+    return _from_host(X, dtype, device)
+
+
+def power_decay_tensor(
+    shape: Tuple[int, ...], pow: float = 2.0, seed=None, dtype=None,
+    device=None,
+) -> torch.Tensor:
+    """Random tensor whose every unfolding has power-law singular values.
+
+    (The reference's version has a missing-import bug, SURVEY.md §2.4;
+    this is the intended behavior, as in the JAX package.)
+    """
+    seq = np.random.SeedSequence(seed)
+    A_seed = seq.generate_state(1)[0]
+    rng = np.random.default_rng(np.random.SeedSequence(int(A_seed)))
+    A = torch.from_numpy(rng.standard_normal(size=shape))
+    for mode in range(len(shape)):
+        A_mat = matricize(A, mode).numpy()
+        U, S, V = np.linalg.svd(A_mat, full_matrices=False)
+        S /= S[0]
+        S *= 1 / np.arange(1, len(S) + 1) ** pow
+        A = dematricize(torch.from_numpy(U @ np.diag(S) @ V), mode, shape)
+    return _from_host(A.contiguous().numpy(), dtype, device)
