@@ -186,7 +186,34 @@ Phases (the first failure raises and exits non-zero):
     the sketch solve at ``GMRES_PARITY_ITERS`` iterations on the card by
     both routes and on the CPU: histories and solutions within
     ``GMRES_TOL``.
-14. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+14. The uniform engine, streaming sessions, checkpoints and profiling
+    (no kernel of ours in (a); the sessions launch the sparse kernels).
+    (a) ``run_dimension_scaling``'s full setting on the uniform engine:
+    ``uniform_exp_decay_tt(8192, 30, 30, seed=179)`` in f64, STTA 30/60,
+    HMT 30 and OTTS 30/60 with the ``"hash"`` DRM stream at run 0's seeds,
+    each rounded to 10, and ``uniform_round_fixed`` at 10, 9 and 8: every
+    error on the card's Gram route held to ``results/dimension_scaling.csv``
+    (``SCALING_TOL``), STTA's also on the exact route
+    (``SCALING_EXACT_TOL``); stage times (``profiling.StageTimer``; STTA's
+    sketch split into its hash DRMs, chains with Ψ/Ω and batched
+    recovery), the peak memory; STTA's syncs, device operations and busy
+    share per stage at ``SCALING_COUNT_ORDER``; STTA at order 1024 and
+    OTTS at 256 (``SCALING_PARITY_ORDERS``) through their entry points on
+    the card and on the CPU in this process (``SCALING_CARD_CPU_TOL``).  (b) uber in ``SESSION_SHARDS`` planned
+    shards through ``StreamingSketchSession`` at 10/20 in f32 with a
+    ``SparseGaussianDRM`` pair (launch counts from the shards' plans) and
+    with the default ``TensorTrainDRM``s (the launches printed): the
+    uninterrupted stream, and a crash after ``SESSION_CRASH_AFTER`` shards
+    with a checkpoint every ``SESSION_CHECKPOINT_EVERY``, resumed; the
+    resumed Ψ/Ω equal to the uninterrupted ones bit for bit (else a
+    determinism probe and ``RESUME_TOL``), to the whole tensor's sketch
+    with the same DRMs within ``PSI_TOL``, the sample error within
+    ``SESSION_ERROR_TOL`` of the whole sketch's; the checkpoint loaded on
+    the CPU equal to the card's copy; ms per consume, checkpoint write and
+    resume, the checkpoint's bytes, a consume's host enqueue and busy
+    share.  (c) ``profiling.trace`` of one consume names a kernel of ours;
+    ``memory_stats()`` on the card.
+15. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
     every path, phase 12's among them; the diagnostics' launches are those
     of their run), then the device line last.
@@ -3299,6 +3326,552 @@ def phase_rounding_and_solvers():
     return out
 
 
+#: phase 14 (a): ``run_dimension_scaling``'s full setting
+#: (``tt_sketch_tpu/experiments/drivers.py:140-188``) and its record
+SCALING_CSV = "results/dimension_scaling.csv"
+SCALING = dict(order=8192, dim=30, rank=30, recomp=10, seed=179)
+#: the orders of the card-against-CPU check, each method through its entry
+#: point: STTA at 1024; OTTS at 256, because at 1024 its CPU run alone
+#: takes 18 s of the script's time (NVIDIA H100 80GB HBM3 host, 700 W)
+SCALING_PARITY_ORDERS = {"STTA": 1024, "OTTS": 256}
+#: the order at which STTA's syncs, device operations and busy share are
+#: counted stage by stage (per mode they do not depend on the order; the
+#: profiler's own cost grows with the operations it records)
+SCALING_COUNT_ORDER = 128
+#: (method, extra) of ``drivers._seed_for(order, run, extra)``
+SCALING_SEEDS = {"STTA": 4, "HMT": 5, "TT-SVD": 6, "OTTS": 7}
+SCALING_TOL = 1e-3        # relative: an error on the card's Gram route vs results/dimension_scaling.csv (the Gram identity's cancellation at errors near 8.6e-6)
+SCALING_EXACT_TOL = 1e-6  # relative: STTA's error on the exact route vs the record
+SCALING_CARD_CPU_TOL = 1e-10  # relative, exact route: an f64 rounded TT on the card vs on the CPU (the same DRM bits, QRs and SVDs in another library)
+#: phase 14 (b): uber streamed through sessions
+SESSION_SHARDS = 16
+SESSION_CHECKPOINT_EVERY = 4
+SESSION_CRASH_AFTER = 6
+SESSION_ERROR_TOL = 1e-4  # absolute: a session's sample error vs the whole sketch's with the same DRMs
+RESUME_TOL = 1e-6  # relative Frobenius: a resumed Psi/Omega vs the uninterrupted one where a launch on the path sums in no fixed order
+#: names of the port's own CUDA kernels, as a trace shows them
+PORT_KERNEL_NAMES = ("lazy_gaussian_kernel", "sparse_sign_kernel",
+                     "sparse_psi_kernel", "chain_step_kernel",
+                     "segment_reduce_kernel", "segment_run_kernel",
+                     "dual_project_kernel", "reduce_read_kernel",
+                     "reduce_u_kernel")
+
+
+def _seed_for(order, run, extra):
+    """``tt_sketch_tpu/experiments/drivers.py``'s seed rule."""
+    return 100_003 * run + 1009 * order + extra
+
+
+def scaling_records(order):
+    """The JAX package's record of ``run_dimension_scaling`` at ``order``,
+    run 0: the three sketches with the hash stream rounded to 10 and TT-SVD
+    at 10, 9 and 8, as ``{(name, rank): error}``; the seeds checked against
+    ``_seed_for``."""
+    import csv
+
+    with open(SCALING_CSV) as f:
+        rows = [r for r in csv.DictReader(f)
+                if float(r["order"]) == order and float(r["run"]) == 0
+                and not r["protocol"]]
+    out = {}
+    for r in rows:
+        if r["name"] == "TT-SVD":
+            key = ("TT-SVD", int(float(r["rank"])))
+        elif (r["drm_stream"] == "hash"
+              and float(r["recompression_rank"]) == SCALING["recomp"]):
+            key = (r["name"], SCALING["recomp"])
+        else:
+            continue
+        if int(float(r["seed"])) != _seed_for(order, 0,
+                                               SCALING_SEEDS[key[0]]):
+            raise AssertionError(f"{SCALING_CSV}: {key} has seed {r['seed']}")
+        out[key] = float(r["error"])
+    recomp = SCALING["recomp"]
+    want = {(m, recomp) for m in ("STTA", "HMT", "OTTS")} | {
+        ("TT-SVD", k) for k in (recomp, recomp - 1, recomp - 2)}
+    if set(out) != want:
+        raise AssertionError(f"{SCALING_CSV}: order {order} run 0 has "
+                             f"{sorted(out)}, expected {sorted(want)}")
+    return out
+
+
+def _stta_in_stages(tt, seed, timer):
+    """``uniform_stream_sketch(tt, 30, 60, seed, drm_stream="hash")``
+    stage by stage, each stage timed: the hash DRMs, the chains with Ψ/Ω,
+    the batched recovery."""
+    from tt_sketch_torch.engine.sketch import _derive_right_seed
+    from tt_sketch_torch.engine.uniform import (
+        stack_tt,
+        uniform_assemble,
+        uniform_random_tt,
+        uniform_stream_sketch_stacked,
+        unstack_tt,
+    )
+
+    X = stack_tt(tt)
+    d, n, rank = X[1].shape[0] + 2, X[0].shape[1], SCALING["rank"]
+    timer.start("STTA sketch: hash DRMs")
+    Yf, Yi, _ = uniform_random_tt(d, n, rank, seed, norm_goal="norm-preserve",
+                                  stream="hash", device=X[0].device)
+    Zf, Zi, _ = uniform_random_tt(d, n, 2 * rank, _derive_right_seed(seed, d),
+                                  norm_goal="norm-preserve", stream="hash",
+                                  device=X[0].device)
+    timer.stop("STTA sketch: hash DRMs", (Yi, Zi))
+    timer.start("STTA sketch: chains, Psi, Omega")
+    psis, om = uniform_stream_sketch_stacked(X, (Yf, Yi), (Zf, Zi))
+    timer.stop("STTA sketch: chains, Psi, Omega", (psis, om))
+    del X, Yf, Yi, Zf, Zi
+    timer.start("STTA sketch: batched lstsq")
+    rec = uniform_assemble(psis, om, "right")
+    timer.stop("STTA sketch: batched lstsq", rec)
+    return unstack_tt(*rec)
+
+
+def _scaling_sketch(name, tt, order, timer=None):
+    """One sketch of ``run_dimension_scaling`` (``tasks.py:140-222``):
+    through the port's entry points, or STTA in timed stages when a
+    ``timer`` is given."""
+    from tt_sketch_torch.engine.uniform import (
+        uniform_hmt_sketch,
+        uniform_orthogonal_sketch,
+        uniform_stream_sketch,
+    )
+
+    rank, dim = SCALING["rank"], SCALING["dim"]
+    seed = _seed_for(order, 0, SCALING_SEEDS[name])
+    if name == "STTA":
+        if timer is not None:
+            return _stta_in_stages(tt, seed, timer)
+        return uniform_stream_sketch(tt, rank, 2 * rank, seed=seed,
+                                     drm_stream="hash")[0]
+    if name == "HMT":
+        return uniform_hmt_sketch(tt, rank, seed=seed, drm_stream="hash")
+    return uniform_orthogonal_sketch(tt, min(rank, dim), 2 * rank, seed=seed,
+                                     drm_stream="hash")
+
+
+def _scaling_row(name, stacked, order, timer, rank=None, staged=False):
+    """A row of the order-scaling record: sketch (none for TT-SVD), round
+    to ``rank`` (default the record's 10), relative error by the device's
+    route; each stage timed by ``timer`` (``staged``: STTA's sketch split
+    into its stages).  Returns ``(rounded, error)``."""
+    from tt_sketch_torch.engine.uniform import (
+        stack_tt,
+        uniform_rel_error,
+        uniform_round_fixed,
+        unstack_tt,
+    )
+
+    rank = rank or SCALING["recomp"]
+    src = stacked
+    if name != "TT-SVD":
+        timer.start(f"{name} sketch")
+        rec = _scaling_sketch(name, unstack_tt(*stacked), order,
+                              timer if staged else None)
+        timer.stop(f"{name} sketch", rec)
+        src = stack_tt(rec)
+        del rec
+    label = f"{name} round to {rank}"
+    timer.start(label)
+    out = uniform_round_fixed(*src, max_rank=rank)
+    timer.stop(label, out)
+    del src
+    timer.start(f"{name} error")
+    err = uniform_rel_error(out, stacked)
+    timer.stop(f"{name} error")
+    return out, err
+
+
+def _uniform_counts(tag, order):
+    """Syncs (``set_sync_debug_mode``), device operations (the profiler)
+    and the busy share of STTA at ``order``, stage by stage, printed per
+    mode and scaled to the full order."""
+    from tt_sketch_torch import profiling
+    from tt_sketch_torch.engine.uniform import (
+        stack_tt,
+        uniform_exp_decay_tt,
+        uniform_rel_error,
+        uniform_round_fixed,
+        unstack_tt,
+    )
+
+    dim, rank = SCALING["dim"], SCALING["rank"]
+    stacked = uniform_exp_decay_tt(order, dim, rank, SCALING["seed"],
+                                   device="cuda")
+    held = {}
+
+    def sketch():
+        held["rec"] = _stta_in_stages(unstack_tt(*stacked),
+                                      _seed_for(order, 0, 4),
+                                      profiling.StageTimer())
+
+    stages = {
+        "sketch": sketch,
+        "round": lambda: held.__setitem__("out", uniform_round_fixed(
+            *stack_tt(held["rec"]), max_rank=SCALING["recomp"])),
+        "error": lambda: uniform_rel_error(held["out"], stacked),
+    }
+    counts = {}
+    for stage, fn in stages.items():
+        counts[stage] = {"syncs": count_syncs(fn)}
+        busy_us, window_us, rows, _ = profile_window(lambda s: fn(), n=1)
+        counts[stage].update(ops=sum(r[1] for r in rows),
+                             busy=busy_us / window_us,
+                             window_ms=window_us / 1e3)
+    modes = order - 2
+    full = SCALING["order"] - 2
+    for stage, c in counts.items():
+        print(f"{tag} STTA {stage} at order {order}: {c['syncs']} host-device"
+              f" syncs ({c['syncs'] / modes:.2f} per mode, about "
+              f"{c['syncs'] / modes * full:.0f} at order {SCALING['order']}),"
+              f" {c['ops']} device operations ({c['ops'] / modes:.2f} per "
+              f"mode), window {c['window_ms']:.1f} ms, device busy "
+              f"{100 * c['busy']:.1f} %")
+    return counts
+
+
+def phase_order_scaling():
+    """(a) The order-scaling experiment at ``run_dimension_scaling``'s full
+    setting on the uniform engine: STTA 30/60 (in timed stages), HMT 30 and
+    OTTS 30/60 with the hash DRM stream, rounded to 10, and TT-SVD at 10, 9
+    and 8, their errors held to ``results/dimension_scaling.csv``; STTA's
+    error also on the exact route; the peak memory; STTA's syncs, launches
+    and busy share per stage at ``SCALING_COUNT_ORDER``; STTA and OTTS
+    through their entry points at ``SCALING_PARITY_ORDERS`` on the card and
+    on the CPU."""
+    import torch
+
+    from tt_sketch_torch import profiling
+    from tt_sketch_torch.engine.uniform import (
+        uniform_exp_decay_tt,
+        uniform_rel_error,
+    )
+
+    tag = "# phase 14 [order scaling]:"
+    order, dim, rank = SCALING["order"], SCALING["dim"], SCALING["rank"]
+    records = scaling_records(order)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = profiling.memory_stats()["allocated_bytes.all.current"]
+    timer = profiling.StageTimer()
+    timer.start("problem")
+    stacked = uniform_exp_decay_tt(order, dim, rank, SCALING["seed"],
+                                   device="cuda")
+    timer.stop("problem", stacked)
+    print(f"{tag} uniform_exp_decay_tt({order}, {dim}, {rank}, seed="
+          f"{SCALING['seed']}), float64, interior {tuple(stacked[1].shape)}:"
+          f" {timer.total('problem'):.2f} s (numpy on the host, one upload "
+          f"per piece)")
+    out = {"records": {f"{k[0]} {k[1]}": v for k, v in records.items()}}
+    for name in ("STTA", "HMT", "OTTS"):
+        t0 = time.perf_counter()
+        rounded, err = _scaling_row(name, stacked, order, timer,
+                                    staged=name == "STTA")
+        secs = time.perf_counter() - t0
+        ref = records[(name, SCALING["recomp"])]
+        rel = abs(err - ref) / ref
+        row = {"error": err, "record": ref, "rel": rel, "s": secs}
+        print(f"{tag} {name} at order {order}: error {err:.15e} (Gram "
+              f"route; record {ref:.15e}, rel {rel:.2e}, tol "
+              f"{SCALING_TOL:g}), {secs:.2f} s")
+        if not (np.isfinite(err) and rel <= SCALING_TOL):
+            raise AssertionError(f"{name} error {err} vs record {ref}")
+        if name == "STTA":
+            timer.start("STTA exact error")
+            exact = uniform_rel_error(rounded, stacked, route="exact")
+            timer.stop("STTA exact error")
+            exact_rel = abs(exact - ref) / ref
+            row.update(exact=exact, exact_rel=exact_rel)
+            print(f"{tag} STTA on the exact route: {exact:.15e} (record "
+                  f"{ref:.15e}, rel {exact_rel:.2e}, tol "
+                  f"{SCALING_EXACT_TOL:g}); the Gram route's {err:.15e}")
+            if not exact_rel <= SCALING_EXACT_TOL:
+                raise AssertionError(f"STTA exact error {exact}")
+        del rounded
+        out[name] = row
+    recomp = SCALING["recomp"]
+    for k in (recomp, recomp - 1, recomp - 2):
+        t0 = time.perf_counter()
+        rounded, err = _scaling_row("TT-SVD", stacked, order, timer, rank=k)
+        del rounded
+        secs = time.perf_counter() - t0
+        ref = records[("TT-SVD", k)]
+        rel = abs(err - ref) / ref
+        print(f"{tag} TT-SVD at {k}: error {err:.15e} (record {ref:.15e}, "
+              f"rel {rel:.2e}, tol {SCALING_TOL:g}), {secs:.2f} s")
+        if not rel <= SCALING_TOL:
+            raise AssertionError(f"TT-SVD at {k}: error {err} vs {ref}")
+        out[f"TT-SVD {k}"] = {"error": err, "record": ref, "rel": rel,
+                              "s": secs}
+    torch.cuda.synchronize()
+    stats = profiling.memory_stats()
+    out["peak_bytes"] = stats["allocated_bytes.all.peak"] - live
+    out["reserved_peak_bytes"] = stats["reserved_bytes.all.peak"]
+    print(f"{tag} stages (StageTimer, host clock with the device finished):")
+    for line in timer.report().splitlines():
+        print(f"#   {line}")
+    print(f"{tag} peak memory of the order-{order} runs: "
+          f"{out['peak_bytes'] / 2 ** 30:.2f} GiB allocated above the "
+          f"{live / 2 ** 30:.2f} GiB live before them, "
+          f"{out['reserved_peak_bytes'] / 2 ** 30:.2f} GiB reserved in all "
+          f"(profiling.memory_stats)")
+    out["stages"] = timer.summary()
+    del stacked
+    torch.cuda.empty_cache()
+
+    out["counts"] = _uniform_counts(tag, SCALING_COUNT_ORDER)
+    parity = {}
+    for name, small in SCALING_PARITY_ORDERS.items():
+        t0 = time.perf_counter()
+        host = uniform_exp_decay_tt(small, dim, rank, SCALING["seed"],
+                                    device="cpu")
+        card = tuple(x.to("cuda") for x in host)
+        print(f"{tag} order {small}: the problem made on the host in "
+              f"{time.perf_counter() - t0:.2f} s and copied to the card")
+        t0 = time.perf_counter()
+        a, err_card = _scaling_row(name, card, small, profiling.StageTimer())
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b, err_cpu = _scaling_row(name, host, small, profiling.StageTimer())
+        cpu_s = time.perf_counter() - t0
+        diff = uniform_rel_error(tuple(x.cpu() for x in a), b)
+        print(f"{tag} {name} at order {small} through its entry point, card "
+              f"vs CPU: rounded TTs differ by {diff:.3e} (exact route on the "
+              f"CPU; tol {SCALING_CARD_CPU_TOL:g}); errors {err_card:.6e} "
+              f"(card, Gram) and {err_cpu:.6e} (CPU, exact); {card_s:.2f} s "
+              f"on the card, {cpu_s:.2f} s on the CPU")
+        if not diff <= SCALING_CARD_CPU_TOL:
+            raise AssertionError(f"{name} at order {small}: card vs CPU "
+                                 f"{diff:.3e}")
+        parity[name] = {"order": small, "rel": diff, "card_s": card_s,
+                        "cpu_s": cpu_s}
+        del card, host
+    out["card_vs_cpu"] = parity
+    torch.cuda.empty_cache()
+    print(f"{tag} {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _parts(sk):
+    return list(sk.Psi_cores) + list(sk.Omega_mats)
+
+
+def _same_parts(a, b):
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(_parts(a), _parts(b),
+                                                  strict=True))
+
+
+def session_path(label, uber, shards, drm_type, workdir):
+    """One session type on uber's shards: the uninterrupted stream (launch
+    counts, ms per consume), a crash after ``SESSION_CRASH_AFTER`` shards
+    with a checkpoint every ``SESSION_CHECKPOINT_EVERY`` and its resume,
+    held to the uninterrupted stream and to the whole tensor's sketch with
+    the same DRMs; checkpoint and resume times, the checkpoint's bytes; a
+    consume's host enqueue and busy share."""
+    import torch
+
+    from tt_sketch_torch import (
+        StageTimer,
+        StreamingSketchSession,
+        load_sketch,
+        save_sketch,
+        stream_sketch,
+    )
+    from tt_sketch_torch.data.frostt import sample_error
+
+    tag = f"# phase 14 [session {label}]:"
+    t_path = time.perf_counter()
+    kw = dict(left_drm_type=drm_type, right_drm_type=drm_type,
+              dtype=torch.float32)
+
+    def new(**extra):
+        return StreamingSketchSession(uber.shape, 10, 20, seed=0, **kw,
+                                      **extra)
+
+    timer = StageTimer()
+    s1 = new()
+    snap = {}
+
+    def feed():
+        for i, piece in enumerate(shards):
+            timer.start("consume")
+            s1.consume(piece)
+            timer.stop("consume", s1.result())
+            if i + 1 == SESSION_CHECKPOINT_EVERY:
+                snap["checkpointed"] = s1.result()
+        return s1.result()
+
+    full, launches, _ = _counted(feed)
+    ran = {k: v for k, v in launches.items() if v}
+    ldrm, rdrm = full.left_drm, full.right_drm
+    if drm_type is not None:
+        planned = _sum_of_launches(expected_launches(t, ldrm, rdrm)
+                                   for t in shards)
+        if launches != planned:
+            raise AssertionError(f"{label}: launches {launches}, from the "
+                                 f"plans {planned}")
+    if not ran:
+        raise AssertionError(f"{label}: no kernel of ours launched")
+    consume_ms = [1e3 * t for t in timer.times["consume"]]
+    print(f"{tag} {len(shards)} shards consumed, kernel launches "
+          f"{ran}{' (as the plans give)' if drm_type else ''}; ms per "
+          f"consume: median {np.median(consume_ms):.3f} (first "
+          f"{consume_ms[0]:.3f}, max {max(consume_ms):.3f}; host clock, "
+          f"device finished)")
+
+    ck = workdir / f"{label}.npz"
+    s2 = new(checkpoint_path=ck, checkpoint_every=SESSION_CHECKPOINT_EVERY)
+    for piece in shards[:SESSION_CRASH_AFTER]:
+        s2.consume(piece)
+    del s2   # the crash: the checkpoint after shard 4 is all that is left
+    timer.start("resume")
+    s3 = StreamingSketchSession.resume(ck)
+    timer.stop("resume", s3.result())
+    if s3.n_consumed != SESSION_CHECKPOINT_EVERY:
+        raise AssertionError(f"{label}: resumed at {s3.n_consumed}")
+    resumed_at = s3.result()
+    on_cpu = load_sketch(ck, device="cpu")
+    if not (all(torch.equal(x.cpu(), y) for x, y in zip(
+            _parts(resumed_at), _parts(on_cpu), strict=True))
+            and _same_parts(resumed_at, snap["checkpointed"])):
+        raise AssertionError(f"{label}: the checkpoint on the CPU, on the "
+                             f"card and the stream after "
+                             f"{SESSION_CHECKPOINT_EVERY} shards differ")
+    for piece in shards[s3.n_consumed:]:
+        s3.consume(piece)
+    resumed = s3.result()
+    bits = _same_parts(resumed, full)
+    worst = max(_rel(x, y) for x, y in zip(_parts(resumed), _parts(full)))
+    print(f"{tag} crash after {SESSION_CRASH_AFTER} shards, resumed at "
+          f"{SESSION_CHECKPOINT_EVERY} (load_sketch(device='cpu') of the "
+          f"checkpoint equal bit for bit to the card's copy and to the "
+          f"stream after {SESSION_CHECKPOINT_EVERY} shards); resumed vs "
+          f"uninterrupted: {'bit for bit' if bits else 'NOT bit for bit'}, "
+          f"worst rel {worst:.3e}")
+    if not bits:
+        again = stream_sketch(shards[0], 10, 20, left_drm=ldrm,
+                              right_drm=rdrm)
+        once = stream_sketch(shards[0], 10, 20, left_drm=ldrm,
+                             right_drm=rdrm)
+        print(f"{tag} one shard sketched twice gives the same bits: "
+              f"{_same_parts(again, once)}; held to {RESUME_TOL:g}")
+        if not worst <= RESUME_TOL:
+            raise AssertionError(f"{label}: resumed vs uninterrupted "
+                                 f"{worst:.3e}")
+    whole = stream_sketch(uber, 10, 20, left_drm=ldrm, right_drm=rdrm)
+    lin = _worst_parts(tag, "every Psi/Omega of the resumed stream vs the "
+                       "whole tensor's sketch with the same DRMs",
+                       _parts(resumed), _parts(whole), PSI_TOL)
+    err = sample_error(resumed.to_tt(), uber)
+    err_whole = sample_error(whole.to_tt(), uber)
+    print(f"{tag} sample_error(to_tt()): resumed {err:.6f}, whole tensor "
+          f"{err_whole:.6f} (within {SESSION_ERROR_TOL:g})")
+    if not abs(err - err_whole) <= SESSION_ERROR_TOL:
+        raise AssertionError(f"{label}: sample error {err} vs {err_whole}")
+    nbytes = ck.stat().st_size
+    extra = {"kind": "streaming_session", "n_consumed": len(shards)}
+    probe = workdir / f"{label}-probe.npz"
+    for _ in range(3):
+        timer.start("checkpoint write")
+        save_sketch(probe, resumed, extra=extra)
+        timer.stop("checkpoint write")
+        timer.start("resume (again)")
+        back = StreamingSketchSession.resume(probe)
+        timer.stop("resume (again)", back.result())
+    med = {k: 1e3 * float(np.median(v)) for k, v in timer.times.items()}
+    print(f"{tag} checkpoint of {nbytes} bytes; ms per checkpoint write "
+          f"{med['checkpoint write']:.3f}, per resume {med['resume']:.3f} "
+          f"(first), {med['resume (again)']:.3f} (median of 3); host clock")
+    sess = new()
+    sess.consume(shards[0])
+    timed = _timed_call(tag, "consume of one shard",
+                        lambda s: sess.consume(shards[s % len(shards)]))
+    print(f"{tag} {time.perf_counter() - t_path:.1f} s")
+    return {"launches": ran, "consume_ms": float(np.median(consume_ms)),
+            "consume_times_ms": consume_ms, "bit_for_bit": bits,
+            "resumed_vs_uninterrupted": worst, "linearity_rel": lin,
+            "sample_error": err, "whole_sample_error": err_whole,
+            "checkpoint_bytes": nbytes,
+            "checkpoint_ms": med["checkpoint write"],
+            "resume_ms": med["resume"], "resume_again_ms":
+            med["resume (again)"], "consume": timed}
+
+
+def phase_sessions_and_profiling(uber):
+    """(b) uber streamed in ``SESSION_SHARDS`` planned shards through a
+    session with a Gaussian pair and one with the default TT-DRMs; (c) a
+    trace of one consume and the allocator's statistics."""
+    import json as _json
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from tt_sketch_torch import SparseGaussianDRM, StreamingSketchSession
+    from tt_sketch_torch import profiling
+
+    workdir = Path(__file__).resolve().parent / "build" / "phase14"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    shards = uber.split(SESSION_SHARDS, psi_plan=True).tensors
+    torch.cuda.synchronize()
+    print(f"# phase 14: uber split into {SESSION_SHARDS} planned shards of "
+          f"{shards[0].nnz}-{shards[-1].nnz} nnz in "
+          f"{time.perf_counter() - t0:.2f} s on the host; plans "
+          f"{shards[0].psi_plan}")
+    out = {label: session_path(label, uber, shards, drm_type, workdir)
+           for label, drm_type in (("gauss", SparseGaussianDRM),
+                                   ("tt", None))}
+
+    tag = "# phase 14 [profiling]:"
+    sess = StreamingSketchSession(uber.shape, 10, 20, seed=0,
+                                  left_drm_type=SparseGaussianDRM,
+                                  right_drm_type=SparseGaussianDRM,
+                                  dtype=torch.float32)
+    sess.consume(shards[0])
+    trace_dir = workdir / "trace"
+    with profiling.trace(str(trace_dir)):
+        sess.consume(shards[1])
+        torch.cuda.synchronize()
+    files = sorted(trace_dir.glob("*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {files}")
+    events = _json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ours = sorted({k for k in kernels
+                   if any(n in k for n in PORT_KERNEL_NAMES)})
+    print(f"{tag} profiling.trace of one consume wrote {files[0].name} "
+          f"({files[0].stat().st_size} bytes, {len(events)} events, "
+          f"{len(kernels)} kernels), ours: "
+          f"{[k[:60] for k in ours]}")
+    if not ours:
+        raise AssertionError("the trace names no kernel of ours")
+    stats = profiling.memory_stats()
+    if not stats or not all(isinstance(v, int) for v in stats.values()):
+        raise AssertionError("memory_stats() on the card")
+    print(f"{tag} memory_stats(): {len(stats)} integer stats, peak "
+          f"{stats['allocated_bytes.all.peak'] / 2 ** 30:.3f} GiB allocated "
+          f"since the order-scaling runs' reset")
+    out["trace"] = {"file_bytes": files[0].stat().st_size,
+                    "our_kernels": ours}
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def phase_uniform_and_sessions(uber):
+    """Phase 14: (a) the order-scaling record on the uniform engine, (b)
+    streaming sessions with checkpoints on uber, (c) profiling."""
+    t0 = time.perf_counter()
+    out = {"scaling": phase_order_scaling(),
+           **phase_sessions_and_profiling(uber)}
+    print(f"# phase 14: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3340,8 +3913,9 @@ def main():
     phase_seq_kernels()
     diag = phase_projector_diag()
     sums, tt_sum, formats = phase_sums_and_formats(uber, paths, ops, skern)
-    del uber
     solvers = phase_rounding_and_solvers()
+    uniform = phase_uniform_and_sessions(uber)
+    del uber
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     bf16_bound = bound_ms(*MAIN, compute="bf16")
@@ -3463,6 +4037,18 @@ def main():
             print(f"# gmres {label}: {g['iterations']} iterations, "
                   f"{g['total_s']:.3f} s, residual {g['final_residual']:.4e}"
                   f", busy {100 * g['busy']:.1f} %")
+    sc = uniform["scaling"]
+    print("# order scaling at 8192 (Gram route): " + "; ".join(
+        f"{k} {sc[k]['s']:.2f} s, error {sc[k]['error']:.6e}"
+        for k in ("STTA", "HMT", "OTTS", "TT-SVD 10", "TT-SVD 9",
+                  "TT-SVD 8")) + f"; peak {sc['peak_bytes'] / 2 ** 30:.2f} GiB")
+    for label in ("gauss", "tt"):
+        u = uniform[label]
+        print(f"# session {label}: {u['consume_ms']:.3f} ms per consume, "
+              f"checkpoint {u['checkpoint_ms']:.3f} ms, resume "
+              f"{u['resume_ms']:.3f} ms, {u['checkpoint_bytes']} bytes, "
+              f"resumed {'bit for bit' if u['bit_for_bit'] else 'within 1e-6'}"
+              f", sample error {u['sample_error']:.4f}")
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries}))

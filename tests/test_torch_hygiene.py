@@ -65,6 +65,13 @@ def test_import_leaves_jax_out():
         "from tt_sketch_torch.solvers import prepare_synthetic_cookie_problem\n"
         "from tt_sketch_torch.utils import projector, reference_random_normal\n"
         "from tt_sketch_torch.interop import mpo_from_numpy\n"
+        "from tt_sketch_torch import StreamingSketchSession, StageTimer\n"
+        "from tt_sketch_torch import save_sketch, load_sketch, save_tt\n"
+        "from tt_sketch_torch import load_tt, uniform_stream_sketch\n"
+        "from tt_sketch_torch import uniform_hmt_sketch\n"
+        "import tt_sketch_torch.engine.uniform\n"
+        "import tt_sketch_torch.serialization, tt_sketch_torch.streaming\n"
+        "import tt_sketch_torch.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"

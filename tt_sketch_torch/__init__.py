@@ -11,7 +11,11 @@ one-pass projection runs a hand-written Hopper kernel
 hashed or given rows, among them the aligned-window kernel of giant modes
 (``csrc/sparse_psi.cu``), and the sparse chain step of the sequential
 sweeps and of a TT-DRM (``csrc/chain_step.cu``).  TT rounding, TT-SVD and
-sketched TT-GMRES (``solvers/``) are ``einsum``s, QRs and SVDs.
+sketched TT-GMRES (``solvers/``) are ``einsum``s, QRs and SVDs, and so is
+the engine of uniform TTs that runs the order-scaling experiment
+(``engine/uniform.py``).  ``StreamingSketchSession`` streams pieces with
+atomic checkpoints (``serialization``: the JAX package's ``.npz`` layout);
+``profiling`` has a trace context, stage timers and memory statistics.
 Public names mirror ``tt_sketch_tpu``::
 
     from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
@@ -71,6 +75,14 @@ def __getattr__(name):
         "TTPrecond": "tt_sketch_torch.solvers.tt_gmres",
         "round_tt_sum": "tt_sketch_torch.solvers.tt_gmres",
         "tt_sum_gmres": "tt_sketch_torch.solvers.tt_gmres",
+        "StreamingSketchSession": "tt_sketch_torch.streaming",
+        "save_sketch": "tt_sketch_torch.serialization",
+        "load_sketch": "tt_sketch_torch.serialization",
+        "save_tt": "tt_sketch_torch.serialization",
+        "load_tt": "tt_sketch_torch.serialization",
+        "uniform_stream_sketch": "tt_sketch_torch.engine.uniform",
+        "uniform_hmt_sketch": "tt_sketch_torch.engine.uniform",
+        "StageTimer": "tt_sketch_torch.profiling",
     }
     if name in _API:
         return getattr(import_module(_API[name]), name)

@@ -61,28 +61,31 @@ def dematricize(A: torch.Tensor, mode: int,
 
 def _lstsq(A: torch.Tensor, B: torch.Tensor,
            rcond: Optional[float] = None) -> torch.Tensor:
-    """Minimum-norm least squares ``argmin_x |A x - B|`` by truncated SVD.
+    """Minimum-norm least squares ``argmin_x |A x - B|`` by truncated SVD,
+    over any leading batch dimensions of ``A`` (..., m, n) and ``B``
+    (..., m, k).
 
-    Singular values below ``rcond·σ_max`` are dropped, with LAPACK's default
-    ``rcond = eps(dtype)·max(m, n)`` (the CPU rule of the JAX package,
-    ``kernels/accurate_linalg._default_rcond``).  ``torch.linalg.lstsq`` is
-    not used: on CUDA its only driver (``gels``) assumes full rank and
-    ignores ``rcond``, and the exact-recovery regime makes Ω rank-deficient
-    on purpose.
+    Singular values below ``rcond·σ_max`` of their own matrix are dropped,
+    with LAPACK's default ``rcond = eps(dtype)·max(m, n)`` (the CPU rule of
+    the JAX package, ``kernels/accurate_linalg._default_rcond``).
+    ``torch.linalg.lstsq`` is not used: on CUDA its only driver (``gels``)
+    assumes full rank and ignores ``rcond``, and the exact-recovery regime
+    makes Ω rank-deficient on purpose.
     """
-    m, n = A.shape
+    m, n = A.shape[-2:]
     if rcond is None:
         rcond = torch.finfo(A.dtype).eps * max(m, n)
     U, s, Vh = torch.linalg.svd(A, full_matrices=False)
-    keep = s >= rcond * s[0]
+    keep = s >= rcond * s[..., :1]
     s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
                         torch.zeros_like(s))
-    return Vh.mT @ (s_inv[:, None] * (U.mT @ B))
+    return Vh.mT @ (s_inv[..., :, None] * (U.mT @ B))
 
 
 def right_mul_pinv(A: torch.Tensor, B: torch.Tensor,
                    rcond: Optional[float] = None) -> torch.Tensor:
-    """Numerically stable ``A @ pinv(B)`` via least squares."""
+    """Numerically stable ``A @ pinv(B)`` via least squares (batched over
+    leading dimensions, as ``_lstsq``)."""
     return _lstsq(B.mT, A.mT, rcond=rcond).mT
 
 
