@@ -191,27 +191,29 @@ Phases (the first failure raises and exits non-zero):
     (a) ``run_dimension_scaling``'s full setting on the uniform engine:
     ``uniform_exp_decay_tt(8192, 30, 30, seed=179)`` in f64, STTA 30/60,
     HMT 30 and OTTS 30/60 with the ``"hash"`` DRM stream at run 0's seeds,
-    each rounded to 10, and ``uniform_round_fixed`` at 10, 9 and 8: every
-    error on the card's Gram route held to ``results/dimension_scaling.csv``
-    (``SCALING_TOL``), STTA's also on the exact route
-    (``SCALING_EXACT_TOL``); stage times (``profiling.StageTimer``; STTA's
-    sketch split into its hash DRMs, chains with Ψ/Ω and batched
-    recovery), the peak memory; STTA's syncs, device operations and busy
-    share per stage at ``SCALING_COUNT_ORDER``; STTA at order 1024 and
-    OTTS at 256 (``SCALING_PARITY_ORDERS``) through their entry points on
-    the card and on the CPU in this process (``SCALING_CARD_CPU_TOL``).  (b) uber in ``SESSION_SHARDS`` planned
-    shards through ``StreamingSketchSession`` at 10/20 in f32 with a
-    ``SparseGaussianDRM`` pair (launch counts from the shards' plans) and
-    with the default ``TensorTrainDRM``s (the launches printed): the
-    uninterrupted stream, and a crash after ``SESSION_CRASH_AFTER`` shards
-    with a checkpoint every ``SESSION_CHECKPOINT_EVERY``, resumed; the
-    resumed Ψ/Ω equal to the uninterrupted ones bit for bit (else a
-    determinism probe and ``RESUME_TOL``), to the whole tensor's sketch
-    with the same DRMs within ``PSI_TOL``, the sample error within
-    ``SESSION_ERROR_TOL`` of the whole sketch's; the checkpoint loaded on
-    the CPU equal to the card's copy; ms per consume, checkpoint write and
-    resume, the checkpoint's bytes, a consume's host enqueue and busy
-    share.  (c) ``profiling.trace`` of one consume names a kernel of ours;
+    each through its entry point and rounded to 10, and
+    ``uniform_round_fixed`` at 10, 9 and 8: every error on the card's Gram
+    route held to ``results/dimension_scaling.csv`` (``SCALING_TOL``),
+    STTA's also on the exact route (``SCALING_EXACT_TOL``); stage times
+    (``profiling.StageTimer``), the peak memory; at ``SCALING_COUNT_ORDER``
+    STTA's sketch split into its hash DRMs, chains with Ψ/Ω and batched
+    recovery (held to ``uniform_stream_sketch``), and the syncs, device
+    operations and busy share of each stage; STTA at order 1024 and OTTS at
+    256 (``SCALING_PARITY_ORDERS``) through their entry points on the card
+    and on the CPU in this process (``SCALING_CARD_CPU_TOL``).  (b) uber in
+    ``SESSION_SHARDS`` planned shards through ``StreamingSketchSession`` at
+    10/20 in f32 with a ``SparseGaussianDRM`` pair (launch counts from the
+    shards' plans) and with the default ``TensorTrainDRM``s (the launches
+    printed): the uninterrupted stream, held to the same consumes under
+    the plain versions within ``PSI_TOL``, and a crash after
+    ``SESSION_CRASH_AFTER`` shards with a checkpoint every
+    ``SESSION_CHECKPOINT_EVERY``, resumed; the resumed Ψ/Ω equal to the
+    uninterrupted ones bit for bit (else a determinism probe and
+    ``RESUME_TOL``), to the whole tensor's sketch with the same DRMs within
+    ``PSI_TOL``, the sample error within ``SESSION_ERROR_TOL`` of the whole
+    sketch's; the checkpoint loaded on the CPU equal to the card's copy; ms
+    per consume, checkpoint write and resume, the checkpoint's bytes, a
+    consume's host enqueue and busy share.  (c) ``profiling.trace`` of one consume names a kernel of ours;
     ``memory_stats()`` on the card.
 15. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
@@ -3396,41 +3398,36 @@ def scaling_records(order):
 
 
 def _stta_in_stages(tt, seed, timer):
-    """``uniform_stream_sketch(tt, 30, 60, seed, drm_stream="hash")``
-    stage by stage, each stage timed: the hash DRMs, the chains with Ψ/Ω,
-    the batched recovery."""
-    from tt_sketch_torch.engine.sketch import _derive_right_seed
+    """``uniform_stream_sketch(tt, 30, 60, seed, drm_stream="hash")`` from
+    the entry point's own pieces, each stage timed: the hash DRMs, the
+    chains with Ψ/Ω, the batched recovery."""
     from tt_sketch_torch.engine.uniform import (
-        stack_tt,
+        _drm_pair,
+        _recovery_direction,
+        _stacked_input,
         uniform_assemble,
-        uniform_random_tt,
         uniform_stream_sketch_stacked,
         unstack_tt,
     )
 
-    X = stack_tt(tt)
-    d, n, rank = X[1].shape[0] + 2, X[0].shape[1], SCALING["rank"]
+    rank = SCALING["rank"]
+    X, dtype, d, n = _stacked_input(tt, None)
     timer.start("STTA sketch: hash DRMs")
-    Yf, Yi, _ = uniform_random_tt(d, n, rank, seed, norm_goal="norm-preserve",
-                                  stream="hash", device=X[0].device)
-    Zf, Zi, _ = uniform_random_tt(d, n, 2 * rank, _derive_right_seed(seed, d),
-                                  norm_goal="norm-preserve", stream="hash",
-                                  device=X[0].device)
-    timer.stop("STTA sketch: hash DRMs", (Yi, Zi))
+    Y, Z = _drm_pair(d, n, rank, 2 * rank, seed, dtype, "hash", X[0].device)
+    timer.stop("STTA sketch: hash DRMs", (Y, Z))
     timer.start("STTA sketch: chains, Psi, Omega")
-    psis, om = uniform_stream_sketch_stacked(X, (Yf, Yi), (Zf, Zi))
+    psis, om = uniform_stream_sketch_stacked(X, Y, Z)
     timer.stop("STTA sketch: chains, Psi, Omega", (psis, om))
-    del X, Yf, Yi, Zf, Zi
+    del X, Y, Z
     timer.start("STTA sketch: batched lstsq")
-    rec = uniform_assemble(psis, om, "right")
+    rec = uniform_assemble(psis, om, _recovery_direction(rank, 2 * rank))
     timer.stop("STTA sketch: batched lstsq", rec)
     return unstack_tt(*rec)
 
 
-def _scaling_sketch(name, tt, order, timer=None):
-    """One sketch of ``run_dimension_scaling`` (``tasks.py:140-222``):
-    through the port's entry points, or STTA in timed stages when a
-    ``timer`` is given."""
+def _scaling_sketch(name, tt, order):
+    """One sketch of ``run_dimension_scaling`` (``tasks.py:140-222``)
+    through the port's entry points."""
     from tt_sketch_torch.engine.uniform import (
         uniform_hmt_sketch,
         uniform_orthogonal_sketch,
@@ -3440,8 +3437,6 @@ def _scaling_sketch(name, tt, order, timer=None):
     rank, dim = SCALING["rank"], SCALING["dim"]
     seed = _seed_for(order, 0, SCALING_SEEDS[name])
     if name == "STTA":
-        if timer is not None:
-            return _stta_in_stages(tt, seed, timer)
         return uniform_stream_sketch(tt, rank, 2 * rank, seed=seed,
                                      drm_stream="hash")[0]
     if name == "HMT":
@@ -3450,11 +3445,11 @@ def _scaling_sketch(name, tt, order, timer=None):
                                      drm_stream="hash")
 
 
-def _scaling_row(name, stacked, order, timer, rank=None, staged=False):
-    """A row of the order-scaling record: sketch (none for TT-SVD), round
-    to ``rank`` (default the record's 10), relative error by the device's
-    route; each stage timed by ``timer`` (``staged``: STTA's sketch split
-    into its stages).  Returns ``(rounded, error)``."""
+def _scaling_row(name, stacked, order, timer, rank=None):
+    """A row of the order-scaling record: sketch through the entry point
+    (none for TT-SVD), round to ``rank`` (default the record's 10),
+    relative error by the device's route; each stage timed by ``timer``.
+    Returns ``(rounded, error)``."""
     from tt_sketch_torch.engine.uniform import (
         stack_tt,
         uniform_rel_error,
@@ -3466,8 +3461,7 @@ def _scaling_row(name, stacked, order, timer, rank=None, staged=False):
     src = stacked
     if name != "TT-SVD":
         timer.start(f"{name} sketch")
-        rec = _scaling_sketch(name, unstack_tt(*stacked), order,
-                              timer if staged else None)
+        rec = _scaling_sketch(name, unstack_tt(*stacked), order)
         timer.stop(f"{name} sketch", rec)
         src = stack_tt(rec)
         del rec
@@ -3483,26 +3477,44 @@ def _scaling_row(name, stacked, order, timer, rank=None, staged=False):
 
 
 def _uniform_counts(tag, order):
-    """Syncs (``set_sync_debug_mode``), device operations (the profiler)
-    and the busy share of STTA at ``order``, stage by stage, printed per
-    mode and scaled to the full order."""
+    """STTA at ``order`` stage by stage: the sketch split into its own
+    stages (``_stta_in_stages``, held to ``uniform_stream_sketch`` with the
+    same seed), then its syncs (``set_sync_debug_mode``), device operations
+    (the profiler), busy share and seconds per stage, printed per mode and
+    scaled to the full order."""
     from tt_sketch_torch import profiling
     from tt_sketch_torch.engine.uniform import (
+        _rel_error_exact,
         stack_tt,
         uniform_exp_decay_tt,
         uniform_rel_error,
         uniform_round_fixed,
+        uniform_stream_sketch,
         unstack_tt,
     )
 
     dim, rank = SCALING["dim"], SCALING["rank"]
+    seed = _seed_for(order, 0, SCALING_SEEDS["STTA"])
     stacked = uniform_exp_decay_tt(order, dim, rank, SCALING["seed"],
                                    device="cuda")
+    timer = profiling.StageTimer()
+    staged = _stta_in_stages(unstack_tt(*stacked), seed, timer)
+    whole = uniform_stream_sketch(unstack_tt(*stacked), rank, 2 * rank,
+                                  seed=seed, drm_stream="hash")[0]
+    diff = _rel_error_exact(stack_tt(staged), stack_tt(whole))
+    print(f"{tag} STTA at order {order} in stages vs uniform_stream_sketch:"
+          f" {diff:.3e} (exact route on the card; tol {ROUND_TOL:g})")
+    if not diff <= ROUND_TOL:
+        raise AssertionError(f"STTA in stages vs the entry point {diff:.3e}")
+    modes, full = order - 2, SCALING["order"] - 2
+    for stage, secs in timer.summary().items():
+        print(f"{tag} {stage}: {1e3 * secs['total_s'] / modes:.4f} ms per "
+              f"mode, about {secs['total_s'] / modes * full:.2f} s at order "
+              f"{SCALING['order']} (host clock, device finished)")
     held = {}
 
     def sketch():
-        held["rec"] = _stta_in_stages(unstack_tt(*stacked),
-                                      _seed_for(order, 0, 4),
+        held["rec"] = _stta_in_stages(unstack_tt(*stacked), seed,
                                       profiling.StageTimer())
 
     stages = {
@@ -3518,8 +3530,6 @@ def _uniform_counts(tag, order):
         counts[stage].update(ops=sum(r[1] for r in rows),
                              busy=busy_us / window_us,
                              window_ms=window_us / 1e3)
-    modes = order - 2
-    full = SCALING["order"] - 2
     for stage, c in counts.items():
         print(f"{tag} STTA {stage} at order {order}: {c['syncs']} host-device"
               f" syncs ({c['syncs'] / modes:.2f} per mode, about "
@@ -3527,22 +3537,25 @@ def _uniform_counts(tag, order):
               f" {c['ops']} device operations ({c['ops'] / modes:.2f} per "
               f"mode), window {c['window_ms']:.1f} ms, device busy "
               f"{100 * c['busy']:.1f} %")
+    counts["sketch stages"] = timer.summary()
     return counts
 
 
 def phase_order_scaling():
     """(a) The order-scaling experiment at ``run_dimension_scaling``'s full
-    setting on the uniform engine: STTA 30/60 (in timed stages), HMT 30 and
-    OTTS 30/60 with the hash DRM stream, rounded to 10, and TT-SVD at 10, 9
-    and 8, their errors held to ``results/dimension_scaling.csv``; STTA's
-    error also on the exact route; the peak memory; STTA's syncs, launches
-    and busy share per stage at ``SCALING_COUNT_ORDER``; STTA and OTTS
-    through their entry points at ``SCALING_PARITY_ORDERS`` on the card and
-    on the CPU."""
+    setting on the uniform engine, each sketch through its entry point:
+    STTA 30/60, HMT 30 and OTTS 30/60 with the hash DRM stream, rounded to
+    10, and TT-SVD at 10, 9 and 8, their errors held to
+    ``results/dimension_scaling.csv``; STTA's error also on the exact
+    route; the peak memory; STTA's sketch in its stages, and its syncs,
+    launches and busy share per stage, at ``SCALING_COUNT_ORDER``; STTA and
+    OTTS through their entry points at ``SCALING_PARITY_ORDERS`` on the
+    card and on the CPU."""
     import torch
 
     from tt_sketch_torch import profiling
     from tt_sketch_torch.engine.uniform import (
+        _rel_error_exact,
         uniform_exp_decay_tt,
         uniform_rel_error,
     )
@@ -3566,8 +3579,7 @@ def phase_order_scaling():
     out = {"records": {f"{k[0]} {k[1]}": v for k, v in records.items()}}
     for name in ("STTA", "HMT", "OTTS"):
         t0 = time.perf_counter()
-        rounded, err = _scaling_row(name, stacked, order, timer,
-                                    staged=name == "STTA")
+        rounded, err = _scaling_row(name, stacked, order, timer)
         secs = time.perf_counter() - t0
         ref = records[(name, SCALING["recomp"])]
         rel = abs(err - ref) / ref
@@ -3579,7 +3591,7 @@ def phase_order_scaling():
             raise AssertionError(f"{name} error {err} vs record {ref}")
         if name == "STTA":
             timer.start("STTA exact error")
-            exact = uniform_rel_error(rounded, stacked, route="exact")
+            exact = _rel_error_exact(rounded, stacked)
             timer.stop("STTA exact error")
             exact_rel = abs(exact - ref) / ref
             row.update(exact=exact, exact_rel=exact_rel)
@@ -3621,6 +3633,10 @@ def phase_order_scaling():
     torch.cuda.empty_cache()
 
     out["counts"] = _uniform_counts(tag, SCALING_COUNT_ORDER)
+    print(f"{tag} card vs CPU: STTA at order {SCALING_PARITY_ORDERS['STTA']}"
+          f" as set; OTTS at {SCALING_PARITY_ORDERS['OTTS']}, not 1024, to "
+          f"keep the phase's time (its CPU run alone takes about 18 s at "
+          f"1024)")
     parity = {}
     for name, small in SCALING_PARITY_ORDERS.items():
         t0 = time.perf_counter()
@@ -3666,7 +3682,8 @@ def _same_parts(a, b):
 
 def session_path(label, uber, shards, drm_type, workdir):
     """One session type on uber's shards: the uninterrupted stream (launch
-    counts, ms per consume), a crash after ``SESSION_CRASH_AFTER`` shards
+    counts, ms per consume) held to the same consumes under the plain
+    versions, a crash after ``SESSION_CRASH_AFTER`` shards
     with a checkpoint every ``SESSION_CHECKPOINT_EVERY`` and its resume,
     held to the uninterrupted stream and to the whole tensor's sketch with
     the same DRMs; checkpoint and resume times, the checkpoint's bytes; a
@@ -3721,6 +3738,18 @@ def session_path(label, uber, shards, drm_type, workdir):
           f"consume: median {np.median(consume_ms):.3f} (first "
           f"{consume_ms[0]:.3f}, max {max(consume_ms):.3f}; host clock, "
           f"device finished)")
+    with plain_kernels():
+        ref = new()
+        for piece in shards:
+            ref.consume(piece)
+        plain = ref.result()
+    if (plain.left_drm.seed, plain.right_drm.seed) != (ldrm.seed, rdrm.seed):
+        raise AssertionError(f"{label}: the plain session's DRMs differ")
+    worst_plain = _worst_parts(tag, "every Psi/Omega of the uninterrupted "
+                               "stream vs the same consumes under the plain "
+                               "versions on the card", _parts(full),
+                               _parts(plain), PSI_TOL)
+    del ref, plain
 
     ck = workdir / f"{label}.npz"
     s2 = new(checkpoint_path=ck, checkpoint_every=SESSION_CHECKPOINT_EVERY)
@@ -3793,6 +3822,7 @@ def session_path(label, uber, shards, drm_type, workdir):
     return {"launches": ran, "consume_ms": float(np.median(consume_ms)),
             "consume_times_ms": consume_ms, "bit_for_bit": bits,
             "resumed_vs_uninterrupted": worst, "linearity_rel": lin,
+            "plain_rel": worst_plain,
             "sample_error": err, "whole_sample_error": err_whole,
             "checkpoint_bytes": nbytes,
             "checkpoint_ms": med["checkpoint write"],

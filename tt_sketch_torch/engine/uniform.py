@@ -289,6 +289,11 @@ def _drm_pair(d, n, left_rank, right_rank, seed, dtype, stream, device):
     return (Yf, Yi), (Zf, Zi)
 
 
+def _recovery_direction(left_rank, right_rank):
+    """The side whose DRM rank is the larger solves the Ω systems."""
+    return "left" if left_rank > right_rank else "right"
+
+
 def _stacked_input(tt: TensorTrain, dtype):
     first, interior, last = stack_tt(tt)
     dtype = dtype or first.dtype
@@ -315,8 +320,8 @@ def uniform_stream_sketch(
                      X[0].device)
     Psis, Omegas = uniform_stream_sketch_stacked(X, Y, Z)
     del Y, Z
-    direction = "left" if left_rank > right_rank else "right"
-    rec = uniform_assemble(Psis, Omegas, direction)
+    rec = uniform_assemble(Psis, Omegas,
+                           _recovery_direction(left_rank, right_rank))
     return unstack_tt(*rec), (Psis, Omegas)
 
 
@@ -414,27 +419,31 @@ def uniform_add(A, B):
     return first, interior, last
 
 
-def uniform_rel_error(A, B, route: str = "auto") -> float:
-    """Relative error ‖A−B‖/‖B‖.
-
-    ``route="exact"``: the direct sum and its orthogonalized norm (a QR
-    loop over the modes).  ``route="gram"``: the Gram identity
-    ‖A−B‖² = <A,A> − 2<A,B> + <B,B> from three dot loops, without a QR per
-    step, at the cost of cancellation: the error keeps about
-    ``sqrt(eps)``-relative accuracy of ‖B‖.  ``"auto"`` takes the JAX
-    package's choice by device: exact on the CPU, Gram off it (CUDA)."""
+def _rel_error_exact(A, B) -> float:
+    """‖A−B‖/‖B‖ from the direct sum and its orthogonalized norm (a QR
+    loop over the modes)."""
     Bf, Bi, Bl = B
-    if route == "auto":
-        route = "exact" if Bf.device.type == "cpu" else "gram"
-    if route == "exact":
-        diff = uniform_add(A, (Bf, Bi, -Bl))
-        return float(uniform_norm(*diff) / uniform_norm(Bf, Bi, Bl))
-    if route != "gram":
-        raise ValueError(f"unknown route {route!r}")
+    diff = uniform_add(A, (Bf, Bi, -Bl))
+    return float(uniform_norm(*diff) / uniform_norm(Bf, Bi, Bl))
+
+
+def _rel_error_gram(A, B) -> float:
+    """‖A−B‖/‖B‖ from the Gram identity ‖A−B‖² = <A,A> − 2<A,B> + <B,B>:
+    three dot loops without a QR per step, at the cost of cancellation (the
+    error keeps about ``sqrt(eps)``-relative accuracy of ‖B‖)."""
     aa = float(uniform_dot(A, A))
     ab = float(uniform_dot(A, B))
     bb = float(uniform_dot(B, B))
     return float(np.sqrt(max(aa - 2.0 * ab + bb, 0.0) / bb))
+
+
+def uniform_rel_error(A, B) -> float:
+    """Relative error ‖A−B‖/‖B‖, by the JAX package's choice of route for
+    the device: the exact direct sum on the CPU, the Gram identity off it
+    (CUDA)."""
+    if B[0].device.type == "cpu":
+        return _rel_error_exact(A, B)
+    return _rel_error_gram(A, B)
 
 
 # ---------------------------------------------------------------------------

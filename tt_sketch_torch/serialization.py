@@ -30,10 +30,9 @@ from tt_sketch_torch.formats.tensor_train import TensorTrain
 
 _FORMAT_VERSION = 1
 
-#: torch dtypes by the numpy names the metadata stores
+#: torch dtypes by the numpy names the metadata stores: those of the DRMs
+#: and of numpy arrays that both packages write and read
 _DTYPES = {
-    "float16": torch.float16,
-    "bfloat16": torch.bfloat16,
     "float32": torch.float32,
     "float64": torch.float64,
 }
