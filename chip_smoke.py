@@ -2,9 +2,12 @@
 
 Run from the repo root on a machine with one CUDA card::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1,15]
 
-Phases (the first failure raises and exits non-zero):
+``--phases`` runs the phases it names, with phase 1 and the phases they
+need (6 needs 5 and 9; 12 needs 5, 6 and 9); the default is every phase,
+and only a run of every phase prints the kernels line.  Phases (the first
+failure raises and exits non-zero):
 
 1. Build the CUDA libraries ``dual_project``, ``lazy_gaussian``,
    ``sparse_sign``, ``sparse_psi``, ``chain_step`` and ``segment_psi`` from
@@ -215,10 +218,37 @@ Phases (the first failure raises and exits non-zero):
     per consume, checkpoint write and resume, the checkpoint's bytes, a
     consume's host enqueue and busy share.  (c) ``profiling.trace`` of one consume names a kernel of ours;
     ``memory_stats()`` on the card.
-15. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+    Its three TT-SVD rows share one LR orthogonalization
+    (``uniform_orthogonalize`` once, then ``_truncate_fixed`` at 10, 9 and
+    8).
+15. The sharded sketches (``tt_sketch_torch.dist``) in one spawned world of
+    ``SHARD_WORLD`` ranks (``chip_smoke_dist.run_rank``): over NCCL, one
+    card each, on a machine with that many cards; else over gloo, every
+    rank on cuda:0 (NCCL refuses two ranks on one device; the card is
+    time-shared, so its times are no scaling numbers).  uber at full size
+    on the meshes (4,) data and (1, 2, 2) data x left x right: every Ψ/Ω
+    within ``SHARD_TOL`` of the single-device ``stream_sketch`` at the same
+    seed, the sample error within ``SHARD_SAMPLE_TOL`` of its, every rank's
+    launches those of ``PATH_LAUNCHES["uber gauss"]``; the world's time per
+    sketch between barriers, each rank's time up to its ``all_reduce``, the
+    ``all_reduce`` and its bytes, medians over fresh seeds of a sketcher
+    prepared once; rank 0's kernel calls of one sketch against their plain
+    versions, timed and bounded (they join ``by_path``).  The dense stream:
+    ``DENSE_SHARD_SHAPE`` f32 from a TT of rank ``DENSE_SHARD_TT_RANK``,
+    held once in shared host memory, each rank's slab one phase-3 slab and
+    one ``dual_project`` launch: against ``dense_stream_sketch_bisect``
+    over the whole X (``SHARD_TOL``), recovery within
+    ``DENSE_RECOVERY_TOL``.  The TT sum of phase 12 (d), its stacked cores
+    in shared host memory, summands padded to 12 over 4 ranks: within
+    ``TT_SUM_TOL`` of ``stream_sketch`` of the ``TensorSum`` with the same
+    TT-DRMs.  Then a one-rank NCCL world on cuda:0 in this process: uber
+    within ``NCCL_ONE_RANK_TOL`` of the single-device sketch, and whether
+    it is bit for bit.
+16. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
-    every path, phase 12's among them; the diagnostics' launches are those
-    of their run), then the device line last.
+    every path, phase 12's and 15's among them, with each rank's launches
+    for phase 15; the diagnostics' launches are those of their run), then
+    the device line last.
 
 Requires CUDA; exits non-zero without it.
 """
@@ -262,6 +292,12 @@ TT_SUM_ERROR_RANGE = (0.99, 1.0)
 TT_SUM_TOL = 1e-10   # relative Frobenius: an f64 STTA sketch of a sum vs the sum of its summands' sketches (the same products added in another order)
 FORMAT_TOL = 1e-10   # relative: an f64 recovered TT on the card vs on the CPU (the same sketch summed in another order, through QRs and pseudo-inverses)
 TUCKER_EXACT_TOL = 1e-8  # relative error of a Tucker tensor recovered at sketch ranks above its TT ranks
+SHARD_WORLD = 4  # phase 15: ranks of the sharded world
+DENSE_SHARD_SHAPE, DENSE_SHARD_TT_RANK = (1024, 128, 128, 128), 32  # phase 15: one phase-3 slab per rank
+SHARD_TOL = 3e-5  # max|diff|/max|ref| per part: a sharded f32 sketch vs the single-device one (tests/test_dist.py:166's bound)
+SHARD_SAMPLE_TOL = 1e-4  # absolute: a sharded uber sketch's sample error vs the single-device sketch's
+NCCL_ONE_RANK_TOL = 1e-6  # relative Frobenius: a one-rank NCCL world's sketch vs the single-device one (the same kernels and plans)
+DENSE_RECOVERY_TOL = 1e-3  # relative error of the sharded dense stream's to_tt(), as phase 3's guard
 LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_sign", "sparse_psi",
              "chain_step", "segment_psi")
 SPARSE_KERNELS = ("lazy_gaussian", "sparse_sign_rows", "omega_fused",
@@ -3445,11 +3481,11 @@ def _scaling_sketch(name, tt, order):
                                      drm_stream="hash")
 
 
-def _scaling_row(name, stacked, order, timer, rank=None):
-    """A row of the order-scaling record: sketch through the entry point
-    (none for TT-SVD), round to ``rank`` (default the record's 10),
-    relative error by the device's route; each stage timed by ``timer``.
-    Returns ``(rounded, error)``."""
+def _scaling_row(name, stacked, order, timer):
+    """A row of the order-scaling record (STTA, HMT, OTTS): sketch through
+    the entry point, round to the record's 10, relative error by the
+    device's route; each stage timed by ``timer``.  Returns ``(rounded,
+    error)``."""
     from tt_sketch_torch.engine.uniform import (
         stack_tt,
         uniform_rel_error,
@@ -3457,14 +3493,12 @@ def _scaling_row(name, stacked, order, timer, rank=None):
         unstack_tt,
     )
 
-    rank = rank or SCALING["recomp"]
-    src = stacked
-    if name != "TT-SVD":
-        timer.start(f"{name} sketch")
-        rec = _scaling_sketch(name, unstack_tt(*stacked), order)
-        timer.stop(f"{name} sketch", rec)
-        src = stack_tt(rec)
-        del rec
+    rank = SCALING["recomp"]
+    timer.start(f"{name} sketch")
+    rec = _scaling_sketch(name, unstack_tt(*stacked), order)
+    timer.stop(f"{name} sketch", rec)
+    src = stack_tt(rec)
+    del rec
     label = f"{name} round to {rank}"
     timer.start(label)
     out = uniform_round_fixed(*src, max_rank=rank)
@@ -3556,7 +3590,9 @@ def phase_order_scaling():
     from tt_sketch_torch import profiling
     from tt_sketch_torch.engine.uniform import (
         _rel_error_exact,
+        _truncate_fixed,
         uniform_exp_decay_tt,
+        uniform_orthogonalize,
         uniform_rel_error,
     )
 
@@ -3603,9 +3639,23 @@ def phase_order_scaling():
         del rounded
         out[name] = row
     recomp = SCALING["recomp"]
+    # the three TT-SVD rows share one LR orthogonalization; each runs its
+    # own truncation sweep (uniform_round_fixed = the two in a row)
+    timer.start("TT-SVD orthogonalize")
+    orth = uniform_orthogonalize(*stacked)
+    timer.stop("TT-SVD orthogonalize", orth)
+    orth_s = timer.total("TT-SVD orthogonalize")
+    print(f"{tag} TT-SVD: one LR orthogonalization for the three rows in "
+          f"{orth_s:.2f} s")
     for k in (recomp, recomp - 1, recomp - 2):
         t0 = time.perf_counter()
-        rounded, err = _scaling_row("TT-SVD", stacked, order, timer, rank=k)
+        label = f"TT-SVD truncate to {k}"
+        timer.start(label)
+        rounded = _truncate_fixed(*orth, max_rank=k)
+        timer.stop(label, rounded)
+        timer.start("TT-SVD error")
+        err = uniform_rel_error(rounded, stacked)
+        timer.stop("TT-SVD error")
         del rounded
         secs = time.perf_counter() - t0
         ref = records[("TT-SVD", k)]
@@ -3615,7 +3665,8 @@ def phase_order_scaling():
         if not rel <= SCALING_TOL:
             raise AssertionError(f"TT-SVD at {k}: error {err} vs {ref}")
         out[f"TT-SVD {k}"] = {"error": err, "record": ref, "rel": rel,
-                              "s": secs}
+                              "s": secs, "shared_orthogonalize_s": orth_s}
+    del orth
     torch.cuda.synchronize()
     stats = profiling.memory_stats()
     out["peak_bytes"] = stats["allocated_bytes.all.peak"] - live
@@ -3902,50 +3953,360 @@ def phase_uniform_and_sessions(uber):
     return out
 
 
-def main():
+def _shared(t):
+    """A copy of ``t`` in shared host memory (handed to the ranks, not
+    copied per rank)."""
+    import torch
+
+    host = torch.empty(t.shape, dtype=t.dtype).share_memory_()
+    host.copy_(t)
+    return host
+
+
+def _max_rel(ours, ref):
+    """The worst ``max|a - b| / max|b|`` over the parts."""
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(ours, ref))
+
+
+def _loaded(sketches, key, device="cuda"):
+    """The Ψ and Ω of ``key`` that rank 0 saved, on ``device``."""
+    import torch
+
+    psi, om = [], []
+    while f"{key}/psi{len(psi)}" in sketches:
+        psi.append(torch.from_numpy(sketches[f"{key}/psi{len(psi)}"]))
+    while f"{key}/omega{len(om)}" in sketches:
+        om.append(torch.from_numpy(sketches[f"{key}/omega{len(om)}"]))
+    return [t.to(device) for t in psi], [t.to(device) for t in om]
+
+
+def _nccl_one_rank(uber_host, single):
+    """The port's NCCL code path in a world of one rank on cuda:0, held to
+    the single-device sketch."""
+    import torch
+    import torch.distributed as dist
+
+    from tt_sketch_torch.dist import (
+        global_mesh,
+        initialize_multihost,
+        sharded_sparse_stream_sketch,
+    )
+
+    initialize_multihost(f"localhost:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        backend = dist.get_backend()
+        sk = sharded_sparse_stream_sketch(
+            uber_host, 10, 20, seed=0, mesh=global_mesh(("data",)),
+            dtype=torch.float32)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    ours = sk.Psi_cores + sk.Omega_mats
+    ref = single.Psi_cores + single.Omega_mats
+    rel = max(_rel(a, b) for a, b in zip(ours, ref))
+    bits = all(torch.equal(a, b) for a, b in zip(ours, ref))
+    print(f"# phase 15 [nccl 1 rank]: backend {backend}, uber through "
+          f"sharded_sparse_stream_sketch on a mesh of one rank: worst rel err "
+          f"{rel:.3e} against the single-device sketch (tol "
+          f"{NCCL_ONE_RANK_TOL:g}); bit for bit: {bits}")
+    if not rel <= NCCL_ONE_RANK_TOL:
+        raise AssertionError(f"one-rank NCCL world: {rel:.3e}")
+    return {"backend": backend, "rel": rel, "bit_for_bit": bits}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(ops, uber=None):
+    """Phase 15: the sharded sketches in a world of ``SHARD_WORLD`` ranks
+    (``chip_smoke_dist.run_rank``), each guard held here against the
+    single-device sketch; then the one-rank NCCL world."""
+    import json as _json
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.multiprocessing as mp
+
+    import chip_smoke_dist as CD
+    from tt_sketch_torch import SparseGaussianDRM, TensorTrain, stream_sketch
+    from tt_sketch_torch.data.frostt import load_frostt, sample_error
+    from tt_sketch_torch.dist.sharded import _ranks, _seeds
+    from tt_sketch_torch.drm import TensorTrainDRM
+    from tt_sketch_torch.engine.sketch import SketchedTensorTrain
+    from tt_sketch_torch.engine.sketch_container import SketchContainer
+    from tt_sketch_torch.kernels.dense_engine import (
+        dense_stream_sketch_bisect,
+    )
+
+    tag = "# phase 15 [sharded]:"
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= SHARD_WORLD else "gloo"
+    where = ("one card each" if backend == "nccl" else
+             f"all on cuda:0 ({n_cards} card(s); NCCL refuses two ranks on "
+             f"one device): the card is time-shared, so no time here is a "
+             f"scaling number")
+    world = f"{SHARD_WORLD} ranks over {backend}, {where}"
+    print(f"{tag} world: {world}")
+
+    t0 = time.perf_counter()
+    dense_tt = TensorTrain.random(DENSE_SHARD_SHAPE, DENSE_SHARD_TT_RANK,
+                                  seed=179, dtype=torch.float32,
+                                  device="cuda")
+    X_card = dense_tt.to_dense()
+    X = _shared(X_card)
+    tts = tt_sum_problem()
+    stacked = [_shared(torch.stack([t.cores[mu] for t in tts.tensors]))
+               for mu in range(len(TT_SUM_SHAPE))]
+    torch.cuda.synchronize()
+    print(f"{tag} inputs in shared host memory in "
+          f"{time.perf_counter() - t0:.2f} s: dense X {DENSE_SHARD_SHAPE} "
+          f"f32 ({X.numel() * 4 / 1e9:.2f} GB) from a TT of rank "
+          f"{DENSE_SHARD_TT_RANK}; the TT sum's stacked cores "
+          f"({sum(c.numel() for c in stacked) * 8 / 2 ** 30:.2f} GiB f64)")
+
+    out_dir = Path(tempfile.mkdtemp(
+        dir=Path(__file__).resolve().parent / "build"))
+    cfg = {"world": SHARD_WORLD, "backend": backend, "port": _free_port(),
+           "out": str(out_dir), "ops": ops, "tt_sum_shape": TT_SUM_SHAPE}
+    t0 = time.perf_counter()
+    mp.spawn(CD.run_rank, args=(cfg, X, stacked), nprocs=SHARD_WORLD,
+             join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [_json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARD_WORLD)]
+    with np.load(out_dir / "sketches.npz") as f:
+        sketches = dict(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del X, stacked
+    print(f"{tag} the world ran in {spawn_s:.1f} s (spawn, join and every "
+          f"path; rank 0 joined and loaded uber in "
+          f"{ranks[0]['join_s']:.1f} s); ranks on "
+          f"{[(r['backend'], r['device']) for r in ranks]}")
+    out = {"world": world, "spawn_s": spawn_s, "paths": {}}
+
+    # uber on each mesh against the single-device sketch at the same seed
+    if uber is None:
+        uber = load_sparse("uber-synthetic")
+    single = stream_sketch(uber, 10, 20, seed=CD.SEED,
+                           left_drm_type=SparseGaussianDRM,
+                           right_drm_type=SparseGaussianDRM,
+                           dtype=torch.float32)
+    single_err = sample_error(single.to_tt(), uber)
+    want = dict.fromkeys(SPARSE_KERNELS, 0) | PATH_LAUNCHES["uber gauss"]
+    for label in CD.UBER_MESHES:
+        psi, om = _loaded(sketches, f"uber {label}")
+        worst = _max_rel(psi + om, single.Psi_cores + single.Omega_mats)
+        sk = SketchedTensorTrain(SketchContainer(psi, om), single.left_drm,
+                                 single.right_drm)
+        err = sample_error(sk.to_tt(), uber)
+        per_rank = [r[f"uber {label}"] for r in ranks]
+        launches = [{k: v for k, v in r["launches"].items() if v}
+                    for r in per_rank]
+        print(f"{tag} uber on mesh {label}: worst max|diff|/max|ref| "
+              f"{worst:.3e} against the single-device stream_sketch (tol "
+              f"{SHARD_TOL:g}); sample error {err:.6f}, single-device "
+              f"{single_err:.6f} (tol {SHARD_SAMPLE_TOL:g}); launches per "
+              f"rank {launches}")
+        if not worst <= SHARD_TOL:
+            raise AssertionError(f"uber {label}: {worst:.3e}")
+        if not abs(err - single_err) <= SHARD_SAMPLE_TOL:
+            raise AssertionError(f"uber {label}: sample error {err}")
+        for r, n in enumerate(launches):
+            if dict.fromkeys(SPARSE_KERNELS, 0) | n != want:
+                raise AssertionError(f"uber {label} rank {r}: launches {n}")
+        for r, p in enumerate(per_rank):
+            print(f"{tag} uber {label} rank {r}: entry point {p['entry_s']:.2f}"
+                  f" s (plans included), sketcher prepared in "
+                  f"{p['prep_s']:.2f} s; median over "
+                  f"{len(CD.TIMED_SEEDS) - 1} fresh seeds: world "
+                  f"{p['world_ms']:.3f} ms, this rank up to its all_reduce "
+                  f"{p['rank_ms']:.3f} ms, all_reduce {p['all_reduce_ms']:.3f}"
+                  f" ms of {p['all_reduce_bytes']} bytes")
+        out["paths"][f"uber {label}"] = {
+            "worst_rel": worst, "sample_error": err,
+            "single_sample_error": single_err, "per_rank": per_rank}
+    out["figures"] = {label: ranks[0][f"uber {label}"]["figures"]
+                      for label in CD.UBER_MESHES}
+
+    # the dense stream against the bisect engine over the whole X
+    shape = DENSE_SHARD_SHAPE
+    left, right = _ranks(*CD.DENSE_RANKS, shape)
+    lseed, rseed = _seeds(CD.SEED, len(shape))
+    ldrm = TensorTrainDRM(left, shape, False, seed=lseed,
+                          dtype=torch.float32)
+    rdrm = TensorTrainDRM(right, shape, True, seed=rseed,
+                          dtype=torch.float32)
+    ref_psi, ref_om = dense_stream_sketch_bisect(
+        X_card, ldrm.cores, rdrm.cores, projector="matmul")
+    del X_card
+    psi, om = _loaded(sketches, "dense")
+    worst = _max_rel(psi + om, ref_psi + ref_om)
+    rec = SketchedTensorTrain(SketchContainer(psi, om), ldrm, rdrm).to_tt()
+    rec_err = rec.error(dense_tt, relative=True)
+    dense = [r["dense"] for r in ranks]
+    print(f"{tag} dense {shape} f32, TT-DRMs {CD.DENSE_RANKS}, slabs of "
+          f"{shape[0] // SHARD_WORLD}: worst max|diff|/max|ref| {worst:.3e} "
+          f"against dense_stream_sketch_bisect over the whole X (two "
+          f"torch.matmul; tol {SHARD_TOL:g}); recovery error {rec_err:.3e} "
+          f"(tol {DENSE_RECOVERY_TOL:g}); launches per rank "
+          f"{[p['launches'] for p in dense]}")
+    for r, p in enumerate(dense):
+        print(f"{tag} dense rank {r}: world "
+              f"{', '.join(f'{t:.1f}' for t in p['world_ms'])} ms, this rank "
+              f"up to its all_reduce (its slab's upload included) "
+              f"{', '.join(f'{t:.1f}' for t in p['rank_ms'])} ms, all_reduce"
+              f" {', '.join(f'{t:.3f}' for t in p['all_reduce_ms'])} ms of "
+              f"{p['all_reduce_bytes']} bytes")
+    if not (worst <= SHARD_TOL and rec_err <= DENSE_RECOVERY_TOL):
+        raise AssertionError(f"dense: {worst:.3e}, recovery {rec_err:.3e}")
+    if any(p["launches"] != {"dual_project": 1} for p in dense):
+        raise AssertionError("dense: a rank's slab is not one dual_project")
+    out["paths"]["dense"] = {"worst_rel": worst, "recovery_error": rec_err,
+                             "per_rank": dense}
+    del ref_psi, ref_om, dense_tt
+    torch.cuda.empty_cache()
+
+    # the TT sum against stream_sketch of the TensorSum, the same TT-DRMs
+    left, right = _ranks(*CD.TT_SUM_RANKS, TT_SUM_SHAPE)
+    lseed, rseed = _seeds(CD.SEED, len(TT_SUM_SHAPE))
+    ldrm = TensorTrainDRM(left, TT_SUM_SHAPE, False, seed=lseed)
+    rdrm = TensorTrainDRM(right, TT_SUM_SHAPE, True, seed=rseed)
+    ref = stream_sketch(tts, *CD.TT_SUM_RANKS, left_drm=ldrm,
+                        right_drm=rdrm)
+    psi, om = _loaded(sketches, "tt_sum")
+    rel = max(_rel(a, b) for a, b in zip(psi + om,
+                                         ref.Psi_cores + ref.Omega_mats))
+    tsum = [r["tt_sum"] for r in ranks]
+    print(f"{tag} TT sum: {TT_SUM_TERMS} summands padded to "
+          f"{-(-TT_SUM_TERMS // SHARD_WORLD) * SHARD_WORLD} over "
+          f"{SHARD_WORLD} ranks, STTA {CD.TT_SUM_RANKS} f64: worst rel err "
+          f"{rel:.3e} against stream_sketch of the TensorSum with the same "
+          f"TT-DRMs (tol {TT_SUM_TOL:g}); world "
+          f"{[round(t, 1) for t in tsum[0]['world_ms']]} ms, ranks up to "
+          f"their all_reduce {[round(p['rank_ms'][-1], 1) for p in tsum]} "
+          f"ms, all_reduce {[round(p['all_reduce_ms'][-1], 3) for p in tsum]}"
+          f" ms of {tsum[0]['all_reduce_bytes']} bytes")
+    if not rel <= TT_SUM_TOL:
+        raise AssertionError(f"tt sum: {rel:.3e}")
+    out["paths"]["tt_sum"] = {"rel": rel, "per_rank": tsum}
+    del tts, ref
+
+    out["nccl_one_rank"] = _nccl_one_rank(
+        load_frostt("uber-synthetic", device="cpu").astype(torch.float32),
+        single)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"# phase 15: {out['s']:.1f} s")
+    return out
+
+
+#: phases that need another phase's results: 6 checks the calls that 5
+#: and 9 recorded; 12 adds its figures to 6's and compares with 5's paths
+PHASE_NEEDS = {6: {5, 9}, 12: {5, 6, 9}}
+ALL_PHASES = frozenset(range(1, 16))
+
+
+def selected_phases(argv):
+    """The phases ``--phases`` names (default: every phase), with those
+    they need; phase 1 (the build) always runs."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Chip smoke test of the "
+                                     "PyTorch/H100 port.")
+    parser.add_argument(
+        "--phases", default=None,
+        help="comma-separated phase numbers, e.g. 1,15 (default: all; the "
+             "kernels JSON line is printed only when every phase runs)")
+    args = parser.parse_args(argv)
+    if args.phases is None:
+        return set(ALL_PHASES)
+    chosen = {int(x) for x in args.phases.split(",") if x.strip()}
+    if not chosen <= ALL_PHASES:
+        parser.error(f"no phase {sorted(chosen - ALL_PHASES)}")
+    chosen.add(1)
+    for phase, needs in PHASE_NEEDS.items():
+        if phase in chosen:
+            chosen |= needs
+    return chosen
+
+
+def main(argv=None):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         sys.exit(1)
+    phases = selected_phases(sys.argv[1:] if argv is None else argv)
+    run = phases.__contains__
     import tt_sketch_torch  # noqa: F401  (fails outside a checkout)
     from tt_sketch_torch import SparseGaussianDRM, SparseSignDRM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    print(f"# phases {sorted(phases)}")
 
     smi = phase_build()
     ops = {"gauss": sass_ops_per_sample(), "sign_draw": sass_sign_ops()}
     census = sass_projection_census()
-    kern = phase_kernel_check()
-    path = phase_main_path()
-    phase_stream_sketch()
+    kern = phase_kernel_check() if run(2) else None
+    path = phase_main_path() if run(3) else None
+    if run(4):
+        phase_stream_sketch()
     paths = {}
-    uber = load_sparse("uber-synthetic")
-    paths["uber gauss"] = phase_sparse_main("uber gauss", uber,
-                                            SparseGaussianDRM, "limit")
-    paths["uber sign"] = phase_sparse_main("uber sign", uber, SparseSignDRM,
-                                           "parity")
-    for label in ("uber hmt gauss", "uber otts gauss", "uber hmt tt"):
-        paths[label] = phase_seq_main(label, uber)
-    lbnl = load_sparse("lbnl-synthetic")
-    paths["lbnl gauss"] = phase_sparse_main("lbnl gauss", lbnl,
-                                            SparseGaussianDRM)
-    paths["lbnl sign"] = phase_sparse_main("lbnl sign", lbnl, SparseSignDRM)
-    paths["lbnl hmt gauss"] = phase_seq_main("lbnl hmt gauss", lbnl,
-                                             timed=False)
-    del lbnl
-    skern = phase_sparse_kernels(paths, ops)
-    seg_shapes = phase_segment_shapes()
-    phase_sign_rows()
-    phase_window_kernel()
-    phase_seq_kernels()
-    diag = phase_projector_diag()
-    sums, tt_sum, formats = phase_sums_and_formats(uber, paths, ops, skern)
-    solvers = phase_rounding_and_solvers()
-    uniform = phase_uniform_and_sessions(uber)
+    uber = (load_sparse("uber-synthetic") if phases & {5, 9, 12, 14, 15}
+            else None)
+    if run(5):
+        paths["uber gauss"] = phase_sparse_main("uber gauss", uber,
+                                                SparseGaussianDRM, "limit")
+        paths["uber sign"] = phase_sparse_main("uber sign", uber,
+                                               SparseSignDRM, "parity")
+    if run(9):
+        for label in ("uber hmt gauss", "uber otts gauss", "uber hmt tt"):
+            paths[label] = phase_seq_main(label, uber)
+    if run(5) or run(9):
+        lbnl = load_sparse("lbnl-synthetic")
+        if run(5):
+            paths["lbnl gauss"] = phase_sparse_main("lbnl gauss", lbnl,
+                                                    SparseGaussianDRM)
+            paths["lbnl sign"] = phase_sparse_main("lbnl sign", lbnl,
+                                                   SparseSignDRM)
+        if run(9):
+            paths["lbnl hmt gauss"] = phase_seq_main("lbnl hmt gauss", lbnl,
+                                                     timed=False)
+        del lbnl
+    if run(6):
+        skern = phase_sparse_kernels(paths, ops)
+        seg_shapes = phase_segment_shapes()
+    if run(7):
+        phase_sign_rows()
+    if run(8):
+        phase_window_kernel()
+    if run(10):
+        phase_seq_kernels()
+    diag = phase_projector_diag() if run(11) else None
+    if run(12):
+        sums, tt_sum, formats = phase_sums_and_formats(uber, paths, ops,
+                                                       skern)
+    solvers = phase_rounding_and_solvers() if run(13) else None
+    uniform = phase_uniform_and_sessions(uber) if run(14) else None
+    sharded = phase_sharded(ops, uber) if run(15) else None
     del uber
+    if phases != ALL_PHASES:
+        print(f"# phases {sorted(phases)} ran; the kernels line needs every "
+              f"phase")
+        print(f"# total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps(_device_line()))
+        return
 
     b_ms, b_by, b_bytes, b_ops = bound_ms(*MAIN)
     bf16_bound = bound_ms(*MAIN, compute="bf16")
@@ -3975,6 +4336,19 @@ def main():
         "sass": census,
         "card": smi,
     }
+    entry["by_path"] = {"dense sharded": {
+        "launches": sharded["paths"]["dense"]["per_rank"][0]["launches"][
+            "dual_project"],
+        "per_rank_launches": [p["launches"]["dual_project"] for p in
+                              sharded["paths"]["dense"]["per_rank"]],
+        "world": sharded["world"]}}
+    for label, figures in sharded["figures"].items():
+        per_rank = sharded["paths"][f"uber {label}"]["per_rank"]
+        for name, fig in figures.items():
+            skern[name][f"uber sharded {label} gauss"] = fig | {
+                "per_rank_launches": [p["launches"].get(name, 0)
+                                      for p in per_rank],
+                "world": sharded["world"]}
     entries = [entry]
     for name in SPARSE_KERNELS:
         # the kernel's figures on the first main path that launches it;
@@ -4079,14 +4453,28 @@ def main():
               f"{u['resume_ms']:.3f} ms, {u['checkpoint_bytes']} bytes, "
               f"resumed {'bit for bit' if u['bit_for_bit'] else 'within 1e-6'}"
               f", sample error {u['sample_error']:.4f}")
+    for label, p in sharded["paths"].items():
+        ms = (f"world {p['per_rank'][0]['world_ms']:.3f} ms"
+              if label.startswith("uber") else
+              f"world {p['per_rank'][0]['world_ms'][-1]:.1f} ms")
+        print(f"# sharded {label} ({sharded['world']}): {ms}, "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in p.items() if k in ('worst_rel', 'rel', 'recovery_error'))}")
+    print(f"# nccl one rank: rel {sharded['nccl_one_rank']['rel']:.3e}, bit "
+          f"for bit {sharded['nccl_one_rank']['bit_for_bit']}")
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries}))
-    print(json.dumps({"ok": True, "device": {
+    print(json.dumps(_device_line()))
+
+
+def _device_line():
+    import torch
+
+    return {"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
-    }}))
+    }}
 
 
 if __name__ == "__main__":

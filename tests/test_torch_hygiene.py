@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tt_sketch_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "chip_smoke_dist.py",
+    ROOT / "tests" / "torch_dist_worker.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "tt_sketch_tpu")
 
@@ -72,6 +73,15 @@ def test_import_leaves_jax_out():
         "import tt_sketch_torch.engine.uniform\n"
         "import tt_sketch_torch.serialization, tt_sketch_torch.streaming\n"
         "import tt_sketch_torch.profiling\n"
+        "import tt_sketch_torch.dist, tt_sketch_torch.dist.sharded\n"
+        "from tt_sketch_torch.dist import initialize_multihost, global_mesh\n"
+        "from tt_sketch_torch.dist import make_global\n"
+        "from tt_sketch_torch.dist import make_sharded_sparse_sketcher\n"
+        "from tt_sketch_torch.dist import sharded_sparse_stream_sketch\n"
+        "from tt_sketch_torch.dist import sharded_dense_stream_sketch\n"
+        "from tt_sketch_torch.dist import sharded_tt_sum_stream_sketch\n"
+        "from tt_sketch_torch.kernels.sparse_plan import "
+        "build_shard_psi_plans\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
         "assert not bad, bad\n"
@@ -125,3 +135,35 @@ def test_digest_follows_shared_headers(tmp_path, monkeypatch):
     assert "sign_column" in header.read_text()
     for name in ("sparse_sign", "sparse_psi"):
         assert '#include "hash_rng.cuh"' in (csrc / f"{name}.cu").read_text()
+
+
+def test_dist_touches_no_card_and_no_compiler():
+    """Importing the sharded sketches and the smoke's rank worker neither
+    initializes CUDA nor starts nvcc, and joins no process group."""
+    code = (
+        "import sys, subprocess\n"
+        "calls = []\n"
+        "real = subprocess.Popen.__init__\n"
+        "def spy(self, args, *a, **k):\n"
+        "    calls.append(args)\n"
+        "    return real(self, args, *a, **k)\n"
+        "subprocess.Popen.__init__ = spy\n"
+        "import torch, torch.distributed as dist\n"
+        "import tt_sketch_torch.dist\n"
+        "import chip_smoke_dist\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not dist.is_initialized()\n"
+        "assert not calls, calls\n"
+        "from tt_sketch_torch.kernels import cuda_build\n"
+        "assert not cuda_build.build_info and not cuda_build._libraries\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tt_sketch_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -352,6 +352,18 @@ def test_round_fixed_against_jax(decay, k):
     assert abs(e_ours - e_ref) <= ROW_TOL * e_ref + ROW_FLOOR
 
 
+def test_one_orthogonalization_serves_several_ranks(decay):
+    """``_truncate_fixed`` of one ``uniform_orthogonalize`` equals
+    ``uniform_round_fixed`` at each rank bit for bit (the same operations
+    on the same values)."""
+    X = _t(decay)
+    orth = TU.uniform_orthogonalize(*X)
+    for k in (3, 2, 1):
+        ours = TU._truncate_fixed(*orth, max_rank=k)
+        ref = TU.uniform_round_fixed(*X, max_rank=k)
+        assert all(torch.equal(a, b) for a, b in zip(ours, ref))
+
+
 def test_round_fixed_rank_deficient_first_core():
     """n < r: the first QR is zero-padded back to rank r."""
     st = JU.uniform_random_tt(6, 3, 5, seed=4)

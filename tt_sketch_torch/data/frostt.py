@@ -47,9 +47,15 @@ FROSTT_TENSORS: Dict[str, FrosttInfo] = {
 
 
 def load_frostt(name: str, cache_dir: Union[str, Path] = DEFAULT_CACHE,
-                psi_plan: bool = False, plan_kwargs: Optional[dict] = None,
+                download: bool = True, psi_plan: bool = False,
+                plan_kwargs: Optional[dict] = None,
                 device=None) -> SparseTensor:
     """Load a synthetic FROSTT stand-in from ``<cache_dir>/<name>.npz``.
+
+    The positional order is the JAX package's.  ``download`` is accepted
+    for its signature: the port has no downloader, so a missing file
+    raises ``FileNotFoundError`` either way, and with ``download=True`` the
+    message says that nothing can be fetched.
 
     ``psi_plan=True`` attaches the sort/chunk plans (``build_psi_plan``
     with ``plan_kwargs``: ``threshold``, ``chunk``, ``window_threshold``,
@@ -64,7 +70,9 @@ def load_frostt(name: str, cache_dir: Union[str, Path] = DEFAULT_CACHE,
     if not path.exists():
         raise FileNotFoundError(
             f"{path} not found: the port reads the committed synthetic "
-            f"stand-ins and does not synthesize or download yet")
+            f"stand-ins and does not synthesize them yet"
+            + ("; download=True cannot fetch it either, the port has no "
+               "downloader" if download else ""))
     with np.load(path) as data:
         version = int(data["synth_version"]) if "synth_version" in data else 0
         if version != _SYNTH_VERSION:

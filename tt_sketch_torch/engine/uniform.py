@@ -365,7 +365,14 @@ def uniform_round_fixed(first, interior, last, max_rank: int):
     """LR orthogonalize + RL fixed-rank SVD truncation, both as loops.
 
     ``max_rank`` must satisfy max_rank <= rank and <= n (static shapes)."""
-    first, interior, last = uniform_orthogonalize(first, interior, last)
+    return _truncate_fixed(*uniform_orthogonalize(first, interior, last),
+                           max_rank)
+
+
+def _truncate_fixed(first, interior, last, max_rank: int):
+    """The RL fixed-rank SVD truncation of ``uniform_round_fixed``, on a
+    TT that ``uniform_orthogonalize`` has made left-orthogonal: one
+    orthogonalization can serve truncations to several ranks."""
     r = interior.shape[1] if interior.shape[0] else first.shape[2]
     n = first.shape[1]
     k = max_rank

@@ -104,10 +104,12 @@ class SparseTensor(Tensor):
     def nnz(self) -> int:
         return int(self.entries.shape[0])
 
-    def astype(self, dtype) -> SparseTensor:
+    def astype(self, dtype, index_dtype=None) -> SparseTensor:
         """Copy with ``entries`` (and the plans' sorted entries) cast to
-        ``dtype``.  Indices stay int64 (the JAX package's ``index_dtype``
-        exists for the TPU's int32 lanes)."""
+        ``dtype``.  ``index_dtype`` is accepted for the JAX package's
+        signature, where it casts the indices (int32 for the TPU's lanes);
+        here it does nothing and the indices stay int64, the type every
+        kernel of the port reads."""
         return SparseTensor(
             self.shape, self.indices, self.entries.to(dtype),
             self._map_plan_entries(lambda e: e.to(dtype)),

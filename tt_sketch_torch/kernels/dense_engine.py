@@ -281,6 +281,7 @@ def slab_stream_sketch(
     shape: Tuple[int, ...],
     left_cores: Sequence[torch.Tensor],
     right_cores: Sequence[torch.Tensor],
+    dtype=None,
     engine: str = "bisect",
     projector: str = "auto",
     pivot: Optional[int] = None,
@@ -294,6 +295,10 @@ def slab_stream_sketch(
     sketching the full tensor; Ψ_0 rows are produced per slab and
     concatenated.
 
+    The first six parameters are the JAX package's, in its order.
+    ``dtype`` is accepted for its signature and is unused there and here:
+    each slab is sketched in its own dtype.
+
     Unlike the JAX package, which leaves the bisect engine at its two-GEMM
     default here, ``projector`` is handed to the bisect engine and defaults
     to ``"auto"``, i.e. the one-pass kernel on CUDA.  On the TPU the 2-GEMM
@@ -301,6 +306,7 @@ def slab_stream_sketch(
     torch slab reshapes to its 2-D view without a copy, so that reason does
     not apply.
     """
+    del dtype
     n0 = shape[0]
     slab_size = n0 // n_slabs
     if slab_size * n_slabs != n0:

@@ -2,7 +2,7 @@
 
 Counterpart of ``tt_sketch_tpu/kernels/sparse_plan.py`` (``ModePlan``,
 ``build_mode_plan``, ``WindowPlan``, ``build_window_plan``,
-``build_psi_plan``).  Per mode μ the Ψ kernels compute
+``build_psi_plan``, ``build_shard_psi_plans``).  Per mode μ the Ψ kernels compute
 
     Ψ_μ[i, j, m] = Σ_{k : idx_μ[k] = j}  left[i,k] · entries[k] · right[m,k].
 
@@ -110,6 +110,14 @@ class ModePlan:
         if self.sorted_entries is None:
             return self
         return self._replace(sorted_entries=fn(self.sorted_entries))
+
+    def to(self, device) -> "ModePlan":
+        """Copy with every array on ``device``."""
+        arrays = ("perm", "local_idx", "slot_rows", "sorted_entries",
+                  "flat_left", "flat_right", "flat_left_om", "gather_slots")
+        return self._replace(**{
+            name: getattr(self, name).to(device) for name in arrays
+            if getattr(self, name) is not None})
 
     def __repr__(self) -> str:
         fused = "+fused" if self.sorted_entries is not None else ""
@@ -285,11 +293,18 @@ def _pick_chunk(nnz: int, n_values: int, boundary: bool = False) -> int:
 def build_mode_plan(idx, n_mu: int, chunk: Optional[int] = None, *,
                     full_indices=None, mu: Optional[int] = None,
                     shape: Optional[Sequence[int]] = None, entries=None,
+                    force_span: Optional[int] = None,
+                    force_gather_k: Optional[int] = None,
                     device=None) -> ModePlan:
     """The sort/chunk plan of one mode from host indices; its arrays land
     on ``device`` (default: the package default) as torch tensors.  With
     ``full_indices``/``mu``/``shape``/``entries`` the plan also carries
-    the sorted streams of the fused kernels."""
+    the sorted streams of the fused kernels.
+
+    ``force_span`` raises the span to a common value and ``force_gather_k``
+    sets the gather width (0: no gather combine), so that the shards of
+    ``build_shard_psi_plans`` share one geometry as the JAX package's
+    do."""
     idx = np.asarray(idx)
     nnz = int(idx.shape[0])
     device = resolve_device(device)
@@ -313,6 +328,11 @@ def build_mode_plan(idx, n_mu: int, chunk: Optional[int] = None, *,
     last = np.where(tiles[:, -1] >= 0, tiles[:, -1], tiles.max(axis=1))
     span = int((last - base).max()) + 1
     span = ((span + 7) // 8) * 8
+    if force_span is not None:
+        if force_span < span:
+            raise ValueError(
+                f"force_span={force_span} below computed span {span}")
+        span = int(force_span)
 
     local = tiles - base[:, None]
     local[tiles < 0] = span  # padding sentinel
@@ -331,9 +351,10 @@ def build_mode_plan(idx, n_mu: int, chunk: Optional[int] = None, *,
     c_first = starts // C
     c_last = (ends - 1) // C
     K = int((c_last - c_first + 1).max()) if n_vals else 1
+    gk = force_gather_k if force_gather_k is not None else K
     gather_slots = None
-    if K <= _GATHER_K_CAP:
-        gather_slots = np.full((n_mu, K), n_chunks * span, np.int32)
+    if K <= gk <= _GATHER_K_CAP:
+        gather_slots = np.full((n_mu, gk), n_chunks * span, np.int32)
         vr = np.arange(n_vals, dtype=np.int64)
         for k in range(K):
             ck = c_first + k
@@ -393,3 +414,62 @@ def build_psi_plan(indices, shape: Sequence[int],
         return build_mode_plan(indices[mu], int(n_mu), **common)
 
     return tuple(_plan(mu, n_mu) for mu, n_mu in enumerate(shape))
+
+
+def build_shard_psi_plans(indices, entries, shape: Sequence[int],
+                          n_shards: int,
+                          threshold: int = DEFAULT_SORT_THRESHOLD,
+                          chunk: Optional[int] = None, device=None):
+    """Per-nnz-shard plan tuples with one geometry per mode, for the
+    sharded sketch (``tt_sketch_torch/dist/sharded.py``).
+
+    The nnz stream is zero-padded (index 0…0, entry 0: exact, every Ψ/Ω
+    term scales with its entry) to a multiple of ``n_shards`` and cut into
+    equal contiguous shards.  Each shard gets its own sort/chunk plan
+    (``ModePlan`` only: no window plans, as in the JAX package), with the
+    chunk size of each mode picked from shard 0's statistics, the span of
+    each mode the largest over the shards and one gather width (0, no
+    gather combine, when any shard exceeds the cap).  The plans equal the
+    JAX package's field by field; torch needs no common geometry to run
+    them, but keeping it keeps the two packages' shards the same.
+
+    Returns ``(idx_shards, ent_shards, plans)``: ``(n_shards, d, nnz_s)``
+    and ``(n_shards, nnz_s)`` host arrays and a list over shards of
+    per-mode plan tuples on ``device``."""
+    indices = np.asarray(indices)
+    entries = np.asarray(entries)
+    d, nnz = indices.shape
+    pad = -nnz % n_shards
+    if pad:
+        indices = np.concatenate(
+            [indices, np.zeros((d, pad), indices.dtype)], axis=1)
+        entries = np.concatenate([entries, np.zeros(pad, entries.dtype)])
+    nnz_s = indices.shape[1] // n_shards
+    idx_shards = indices.reshape(d, n_shards, nnz_s).transpose(1, 0, 2)
+    ent_shards = entries.reshape(n_shards, nnz_s)
+
+    plans = [[None] * len(shape) for _ in range(n_shards)]
+    for mu, n_mu in enumerate(shape):
+        if int(n_mu) <= threshold:
+            continue
+        boundary = mu == 0 or mu == len(shape) - 1
+        C = (int(chunk) if chunk is not None
+             else _pick_chunk(nnz_s, len(np.unique(idx_shards[0][mu])),
+                              boundary=boundary))
+
+        def _build(s, **force):
+            return build_mode_plan(
+                idx_shards[s][mu], int(n_mu), chunk=C,
+                full_indices=idx_shards[s], mu=mu, shape=shape,
+                entries=ent_shards[s], device=device, **force)
+
+        built = [_build(s) for s in range(n_shards)]
+        span = max(p.span for p in built)
+        gk = (0 if any(p.gather_slots is None for p in built)
+              else max(p.gather_slots.shape[1] for p in built))
+        for s, p in enumerate(built):
+            width = 0 if p.gather_slots is None else p.gather_slots.shape[1]
+            uniform = p.span == span and width == gk
+            plans[s][mu] = p if uniform else _build(
+                s, force_span=span, force_gather_k=gk)
+    return idx_shards, ent_shards, [tuple(p) for p in plans]
