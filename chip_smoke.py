@@ -192,7 +192,7 @@ failure raises and exits non-zero):
 14. The uniform engine, streaming sessions, checkpoints and profiling
     (no kernel of ours in (a); the sessions launch the sparse kernels).
     (a) ``run_dimension_scaling``'s full setting on the uniform engine:
-    ``uniform_exp_decay_tt(8192, 30, 30, seed=179)`` in f64, STTA 30/60,
+    ``exp_decay_uniform_problem(8192, 30, 30, seed=179)`` in f64, STTA 30/60,
     HMT 30 and OTTS 30/60 with the ``"hash"`` DRM stream at run 0's seeds,
     each through its entry point and rounded to 10, and
     ``uniform_round_fixed`` at 10, 9 and 8: every error on the card's Gram
@@ -244,11 +244,27 @@ failure raises and exits non-zero):
     TT-DRMs.  Then a one-rank NCCL world on cuda:0 in this process: uber
     within ``NCCL_ONE_RANK_TOL`` of the single-device sketch, and whether
     it is bit for bit.
-16. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+16. The experiment harness (``tt_sketch_torch.experiments``).  (a)
+    ``run_frostt`` through the ported driver at full size in float32:
+    ``FROSTT_NAMES`` at ranks ``FROSTT_RANKS``, run 0, STTA r/2r and HMT r
+    with ``SparseGaussianDRM``s and the driver's plans (threshold 16), 18
+    rows, each held to ``results/frostt.csv``'s float32 row of its seed
+    (``FROSTT_RECORD_TOL``), its error, ``time_taken`` and kernel launches
+    printed (counts set to 0 just before each row and read just after; a
+    row that launches no kernel fails); the ``FROSTT_RECORDED`` rows (nips
+    at rank 20) against the same rows under ``plain_kernels()``
+    (``FROSTT_PLAIN_TOL``), and their kernel calls against their plain
+    versions, timed and bounded (they join ``by_path`` as "frostt nips
+    ...").  (b) ``python -m tt_sketch_torch.experiments list`` and ``all
+    --quick --no-progress`` as subprocesses (a non-zero exit fails): the
+    quick FROSTT rows (float64, rank 5, seeds 5063/5064) held to the
+    record's float64 rows (``FROSTT_F64_TOL``), every other quick row to the
+    port's CPU rows in ``QUICK_CPU_DIR`` (``QUICK_RTOL``).
+17. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
-    every path, phase 12's and 15's among them, with each rank's launches
-    for phase 15; the diagnostics' launches are those of their run), then
-    the device line last.
+    every path, phase 12's, 15's and 16's among them, with each rank's
+    launches for phase 15; the diagnostics' launches are those of their
+    run), then the device line last.
 
 Requires CUDA; exits non-zero without it.
 """
@@ -2789,27 +2805,17 @@ def phase_grow(uber):
             "scratch_ms": scratch_ms}
 
 
-def tt_sum_problem(seed=179):
-    """The paper's TT-sum workload (``tt_sketch_tpu/experiments/problems.py
-    timings_vs_error_problem``): ``TT_SUM_TERMS`` random TTs of rank
-    ``TT_SUM_RANK`` and shape ``TT_SUM_SHAPE`` in float64, cores scaled as
-    ``TensorTrain.random``'s ``norm-1``, with coefficients
-    ``logspace(0, -10, TT_SUM_TERMS)``; drawn on the card from one seeded
-    generator (JAX parity of this path is the CPU tests')."""
-    import torch
+def tt_sum_problem():
+    """The paper's TT-sum workload on the card: ``tt_sketch_torch.
+    experiments.problems.timings_vs_error_problem`` (``TT_SUM_TERMS``
+    random TTs of rank ``TT_SUM_RANK`` and shape ``TT_SUM_SHAPE`` in
+    float64, coefficients ``logspace(0, -10, TT_SUM_TERMS)``, seed 179): the
+    JAX package's cores, drawn with numpy on the host and uploaded."""
+    from tt_sketch_torch.experiments import problems
 
-    from tt_sketch_torch.formats import TensorSum, TensorTrain
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    d = len(TT_SUM_SHAPE)
-    ranks = (1,) + (TT_SUM_RANK,) * (d - 1) + (1,)
-    summands = []
-    for c in np.logspace(0.0, -10.0, TT_SUM_TERMS):
-        cores = [torch.randn((r1, n, r2), generator=g, device="cuda",
-                             dtype=torch.float64) / float(np.sqrt(r1 * n))
-                 for r1, n, r2 in zip(ranks, TT_SUM_SHAPE, ranks[1:])]
-        summands.append(TensorTrain(cores) * float(c))
-    return TensorSum(summands)
+    return problems.timings_vs_error_problem(
+        n_dims=len(TT_SUM_SHAPE), dim=TT_SUM_SHAPE[0], tt_rank=TT_SUM_RANK,
+        num_tts=TT_SUM_TERMS, device="cuda")
 
 
 def tt_sum_rel_error(tt, X, b2):
@@ -2834,7 +2840,7 @@ def phase_tt_sum():
     torch.cuda.synchronize()
     gib = sum(c.numel() for t in X.tensors for c in t.cores) * 8 / 2 ** 30
     print(f"{tag} {X}, {TT_SUM_TERMS} TTs of rank {TT_SUM_RANK}, "
-          f"{gib:.2f} GiB of f64 cores, drawn on the card in "
+          f"{gib:.2f} GiB of f64 cores, drawn on the host and uploaded in "
           f"{time.perf_counter() - t0:.2f} s")
     sk, ldrm, rdrm = stream_sketch(X, 24, 25, seed=0, return_drm=True)
     parts = [stream_sketch(t, 24, 25, left_drm=ldrm, right_drm=rdrm).sketch_
@@ -2885,37 +2891,6 @@ def phase_tt_sum():
     return out
 
 
-def cp_problem(seed=179):
-    """``tt_sketch_tpu/experiments/problems.py cp_problem``: (10,)^5, CP
-    rank 100, component norms 1/k^5, numpy draws (float64, host)."""
-    import torch
-
-    from tt_sketch_torch.formats import CPTensor
-
-    rng = np.random.default_rng(seed)
-    cp_norms = 1.0 / np.arange(1, 101) ** 5
-    cores = []
-    for n in (10,) * 5:
-        core = rng.standard_normal((n, 100))
-        cores.append(core / np.linalg.norm(core, axis=0))
-    cores[0] = cp_norms * cores[0]
-    return CPTensor([torch.from_numpy(c) for c in cores])
-
-
-def tt_plus_sparse_problem(seed=179):
-    """``problems.py tt_plus_sparse_problem``: a rank-5 TT of (10,)^5 plus
-    100 sparse outliers with magnitudes 10^-3 .. 10^-20 (host, float64)."""
-    from tt_sketch_torch.formats import SparseTensor, TensorTrain
-
-    shape = (10,) * 5
-    tensor_tt = TensorTrain.random(shape, rank=5, seed=seed, device="cpu")
-    rng = np.random.default_rng(seed)
-    inds = np.stack(np.unravel_index(
-        rng.choice(int(np.prod(shape)), 100, replace=False), shape))
-    entries = rng.standard_normal(100) * np.logspace(-3.0, -20.0, 100)
-    return SparseTensor(shape, inds, entries, device="cpu") + tensor_tt
-
-
 def _to(t, device):
     """The same tensor with its arrays on ``device``."""
     from tt_sketch_torch.formats import (
@@ -2954,10 +2929,13 @@ def phase_formats():
         stream_sketch,
     )
 
+    from tt_sketch_torch.experiments import problems
+
     tucker = TuckerTensor.random((30,) * 4, 5, seed=179, device="cpu")
-    cases = (("cp", cp_problem(), (30, 60), None),
+    cases = (("cp", problems.cp_problem(device="cpu"), (30, 60), None),
              ("tucker", tucker, (25, 30), None),
-             ("tt+sparse dense-gauss", tt_plus_sparse_problem(), (30, 60),
+             ("tt+sparse dense-gauss",
+              problems.tt_plus_sparse_problem(device="cpu"), (30, 60),
               DenseGaussianDRM))
     out = {}
     for name, host, (lr, rr), drm in cases:
@@ -3034,8 +3012,8 @@ def phase_sums_and_formats(uber, paths, ops, skern):
 #: runs of each solve at full size); phase 13 holds each solve's final
 #: internal residual to half the smallest and twice the largest of its runs
 COOKIE_CSV = "results/cookie.csv"
-#: ``run_cookie``'s full setting (tt_sketch_tpu/experiments/drivers.py:511-519)
-COOKIE = dict(num_coeffs=20, num_cookies=4, n=60)
+#: ``run_cookie``'s full setting, the arguments of ``drivers.problems_cookie``
+COOKIE = dict(num_coeffs=20, n=60)
 #: rounding -> (max_rank, maxiter) of the two solves
 COOKIE_SOLVES = {"sketch": (50, 50), "pairwise": (10, 50)}
 #: the true residual of the preconditioned system, densified, as
@@ -3070,7 +3048,7 @@ def cookie_records(rounding, max_rank):
                        and float(r["max_rank"]) == max_rank
                        and float(r["run"]) < 5),
                       key=lambda r: float(r["run"]))
-    seed = 1009 * max_rank + 12
+    seed = _seed_for(max_rank, 0, 12)
     if [float(r["run"]) for r in rows] != [0, 1, 2, 3, 4] or int(
             float(rows[0]["seed"])) != seed:
         raise AssertionError(f"{COOKIE_CSV}: no runs 0-4 of GMRES-{rounding} "
@@ -3238,11 +3216,11 @@ def phase_gmres():
     import torch
 
     from tt_sketch_torch import tt_sum_gmres
+    from tt_sketch_torch.experiments.drivers import problems_cookie
     from tt_sketch_torch.formats import TensorSum
-    from tt_sketch_torch.solvers import prepare_synthetic_cookie_problem
 
     tag = "# phase 13 [gmres]:"
-    A, b, pre = prepare_synthetic_cookie_problem(**COOKIE, device="cuda")
+    A, b, pre = problems_cookie(**COOKIE, device="cuda")
     print(f"{tag} cookie problem {A.in_shape}, {len(A.linear_maps)} maps, "
           f"float64, preconditioned, tolerance 1e-6")
     out = {}
@@ -3322,8 +3300,7 @@ def phase_gmres():
     _, seed = cookie_records("sketch", max_rank)
     kw = dict(max_rank=max_rank, tolerance=1e-6, rounding_method="sketch",
               seed=seed, maxiter=GMRES_PARITY_ITERS)
-    A_h, b_h, pre_h = prepare_synthetic_cookie_problem(**COOKIE,
-                                                       device="cpu")
+    A_h, b_h, pre_h = problems_cookie(**COOKIE, device="cpu")
     runs = {"card, device-resident": lambda: tt_sum_gmres(
                 A, b, precond=pre, device_resident=True, **kw),
             "card, eager": lambda: tt_sum_gmres(
@@ -3395,9 +3372,11 @@ PORT_KERNEL_NAMES = ("lazy_gaussian_kernel", "sparse_sign_kernel",
                      "reduce_u_kernel")
 
 
-def _seed_for(order, run, extra):
-    """``tt_sketch_tpu/experiments/drivers.py``'s seed rule."""
-    return 100_003 * run + 1009 * order + extra
+def _seed_for(rank, run, extra):
+    """The drivers' seed rule (``tt_sketch_torch.experiments.drivers``)."""
+    from tt_sketch_torch.experiments.drivers import _seed_for as rule
+
+    return rule(rank, run, extra)
 
 
 def scaling_records(order):
@@ -3517,10 +3496,12 @@ def _uniform_counts(tag, order):
     (the profiler), busy share and seconds per stage, printed per mode and
     scaled to the full order."""
     from tt_sketch_torch import profiling
+    from tt_sketch_torch.experiments.problems import (
+        exp_decay_uniform_problem,
+    )
     from tt_sketch_torch.engine.uniform import (
         _rel_error_exact,
         stack_tt,
-        uniform_exp_decay_tt,
         uniform_rel_error,
         uniform_round_fixed,
         uniform_stream_sketch,
@@ -3529,8 +3510,8 @@ def _uniform_counts(tag, order):
 
     dim, rank = SCALING["dim"], SCALING["rank"]
     seed = _seed_for(order, 0, SCALING_SEEDS["STTA"])
-    stacked = uniform_exp_decay_tt(order, dim, rank, SCALING["seed"],
-                                   device="cuda")
+    stacked = exp_decay_uniform_problem(order, dim, rank,
+                                        SCALING["seed"], device="cuda")
     timer = profiling.StageTimer()
     staged = _stta_in_stages(unstack_tt(*stacked), seed, timer)
     whole = uniform_stream_sketch(unstack_tt(*stacked), rank, 2 * rank,
@@ -3588,10 +3569,12 @@ def phase_order_scaling():
     import torch
 
     from tt_sketch_torch import profiling
+    from tt_sketch_torch.experiments.problems import (
+        exp_decay_uniform_problem,
+    )
     from tt_sketch_torch.engine.uniform import (
         _rel_error_exact,
         _truncate_fixed,
-        uniform_exp_decay_tt,
         uniform_orthogonalize,
         uniform_rel_error,
     )
@@ -3605,10 +3588,10 @@ def phase_order_scaling():
     live = profiling.memory_stats()["allocated_bytes.all.current"]
     timer = profiling.StageTimer()
     timer.start("problem")
-    stacked = uniform_exp_decay_tt(order, dim, rank, SCALING["seed"],
-                                   device="cuda")
+    stacked = exp_decay_uniform_problem(order, dim, rank,
+                                        SCALING["seed"], device="cuda")
     timer.stop("problem", stacked)
-    print(f"{tag} uniform_exp_decay_tt({order}, {dim}, {rank}, seed="
+    print(f"{tag} exp_decay_uniform_problem({order}, {dim}, {rank}, seed="
           f"{SCALING['seed']}), float64, interior {tuple(stacked[1].shape)}:"
           f" {timer.total('problem'):.2f} s (numpy on the host, one upload "
           f"per piece)")
@@ -3691,8 +3674,8 @@ def phase_order_scaling():
     parity = {}
     for name, small in SCALING_PARITY_ORDERS.items():
         t0 = time.perf_counter()
-        host = uniform_exp_decay_tt(small, dim, rank, SCALING["seed"],
-                                    device="cpu")
+        host = exp_decay_uniform_problem(small, dim, rank,
+                                         SCALING["seed"], device="cpu")
         card = tuple(x.to("cuda") for x in host)
         print(f"{tag} order {small}: the problem made on the host in "
               f"{time.perf_counter() - t0:.2f} s and copied to the card")
@@ -4208,10 +4191,294 @@ def phase_sharded(ops, uber=None):
     return out
 
 
+FROSTT_CSV = "results/frostt.csv"
+#: phase 16 (a): ``run_frostt`` at full size in float32 on these stand-ins
+#: at these ranks, run 0 (18 rows: STTA r/2r and HMT r)
+FROSTT_NAMES = ("uber-synthetic", "nips-synthetic", "lbnl-synthetic")
+FROSTT_RANKS = (5, 10, 20)
+#: the nips rows whose kernel calls are recorded and held to their plain
+#: versions (planned modes of 17 and 24 rows at the driver's threshold 16)
+FROSTT_RECORDED = ("nips-synthetic", 20)
+FROSTT_RECORD_TOL = 5e-3  # relative: a float32 row vs results/frostt.csv's float32 row of the same seed (the f32 and f64 rows of one seed differ by 1.7e-3 on uber STTA at rank 5)
+FROSTT_F64_TOL = 1e-6     # relative: a quick float64 row vs the record's float64 row of the same seed
+FROSTT_PLAIN_TOL = 1e-4   # absolute: a row's sample error vs the same row under plain_kernels() (float32 sums in another order), as SESSION_ERROR_TOL
+#: phase 16 (b): ``all --quick`` on the card against the port's CPU rows
+#: (``tests/data/torch_quick_cpu``, made by the same CLI with ``--platform
+#: cpu``): error within QUICK_RTOL relative plus QUICK_ATOL (float64;
+#: cuBLAS/cuSOLVER against LAPACK, through pseudo-inverses, QRs and SVDs;
+#: below 1e-10 both are exact recovery), an error from a Gram identity
+#: within QUICK_GRAM_ATOL (the square root of a difference that cancels to
+#: rounding noise: the timings' TT inner products, and the uniform engine's
+#: ``uniform_rel_error``, exact on the CPU and Gram on the card, which
+#: reads 0.0 for a TT-SVD row of 2.0e-10), the cookie's GMRES residuals (8
+#: iterations) within GMRES_TOL and its final roundings' true residuals
+#: within QUICK_RTOL
+QUICK_CPU_DIR = "tests/data/torch_quick_cpu"
+QUICK_RTOL, QUICK_ATOL, QUICK_GRAM_ATOL = 1e-6, 1e-10, 1e-6
+
+
+def frostt_records(f64):
+    """``results/frostt.csv``'s rows of one dtype as ``{(dataset, name,
+    rank, seed): error}`` (the float32 rows, or the float64 ones)."""
+    from tt_sketch_torch.experiments.runner import Experiment
+
+    return {_frostt_key(r): r["error"] for r in Experiment(FROSTT_CSV).data
+            if (r["dtype"] is None) == f64}
+
+
+def _frostt_key(row):
+    rank = row["left_rank"] if row["name"] == "STTA" else row["rank"]
+    return row["dataset"], row["name"], int(rank), int(row["seed"])
+
+
+def _label(dataset, name, rank):
+    return f"frostt {dataset.split('-')[0]} {name.lower()} {rank}"
+
+
+@contextlib.contextmanager
+def _counting_tasks(rows, kept):
+    """Wrap the FROSTT driver's two tasks: each row's kernel counts set to
+    0 just before it and read just after (into ``rows``), the calls of the
+    ``FROSTT_RECORDED`` rows recorded (into ``kept``, with the task, the
+    tensor and its arguments)."""
+    import torch
+
+    from tt_sketch_torch.experiments import tasks
+
+    fns = _kernel_fns()
+
+    def wrap(task):
+        def run(tensor, **kw):
+            rank = kw.get("left_rank") or kw["rank"]
+            name = "STTA" if "left_rank" in kw else "HMT"
+            record = (kw["dataset"], rank) == FROSTT_RECORDED
+            calls = {}
+            torch.cuda.synchronize()
+            for kern, _ in fns.values():
+                kern.launches = 0
+            with recording(calls) if record else contextlib.nullcontext():
+                res = task(tensor, **kw)
+            torch.cuda.synchronize()
+            rows.append({"key": (kw["dataset"], name, rank, kw["seed"]),
+                         "launches": {n: fns[n][0].launches
+                                      for n in SPARSE_KERNELS}})
+            if record:
+                kept[_label(kw["dataset"], name, rank)] = {
+                    "task": task, "tensor": tensor, "kw": kw,
+                    "calls": calls, "error": res["error"]}
+            return res
+        return run
+
+    saved = {n: getattr(tasks, n) for n in ("experiment_stream_sketch",
+                                             "experiment_hmt_sketch")}
+    for n, task in saved.items():
+        setattr(tasks, n, wrap(task))
+    try:
+        yield
+    finally:
+        for n, task in saved.items():
+            setattr(tasks, n, task)
+
+
+def phase_frostt_driver(ops, smi, workdir):
+    """(a) ``run_frostt`` through the ported driver at full size in float32
+    (``FROSTT_NAMES`` at ``FROSTT_RANKS``, run 0): every row held to the
+    record's float32 row of its seed, each row's kernel launches counted,
+    the ``FROSTT_RECORDED`` rows held to the same rows under
+    ``plain_kernels()`` and their kernel calls to their plain versions
+    (timed and bounded; they join ``by_path``)."""
+    from tt_sketch_torch.experiments import drivers
+
+    tag = "# phase 16 [frostt driver]:"
+    rows, kept = [], {}
+    t0 = time.perf_counter()
+    with _counting_tasks(rows, kept):
+        exp = drivers.run_frostt(
+            out=str(workdir), names=list(FROSTT_NAMES),
+            ranks=list(FROSTT_RANKS), n_runs=1, dtype="float32",
+            progress=False)
+    driver_s = time.perf_counter() - t0
+    want = len(FROSTT_NAMES) * len(FROSTT_RANKS) * 2
+    if len(exp.data) != want or len(rows) != want:
+        raise AssertionError(f"frostt driver: {len(exp.data)} rows, "
+                             f"{len(rows)} counted, expected {want}")
+    records = frostt_records(f64=False)
+    records64 = frostt_records(f64=True)
+    launches = {r["key"]: r["launches"] for r in rows}
+    worst = 0.0
+    out_rows = []
+    for r in exp.data:
+        key = _frostt_key(r)
+        if r["dtype"] != "float32" or key not in records:
+            raise AssertionError(f"frostt driver: no float32 record for "
+                                 f"{key} (dtype {r['dtype']})")
+        rel = abs(r["error"] - records[key]) / abs(records[key])
+        worst = max(worst, rel)
+        n = {k: v for k, v in launches[key].items() if v}
+        rel64 = abs(r["error"] - records64[key]) / abs(records64[key])
+        print(f"{tag} {key[0]} {key[1]} rank {key[2]} seed {key[3]}: sample "
+              f"error {r['error']:.9f} (record {records[key]:.9f}, rel "
+              f"{rel:.2e}, tol {FROSTT_RECORD_TOL:g}; the float64 record "
+              f"{records64[key]:.9f}, rel {rel64:.2e}), time_taken "
+              f"{r['time_taken']:.4f} s on {smi}; launches {n}")
+        if not rel <= FROSTT_RECORD_TOL:
+            raise AssertionError(f"frostt driver {key}: {r['error']} vs the "
+                                 f"record's {records[key]}")
+        if not n:
+            raise AssertionError(f"frostt driver {key}: no kernel launched")
+        out_rows.append({"key": list(key), "error": r["error"],
+                         "record": records[key], "rel": rel,
+                         "rel_f64_record": rel64,
+                         "time_taken": r["time_taken"], "launches": n})
+    print(f"{tag} {want} rows in {driver_s:.1f} s (loads, plans at "
+          f"threshold 16, sketches, errors); worst rel vs the record "
+          f"{worst:.2e}")
+
+    paths, bad = {}, {}
+    for label, k in kept.items():
+        with plain_kernels():
+            plain = k["task"](k["tensor"], **k["kw"])["error"]
+        diff = abs(k["error"] - plain)
+        print(f"{tag} {label}: sample error {k['error']:.6f}, under the "
+              f"plain versions {plain:.6f} (diff {diff:.2e}, tol "
+              f"{FROSTT_PLAIN_TOL:g})")
+        if not diff <= FROSTT_PLAIN_TOL:
+            raise AssertionError(f"{label}: kernels {k['error']} vs plain "
+                                 f"{plain}")
+        for name in SPARSE_KERNELS:
+            for i, args in enumerate(k["calls"].get(name, [])):
+                a, rel = _check(name, f"{label} call {i}", args, phase=16)
+                w = bad.setdefault((name, label), [0.0, 0.0])
+                w[0], w[1] = max(w[0], a), max(w[1], rel)
+        paths[label] = {"calls": k["calls"], "shape": k["tensor"].shape}
+    figures = path_figures(paths, bad, ops, phase=16)
+    kept.clear()
+    return {"rows": out_rows, "worst_rel": worst, "s": driver_s,
+            "figures": {name: f for name, f in figures.items() if f}}
+
+
+def _quick_cells_match(ours, ref, gram):
+    """Whether a quick row on the card matches the CPU row (the note of
+    ``QUICK_RTOL``; ``gram``: the card's error is a Gram identity's);
+    returns (ok, the errors' difference)."""
+    diff = abs(ours["error"] - ref["error"])
+    if gram or ref.get("error_func") == "fast_error_func":
+        ok = diff <= QUICK_GRAM_ATOL
+    elif str(ref["name"]).startswith("GMRES"):
+        ok = diff <= GMRES_TOL * abs(ref["error"])
+        for col in ref:
+            if col.startswith("final_true_error"):
+                x = np.asarray(json.loads(ours[col]))
+                y = np.asarray(json.loads(ref[col]))
+                ok &= bool(np.all(np.abs(x - y)
+                                  <= QUICK_RTOL * np.abs(y)))
+    else:
+        ok = diff <= QUICK_RTOL * abs(ref["error"]) + QUICK_ATOL
+    return ok, diff
+
+
+def phase_cli(workdir):
+    """(b) ``python -m tt_sketch_torch.experiments list`` and ``all --quick
+    --no-progress`` as subprocesses on the card: a non-zero exit fails; the
+    quick FROSTT rows (float64, rank 5, seeds 5063/5064) held to the
+    record's float64 rows (``FROSTT_F64_TOL``), every other quick row to
+    the port's CPU rows (``QUICK_CPU_DIR``)."""
+    from pathlib import Path
+
+    from tt_sketch_torch.experiments.drivers import available_experiments
+    from tt_sketch_torch.experiments.runner import Experiment
+
+    tag = "# phase 16 [cli]:"
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "tt_sketch_torch.experiments"]
+    t0 = time.perf_counter()
+    listed = subprocess.run(cmd + ["list"], cwd=root, capture_output=True,
+                            text=True, timeout=300)
+    list_s = time.perf_counter() - t0
+    if listed.returncode != 0 or (listed.stdout.split()
+                                  != available_experiments()):
+        raise AssertionError(f"experiments list: exit {listed.returncode}, "
+                             f"{listed.stdout!r} {listed.stderr[-2000:]}")
+    print(f"{tag} list: exit 0, {len(listed.stdout.split())} experiments "
+          f"in {list_s:.1f} s")
+    t0 = time.perf_counter()
+    quick = subprocess.run(cmd + ["all", "--quick", "--no-progress", "--out",
+                                  str(workdir)], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+    quick_s = time.perf_counter() - t0
+    for line in quick.stdout.splitlines():
+        print(f"{tag}   {line}")
+    if quick.returncode != 0:
+        raise AssertionError(f"experiments all --quick: exit "
+                             f"{quick.returncode}: {quick.stderr[-4000:]}")
+    print(f"{tag} all --quick: exit 0 in {quick_s:.1f} s")
+
+    records = frostt_records(f64=True)
+    frostt = Experiment(str(workdir / "frostt.csv")).data
+    worst_f64 = 0.0
+    for r in frostt:
+        key = _frostt_key(r)
+        rel = abs(r["error"] - records[key]) / abs(records[key])
+        worst_f64 = max(worst_f64, rel)
+        print(f"{tag} quick frostt {key}: float64 sample error "
+              f"{r['error']:.9f}, record {records[key]:.9f} (rel {rel:.2e}, "
+              f"tol {FROSTT_F64_TOL:g}), {r['time_taken']:.3f} s")
+        if r["dtype"] is not None or not rel <= FROSTT_F64_TOL:
+            raise AssertionError(f"quick frostt {key}: {r['error']} vs "
+                                 f"{records[key]}")
+    if len(frostt) != 6:
+        raise AssertionError(f"quick frostt: {len(frostt)} rows, expected 6")
+
+    worst = {}
+    for path in sorted(Path(QUICK_CPU_DIR).glob("*.csv")):
+        ref = Experiment(str(path))
+        ours = Experiment(str(workdir / path.name))
+        keys = [c for c in ref.columns if c not in ("error", "time_taken")
+                and not c.startswith(("final_true_error",
+                                      "final_round_time"))]
+        if ours.columns != ref.columns or len(ours.data) != len(ref.data):
+            raise AssertionError(f"quick {path.name}: columns or rows differ")
+        for a, b in zip(ours.data, ref.data):
+            if any(a.get(c) != b.get(c) for c in keys):
+                raise AssertionError(f"quick {path.name}: row {a} against "
+                                     f"{b}")
+            ok, diff = _quick_cells_match(a, b,
+                                          path.stem == "dimension_scaling")
+            worst[path.stem] = max(worst.get(path.stem, 0.0), diff)
+            if not ok:
+                raise AssertionError(f"quick {path.name}: card {a} against "
+                                     f"the CPU's {b}")
+        print(f"{tag} quick {path.stem}: {len(ref.data)} rows match the "
+              f"CPU's (largest error difference {worst[path.stem]:.2e})")
+    return {"list_s": list_s, "quick_s": quick_s, "frostt_f64_rel": worst_f64,
+            "quick_worst": worst}
+
+
+def phase_experiments(ops, smi):
+    """Phase 16: the experiment harness on the card: (a) the FROSTT driver
+    at full size, (b) the CLI."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(dir=build))
+    try:
+        out = phase_frostt_driver(ops, smi, workdir / "frostt")
+        out["cli"] = phase_cli(workdir / "quick")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# phase 16: {out['phase_s']:.1f} s")
+    return out
+
+
 #: phases that need another phase's results: 6 checks the calls that 5
 #: and 9 recorded; 12 adds its figures to 6's and compares with 5's paths
 PHASE_NEEDS = {6: {5, 9}, 12: {5, 6, 9}}
-ALL_PHASES = frozenset(range(1, 16))
+ALL_PHASES = frozenset(range(1, 17))
 
 
 def selected_phases(argv):
@@ -4300,6 +4567,7 @@ def main(argv=None):
     uniform = phase_uniform_and_sessions(uber) if run(14) else None
     sharded = phase_sharded(ops, uber) if run(15) else None
     del uber
+    experiments = phase_experiments(ops, smi) if run(16) else None
     if phases != ALL_PHASES:
         print(f"# phases {sorted(phases)} ran; the kernels line needs every "
               f"phase")
@@ -4349,6 +4617,8 @@ def main(argv=None):
                 "per_rank_launches": [p["launches"].get(name, 0)
                                       for p in per_rank],
                 "world": sharded["world"]}
+    for name, figures in experiments["figures"].items():
+        skern[name].update(figures)
     entries = [entry]
     for name in SPARSE_KERNELS:
         # the kernel's figures on the first main path that launches it;
@@ -4461,6 +4731,12 @@ def main(argv=None):
               f"{', '.join(f'{k} {v:.3e}' for k, v in p.items() if k in ('worst_rel', 'rel', 'recovery_error'))}")
     print(f"# nccl one rank: rel {sharded['nccl_one_rank']['rel']:.3e}, bit "
           f"for bit {sharded['nccl_one_rank']['bit_for_bit']}")
+    cli = experiments["cli"]
+    print(f"# frostt driver: {len(experiments['rows'])} float32 rows in "
+          f"{experiments['s']:.1f} s, worst rel vs the record "
+          f"{experiments['worst_rel']:.2e}; cli all --quick "
+          f"{cli['quick_s']:.1f} s, quick frostt vs the float64 record "
+          f"{cli['frostt_f64_rel']:.2e}")
     print(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -65,7 +65,7 @@ def test_load_frostt_takes_download(cache_dir):
 @pytest.mark.parametrize("download", [False, True])
 def test_missing_file_raises_whatever_download_says(tmp_path, download):
     with pytest.raises(FileNotFoundError) as err:
-        load_frostt("uber-synthetic", cache_dir=tmp_path, download=download)
+        load_frostt("uber", cache_dir=tmp_path, download=download)
     assert ("no downloader" in str(err.value)) == download
 
 

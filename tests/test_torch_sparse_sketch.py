@@ -319,14 +319,27 @@ def test_no_card_means_an_error_not_the_cpu(monkeypatch):
                       dtype=torch.float32)
 
 
-def test_frostt_registry_and_missing_file(tmp_path):
-    assert set(FROSTT_TENSORS) == {"uber-synthetic", "nips-synthetic",
-                                   "lbnl-synthetic"}
+def test_frostt_registry_and_missing_file(tmp_path, monkeypatch):
+    from tt_sketch_torch.data import frostt
+    from tt_sketch_tpu.data import frostt as jfrostt
+
+    # the registry is the JAX package's: four real tensors, three stand-ins
+    assert {n: (i.url, i.nnz, i.shape) for n, i in FROSTT_TENSORS.items()} \
+        == {n: (i.url, i.nnz, i.shape)
+            for n, i in jfrostt.FROSTT_TENSORS.items()}
     assert FROSTT_TENSORS["uber-synthetic"].shape == (183, 24, 1140, 1717)
-    with pytest.raises(FileNotFoundError):
-        load_frostt("uber-synthetic", cache_dir=tmp_path)
+    # a missing stand-in is synthesized and cached (a small one here)
+    for mod in (frostt, jfrostt):
+        monkeypatch.setitem(mod.FROSTT_TENSORS, "uber-synthetic",
+                            mod.FrosttInfo("uber-synthetic", "synthetic://uber",
+                                           NNZ, SHAPE))
+    t = load_frostt("uber-synthetic", cache_dir=tmp_path)
+    idx, ent = jfrostt._synthesize(jfrostt.FROSTT_TENSORS["uber-synthetic"])
+    np.testing.assert_array_equal(t.indices.numpy(), idx)
+    np.testing.assert_array_equal(t.entries.numpy(), ent)
+    assert (tmp_path / "uber-synthetic.npz").is_file()
     with pytest.raises(KeyError):
-        load_frostt("uber")
+        load_frostt("uber-pickups")
 
 
 def test_load_frostt_and_sample_error_match_jax(tmp_path):

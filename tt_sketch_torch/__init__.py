@@ -15,7 +15,11 @@ sketched TT-GMRES (``solvers/``) are ``einsum``s, QRs and SVDs, and so is
 the engine of uniform TTs that runs the order-scaling experiment
 (``engine/uniform.py``).  ``StreamingSketchSession`` streams pieces with
 atomic checkpoints (``serialization``: the JAX package's ``.npz`` layout);
-``profiling`` has a trace context, stage timers and memory statistics.
+``profiling`` has a trace context, stage timers and memory statistics;
+``dist`` shards the sketches over ``torch.distributed``; ``experiments``
+runs the resumable sweeps and their CLI (``python -m
+tt_sketch_torch.experiments``), and ``data.frostt`` loads, parses and
+synthesizes the FROSTT tensors.
 Public names mirror ``tt_sketch_tpu``::
 
     from tt_sketch_torch import stream_sketch, TensorTrain, DenseTensor
@@ -65,6 +69,7 @@ def __getattr__(name):
         "ALL_DRM": "tt_sketch_torch.drm",
         "build_psi_plan": "tt_sketch_torch.kernels.sparse_plan",
         "load_frostt": "tt_sketch_torch.data.frostt",
+        "Experiment": "tt_sketch_torch.experiments.runner",
         "sample_error": "tt_sketch_torch.data.frostt",
         "dense_stream_sketch_bisect": "tt_sketch_torch.kernels.dense_engine",
         "slab_stream_sketch": "tt_sketch_torch.kernels.dense_engine",
