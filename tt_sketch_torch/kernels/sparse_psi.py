@@ -51,6 +51,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.lazy_gaussian import (
     _check_int64,
     _raise_on,
@@ -330,14 +331,14 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
     lib = _library()
     slabs = torch.empty((n_chunks, span, r1, r2), dtype=torch.float32,
                         device=e.device)
-    with torch.cuda.device(e.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(e.device):
         err = lib.tt_psi_fused_slabs(
             loc.data_ptr(), e.data_ptr(), _ptr(lflat), _ptr(rflat),
             _ptr(lsalts if lflat is not None else None),
             _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
             e.shape[0], n_chunks, span, chunk, r1, r2, _c_spec(lspec),
-            _c_spec(rspec), stream)
+            _c_spec(rspec),
+            current_stream_handle(e.device.index))
     _raise_on(lib, err, "psi_fused_slabs")
     psi_fused_slabs.launches += 1
     return slabs
@@ -377,13 +378,13 @@ def _launch_chunk_slabs(name, loc, se, sl, sr, rflat, rsalts, rspec,
     lib = _library()
     slabs = torch.empty((n_chunks, span, r1, r2), dtype=torch.float32,
                         device=e.device)
-    with torch.cuda.device(e.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(e.device):
         err = lib.tt_psi_chunk_slabs(
             loc.data_ptr(), e.data_ptr(), _ptr(sl), _ptr(sr), _ptr(rflat),
             _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
             e.shape[0], n_chunks, span, chunk, r1, r2,
-            None if sr is not None else _c_spec(rspec), stream)
+            None if sr is not None else _c_spec(rspec),
+            current_stream_handle(e.device.index))
     _raise_on(lib, err, name)
     return slabs
 
@@ -484,15 +485,15 @@ def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
     lib = _library()
     psi = torch.empty((n_windows * span, r1, r2), dtype=torch.float32,
                       device=e.device)
-    with torch.cuda.device(e.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(e.device):
         err = lib.tt_psi_window_direct(
             win.data_ptr(), first.data_ptr(), loc.data_ptr(), e.data_ptr(),
             _ptr(lflat), _ptr(rflat),
             _ptr(lsalts if lflat is not None else None),
             _ptr(rsalts if rflat is not None else None), psi.data_ptr(),
             n_chunks, span, chunk, n_windows, r1, r2, _c_spec(lspec),
-            _c_spec(rspec), stream)
+            _c_spec(rspec),
+            current_stream_handle(e.device.index))
     _raise_on(lib, err, "psi_window_direct")
     psi_window_direct.launches += 1
     return psi
@@ -519,12 +520,12 @@ def omega_fused(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
     n_blocks = -(-e.shape[0] // lib.tt_omega_chunk())
     part = torch.empty((n_blocks, r1, r2), dtype=torch.float32,
                        device=e.device)
-    with torch.cuda.device(e.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(e.device):
         err = lib.tt_omega_fused(
             e.data_ptr(), lflat.data_ptr(), rflat.data_ptr(),
             lsalts.data_ptr(), rsalts.data_ptr(), part.data_ptr(),
-            e.shape[0], r1, r2, _c_spec(lspec), _c_spec(rspec), stream)
+            e.shape[0], r1, r2, _c_spec(lspec), _c_spec(rspec),
+            current_stream_handle(e.device.index))
     _raise_on(lib, err, "omega_fused")
     omega_fused.launches += 1
     return part.sum(dim=0)
@@ -560,14 +561,14 @@ def psi_omega_merged_slabs(loc, se, lflat, rflat, oflat, lsalts, rsalts,
                         device=e.device)
     part = torch.empty((n_chunks, r1o, r2), dtype=torch.float32,
                        device=e.device)
-    with torch.cuda.device(e.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(e.device):
         err = lib.tt_psi_omega_merged(
             loc.data_ptr(), e.data_ptr(), _ptr(lflat), rflat.data_ptr(),
             oflat.data_ptr(), _ptr(lsalts if lflat is not None else None),
             rsalts.data_ptr(), osalts.data_ptr(), slabs.data_ptr(),
             part.data_ptr(), e.shape[0], n_chunks, span, chunk, r1, r2, r1o,
-            _c_spec(lspec), _c_spec(rspec), _c_spec(ospec), stream)
+            _c_spec(lspec), _c_spec(rspec), _c_spec(ospec),
+            current_stream_handle(e.device.index))
     _raise_on(lib, err, "psi_omega_merged_slabs")
     psi_omega_merged_slabs.launches += 1
     return slabs, part.sum(dim=0)
