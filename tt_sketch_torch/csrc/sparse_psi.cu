@@ -17,10 +17,10 @@
 // A Gaussian side has L[a,k] = sample(lflat[k], lsalts[a]); a sign side
 // has L[:,k] = rows [rank_min, rank_min + r) of the sparse-sign column of
 // lflat[k] over `rank` slots, from the nnz salts of columns [0, nnz)
-// (hash_rng.cuh); a given side has L[a,k] = lrows[a*nnz + k], loaded into
-// the same shared tile instead of hashed; likewise for R and Lo.  A missing
-// side (Ψ_0 has no left DRM, Ψ_{d-1} no right one) is a single row of ones,
-// so the slab is (span, 1, r2) or (span, r1, 1).
+// (hash_rng.cuh); a given side has L[a,k] = lrows[a*nnz + k], staged in
+// shared memory instead of hashed; likewise for R and Lo.  A missing side
+// (Ψ_0 has no left DRM, Ψ_{d-1} no right one) is a single row of ones, so
+// the slab is (span, 1, r2) or (span, r1, 1).
 //
 // Replaces, in tt_sketch_tpu/kernels/pallas_psi.py:
 //   _fused_kernel, _fused_kernel_noleft, _fused_kernel_noright
@@ -139,12 +139,35 @@
 // boundaries as it crosses tiles.  Ψ leaves the kernel finished.
 //
 // Given sides.  The TPU's psi_chunk_slabs is the same one-hot product with
-// the rows read, not hashed; here a given side is a third kind of Side
-// whose tile is filled by loads (thread column t0 reads its column of a
-// row), so psi_chunk_slabs (both sides given, or the left one alone) and
-// psi_chunk_slabs_genright (left given, right hashed) are the slab kernel
-// itself.  A call with given sides is bound by bytes: (r1 + r2 + 2) * 4 per
-// nnz against r1 * r2 FMAs.  Columns past nnz are never read.
+// the rows read, not hashed.  psi_chunk_slabs (both sides given, or one
+// alone) is bound by bytes: (r1 + r2 + 2) * 4 per nnz against r1 * r2
+// FMAs; psi_chunk_slabs_genright (left given, right hashed) by the right
+// side's hashing, with (r1 + 4) * 4 bytes per nnz besides.  Filled by one
+// scalar load per row and thread inside the generation step, as a hashed
+// side is, a tile paid a whole round trip to device memory per row before
+// its barrier, and the genright hashing waited for it (on uber's calls the
+// loads were half of psi_chunk_slabs' device time, PERF.md §6).  So the
+// given rows have instances of their own (template parameter GV, register
+// budget MIN_BLOCKS_GIVEN): a tile's given rows, e and loc land in a ring
+// of NS stages (up to RING) by cp.async, NS - 1 tiles ahead of the tile
+// being contracted, and genright hashes its right rows while they are in
+// flight.  A group's segment of a row is copied by 16-byte cp.async.cg
+// where its source is 16-byte aligned (the row starts at row * nnz floats,
+// so all rows only when nnz % 4 == 0; e and loc when chunk % 4 == 0), the
+// columns past the range zero-filled; else by 4-byte cp.async per column:
+// the contraction's 16-byte shared loads pin each column's place in the
+// stage, so a row whose source is not aligned cannot take 16-byte copies
+// at any offset.  A warp's copies cover whole 16-byte quads of the groups'
+// segments.  The contraction is PR 9's (odd-quad strides, 1 x 4
+// micro-tiles, runs carried across tiles, one store per output, heads and
+// tails added in group order) with e folded into the B quads: a missing
+// side is always B (with no right side A is the left side) and its quads
+// are then the entries themselves.  Past its range a group reads zeros and
+// repeats its last row.  The stride and the ring's depth are chosen so
+// that the grid's blocks fit the card together where the shared memory
+// allows (uber's 809 chunks: seven blocks an SM), widest stride first,
+// three stages, then two; the 892 + 1 given rows of the limit take one
+// stage at TS = 60.  Columns past nnz are never read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,8 +184,10 @@ constexpr int STRIDES[] = {252, 172, 124, 84, 60};
 constexpr int MJ = 4;      // outputs of a thread's micro-tile
 constexpr int GMAX = 15;   // thread groups per block at most
 // blocks per SM the registers must allow: the merged kernel, Ω alone, Ψ
-// alone
-constexpr int MIN_BLOCKS_MERGED = 4, MIN_BLOCKS_OMEGA = 6, MIN_BLOCKS_PSI = 8;
+// alone, Ψ from given rows
+constexpr int MIN_BLOCKS_MERGED = 4, MIN_BLOCKS_OMEGA = 6, MIN_BLOCKS_PSI = 8,
+              MIN_BLOCKS_GIVEN = 4;
+constexpr int RING = 3;    // stages of the given rows' copy ring at most
 constexpr int OMEGA_CHUNK = 4096;
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
 static_assert(3 * STRIDES[4] <= THREADS,
@@ -170,8 +195,16 @@ static_assert(3 * STRIDES[4] <= THREADS,
 
 // One side's rows: GAUSS is lazy-Gaussian (one row per salt); SIGN a
 // sparse-sign column over `rank` slots from `nnz` salts, rows [rank_min,
-// rank_min + rows out) contracted; GIVEN rows read from device memory.
+// rank_min + rows out) contracted; GIVEN rows read from device memory (a
+// given left side under a hashed right one); the given-rows instances
+// (template parameter GV) stage the others.
 enum Kind { GAUSS = 0, SIGN = 1, GIVEN = 2 };
+
+// The given-rows instances: GV_NONE hashes every side (the fused, Ω,
+// merged and window kernels); GV_LEFT stages a given left side (or none)
+// and hashes the right side (or has none); GV_RIGHT stages a given right
+// side and a given left side (or none).
+enum Given { GV_NONE = 0, GV_LEFT = 1, GV_RIGHT = 2 };
 
 struct Side {
   int kind;
@@ -196,6 +229,7 @@ struct Sched {
   // sign sides (0 right, 1 left, 2 Ω's left): threads [SB, SB + SN) of a
   // side take its tile columns u, u + SN, ... (SN = 0: not a sign side)
   int SB[3], SN[3];
+  int NS;   // given-rows instances: stages of the copy ring (1 to RING)
 };
 
 struct Args {
@@ -219,8 +253,8 @@ struct Args {
   const int* win;    // window kernel: window id per chunk, non-decreasing
   const int* first;  // window kernel: 1 on a window's first chunk
   int n_chunks;
-  const float* lrows = nullptr;  // a GIVEN left side's rows (r1, nnz)
-  const float* rrows = nullptr;  // a GIVEN right side's rows (r2, nnz)
+  const float* lrows = nullptr;  // a given left side's rows (r1, nnz)
+  const float* rrows = nullptr;  // a given right side's rows (r2, nnz)
   Sched sc = {};
 };
 
@@ -228,18 +262,45 @@ struct Args {
 // each), loc (TS ints), each thread's parked sums (float4 Ψ, float4 Ω) and
 // run (int2), salts [L | R | O]; after the last tile the groups'
 // tail sums and Ω sums overlay them.  With G > 1 groups the heads follow:
-// rows (G, 2) ints (head, tail) and Ψ sums (G, r1, r2) floats.
+// rows (G, 2) ints (head, tail) and Ψ sums (G, r1, r2) floats.  The
+// given-rows instances hold rows R (hashed right side), the parked sums and
+// runs, R's salts, then the copy ring: NS stages of `nst` rows (given left
+// rows, given right rows, e, loc), each TS floats.
 struct Layout {
   int nsl, nsr, nso;  // salts per side
   int al, ar, ao;     // rows allocated per side
   int gl, gr, go;     // rows hashed sample by sample (Gaussian or ones)
+  int nst;            // given-rows instances: rows a ring stage holds
+  size_t ring;        // given-rows instances: byte offset of the ring
   size_t heads;       // byte offset of the group heads
   size_t bytes;       // dynamic shared memory of the block
 };
 
-template <bool HAS_L, bool HAS_R, bool PSI, bool OM>
+template <bool HAS_L, bool HAS_R, bool PSI, bool OM, int GV = GV_NONE>
 __host__ __device__ Layout layout(const Args& a) {
   Layout y;
+  const size_t ts = a.sc.TS, G = a.sc.G;
+  if constexpr (GV != GV_NONE) {
+    const bool hashed = GV == GV_LEFT && HAS_R;
+    const bool sr = hashed && a.rs.kind == SIGN;
+    y.nsl = y.nso = y.al = y.ao = y.gl = y.go = 0;
+    y.nsr = !hashed ? 0 : sr ? a.rs.nnz : a.r2;
+    y.ar = !hashed ? 0 : sr ? a.rs.rank : a.r2;
+    y.gr = hashed && !sr ? a.r2 : 0;
+    y.nst = (HAS_L ? a.r1 : 0) + (GV == GV_RIGHT && HAS_R ? a.r2 : 0) + 2;
+    const size_t ne = (size_t)a.r1 * a.r2;
+    y.ring = ((size_t)y.ar * ts * sizeof(float) +
+              THREADS * (sizeof(float4) + sizeof(int2)) +
+              (size_t)y.nsr * sizeof(uint64_t) + 15) / 16 * 16;
+    const size_t tiles = y.ring + (size_t)a.sc.NS * y.nst * ts * sizeof(float);
+    const size_t tails = G > 1 ? G * ne * sizeof(float) : 0;
+    y.heads = ((tiles > tails ? tiles : tails) + 15) / 16 * 16;
+    y.bytes = y.heads + (G > 1 ? G * (2 * sizeof(int) + ne * sizeof(float))
+                               : 0);
+    return y;
+  }
+  y.nst = 0;
+  y.ring = 0;
   const bool sl = PSI && HAS_L && a.ls.kind == SIGN;
   const bool sr = HAS_R && a.rs.kind == SIGN;
   const bool so = OM && a.os.kind == SIGN;
@@ -252,7 +313,6 @@ __host__ __device__ Layout layout(const Args& a) {
   y.gl = sl || !PSI ? 0 : a.r1;
   y.gr = sr ? 0 : a.r2;
   y.go = so || !OM ? 0 : a.r1o;
-  const size_t ts = a.sc.TS, G = a.sc.G;
   const size_t ne = PSI ? (size_t)a.r1 * a.r2 : 0;
   const size_t neo = OM ? (size_t)a.r1o * a.r2 : 0;
   const size_t park = THREADS * ((OM ? 2 : 1) * sizeof(float4) + sizeof(int2));
@@ -327,6 +387,52 @@ __device__ __forceinline__ float4 lds4(const float* smem, int off) {
   return *reinterpret_cast<const float4*>(smem + off);
 }
 
+// The first `n` bytes (0 to 16) of 16 from global to shared memory, the
+// rest zero; both addresses 16-byte aligned.  In flight until waited for.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int n) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// One 4-byte value from global to shared memory.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four columns of a staged row whose first `nv` are in range: one 16-byte
+// copy where the source is 16-byte aligned (the tail past the range
+// zero-filled), else one 4-byte copy per column in range; columns past the
+// range are zero.
+__device__ __forceinline__ void stage_quad(float* dst, const float* src,
+                                           int64_t nv) {
+  if (nv <= 0) {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16(dst, src, nv >= 4 ? 16 : 4 * (int)nv);
+  } else {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (v < nv) cp_async4(dst + v, src + v); else dst[v] = 0.f;
+    }
+  }
+}
+
 // A thread's micro-tile: outputs el0 + c*el_step for c < n_ok, from A rows
 // at smem offsets a_off + c*a_step and the B row at b_off (Ψ), the Ω-left
 // row at o_off.
@@ -358,20 +464,23 @@ __device__ __forceinline__ Micro micro_tile(const Sched& sc, int p, int c0,
   return m;
 }
 
-template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN, bool SW>
+template <bool HAS_L, bool HAS_R, bool PSI, bool OM, bool WIN, bool SW,
+          int GV = GV_NONE>
 __global__ void __launch_bounds__(
-    THREADS, PSI && OM ? MIN_BLOCKS_MERGED
-             : OM      ? MIN_BLOCKS_OMEGA
-                       : MIN_BLOCKS_PSI)
+    THREADS, GV != GV_NONE ? MIN_BLOCKS_GIVEN
+             : PSI && OM   ? MIN_BLOCKS_MERGED
+             : OM          ? MIN_BLOCKS_OMEGA
+                           : MIN_BLOCKS_PSI)
     sparse_psi_kernel(Args a) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int r1 = a.r1, r2 = a.r2, r1o = OM ? a.r1o : 0, span = a.span;
   const Sched sc = a.sc;
   const int ts = sc.TS;
-  const Layout y = layout<HAS_L, HAS_R, PSI, OM>(a);
+  const Layout y = layout<HAS_L, HAS_R, PSI, OM, GV>(a);
   // the rows the contraction reads, as offsets into smem: a sign side's
-  // slice starts at rank_min
+  // slice starts at rank_min (a given-rows instance moves the staged ones
+  // to the tile's ring stage)
   const int l_at = y.gl || !PSI ? 0 : a.ls.rank_min * ts;
   const int r_at = y.al * ts + (y.gr ? 0 : a.rs.rank_min * ts);
   const int o_at = (y.al + y.ar) * ts + (y.go || !OM ? 0 : a.os.rank_min * ts);
@@ -380,7 +489,7 @@ __global__ void __launch_bounds__(
   float* Os = Rs + y.ar * ts;
   int* loc_s = reinterpret_cast<int*>(Os + y.ao * ts);
   // a thread's sums and run between tiles: (acc, Ω sums, {s, head open})
-  float4* park_acc = reinterpret_cast<float4*>(loc_s + ts);
+  float4* park_acc = reinterpret_cast<float4*>(loc_s + (GV ? 0 : ts));
   float4* park_om = park_acc + THREADS;
   int2* park_run = reinterpret_cast<int2*>(park_om + (OM ? THREADS : 0));
   uint64_t* salts = reinterpret_cast<uint64_t*>(park_run + THREADS);
@@ -466,6 +575,36 @@ __global__ void __launch_bounds__(
   const bool lead = in_grp == 0 && grp < G;  // writes the group's rows
   float* const my_heads = heads + grp * ne;
 
+  // Given-rows instances: tile j's given rows, e and loc land in ring stage
+  // j % NS by cp.async, issued NS - 1 tiles ahead of the tile being
+  // contracted; stage rows are [left rows][right rows][e][loc].  The
+  // contraction folds e into its B quads (a missing side is always B and
+  // then B is e itself), and reads past its range the group's last row.
+  const int NS = GV ? sc.NS : 1;
+  const int r1g = GV && HAS_L ? r1 : 0;
+  const int r2g = GV == GV_RIGHT && HAS_R ? r2 : 0;
+  const int ring_at = (int)(y.ring / sizeof(float));
+  const int stage_floats = y.nst * ts;
+  const int loc_last = GV && my_n > 0 ? a.loc[my_hi - 1] : 0;
+  [[maybe_unused]] auto stage_tile = [&](int j) {
+    float* const sb = smem + ring_at + (j % NS) * stage_floats;
+    const int nq = TG / 4, per_row = G * nq;
+    for (int i = tid; i < y.nst * per_row; i += THREADS) {
+      const int row = i / per_row, cq = i - row * per_row;
+      const int gc = cq / nq, qd = cq - gc * nq;
+      const int64_t k0 = start + gc * q + (int64_t)j * TG;
+      const int64_t left = min(start + (gc + 1) * q, end) - k0;
+      if (left <= 0) continue;  // past the group's range: never read
+      const float* src =
+          row < r1g ? a.lrows + (int64_t)row * a.nnz
+          : row < r1g + r2g ? a.rrows + (int64_t)(row - r1g) * a.nnz
+          : row == r1g + r2g ? a.e
+                             : reinterpret_cast<const float*>(a.loc);
+      stage_quad(sb + row * ts + gc * TG + 4 * qd, src + k0 + 4 * qd,
+                 left - 4 * qd);
+    }
+  };
+
   for (int pass = 0; pass < passes; ++pass) {
     const int p = pass * sc.GP + in_grp;
     const bool mine = grp < G && p < sc.P;  // owns a micro-tile
@@ -502,10 +641,20 @@ __global__ void __launch_bounds__(
       park_run[tid] = make_int2(PSI && my_n > 0 ? a.loc[my_lo] : 0, 1);
     }
     __syncthreads();  // the salts and the zero pass
+    if constexpr (GV != GV_NONE) {
+      for (int j = 0; j < NS - 1; ++j) {
+        if (j < n_it) stage_tile(j);
+        cp_async_commit();
+      }
+    }
 
     for (int it = 0; it < n_it; ++it) {
       const int64_t k = col_lo + (int64_t)it * TG;
       const bool kv = gen && k < col_end;
+      if constexpr (GV != GV_NONE) {
+        if (it + NS - 1 < n_it) stage_tile(it + NS - 1);
+        cp_async_commit();
+      }
       // 1a. sign sides: a side's threads shuffle its tile columns, one
       // column a thread on the side with the most draws and several on a
       // side with fewer (Schedule), so that they finish together
@@ -525,26 +674,27 @@ __global__ void __launch_bounds__(
         if (HAS_R && a.rs.kind == SIGN) {
           sign_cols(0, Rs, a.rflat, salts_r, a.rs, r2, nullptr);
         }
-        if (PSI && HAS_L && a.ls.kind == SIGN) {
+        if (!GV && PSI && HAS_L && a.ls.kind == SIGN) {
           sign_cols(1, Ls, a.lflat, salts_l, a.ls, r1, a.e);
         }
         if (OM && a.os.kind == SIGN) {
           sign_cols(2, Os, a.oflat, salts_o, a.os, r1o, a.e);
         }
       }
-      // 1b. Gaussian, given and missing sides: the column's flat indices
-      // and entry are loaded once; left rows carry e[k]; a column past the
-      // range is zero
+      // 1b. Gaussian and missing sides: the column's flat indices and
+      // entry are loaded once; left rows carry e[k]; a column past the
+      // range is zero.  A given-rows instance hashes its right rows here,
+      // while the ring's copies are in flight.
       if (gen) {
         float ek = 0.f;
         uint64_t fl = 0, fr = 0, fo = 0;
         if (kv) {
-          ek = a.e[k];
-          if (PSI && HAS_L && y.gl && !given_l) fl = a.lflat[k];
+          if (!GV) ek = a.e[k];
+          if (!GV && PSI && HAS_L && y.gl && !given_l) fl = a.lflat[k];
           if (HAS_R && y.gr && !given_r) fr = a.rflat[k];
           if (OM && y.go) fo = a.oflat[k];
         }
-        if (PSI) {
+        if (PSI && !GV) {
           for (int row = ph_l; row < y.gl; row += RS) {
             Ls[row * ts + t0] =
                 !kv ? 0.f
@@ -567,18 +717,34 @@ __global__ void __launch_bounds__(
         }
         // past the range, a column repeats the group's last row: it
         // closes no run
-        if (PSI && r0 == 0) {
+        if (PSI && !GV && r0 == 0) {
           loc_s[t0] = kv ? a.loc[k]
                       : col_end > col_grp ? a.loc[col_end - 1] : 0;
         }
+      }
+      if constexpr (GV != GV_NONE) {
+        // this thread's copies of tile it have landed
+        if (NS == 3) cp_async_wait<RING - 1>();
+        else if (NS == 2) cp_async_wait<1>();
+        else cp_async_wait<0>();
       }
       __syncthreads();
 
       // 2. contract the group's TG columns four at a time: each A row is
       // read once for Ψ and Ω
       if (mine && (int64_t)it * TG < my_n) {
-        const Micro m = micro_tile(sc, p, c0, r1, r2, r1o, ts, l_at, r_at,
-                                   o_at, PSI, OM);
+        // a given-rows instance reads its staged rows in stage it % NS
+        const int sb = ring_at + (it % NS) * stage_floats;
+        const int e_at = sb + (r1g + r2g) * ts;
+        const int* const locs =
+            GV ? reinterpret_cast<const int*>(smem) + e_at + ts : loc_s;
+        const int in_tile = GV ? (int)min((int64_t)TG, my_n - (int64_t)it * TG)
+                               : TG;
+        const Micro m = micro_tile(
+            sc, p, c0, r1, r2, r1o, ts,
+            !GV ? l_at : HAS_L ? sb : e_at,
+            !GV ? r_at : GV == GV_RIGHT ? sb + r1g * ts : HAS_R ? r_at : e_at,
+            o_at, PSI, OM);
         {
           const float4 pa = park_acc[tid];
           acc[0] = pa.x, acc[1] = pa.y, acc[2] = pa.z, acc[3] = pa.w;
@@ -589,10 +755,21 @@ __global__ void __launch_bounds__(
           head_open = pr.y;
         }
         for (int t = 0; t < TG; t += 4) {
-          const int4 lc = PSI ? *reinterpret_cast<const int4*>(loc_s + c0 + t)
-                              : make_int4(0, 0, 0, 0);
+          int4 lc = PSI ? *reinterpret_cast<const int4*>(locs + c0 + t)
+                        : make_int4(0, 0, 0, 0);
+          if (GV && t + 4 > in_tile) {
+            // past the range the columns repeat the group's last row
+            lc.x = t < in_tile ? lc.x : loc_last;
+            lc.y = t + 1 < in_tile ? lc.y : loc_last;
+            lc.z = t + 2 < in_tile ? lc.z : loc_last;
+            lc.w = loc_last;
+          }
           const bool same = lc.w == s;  // loc is non-decreasing
-          const float4 bv = PSI ? lds4(smem, m.b_off + t) : make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 bv = PSI ? lds4(smem, m.b_off + t) : make_float4(0.f, 0.f, 0.f, 0.f);
+          if (GV && HAS_L && HAS_R) {
+            const float4 ev = lds4(smem, e_at + c0 + t);
+            bv.x *= ev.x, bv.y *= ev.y, bv.z *= ev.z, bv.w *= ev.w;
+          }
           const float4 ov = OM ? lds4(smem, m.o_off + t) : bv;
 #pragma unroll
           for (int c = 0; c < MJ; ++c) {
@@ -802,6 +979,83 @@ cudaError_t launch(Args a, int64_t n_blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The given-rows instances' geometry.  A missing side is always side B (the
+// left one, or with no right side the right one: then A is the left side),
+// so that B's quads are the entries.  The copy ring and the row stride are
+// sized so that the grid's blocks are resident together where the shared
+// memory allows (at most MIN_BLOCKS_GIVEN an SM): the widest stride first,
+// with three stages, then two (a hashed right side: one stage); with fewer
+// blocks an SM where nothing fits; one stage at the narrowest stride where
+// no ring of two fits a block.
+template <bool HAS_L, bool HAS_R, int GV>
+Sched schedule_given(Args a, int64_t n_blocks) {
+  Sched& s = a.sc;
+  s.BYI = !HAS_R || (a.r2 < MJ && a.r1 > a.r2);
+  s.NA = ((s.BYI ? a.r1 : a.r2) + MJ - 1) / MJ;
+  s.P = (s.BYI ? a.r2 : a.r1) * s.NA;
+  s.G = 2 * s.P > THREADS ? 1 : (THREADS / s.P < GMAX ? THREADS / s.P : GMAX);
+  s.GP = s.G > 1 ? s.P : THREADS;
+  // a hashed side hides a tile's copies behind its hashing: one stage; a
+  // hashed sign side takes a thread per tile column
+  const bool hashed = GV == GV_LEFT && HAS_R;
+  const bool sign = hashed && a.rs.kind == SIGN;
+  int dev = 0, n_sm = 0, sm_bytes = 0, reserved = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&sm_bytes,
+                         cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                         dev);
+  int64_t want = n_sm > 0 ? (n_blocks + n_sm - 1) / n_sm : 1;
+  if (want > MIN_BLOCKS_GIVEN) want = MIN_BLOCKS_GIVEN;
+  for (int64_t b = want > 0 ? want : 1; b >= 1; --b) {
+    size_t budget = (size_t)sm_bytes / b - reserved;
+    if (budget > SMEM_LIMIT || sm_bytes == 0) budget = SMEM_LIMIT;
+    for (int ts : STRIDES) {
+      s.TS = ts;
+      s.TG = ts / (4 * s.G) * 4;
+      s.SB[0] = s.SB[1] = s.SB[2] = 0;
+      s.SN[0] = sign ? s.G * s.TG : 0;
+      s.SN[1] = s.SN[2] = 0;
+      for (int ns = hashed ? 1 : RING; ns >= (hashed ? 1 : 2); --ns) {
+        s.NS = ns;
+        if (layout<HAS_L, HAS_R, true, false, GV>(a).bytes <= budget) {
+          return s;
+        }
+      }
+    }
+  }
+  s.TS = STRIDES[sizeof(STRIDES) / sizeof(STRIDES[0]) - 1];
+  s.TG = s.TS / (4 * s.G) * 4;
+  s.SN[0] = sign ? s.G * s.TG : 0;
+  s.NS = 1;
+  return s;
+}
+
+template <bool HAS_L, bool HAS_R, int GV>
+cudaError_t launch_given(Args a, int64_t n_blocks, cudaStream_t stream) {
+  a.sc = schedule_given<HAS_L, HAS_R, GV>(a, n_blocks);
+  const size_t bytes = layout<HAS_L, HAS_R, true, false, GV>(a).bytes;
+  if (bytes > SMEM_LIMIT || n_blocks <= 0 || n_blocks > 0x7FFFFFFF ||
+      (GV == GV_LEFT && HAS_R && bad_side(a.rs, a.r2))) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = sparse_psi_kernel<HAS_L, HAS_R, true, false, false, false, GV>;
+  if constexpr (GV == GV_LEFT && HAS_R) {
+    // sign words for a hashed sign side of rank <= 32, as psi_fused_slabs
+    if (a.rs.kind == SIGN && a.rs.rank <= 32) {
+      kernel = sparse_psi_kernel<HAS_L, HAS_R, true, false, false, true, GV>;
+    }
+  }
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)n_blocks, THREADS, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // A side's generator from the caller's int[4] {SIGN, rank, nnz, rank_min}
 // (NULL: lazy-Gaussian).
 Side side_of(const int* spec) {
@@ -865,21 +1119,57 @@ int tt_psi_chunk_slabs(const int* loc, const float* e, const float* lrows,
       (rrows && rflat) || (rflat && !rsalts)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Side given{GIVEN, 0, 0, 0};
   Args a{loc, e, nullptr, rflat, nullptr, nullptr, rsalts, nullptr,
          slabs, nullptr, nnz, chunk, span, r1, r2, 0,
-         given, rrows ? given : side_of(rspec), side_of(nullptr),
-         nullptr, nullptr, n_chunks, lrows, rrows};
+         side_of(nullptr), rrows ? side_of(nullptr) : side_of(rspec),
+         side_of(nullptr), nullptr, nullptr, n_chunks, lrows, rrows};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (lrows && has_r) {
-    err = launch<true, true, true, false>(a, n_chunks, st);
-  } else if (has_r) {
-    err = launch<false, true, true, false>(a, n_chunks, st);
+  if (lrows && rrows) {
+    err = launch_given<true, true, GV_RIGHT>(a, n_chunks, st);
+  } else if (rrows) {
+    err = launch_given<false, true, GV_RIGHT>(a, n_chunks, st);
+  } else if (rflat) {
+    // genright: the left rows read in the generation step (the hashed
+    // instances with a GIVEN left side)
+    a.ls = Side{GIVEN, 0, 0, 0};
+    err = lrows ? launch<true, true, true, false>(a, n_chunks, st)
+                : launch<false, true, true, false>(a, n_chunks, st);
   } else {
-    err = launch<true, false, true, false>(a, n_chunks, st);
+    err = launch_given<true, false, GV_LEFT>(a, n_chunks, st);
   }
   return (int)err;
+}
+
+// The schedule tt_psi_chunk_slabs takes on the current device for a call
+// with the given sides present (lrows, rrows, rflat: 0 or 1) and n_chunks
+// chunks: out[5] = {TS, G, TG, NS, shared-memory bytes}.
+int tt_psi_given_schedule(int lrows, int rrows, int rflat, int n_chunks,
+                          int r1, int r2, const int* rspec, int* out) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, nullptr, 1, 1, 1, r1, r2, 0,
+         side_of(nullptr), rrows ? side_of(nullptr) : side_of(rspec),
+         side_of(nullptr), nullptr, nullptr, n_chunks};
+  size_t bytes;
+  if (lrows && rrows) {
+    a.sc = schedule_given<true, true, GV_RIGHT>(a, n_chunks);
+    bytes = layout<true, true, true, false, GV_RIGHT>(a).bytes;
+  } else if (rrows) {
+    a.sc = schedule_given<false, true, GV_RIGHT>(a, n_chunks);
+    bytes = layout<false, true, true, false, GV_RIGHT>(a).bytes;
+  } else if (lrows && rflat) {
+    a.sc = schedule_given<true, true, GV_LEFT>(a, n_chunks);
+    bytes = layout<true, true, true, false, GV_LEFT>(a).bytes;
+  } else if (rflat) {
+    a.sc = schedule_given<false, true, GV_LEFT>(a, n_chunks);
+    bytes = layout<false, true, true, false, GV_LEFT>(a).bytes;
+  } else {
+    a.sc = schedule_given<true, false, GV_LEFT>(a, n_chunks);
+    bytes = layout<true, false, true, false, GV_LEFT>(a).bytes;
+  }
+  out[0] = a.sc.TS, out[1] = a.sc.G, out[2] = a.sc.TG, out[3] = a.sc.NS;
+  out[4] = (int)bytes;
+  return (int)cudaGetLastError();
 }
 
 // Finished Ψ rows (n_windows * span, r1, r2) of an aligned-window plan: the

@@ -21,8 +21,10 @@ etc.), its int64 column salts and a spec, as in the JAX package:
 
 ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright`` take a side's rows as a
 float32 ``(r, nnz)`` tensor in the plan's sorted order (a sequential
-sketch's chain state, a TT-DRM's rows): the kernel loads them into the tile
-it would otherwise hash into.
+sketch's chain state, a TT-DRM's rows): instances of the kernel of their
+own stage them in shared memory by asynchronous copies, a few tiles ahead
+of the contraction (a row whose start is not 16-byte aligned, as when
+``nnz % 4 != 0``, one value a copy).
 
 The two sides of a call may differ (mixed pairs).  Layouts are the port's
 own: slabs are ``(n_chunks, span, r1, r2)`` float32 with ``r1 = 1`` without
@@ -233,6 +235,8 @@ def _library() -> ctypes.CDLL:
     lib.tt_psi_omega_merged.argtypes = (
         [ptr] * 10 + [i64] + [i32] * 6 + [spec] * 3 + [ptr])
     lib.tt_psi_omega_merged.restype = i32
+    lib.tt_psi_given_schedule.argtypes = [i32] * 6 + [spec] * 2
+    lib.tt_psi_given_schedule.restype = i32
     lib.tt_omega_chunk.argtypes = []
     lib.tt_omega_chunk.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
