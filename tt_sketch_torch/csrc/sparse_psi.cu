@@ -195,10 +195,9 @@ static_assert(3 * STRIDES[4] <= THREADS,
 
 // One side's rows: GAUSS is lazy-Gaussian (one row per salt); SIGN a
 // sparse-sign column over `rank` slots from `nnz` salts, rows [rank_min,
-// rank_min + rows out) contracted; GIVEN rows read from device memory (a
-// given left side under a hashed right one); the given-rows instances
-// (template parameter GV) stage the others.
-enum Kind { GAUSS = 0, SIGN = 1, GIVEN = 2 };
+// rank_min + rows out) contracted.  Given rows are no kind of side: the
+// given-rows instances (template parameter GV) stage them.
+enum Kind { GAUSS = 0, SIGN = 1 };
 
 // The given-rows instances: GV_NONE hashes every side (the fused, Ω,
 // merged and window kernels); GV_LEFT stages a given left side (or none)
@@ -304,8 +303,8 @@ __host__ __device__ Layout layout(const Args& a) {
   const bool sl = PSI && HAS_L && a.ls.kind == SIGN;
   const bool sr = HAS_R && a.rs.kind == SIGN;
   const bool so = OM && a.os.kind == SIGN;
-  y.nsl = !PSI || !HAS_L || a.ls.kind == GIVEN ? 0 : sl ? a.ls.nnz : a.r1;
-  y.nsr = !HAS_R || a.rs.kind == GIVEN ? 0 : sr ? a.rs.nnz : a.r2;
+  y.nsl = !PSI || !HAS_L ? 0 : sl ? a.ls.nnz : a.r1;
+  y.nsr = !HAS_R ? 0 : sr ? a.rs.nnz : a.r2;
   y.nso = !OM ? 0 : so ? a.os.nnz : a.r1o;
   y.al = !PSI ? 0 : sl ? a.ls.rank : a.r1;
   y.ar = sr ? a.rs.rank : a.r2;
@@ -562,8 +561,6 @@ __global__ void __launch_bounds__(
   const int64_t col_grp = start + cg * q;
   const int ph_l = phase_of(r0, 0, RS), ph_r = phase_of(r0, y.gl, RS),
             ph_o = phase_of(r0, y.gl + y.gr, RS);
-  const bool given_l = HAS_L && a.ls.kind == GIVEN;
-  const bool given_r = HAS_R && a.rs.kind == GIVEN;
 
   // contraction: this thread's group and its place in it
   const int grp = tid / sc.GP, in_grp = tid - grp * sc.GP;
@@ -690,24 +687,21 @@ __global__ void __launch_bounds__(
         uint64_t fl = 0, fr = 0, fo = 0;
         if (kv) {
           if (!GV) ek = a.e[k];
-          if (!GV && PSI && HAS_L && y.gl && !given_l) fl = a.lflat[k];
-          if (HAS_R && y.gr && !given_r) fr = a.rflat[k];
+          if (!GV && PSI && HAS_L && y.gl) fl = a.lflat[k];
+          if (HAS_R && y.gr) fr = a.rflat[k];
           if (OM && y.go) fo = a.oflat[k];
         }
         if (PSI && !GV) {
           for (int row = ph_l; row < y.gl; row += RS) {
-            Ls[row * ts + t0] =
-                !kv ? 0.f
-                : !HAS_L ? ek
-                : given_l ? a.lrows[(int64_t)row * a.nnz + k] * ek
-                          : tt_rng::sample(fl, salts_l[row]) * ek;
+            Ls[row * ts + t0] = !kv ? 0.f
+                                : !HAS_L ? ek
+                                         : tt_rng::sample(fl, salts_l[row]) * ek;
           }
         }
         for (int row = ph_r; row < y.gr; row += RS) {
           Rs[row * ts + t0] = !kv ? 0.f
                               : !HAS_R ? 1.f
-                              : given_r ? a.rrows[(int64_t)row * a.nnz + k]
-                                        : tt_rng::sample(fr, salts_r[row]);
+                                       : tt_rng::sample(fr, salts_r[row]);
         }
         if (OM) {
           for (int row = ph_o; row < y.go; row += RS) {
@@ -1129,12 +1123,10 @@ int tt_psi_chunk_slabs(const int* loc, const float* e, const float* lrows,
     err = launch_given<true, true, GV_RIGHT>(a, n_chunks, st);
   } else if (rrows) {
     err = launch_given<false, true, GV_RIGHT>(a, n_chunks, st);
+  } else if (lrows && rflat) {
+    err = launch_given<true, true, GV_LEFT>(a, n_chunks, st);
   } else if (rflat) {
-    // genright: the left rows read in the generation step (the hashed
-    // instances with a GIVEN left side)
-    a.ls = Side{GIVEN, 0, 0, 0};
-    err = lrows ? launch<true, true, true, false>(a, n_chunks, st)
-                : launch<false, true, true, false>(a, n_chunks, st);
+    err = launch_given<false, true, GV_LEFT>(a, n_chunks, st);
   } else {
     err = launch_given<true, false, GV_LEFT>(a, n_chunks, st);
   }
