@@ -72,7 +72,10 @@ failure raises and exits non-zero):
    of the outer products), and bound them (each time also over its bound);
    each recorded ``chain_step_t`` launch on its own line (mode, ``n``,
    ranks, where the core lives, ms alone and back to back, bound, the
-   bytes of core rows gathered).
+   bytes of core rows gathered), and so each recorded ``psi_chunk_slabs``
+   and ``psi_chunk_slabs_genright`` launch (its rows, the schedule the
+   given-rows instance takes: stride, groups, tile, ring depth and shared
+   memory; ms alone and back to back, bound, both ratios).
 7. ``sparse_sign_rows`` against its plain version bit for bit
    (``torch.equal``), and the same bits from two calls: uber's shapes (in
    phase 6), a ragged N, fewer non-zeros than slots, rank slices, flats
@@ -117,7 +120,12 @@ failure raises and exits non-zero):
     orientations of the half-fused Ψ through streaming sketches with a
     ``TensorTrainDRM`` on one side and a ``SparseGaussianDRM`` on the
     other; the same bits from two calls of ``psi_chunk_slabs`` and
-    ``psi_chunk_slabs_genright``.
+    ``psi_chunk_slabs_genright``; both at ``GIVEN_EDGES`` (nnz % 4 of 0-3,
+    a chunk that leaves e and loc unaligned, the micro-tile's rank edges,
+    one group, passes, enough chunks for a ring of two) with every side
+    combination and Gaussian and sign right sides, each call's schedule
+    printed, against its plain version and the same bits twice; ring
+    depths 1, 2 and 3 must each be taken.
 11. The projector diagnostics (``kernels/projector_diag.py``): ``t_only``
     and ``u_only`` (``f32`` and ``bf16``) and ``reduce_read`` against their
     plain versions at the main-path shape, a ragged shape, a rank-split
@@ -431,6 +439,14 @@ def time_ms(fn, reps=7, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, n=10):
+    """Device time per call of ``fn()`` from the profiler: the CUDA kernels'
+    time over ``n`` calls after one untimed call, divided by ``n`` (what
+    ``fn`` launches, without the host's time between launches)."""
+    busy_us, _, _, _ = profile_window(lambda _: fn(), n)
+    return busy_us / 1e3 / n
 
 
 def phase_build():
@@ -1342,7 +1358,34 @@ def path_figures(paths, worst, ops, phase=6):
             if name == "chain_step_t":
                 res[name][label]["per_launch"] = chain_launches(
                     label, calls, paths[label]["shape"], ops, phase)
+            if name in ("psi_chunk_slabs", "psi_chunk_slabs_genright"):
+                res[name][label]["per_launch"] = given_launches(
+                    name, label, calls, ops, phase)
     return res
+
+
+def given_launches(name, label, calls, ops, phase=6):
+    """Each recorded launch of a given-rows kernel (rows 5 and 10 of
+    PERF.md's table) on its own line: the operands, the schedule, its time
+    alone (the card waits for the host's wrapper, as in a sketch) and over
+    ten calls back to back, its bound and both ratios."""
+    kern = _kernel_fns()[name][0]
+    out = []
+    for i, args in enumerate(calls):
+        ts, g, tg, ns, nbytes = given_schedule(name, args)
+        ms = time_ms(lambda: kern(*args))
+        b2b = time_ms(lambda: [kern(*args) for _ in range(10)]) / 10
+        b_ms, b_by = sparse_bound(name, args, ops)
+        shapes = " ".join("x".join(map(str, a.shape)) for a in args[2:4]
+                          if a is not None and a.ndim == 2)
+        print(f"# phase {phase}: {name} {label} call {i}: rows {shapes or '-'}"
+              f", TS {ts}, G {g}, TG {tg}, ring {ns}, {nbytes} bytes a "
+              f"block: {ms:.3f} ms alone, {b2b:.3f} ms back to back, bound "
+              f"{b_ms:.3f} ms by {b_by} ({ms / b_ms:.2f}x, {b2b / b_ms:.2f}x)")
+        out.append({"call": i, "TS": ts, "G": g, "TG": tg, "ring": ns,
+                    "ms": ms, "back_to_back_ms": b2b, "bound_ms": b_ms,
+                    "bound_by": b_by})
+    return out
 
 
 def segment_case(n_mu, r1, r2, nnz, runs=None, dtype="float32", seed=9):
@@ -2338,9 +2381,15 @@ def phase_seq_kernels():
     else:
         raise AssertionError("given sides past the shared-memory limit did "
                              "not raise")
-    _check("psi_chunk_slabs", "given sides of 892 + 1 rows (the most a "
-           "block holds)", (p.local_idx, se, randn(892, nnz), one, *geom),
-           phase=10)
+    widest = (p.local_idx, se, randn(892, nnz), one, *geom)
+    sched = given_schedule("psi_chunk_slabs", widest)
+    _check("psi_chunk_slabs", f"given sides of 892 + 1 rows (the most a "
+           f"block holds; TS {sched[0]}, ring {sched[3]})", widest, phase=10)
+    depths = phase_given_edges(randn) | {sched[3]}
+    print(f"# phase 10: given-rows ring depths taken: {sorted(depths)}")
+    if not {1, 2, 3} <= depths:
+        raise AssertionError(f"the given-rows edges took ring depths "
+                             f"{sorted(depths)}, not each of 1, 2 and 3")
 
     # -- both orientations of the half-fused Ψ: streaming with a mixed pair
     shape = t.shape
@@ -2376,6 +2425,98 @@ def phase_seq_kernels():
         if not worst <= PSI_TOL:
             raise AssertionError(f"streaming {tag} disagrees with its plain "
                                  f"version")
+
+
+#: phase 10's given-rows edges ``(label, nnz, chunk, r1, r2)``: nnz % 4
+#: sets which rows start 16-byte aligned (a row starts at row * nnz
+#: floats), chunk % 4 whether e and loc do; the ranks cross the micro-tile's
+#: edges (A rows 4 | 5; right rows 3 | 4 with a wider left side, where A
+#: becomes the left side; r1 = 1; more micro-tiles than half a block's
+#: threads: one group; more than a block's: passes); the last case has
+#: chunks enough for eight blocks an SM (a ring of two stages)
+GIVEN_EDGES = (
+    ("nnz % 4 = 0", 40_000, 1024, 7, 13),
+    ("nnz % 4 = 1", 40_001, 1024, 7, 13),
+    ("nnz % 4 = 2", 40_002, 1024, 7, 13),
+    ("nnz % 4 = 3", 40_003, 1024, 7, 13),
+    ("chunk 1001 (e and loc unaligned)", 40_003, 1001, 7, 13),
+    ("ranks 10 x 3 (A the left side)", 30_001, 512, 10, 3),
+    ("ranks 10 x 4", 30_001, 512, 10, 4),
+    ("ranks 5 x 4", 30_002, 512, 5, 4),
+    ("ranks 3 x 5", 30_002, 512, 3, 5),
+    ("ranks 1 x 13", 30_003, 512, 1, 13),
+    ("ranks 16 x 40 (one group)", 20_001, 512, 16, 40),
+    ("ranks 30 x 40 (passes)", 20_001, 512, 30, 40),
+    ("10 x 10 over 3907 chunks (a ring of two)", 1_000_003, 256, 10, 10),
+)
+
+
+def given_schedule(name, args):
+    """``(TS, G, TG, NS, shared bytes)`` that ``tt_psi_chunk_slabs`` takes
+    on this card for a call of ``psi_chunk_slabs`` (``args``: its
+    arguments) or of ``psi_chunk_slabs_genright``."""
+    import ctypes
+
+    from tt_sketch_torch.kernels import sparse_psi as SP
+
+    lib = SP._library()
+    out = (ctypes.c_int * 5)()
+    if name == "psi_chunk_slabs":
+        loc, se, sl, sr, nc, span, chunk = args
+        has = (sl is not None, sr is not None, False)
+        r2, spec = (1 if sr is None else sr.shape[0]), None
+    else:
+        loc, se, sl, rflat, rsalts, nc, span, chunk, rspec = args
+        has = (sl is not None, False, True)
+        r2 = SP._side_rows(rspec, rflat, rsalts)
+        spec = SP._c_spec(rspec)
+    r1 = 1 if sl is None else sl.shape[0]
+    err = lib.tt_psi_given_schedule(*map(int, has), nc, r1, r2, spec, out)
+    if err:
+        raise RuntimeError(f"tt_psi_given_schedule: error {err}")
+    return tuple(out)
+
+
+def phase_given_edges(randn):
+    """Phase 10: ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright`` at
+    ``GIVEN_EDGES`` against their plain versions, the same bits from two
+    calls, each call's schedule printed; the ring depths 1, 2 and 3 must
+    each be taken."""
+    import torch
+
+    from tt_sketch_torch.kernels.sparse_plan import build_mode_plan
+    from tt_sketch_torch.rng.hash_rng import drm_salts
+
+    rng = np.random.default_rng(29)
+    depths = set()
+    for label, nnz, chunk, r1, r2 in GIVEN_EDGES:
+        n_mu = max(nnz // 40, 1)
+        plan = build_mode_plan(rng.integers(0, n_mu, nnz), n_mu, chunk=chunk,
+                               device="cuda")
+        loc, geom = plan.local_idx, (plan.n_chunks, plan.span, plan.chunk)
+        se, sl, sr = randn(nnz), randn(r1, nnz), randn(r2, nnz)
+        flat = torch.randint(0, 1 << 40, (nnz,), device="cuda")
+        gauss = (drm_salts(0, r2, 35, device="cuda"), GAUSS)
+        sign = (drm_salts(0, min(r2, 5), 36, device="cuda"),
+                ("s", r2, min(r2, 5), 0, r2))
+        cases = [("psi_chunk_slabs", f"{r1} x {r2}", (loc, se, sl, sr, *geom)),
+                 ("psi_chunk_slabs", f"{r1} x none", (loc, se, sl, None,
+                                                      *geom)),
+                 ("psi_chunk_slabs", f"none x {r2}", (loc, se, None, sr,
+                                                      *geom))]
+        for tag, (salts, spec) in (("gauss", gauss), ("sign", sign)):
+            cases.append(("psi_chunk_slabs_genright", f"{r1} x {tag} {r2}",
+                          (loc, se, sl, flat, salts, *geom, spec)))
+        cases.append(("psi_chunk_slabs_genright", f"none x gauss {r2}",
+                      (loc, se, None, flat, gauss[0], *geom, GAUSS)))
+        for name, what, args in cases:
+            sched = given_schedule(name, args)
+            depths.add(sched[3])
+            _check(name, f"{label}, {what} (TS {sched[0]}, G {sched[1]}, "
+                   f"TG {sched[2]}, ring {sched[3]}, {sched[4]} bytes)", args,
+                   phase=10)
+            _same_bits(name, f"{label}, {what}", args, phase=10)
+    return depths
 
 
 #: (r1, n, r2, first) of the cores phase 10 times in both places: uber's
@@ -4215,6 +4356,28 @@ FROSTT_PLAIN_TOL = 1e-4   # absolute: a row's sample error vs the same row under
 #: within QUICK_RTOL
 QUICK_CPU_DIR = "tests/data/torch_quick_cpu"
 QUICK_RTOL, QUICK_ATOL, QUICK_GRAM_ATOL = 1e-6, 1e-10, 1e-6
+
+
+def frostt_hmt_calls(name, rank):
+    """The kernel calls of one ``hmt_sketch`` of the FROSTT stand-in
+    ``name`` at ``rank`` as ``run_frostt`` makes it (plans at threshold
+    16, float32, a ``SparseGaussianDRM``): ``{"calls": ...}``."""
+    import torch
+
+    from tt_sketch_torch import SparseGaussianDRM, hmt_sketch
+    from tt_sketch_torch.data.frostt import load_frostt
+
+    tensor = load_frostt(name, download=False, psi_plan=True,
+                         plan_kwargs=dict(threshold=16), device="cuda")
+    tensor = tensor.astype(torch.float32, index_dtype=torch.int32)
+    calls = {}
+    with recording(calls):
+        hmt_sketch(tensor, rank, drm_type=SparseGaussianDRM, seed=0,
+                   dtype=torch.float32)
+    torch.cuda.synchronize()
+    print(f"# {name} hmt {rank}: {tensor.shape}, {tensor.nnz} nnz; calls "
+          + ", ".join(f"{n} x {len(v)}" for n, v in calls.items()))
+    return {"calls": calls}
 
 
 def frostt_records(f64):

@@ -5,6 +5,7 @@ Put each variant's full source under ``build/exp/<tag>.cu`` (``build/`` is
 git-ignored), then run from the repo root on a machine with a card::
 
     python3 tools/sparse_psi_ab.py [seq] [LIBRARY[:KERNEL,...]]
+    python3 tools/sparse_psi_ab.py given
 
 ``LIBRARY`` is ``sparse_psi`` (the default; its six kernels),
 ``chain_step`` (``chain_step_t``), ``segment_psi`` (``psi_segment``) or
@@ -20,7 +21,13 @@ the timed cases of ``chip_smoke.SEGMENT_SHAPES`` (uber's two segment
 shapes with their indices in runs and at random), one call each; for
 ``sparse_sign`` the uber STTA path with a sign pair and the cases of
 ``chip_smoke.sign_row_cases`` (odd shapes, the rank buckets' edges, ranks
-above 4096), one call each.
+above 4096), one call each.  ``given`` times the given-rows kernels of
+``sparse_psi`` (``psi_chunk_slabs`` and ``psi_chunk_slabs_genright``) at
+the calls of the five sequential paths that launch them: uber HMT with a
+Gaussian DRM, OTTS and HMT with the default TT-DRM, lbnl HMT, and the
+FROSTT driver's nips HMT at rank 20 (``chip_smoke.frostt_hmt_calls``);
+per recorded call it adds the kernel's device time from the profiler
+(``chip_smoke.device_ms``) and the call's bound.
 Then every variant in turn, the list forward and back, checks every
 recorded call of each kernel against its plain version and times each
 recorded call (alone, ten back to back, and the host's time to enqueue
@@ -58,6 +65,7 @@ LIBRARIES = {
     "sparse_sign": (SS, ("sparse_sign_rows",)),
 }
 SEQ_LABELS = ("uber otts gauss", "uber hmt gauss", "uber hmt tt")
+GIVEN_KERNELS = ("psi_chunk_slabs", "psi_chunk_slabs_genright")
 
 
 def build(variants):
@@ -81,6 +89,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = sys.argv[1:]
+    if args == ["given"]:
+        given()
+        return
     seq = "seq" in args
     spec = next((a for a in args if a != "seq"), "sparse_psi")
     lib, _, only = spec.partition(":")
@@ -129,9 +140,36 @@ def main():
     _run(variants, module, names, paths)
 
 
-def _run(variants, module, names, paths):
+def given():
+    """The given-rows kernels at the calls of the paths that launch them."""
+    variants = sorted(glob.glob("build/exp/*.cu"))
+    build(variants)
+    print(f"# card: {c.phase_build()}")
+    ops = {"gauss": c.sass_ops_per_sample(), "sign_draw": c.sass_sign_ops()}
+    paths = {}
+    u = c.load_sparse("uber-synthetic")
+    for label in SEQ_LABELS[1::-1] + SEQ_LABELS[2:]:
+        paths[label] = c.phase_seq_main(label, u, timed=False)
+    del u
+    lb = c.load_sparse("lbnl-synthetic")
+    paths["lbnl hmt gauss"] = c.phase_seq_main("lbnl hmt gauss", lb,
+                                               timed=False)
+    del lb
+    paths["frostt nips hmt 20"] = c.frostt_hmt_calls("nips-synthetic", 20)
+    for label, m in paths.items():
+        for name in GIVEN_KERNELS:
+            for i, a in enumerate(m["calls"].get(name, [])):
+                ts, g, tg, ns, nbytes = c.given_schedule(name, a)
+                print(f"# schedule {name} {label} {i}: TS {ts}, G {g}, TG "
+                      f"{tg}, ring {ns}, {nbytes} bytes a block")
+    _run(variants, SP, GIVEN_KERNELS, paths, ops)
+
+
+def _run(variants, module, names, paths, ops=None):
     """Every variant in turn, the list forward and back: check and time
-    each kernel of ``names`` at every call recorded in ``paths``."""
+    each kernel of ``names`` at every call recorded in ``paths`` (with
+    ``ops``, also its device time per call under the profiler, and print
+    each call's bound)."""
     fns = c._kernel_fns()
     res, per_call = {}, {}
     for v in variants + variants[::-1]:
@@ -162,10 +200,20 @@ def _run(variants, module, names, paths):
                         kern(*a)
                     host = (time.perf_counter() - t0) / 20 * 1e3
                     torch.cuda.synchronize()
-                    for how, ms in (("alone", one), ("b2b", b2b),
-                                    ("host", host)):
+                    hows = [("alone", one), ("b2b", b2b), ("host", host)]
+                    if ops is not None:
+                        hows.append(("device", c.device_ms(lambda: kern(*a))))
+                    for how, ms in hows:
                         per_call.setdefault((name, label, i, _shape(a), how),
                                             {}).setdefault(v, []).append(ms)
+    if ops is not None:
+        print("# bounds per recorded call (ms):")
+        for name in names:
+            for label, m in paths.items():
+                for i, a in enumerate(m["calls"].get(name, [])):
+                    b, by = c.sparse_bound(name, a, ops)
+                    print(f"# {name} {label} {i} {_shape(a)}  bound {b:.4f} "
+                          f"by {by}")
     print("# A/B per recorded call (ms, two turns):")
     _table(per_call)
     print("# A/B (ms per sketch's launches, two turns):")
