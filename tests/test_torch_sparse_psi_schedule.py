@@ -17,6 +17,19 @@ on, pinned on the CPU (the kernel itself runs only on the card).
 3. The shared-memory layout: every call the wrappers' limit admits fits
    the kernel's tiles and its combine, and the row stride keeps eight
    consecutive rows in eight bank quads.
+4. The given-rows instances (``psi_chunk_slabs``,
+   ``psi_chunk_slabs_genright``), emulated: their schedule (stride, groups,
+   ring depth for the blocks the card holds) and layout, the copy ring
+   (tile j in stage j % NS, issued NS - 1 tiles ahead, a stage read only
+   for the tile it holds), each group's segment copied in 16-byte quads
+   where its source is 16-byte aligned and one value at a time where not
+   (every nnz % 4, unaligned e and loc, operands whose first element is
+   unaligned), never a read past the range, the entries folded into the
+   B quads, the group's last row past its range; against the plain
+   versions and the Pallas kernels in interpret mode, at the side
+   combinations, the micro-tile's edges, sentinel tiles, a one-row chunk
+   and sign and sliced hashed sides.  The schedules of the recorded calls
+   are pinned to what the card printed.
 
 The constants are read from the kernel source, so the emulation follows
 it.
@@ -54,6 +67,12 @@ OMEGA_CHUNK, SMEM_LIMIT = _const("OMEGA_CHUNK"), _const("SMEM_LIMIT")
 PSI_TOL = 2e-5
 SHAPE = (11, 9, 300, 25)
 GAUSS = ("g",)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    monkeypatch.setenv("TT_SKETCH_TPU_FORCE_TPU", "1")
+    monkeypatch.setenv("TT_SKETCH_TPU_PALLAS_INTERPRET", "1")
 
 
 @pytest.fixture(autouse=True)
@@ -497,3 +516,537 @@ def test_row_stride_spreads_eight_rows_over_the_bank_quads(ts):
     for r in range(64):
         quads = {((r + d) * ts // 4) % 8 for d in range(8)}
         assert len(quads) == 8
+
+
+# -- 4. the given-rows instances, emulated -----------------------------------------
+
+RING = _const("RING")
+MIN_BLOCKS_GIVEN = int(re.search(r"MIN_BLOCKS_GIVEN = (\d+)", SRC).group(1))
+#: the card's SMs, shared memory an SM and reserved a block (NVIDIA H100 80GB
+#: HBM3; the kernel reads them from the device)
+N_SM, SM_BYTES, RESERVED = 132, 233472, 1024
+GV_LEFT, GV_RIGHT = 1, 2
+
+
+def given_layout_bytes(ts, g, ns, r1, r2, nst, rows_r, salts_r):
+    """``Layout::bytes`` of a given-rows instance: the hashed right side's
+    rows, the parked sums and runs, its salts, then ``ns`` ring stages of
+    ``nst`` rows; the groups' tails over them, then the heads."""
+    ne = r1 * r2
+    ring = -(-(rows_r * ts * 4 + THREADS * (16 + 8) + salts_r * 8) // 16) * 16
+    tiles = ring + ns * nst * ts * 4
+    tails = g * ne * 4 if g > 1 else 0
+    heads = -(-max(tiles, tails) // 16) * 16
+    return heads + (g * (8 + 4 * ne) if g > 1 else 0)
+
+
+def given_schedule(r1, r2, has_l, has_r, gv, n_blocks, rows_r=0, salts_r=0):
+    """``schedule_given`` of the kernel source: (TS, G, TG, NS, NA, P, GP,
+    BYI, nst) for ``n_blocks`` blocks on the card (``rows_r``/``salts_r``:
+    a hashed right side's rows allocated and salts; a hashed side takes one
+    stage, its hashing hides the copies)."""
+    byi = not has_r or (r2 < MJ and r1 > r2)
+    na = -(-(r1 if byi else r2) // MJ)
+    p = (r2 if byi else r1) * na
+    g = 1 if 2 * p > THREADS else min(THREADS // p, GMAX)
+    gp = p if g > 1 else THREADS
+    nst = (r1 if has_l else 0) + (r2 if gv == GV_RIGHT and has_r else 0) + 2
+    hashed = gv == GV_LEFT and has_r
+    want = min(-(-n_blocks // N_SM), MIN_BLOCKS_GIVEN)
+    for b in range(max(want, 1), 0, -1):
+        budget = min(SM_BYTES // b - RESERVED, SMEM_LIMIT)
+        for ts in STRIDES:
+            tg = ts // (4 * g) * 4
+            for ns in ((1,) if hashed else range(RING, 1, -1)):
+                if given_layout_bytes(ts, g, ns, r1, r2, nst, rows_r,
+                                      salts_r) <= budget:
+                    return ts, g, tg, ns, na, p, gp, byi, nst
+    ts = STRIDES[-1]
+    return ts, g, ts // (4 * g) * 4, 1, na, p, gp, byi, nst
+
+
+class Ring:
+    """The copy ring of one block: ``ns`` stages of ``nst`` rows of ``ts``
+    floats (NaN until a copy lands), each tagged with the tile it holds;
+    counts the copies by kind."""
+
+    def __init__(self, ns, nst, ts):
+        self.buf = np.full((ns, nst, ts), np.nan, np.float32)
+        self.tile = np.full(ns, -1)
+        self.copies = {"16": 0, "4": 0, "zero": 0}
+
+    def stage(self, j, sources, start, end, q, G, TG):
+        """Tile ``j`` into stage ``j % ns`` as ``stage_tile`` does:
+        ``sources`` per stage row ``(array, offset, base)`` (row r of a
+        given side is ``array`` from element ``offset = r * nnz``; ``base``
+        the array's first element's misalignment in elements).  Each
+        group's segment goes in quads: one 16-byte copy where the source is
+        16-byte aligned (the rest zero-filled), else 4-byte copies of the
+        columns in range; a segment past the group's range is skipped."""
+        st = self.buf[j % len(self.tile)]
+        self.tile[j % len(self.tile)] = j
+        for row, (arr, offset, base) in enumerate(sources):
+            for gc in range(G):
+                k0 = start + gc * q + j * TG
+                left = min(start + (gc + 1) * q, end) - k0
+                if left <= 0:
+                    continue
+                for qd in range(TG // 4):
+                    src = offset + k0 + 4 * qd
+                    nv = left - 4 * qd
+                    dst = st[row, gc * TG + 4 * qd: gc * TG + 4 * qd + 4]
+                    if nv <= 0:
+                        dst[:] = 0
+                        self.copies["zero"] += 1
+                    elif (base + src) % 4 == 0:
+                        n = min(nv, 4)
+                        assert src + n <= arr.shape[0]  # reads in range only
+                        dst[:] = 0
+                        dst[:n] = arr[src:src + n]
+                        self.copies["16"] += 1
+                    else:
+                        n = min(nv, 4)
+                        assert src + n <= arr.shape[0]
+                        dst[:] = 0
+                        dst[:n] = arr[src:src + n]
+                        self.copies["4"] += n
+
+
+def run_given_block(loc, e, L, R, start, end, span, nnz, gv, n_blocks,
+                    R_hashed=None, bases=(0, 0, 0, 0)):
+    """One block of a given-rows instance over ``[start, end)``: ``L``
+    (r1, nnz) given left rows or None, ``R`` (r2, nnz) given right rows
+    (``gv == GV_RIGHT``) or None, ``R_hashed`` (r2, nnz) the right rows a
+    ``GV_LEFT`` instance hashes into its tile; ``bases``: the
+    misalignment in elements of L, R, e and loc.  The ring as the kernel
+    runs it (NS - 1 tiles ahead, a stage read only for the tile it
+    holds), e folded into the B quads (a missing side is B, and then B is
+    e), past a group's range its last row repeated.  Returns the slab
+    (span, r1, r2), its stores per element after the zero pass, the
+    schedule and the ring's copy counts."""
+    has_l = L is not None
+    has_r = R is not None or R_hashed is not None
+    r1 = L.shape[0] if has_l else 1
+    r2 = (R if R is not None else R_hashed).shape[0] if has_r else 1
+    TS, G, TG, NS, NA, P, GP, byi, nst = given_schedule(
+        r1, r2, has_l, has_r, gv, n_blocks,
+        rows_r=r2 if R_hashed is not None else 0,
+        salts_r=r2 if R_hashed is not None else 0)
+    sources = ([(L.reshape(-1), r * nnz, bases[0]) for r in range(r1)]
+               if has_l else [])
+    if R is not None:
+        sources += [(R.reshape(-1), r * nnz, bases[1]) for r in range(r2)]
+    sources += [(e, 0, bases[2]), (loc.view(np.float32), 0, bases[3])]
+    assert len(sources) == nst
+    slab = np.zeros((span, r1, r2), np.float32)  # the zero pass
+    slab_n = np.zeros((span, r1, r2), np.int64)
+    n = max(end - start, 0)
+    q = -(-n // G)
+    q = -(-q // TG) * TG
+    n_it = q // TG
+    ring = Ring(NS, nst, TS)
+    ends, heads, tails = [], [], []
+    passes = -(-P // GP)
+    for pas in range(passes):
+        accs = {}
+        st_g = {}
+        for grp in range(G):
+            lo = start + grp * q
+            hi = min(lo + q, end)
+            ps = np.arange(pas * GP, min(P, pas * GP + GP))
+            accs[grp] = np.zeros((ps.size, MJ), np.float32)
+            st_g[grp] = {"s": int(loc[lo]) if hi > lo else 0,
+                         "open": True, "head_row": -1,
+                         "head": np.zeros((ps.size, MJ), np.float32),
+                         "my_n": max(hi - lo, 0), "lo": lo, "hi": hi,
+                         "last": int(loc[hi - 1]) if hi > lo else 0}
+        for j in range(NS - 1):
+            if j < n_it:
+                ring.stage(j, sources, start, end, q, G, TG)
+        for it in range(n_it):
+            if it + NS - 1 < n_it:
+                ring.stage(it + NS - 1, sources, start, end, q, G, TG)
+            stg = it % NS
+            assert ring.tile[stg] == it  # the stage holds this tile
+            rows = ring.buf[stg]
+            e_t = rows[nst - 2]
+            loc_t = rows[nst - 1].view(np.int32)
+            for grp in range(G):
+                g_st = st_g[grp]
+                if it * TG >= g_st["my_n"]:
+                    continue
+                in_tile = min(TG, g_st["my_n"] - it * TG)
+                cols = slice(grp * TG, grp * TG + TG)
+                ps = np.arange(pas * GP, min(P, pas * GP + GP))
+                b = ps // NA
+                ac = (ps % NA)[:, None] + np.arange(MJ)[None, :] * NA
+                aok = ac < (r1 if byi else r2)
+                arow = np.where(aok, ac, 0)
+                # A and B rows of the tile: staged, hashed, or e itself
+                Lt = rows[:r1, cols] if has_l else None
+                if R is not None:
+                    Rt = rows[(r1 if has_l else 0):(r1 if has_l else 0) + r2,
+                              cols]
+                elif R_hashed is not None:
+                    k = g_st["lo"] + it * TG + np.arange(TG)
+                    kv = k < g_st["hi"]
+                    Rt = np.where(kv, R_hashed[:, np.minimum(k, nnz - 1)],
+                                  0).astype(np.float32)
+                else:
+                    Rt = None
+                et = e_t[cols]
+                if byi:
+                    At = Lt[arow]
+                    Bt = et[None, :] if Rt is None else (Rt[b] * et)
+                else:
+                    At = Rt[arow]
+                    Bt = et[None, :] if Lt is None else (Lt[b] * et)
+                Bt = np.broadcast_to(Bt, (ps.size, TG)).astype(np.float32)
+                lc = loc_t[cols].copy()
+                lc[in_tile:] = g_st["last"]
+                acc = accs[grp]
+                aok_f = aok[:, :, None]
+                for t in range(0, TG, 4):
+                    same = lc[t + 3] == g_st["s"]
+                    for v in range(4):
+                        if not same and lc[t + v] != g_st["s"]:
+                            # close the run of row s
+                            if G > 1 and g_st["open"]:
+                                g_st["head_row"] = g_st["s"]
+                                g_st["head"] = acc.copy()
+                            else:
+                                _store_given(slab, slab_n, g_st["s"], acc,
+                                             b, arow, aok, byi, span)
+                            g_st["open"] = False
+                            acc[:] = 0
+                            g_st["s"] = int(lc[t + v])
+                        acc += np.where(aok_f[:, :, 0],
+                                        Bt[:, t + v][:, None]
+                                        * At[:, :, t + v], 0)
+        for grp in range(G):
+            g_st = st_g[grp]
+            acc = accs[grp]
+            ps = np.arange(pas * GP, min(P, pas * GP + GP))
+            b = ps // NA
+            ac = (ps % NA)[:, None] + np.arange(MJ)[None, :] * NA
+            aok = ac < (r1 if byi else r2)
+            arow = np.where(aok, ac, 0)
+            if G == 1:
+                if g_st["my_n"]:
+                    _store_given(slab, slab_n, g_st["s"], acc, b, arow, aok,
+                                 byi, span)
+                continue
+            h = np.full((r1, r2), np.nan, np.float32)
+            tl = np.full((r1, r2), np.nan, np.float32)
+            src_h = acc if g_st["open"] else g_st["head"]
+            for c in range(MJ):
+                i, k = (arow[:, c], b) if byi else (b, arow[:, c])
+                sel = aok[:, c]
+                h[i[sel], k[sel]] = src_h[sel, c]
+                tl[i[sel], k[sel]] = acc[sel, c]
+            my_n = g_st["my_n"]
+            ends.append((-1 if not my_n else g_st["s"] if g_st["open"]
+                         else g_st["head_row"],
+                         -1 if not my_n or g_st["open"] else g_st["s"]))
+            heads.append(h)
+            tails.append(tl)
+    if G > 1:
+        cur, total = -1, None
+        for (hr, tr), h, tl in zip(ends, heads, tails):
+            for row, vals in ((hr, h), (tr, tl)):
+                if row < 0:
+                    continue
+                if row == cur:
+                    total = total + vals
+                else:
+                    if 0 <= cur < span:
+                        slab[cur] = total
+                        slab_n[cur] += 1
+                    cur, total = row, vals.copy()
+        if 0 <= cur < span:
+            slab[cur] = total
+            slab_n[cur] += 1
+    return slab, slab_n, (TS, G, TG, NS), ring.copies
+
+
+def _store_given(slab, slab_n, s, acc, b, arow, aok, byi, span):
+    """A run's sums stored once, at row ``s`` (the sentinel is never
+    written)."""
+    if not 0 <= s < span:
+        return
+    for c in range(MJ):
+        sel = aok[:, c]
+        i, k = (arow[sel, c], b[sel]) if byi else (b[sel], arow[sel, c])
+        slab[s, i, k] = acc[sel, c]
+        slab_n[s, i, k] += 1
+
+
+def _given_plan(nnz, chunk, seed=41):
+    """The JAX package's plan of mode 2 of a random tensor with ``nnz``
+    nonzeros, and the port's copy of it."""
+    from tt_sketch_torch.interop import mode_plan_from_numpy
+    from tt_sketch_tpu.kernels.sparse_plan import build_psi_plan as j_build
+
+    idx, ent = _data(nnz=nnz, seed=seed)
+    jp = j_build(idx, SHAPE, entries=ent, threshold=8, chunk=chunk)[2]
+    p = mode_plan_from_numpy(
+        np.asarray(jp.perm), np.asarray(jp.local_idx),
+        np.asarray(jp.slot_rows), jp.n_chunks, jp.span, jp.chunk,
+        sorted_entries=np.asarray(jp.sorted_entries),
+        flat_left=jp.flat_left, flat_right=jp.flat_right,
+        flat_left_om=jp.flat_left_om, gather_slots=jp.gather_slots,
+        device="cpu")
+    return jp, p
+
+
+def run_given(p, sl, sr, n_blocks=None, gv=GV_RIGHT, R_hashed=None,
+              loc=None, bases=(0, 0, 0, 0)):
+    """Every block of a given-rows call over the port's plan ``p``; the
+    schedule as for ``n_blocks`` blocks (default: the plan's chunks)."""
+    nnz = p.sorted_entries.shape[0]
+    loc = p.local_idx.numpy() if loc is None else loc
+    e = p.sorted_entries.numpy().astype(np.float32)
+    slabs, scheds, copies = [], set(), {"16": 0, "4": 0, "zero": 0}
+    for g in range(p.n_chunks):
+        start = g * p.chunk
+        s, sn, sched, cp = run_given_block(
+            loc, e, sl, sr, start, min(start + p.chunk, nnz), p.span, nnz,
+            gv, n_blocks or p.n_chunks, R_hashed=R_hashed, bases=bases)
+        assert sn.max() <= 1  # every element stored once at most
+        assert (s[sn == 0] == 0).all()  # the rest keep the zero pass's 0
+        assert np.isfinite(s).all()
+        slabs.append(s)
+        scheds.add(sched)
+        for k, v in cp.items():
+            copies[k] += v
+    return np.stack(slabs), scheds, copies
+
+
+def _rows(r, nnz, seed):
+    return np.random.default_rng(seed).standard_normal((r, nnz)).astype(
+        np.float32)
+
+
+# nnz % 4 sets which rows start 16-byte aligned; chunk 101 leaves e and
+# loc unaligned from the second chunk on
+GIVEN_NNZ = {"nnz % 4 = 0": (1500, None), "nnz % 4 = 1": (1501, None),
+             "nnz % 4 = 2": (1502, None), "nnz % 4 = 3": (1503, None),
+             "chunk 101": (1500, 101)}
+#: the schedule as for these many blocks on the card, and the ring depth
+#: given rows then take: one block (three stages at the widest stride),
+#: MIN_BLOCKS_GIVEN an SM (two stages)
+RING_BLOCKS = {"one block": (1, 3),
+               "full card": (MIN_BLOCKS_GIVEN * N_SM, 2)}
+
+
+@pytest.mark.parametrize("blocks", RING_BLOCKS, ids=list(RING_BLOCKS))
+@pytest.mark.parametrize("case", GIVEN_NNZ, ids=list(GIVEN_NNZ))
+def test_given_schedule_stores_once_and_sums(pallas_interpret, case,
+                                             blocks):
+    import jax.numpy as jnp
+    from tt_sketch_tpu.kernels.pallas_psi import psi_chunk_slabs as j_slabs
+
+    nnz, chunk = GIVEN_NNZ[case]
+    jp, p = _given_plan(nnz, chunk)
+    sl, sr = _rows(7, nnz, 1), _rows(13, nnz, 2)
+    n_blocks, depth = RING_BLOCKS[blocks]
+    got, scheds, copies = run_given(p, sl, sr, n_blocks)
+    assert {s[3] for s in scheds} == {depth}
+    ref = SP.psi_chunk_slabs_reference(
+        p.local_idx, p.sorted_entries, torch.from_numpy(sl),
+        torch.from_numpy(sr), p.n_chunks, p.span, p.chunk)
+    assert _rel(got, ref.numpy()) <= PSI_TOL
+    nc, S, C = jp.n_chunks, jp.span, jp.chunk
+    pad = ((0, 0), (0, nc * C - nnz))
+    jref = j_slabs(jp.local_idx, jnp.pad(jp.sorted_entries, pad[1]),
+                   jnp.pad(jnp.asarray(sl), pad),
+                   jnp.pad(jnp.asarray(sr), pad), n_chunks=nc, span=S,
+                   chunk=C, interpret=True)
+    assert _rel(got, np.asarray(jref).reshape(nc, S, 7, 13)) <= PSI_TOL
+    # which rows took 16-byte copies: all where nnz % 4 == 0 and the chunk
+    # keeps e and loc aligned; else some rows one value a copy
+    aligned = nnz % 4 == 0 and (chunk or p.chunk) % 4 == 0
+    assert copies["16"] > 0
+    assert (copies["4"] == 0) == aligned
+
+
+GIVEN_SIDES = {
+    "7 x none": (7, None),
+    "none x 13": (None, 13),
+    "1 x 13": (1, 13),
+    "1 x none": (1, None),
+    "10 x 3 (A the left side)": (10, 3),
+    "5 x 4": (5, 4),
+    "16 x 40 (one group)": (16, 40),
+    "30 x 40 (passes)": (30, 40),
+}
+
+
+@pytest.mark.parametrize("sides", GIVEN_SIDES, ids=list(GIVEN_SIDES))
+def test_given_schedule_side_combinations(sides):
+    r1, r2 = GIVEN_SIDES[sides]
+    nnz = 1203
+    _, p = _given_plan(nnz, 128)
+    sl = None if r1 is None else _rows(r1, nnz, 3)
+    sr = None if r2 is None else _rows(r2, nnz, 4)
+    got, scheds, _ = run_given(p, sl, sr, gv=GV_RIGHT if sr is not None
+                               else GV_LEFT)
+    ref = SP.psi_chunk_slabs_reference(
+        p.local_idx, p.sorted_entries,
+        None if sl is None else torch.from_numpy(sl),
+        None if sr is None else torch.from_numpy(sr), p.n_chunks, p.span,
+        p.chunk)
+    assert got.shape == tuple(ref.shape)
+    assert _rel(got, ref.numpy()) <= PSI_TOL
+    (_, G, _, _), = scheds
+    if sides.startswith("30 x 40"):
+        assert G == 1  # 300 micro-tiles: two passes of one group
+
+
+def test_given_schedule_sentinel_tiles_and_a_one_row_chunk():
+    nnz = 1501
+    _, p = _given_plan(nnz, 256)
+    loc = p.local_idx.numpy().copy()
+    loc[96:256] = p.span  # chunk 0 ends in whole tiles of sentinels
+    loc[p.chunk:2 * p.chunk] = 3  # every nonzero of chunk 1 on one row
+    sl, sr = _rows(7, nnz, 5), _rows(13, nnz, 6)
+    got, _, _ = run_given(p, sl, sr, loc=loc)
+    ref = SP.psi_chunk_slabs_reference(
+        torch.from_numpy(loc), p.sorted_entries, torch.from_numpy(sl),
+        torch.from_numpy(sr), p.n_chunks, p.span, p.chunk)
+    assert _rel(got, ref.numpy()) <= PSI_TOL
+    every = np.full_like(loc, p.span)
+    zero, _, _ = run_given(p, sl, sr, loc=every)
+    assert (zero == 0).all()
+
+
+@pytest.mark.parametrize("bases", [(1, 2, 3, 1), (2, 0, 1, 3)],
+                         ids=["bases 1 2 3 1", "bases 2 0 1 3"])
+def test_given_schedule_unaligned_tensors(bases):
+    """Operands whose first element is not 16-byte aligned (a view with an
+    offset) take 4-byte copies where their quads are unaligned."""
+    nnz = 1500
+    _, p = _given_plan(nnz, None)
+    sl, sr = _rows(7, nnz, 7), _rows(13, nnz, 8)
+    got, _, copies = run_given(p, sl, sr, bases=bases)
+    ref = SP.psi_chunk_slabs_reference(
+        p.local_idx, p.sorted_entries, torch.from_numpy(sl),
+        torch.from_numpy(sr), p.n_chunks, p.span, p.chunk)
+    assert _rel(got, ref.numpy()) <= PSI_TOL
+    assert copies["4"] > 0
+
+
+GENRIGHT = {
+    "gauss 13": (7, ("g",), 13),
+    "sign 13": (7, ("s", 13, 5, 0, 13), 5),
+    "sign slice 5 of 9": (7, ("s", 9, 4, 3, 5), 4),
+    "none x gauss 13": (None, ("g",), 13),
+    "1 x gauss 1": (1, ("g",), 1),
+}
+
+
+@pytest.mark.parametrize("blocks", RING_BLOCKS, ids=list(RING_BLOCKS))
+@pytest.mark.parametrize("case", GENRIGHT, ids=list(GENRIGHT))
+def test_given_schedule_genright(pallas_interpret, case, blocks):
+    """A given left side staged by the ring, the right side hashed into its
+    tile (Gaussian, sign, sliced sign): against the plain version and, with
+    a left side, the Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+    from tt_sketch_tpu.kernels.pallas_psi import (
+        psi_chunk_slabs_genright as j_genright,
+    )
+    from tt_sketch_tpu.kernels import pallas_rng as JR
+
+    r1, spec, n_salts = GENRIGHT[case]
+    nnz = 1502
+    jp, p = _given_plan(nnz, None)
+    salts = drm_salts(0, n_salts, 9)
+    R = SP._rows(p.flat_right, salts, spec, nnz, p.sorted_entries).numpy()
+    sl = None if r1 is None else _rows(r1, nnz, 10)
+    got, scheds, _ = run_given(p, sl, None, RING_BLOCKS[blocks][0], GV_LEFT,
+                               R_hashed=R)
+    assert {s[3] for s in scheds} == {1}  # the hashing hides the copies
+    ref = SP.psi_chunk_slabs_genright_reference(
+        p.local_idx, p.sorted_entries,
+        None if sl is None else torch.from_numpy(sl), p.flat_right, salts,
+        p.n_chunks, p.span, p.chunk, spec)
+    assert _rel(got, ref.numpy()) <= PSI_TOL
+    if sl is None:
+        return
+    nc, S, C = jp.n_chunks, jp.span, jp.chunk
+    r2 = R.shape[0]
+    jref = j_genright(jp.local_idx, jp.sorted_entries,
+                      jnp.pad(jnp.asarray(sl), ((0, 0), (0, nc * C - nnz))),
+                      jp.flat_right, JR.drm_salts(0, n_salts, 9),
+                      n_chunks=nc, span=S, chunk=C, interpret=True,
+                      rspec=spec)
+    jref = np.asarray(jref)[:, :, :r2].reshape(nc, S, r1, r2)
+    assert _rel(got, jref) <= PSI_TOL
+
+
+#: (ranks, chunks, the card's schedule) of the recorded calls: given left
+#: rows, right rows (None: no right side), hashed right rows (0: the right
+#: side given); (TS, G, TG, NS, shared bytes) as ``tt_psi_given_schedule``
+#: printed them on an NVIDIA H100 80GB HBM3 (``tools/sparse_psi_ab.py
+#: given``), the 892 + 1 rows from this emulation
+RECORDED_GIVEN = {
+    "uber psi_chunk_slabs 10 x none": ((10, None, 0), 809,
+                                       (252, 15, 16, 3, 43152)),
+    "uber TT 10 x 10": ((10, 10, 0), 809, (252, 8, 28, 2, 53760)),
+    "uber HMT genright 10 x gauss 10": ((10, 10, 10), 809,
+                                        (252, 8, 28, 1, 31664)),
+    "uber OTTS genright 10 x gauss 20": ((10, 20, 20), 809,
+                                         (252, 5, 48, 1, 42600)),
+    "nips 17 x none": ((17, None, 0), 756, (252, 15, 16, 2, 45588)),
+    "small 7 x 13": ((7, 13, 0), 41, (252, 9, 28, 3, None)),
+    "892 + 1 given rows": ((892, 1, 0), 41, (60, 1, 60, 1, None)),
+}
+
+
+@pytest.mark.parametrize("case", RECORDED_GIVEN, ids=list(RECORDED_GIVEN))
+def test_given_schedule_at_the_recorded_calls(case):
+    """The stride, groups, tile, ring depth and shared memory the recorded
+    calls get on an H100 (MIN_BLOCKS_GIVEN blocks an SM, the registers'
+    limit; a hashed right side in one stage), the 892 + 1 rows of the
+    wrappers' limit in one stage of the narrowest stride."""
+    (r1, r2, hashed), blocks, expect = RECORDED_GIVEN[case]
+    has_r = r2 is not None
+    r2 = r2 or 1
+    gv = GV_LEFT if hashed or not has_r else GV_RIGHT
+    ts, G, tg, ns, _, _, _, _, nst = given_schedule(
+        r1, r2, True, has_r, gv, blocks, rows_r=hashed, salts_r=hashed)
+    nbytes = given_layout_bytes(ts, G, ns, r1, r2, nst, hashed, hashed)
+    assert (ts, G, tg, ns) == expect[:4]
+    assert nbytes == (expect[4] or nbytes) and nbytes <= SMEM_LIMIT
+
+
+#: given-rows calls at the wrappers' limit: (given left rows, right rows,
+#: a hashed right side's rows allocated and salts, instance)
+GIVEN_LIMIT_CASES = {
+    "given 892 + 1": (892, 1, 0, 0, GV_RIGHT),
+    "given 892, no right side": (892, 1, 0, 0, GV_LEFT),
+    "given 891 + gauss 1": (891, 1, 1, 1, GV_LEFT),
+    "given 1 + sign 865 of 865": (1, 865, 865, 865, GV_LEFT),
+    "given 100 + gauss 700": (100, 700, 700, 700, GV_LEFT),
+    "given 446 + 446": (446, 446, 0, 0, GV_RIGHT),
+}
+
+
+@pytest.mark.parametrize("case", GIVEN_LIMIT_CASES,
+                         ids=list(GIVEN_LIMIT_CASES))
+def test_given_layout_fits_the_wrappers_limit(case):
+    """Every given-rows call the wrappers admit (``_check_shared_memory``:
+    260 bytes a row, 8 a salt) fits the given-rows layout: at worst one
+    stage of the narrowest stride."""
+    r1, r2, rows_r, salts, gv = GIVEN_LIMIT_CASES[case]
+    has_r = "no right" not in case
+    rows = r1 + (r2 if has_r else 0)
+    api = 8 * salts + 4 * (64 + 1) * rows + 4 * 64
+    assert api <= SMEM_LIMIT  # what the wrappers admit
+    ts, G, _, ns, _, _, _, _, nst = given_schedule(
+        r1, r2, True, has_r, gv, 1, rows_r=rows_r, salts_r=salts)
+    assert given_layout_bytes(ts, G, ns, r1, r2, nst, rows_r,
+                              salts) <= SMEM_LIMIT
+    one_more = 8 * salts + 4 * (64 + 1) * (rows + 1) + 4 * 64
+    if case == "given 892 + 1":
+        assert one_more > SMEM_LIMIT and (ts, ns) == (STRIDES[-1], 1)
