@@ -93,6 +93,59 @@ def _flat_index_np(indices: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     return flat
 
 
+def _hash_bits_np(flat: np.ndarray, rank_min: int, rank_max: int,
+                  seed: int) -> np.ndarray:
+    """Hashed uint64 per (index, column) pair; shape (N, rank_max-rank_min)."""
+    salt = hash_int_np(np.arange(rank_min, rank_max, dtype=np.uint64))
+    with np.errstate(over="ignore"):
+        salt = salt + np.uint64(int(seed) % (1 << 63))
+        h = flat[:, None] + salt[None, :]
+    return hash_int_np(h)
+
+
+def _uniform_from_bits_np(h: np.ndarray) -> np.ndarray:
+    """The parity path's uniform on the host: low 52 bits / 2^52."""
+    return (h & np.uint64(_MASK52)).astype(np.float64) * _INV_2_52
+
+
+def inds_to_normal_np(indices: np.ndarray, shape: Sequence[int],
+                      rank_min: int, rank_max: int,
+                      seed: int) -> np.ndarray:
+    """Host oracle of ``inds_to_normal``: (N, rank_max - rank_min) float64
+    Gaussian DRM entries at (d, N) multi-indices, ``scipy.special.ndtri`` of
+    the 52-bit uniforms."""
+    import scipy.special
+
+    flat = _flat_index_np(np.asarray(indices), shape)
+    h = _hash_bits_np(flat, int(rank_min), int(rank_max), int(seed))
+    return scipy.special.ndtri(_uniform_from_bits_np(h))
+
+
+def inds_to_sparse_sign_np(indices: np.ndarray, shape: Sequence[int],
+                           rank: int, rank_min: int, rank_max: int,
+                           nnz_per_row: int, seed: int) -> np.ndarray:
+    """Host oracle of ``inds_to_sparse_sign``: columns [rank_min, rank_max)
+    of the (N, rank) sparse-sign rows as int16, ``nnz_per_row`` hashed ±1
+    per row (salts of columns [0, nnz)) placed at slots j and swapped with
+    slot ``floor(u_j·(rank − j)) + j`` in float64."""
+    indices = np.asarray(indices)
+    N = indices.shape[1]
+    rank, nnz = int(rank), int(nnz_per_row)
+    flat = _flat_index_np(indices, shape)
+    h = _hash_bits_np(flat, 0, nnz, int(seed))  # (N, nnz)
+    u = _uniform_from_bits_np(h)
+    exponent = (h >> np.uint64(52)) & np.uint64(0x7FF)
+    out = np.zeros((N, rank), dtype=np.int16)
+    out[:, :nnz] = (exponent & np.uint64(1)).astype(np.int16) * 2 - 1
+    rows = np.arange(N)
+    for j in range(nnz):
+        pos = (u[:, j] * (rank - j) + j).astype(np.int64)
+        tmp = out[rows, j].copy()
+        out[rows, j] = out[rows, pos]
+        out[rows, pos] = tmp
+    return out[:, rank_min:rank_max]
+
+
 # ---------------------------------------------------------------------------
 # torch int64
 # ---------------------------------------------------------------------------
@@ -261,3 +314,33 @@ def inds_to_sparse_sign(indices: torch.Tensor, shape: Sequence[int],
     _shuffle_rows(out, ((u[j] * (rank - j) + j).to(torch.int64)
                         for j in range(nnz)))
     return out[rank_min:rank_max].T.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense helpers
+# ---------------------------------------------------------------------------
+
+def lazy_gaussian_matrix(n_rows: int, shape: Sequence[int], rank_min: int,
+                         rank_max: int, seed: int, backend: str = "torch",
+                         device=None):
+    """The full lazy-Gaussian DRM block of flat rows [0, n_rows), (n_rows,
+    rank_max - rank_min) float64: ``inds_to_normal`` on the index grid of
+    ``shape`` unraveled column-major.  ``backend="torch"`` gives a tensor
+    on ``device`` (default: the package default), ``"np"`` a numpy array
+    (scipy's ``ndtri``); the JAX package's ``"jax"`` has no counterpart
+    here."""
+    if backend == "np":
+        import scipy.special
+
+        h = _hash_bits_np(np.arange(n_rows, dtype=np.uint64), int(rank_min),
+                          int(rank_max), int(seed))
+        return scipy.special.ndtri(_uniform_from_bits_np(h))
+    if backend != "torch":
+        raise ValueError(f"lazy_gaussian_matrix: backend {backend!r}; the "
+                         f"port has 'torch' and 'np'")
+    from tt_sketch_torch.config import resolve_device
+
+    flat = torch.arange(int(n_rows), dtype=torch.int64,
+                        device=resolve_device(device))
+    h = _hash_bits(flat, int(rank_min), int(rank_max), int(seed))
+    return torch.special.ndtri(uniform_from_bits(h))
