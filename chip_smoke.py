@@ -2433,7 +2433,8 @@ def phase_seq_kernels():
 #: edges (A rows 4 | 5; right rows 3 | 4 with a wider left side, where A
 #: becomes the left side; r1 = 1; more micro-tiles than half a block's
 #: threads: one group; more than a block's: passes); the last case has
-#: chunks enough for eight blocks an SM (a ring of two stages)
+#: chunks enough for four blocks an SM (two given sides: a ring of two
+#: stages)
 GIVEN_EDGES = (
     ("nnz % 4 = 0", 40_000, 1024, 7, 13),
     ("nnz % 4 = 1", 40_001, 1024, 7, 13),

@@ -138,36 +138,39 @@
 // walks its run with the same program, a run of rows crossing chunk
 // boundaries as it crosses tiles.  Ψ leaves the kernel finished.
 //
-// Given sides.  The TPU's psi_chunk_slabs is the same one-hot product with
-// the rows read, not hashed.  psi_chunk_slabs (both sides given, or one
-// alone) is bound by bytes: (r1 + r2 + 2) * 4 per nnz against r1 * r2
-// FMAs; psi_chunk_slabs_genright (left given, right hashed) by the right
-// side's hashing, with (r1 + 4) * 4 bytes per nnz besides.  Filled by one
-// scalar load per row and thread inside the generation step, as a hashed
-// side is, a tile paid a whole round trip to device memory per row before
-// its barrier, and the genright hashing waited for it (on uber's calls the
-// loads were half of psi_chunk_slabs' device time, PERF.md §6).  So the
-// given rows have instances of their own (template parameter GV, register
-// budget MIN_BLOCKS_GIVEN): a tile's given rows, e and loc land in a ring
-// of NS stages (up to RING) by cp.async, NS - 1 tiles ahead of the tile
-// being contracted, and genright hashes its right rows while they are in
-// flight.  A group's segment of a row is copied by 16-byte cp.async.cg
-// where its source is 16-byte aligned (the row starts at row * nnz floats,
-// so all rows only when nnz % 4 == 0; e and loc when chunk % 4 == 0), the
-// columns past the range zero-filled; else by 4-byte cp.async per column:
-// the contraction's 16-byte shared loads pin each column's place in the
-// stage, so a row whose source is not aligned cannot take 16-byte copies
-// at any offset.  A warp's copies cover whole 16-byte quads of the groups'
-// segments.  The contraction is PR 9's (odd-quad strides, 1 x 4
-// micro-tiles, runs carried across tiles, one store per output, heads and
-// tails added in group order) with e folded into the B quads: a missing
-// side is always B (with no right side A is the left side) and its quads
-// are then the entries themselves.  Past its range a group reads zeros and
-// repeats its last row.  The stride and the ring's depth are chosen so
-// that the grid's blocks fit the card together where the shared memory
-// allows (uber's 809 chunks: seven blocks an SM), widest stride first,
-// three stages, then two; the 892 + 1 given rows of the limit take one
-// stage at TS = 60.  Columns past nnz are never read.
+// Given sides.  The TPU's psi_chunk_slabs is the same one-hot product with the
+// rows read, not hashed.  psi_chunk_slabs (both sides given, or one alone) is
+// bound by bytes: (r1 + r2 + 2) * 4 per nnz against r1 * r2 FMAs;
+// psi_chunk_slabs_genright (left given, right hashed) by the right side's
+// hashing, with (r1 + 4) * 4 bytes per nnz besides.  Filled by one scalar load
+// per row and thread inside the generation step, as a hashed side is, a tile
+// paid a whole round trip to device memory per row before its barrier, and the
+// genright hashing waited for it (on uber's calls the loads were half of
+// psi_chunk_slabs' device time, PERF.md §6).  So the given rows have instances
+// of their own (template parameter GV; 64 registers, four blocks an SM: at 32
+// they spilled 100-500 bytes and ran 1.2-1.8x slower on an NVIDIA H100 80GB
+// HBM3 at 700 W): a tile's given rows, e and loc land in a ring of NS stages
+// (up to RING) by cp.async, NS - 1 tiles ahead of the tile being contracted;
+// genright issues a tile's copies before hashing its right rows, so that they
+// land while the hashing runs, and takes one stage.  A group's segment of a row
+// is copied by 16-byte cp.async.cg where its source is 16-byte aligned (the row
+// starts at row * nnz floats, so all rows only when nnz % 4 == 0; e and loc
+// when chunk % 4 == 0), the columns past the range zero-filled; else by 4-byte
+// cp.async per column: the contraction's 16-byte shared loads pin each column's
+// place in the stage, so a row whose source is not aligned cannot take 16-byte
+// copies at any offset.  A warp's copies cover whole 16-byte quads of the
+// groups' segments.  The contraction is the hashed instances' (odd-quad
+// strides, 1 x 4 micro-tiles, runs carried across tiles, one store per output,
+// heads and tails added in group order) with e folded into the B quads: a
+// missing side is always B (with no right side A is the left side) and its
+// quads are then the entries themselves.  Past its range a group reads zeros
+// and repeats its last row.  The stride and the ring's depth are chosen so that
+// the grid's blocks fit the card together where the shared memory and the
+// registers allow, widest stride first, three stages, then two; the 892 + 1
+// given rows of the limit take one stage at TS = 60.  Hashing tile it + 1 while
+// tile it is contracted (two R buffers, one barrier a tile) measured 2-7 %
+// slower, and one or two groups a block (long row segments) 1.1-2.7x slower.
+// Columns past nnz are never read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1002,15 +1005,15 @@ Sched schedule_given(Args a, int64_t n_blocks) {
                          dev);
   int64_t want = n_sm > 0 ? (n_blocks + n_sm - 1) / n_sm : 1;
   if (want > MIN_BLOCKS_GIVEN) want = MIN_BLOCKS_GIVEN;
+  s.SB[0] = s.SB[1] = s.SB[2] = 0;
+  s.SN[1] = s.SN[2] = 0;
   for (int64_t b = want > 0 ? want : 1; b >= 1; --b) {
     size_t budget = (size_t)sm_bytes / b - reserved;
     if (budget > SMEM_LIMIT || sm_bytes == 0) budget = SMEM_LIMIT;
     for (int ts : STRIDES) {
       s.TS = ts;
       s.TG = ts / (4 * s.G) * 4;
-      s.SB[0] = s.SB[1] = s.SB[2] = 0;
       s.SN[0] = sign ? s.G * s.TG : 0;
-      s.SN[1] = s.SN[2] = 0;
       for (int ns = hashed ? 1 : RING; ns >= (hashed ? 1 : 2); --ns) {
         s.NS = ns;
         if (layout<HAS_L, HAS_R, true, false, GV>(a).bytes <= budget) {
