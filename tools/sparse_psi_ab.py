@@ -6,6 +6,8 @@ git-ignored), then run from the repo root on a machine with a card::
 
     python3 tools/sparse_psi_ab.py [seq] [LIBRARY[:KERNEL,...]]
     python3 tools/sparse_psi_ab.py given
+    python3 tools/sparse_psi_ab.py oneside
+    python3 tools/sparse_psi_ab.py others
 
 ``LIBRARY`` is ``sparse_psi`` (the default; its six kernels),
 ``chain_step`` (``chain_step_t``), ``segment_psi`` (``psi_segment``) or
@@ -27,7 +29,17 @@ the calls of the five sequential paths that launch them: uber HMT with a
 Gaussian DRM, OTTS and HMT with the default TT-DRM, lbnl HMT, and the
 FROSTT driver's nips HMT at rank 20 (``chip_smoke.frostt_hmt_calls``);
 per recorded call it adds the kernel's device time from the profiler
-(``chip_smoke.device_ms``) and the call's bound.
+(``chip_smoke.device_ms``) and the call's bound.  ``oneside`` does the
+same for the one-sided calls of ``psi_fused_slabs`` and
+``psi_window_direct`` (a side missing, the other hashed): uber STTA and
+lbnl STTA with a Gaussian and with a sign pair, lbnl HMT, and the FROSTT
+driver's nips STTA and HMT at rank 20.  ``others`` times, without the
+profiler, the calls of the same library that the one-sided instances do
+not serve: the two-sided calls of ``psi_fused_slabs`` (uber as a sum of
+four planned shards) and of ``psi_window_direct`` (lbnl with the giant
+mode rolled inside, as ``chip_smoke.phase_window_kernel``), and
+``psi_omega_merged_slabs`` and ``omega_fused`` at the uber and lbnl STTA
+paths and uber's rank growth.
 Then every variant in turn, the list forward and back, checks every
 recorded call of each kernel against its plain version and times each
 recorded call (alone, ten back to back, and the host's time to enqueue
@@ -45,6 +57,7 @@ import time
 
 sys.path.insert(0, ".")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as c  # noqa: E402
@@ -79,7 +92,8 @@ def build(variants):
         if proc.returncode:
             raise RuntimeError(f"{v} did not build:\n{out}")
         regs = [line.strip() for line in out.splitlines()
-                if "Used" in line or "spill stores" in line]
+                if "Used" in line or "spill stores" in line
+                or "Function properties" in line]
         print(f"# build {v}", *regs, sep="\n#   ")
 
 
@@ -89,8 +103,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = sys.argv[1:]
-    if args == ["given"]:
-        given()
+    if args in (["given"], ["oneside"], ["others"]):
+        {"given": given, "oneside": oneside, "others": others}[args[0]]()
         return
     seq = "seq" in args
     spec = next((a for a in args if a != "seq"), "sparse_psi")
@@ -163,6 +177,143 @@ def given():
                 print(f"# schedule {name} {label} {i}: TS {ts}, G {g}, TG "
                       f"{tg}, ring {ns}, {nbytes} bytes a block")
     _run(variants, SP, GIVEN_KERNELS, paths, ops)
+
+
+ONESIDE_KERNELS = ("psi_fused_slabs", "psi_window_direct")
+
+
+def _sides(name, args):
+    """(left flats, right flats) of a call of a hashed Ψ kernel."""
+    return args[2:4] if name == "psi_fused_slabs" else args[4:6]
+
+
+def _keep(paths, names, one_sided):
+    """Each path's calls of ``names``, only the one-sided ones (a side
+    missing) or only the others; paths left with no call are dropped."""
+    out = {}
+    for label, m in paths.items():
+        calls = {}
+        for name in names:
+            kept = [a for a in m["calls"].get(name, [])
+                    if name not in ONESIDE_KERNELS
+                    or (None in _sides(name, a)) == one_sided]
+            if kept:
+                calls[name] = kept
+        if calls:
+            out[label] = {"calls": calls}
+    return out
+
+
+def frostt_stta_calls(name, rank):
+    """The kernel calls of one STTA sketch (``rank``/2``rank``) of the
+    FROSTT stand-in ``name`` as ``run_frostt`` makes it (plans at threshold
+    16, float32, ``SparseGaussianDRM`` pairs): ``{"calls": ...}``."""
+    from tt_sketch_torch import SparseGaussianDRM, stream_sketch
+    from tt_sketch_torch.data.frostt import load_frostt
+
+    tensor = load_frostt(name, download=False, psi_plan=True,
+                         plan_kwargs=dict(threshold=16), device="cuda")
+    tensor = tensor.astype(torch.float32, index_dtype=torch.int32)
+    calls = {}
+    with c.recording(calls):
+        stream_sketch(tensor, rank, 2 * rank, seed=0,
+                      left_drm_type=SparseGaussianDRM,
+                      right_drm_type=SparseGaussianDRM, dtype=torch.float32)
+    torch.cuda.synchronize()
+    return {"calls": calls}
+
+
+def oneside():
+    """The one-sided calls of rows 6 and 9 (``psi_fused_slabs``,
+    ``psi_window_direct``) at the paths that make them, with each call's
+    device time and bound."""
+    variants = sorted(glob.glob("build/exp/*.cu"))
+    build(variants)
+    print(f"# card: {c.phase_build()}")
+    ops = {"gauss": c.sass_ops_per_sample(), "sign_draw": c.sass_sign_ops()}
+    paths = {}
+    u = c.load_sparse("uber-synthetic")
+    for label, drm in (("uber gauss", SparseGaussianDRM),
+                       ("uber sign", SparseSignDRM)):
+        paths[label] = c.phase_sparse_main(label, u, drm, groups=1)
+    del u
+    lb = c.load_sparse("lbnl-synthetic")
+    for label, drm in (("lbnl gauss", SparseGaussianDRM),
+                       ("lbnl sign", SparseSignDRM)):
+        paths[label] = c.phase_sparse_main(label, lb, drm, groups=1)
+    paths["lbnl hmt gauss"] = c.phase_seq_main("lbnl hmt gauss", lb,
+                                               timed=False)
+    del lb
+    paths["frostt nips stta 20"] = frostt_stta_calls("nips-synthetic", 20)
+    paths["frostt nips hmt 20"] = c.frostt_hmt_calls("nips-synthetic", 20)
+    paths = _keep(paths, ONESIDE_KERNELS, True)
+    for label, m in paths.items():
+        for name, calls in m["calls"].items():
+            for i, a in enumerate(calls):
+                left, right = _sides(name, a)
+                bucket, threads, blocks, per = c.oneside_schedule(name, a)
+                print(f"# call {name} {label} {i}: "
+                      f"{'left' if right is None else 'right'} side only, "
+                      f"{_shape(a)}; this tree's instance: bucket {bucket}, "
+                      f"{blocks} blocks of {threads} threads"
+                      + (f", {per} windows a block" if per else ""))
+    _run(variants, SP, ONESIDE_KERNELS, paths, ops)
+
+
+def others():
+    """The calls of ``sparse_psi.cu`` that the one-sided instances do not
+    serve: rows 6 and 9 two-sided, rows 7 and 8."""
+    from tt_sketch_torch import stream_sketch
+    from tt_sketch_torch.formats import SparseTensor
+
+    variants = sorted(glob.glob("build/exp/*.cu"))
+    build(variants)
+    print(f"# card: {c.phase_build()}")
+    names = ("psi_fused_slabs", "psi_window_direct",
+             "psi_omega_merged_slabs", "omega_fused")
+    paths = {}
+    u = c.load_sparse("uber-synthetic")
+    for label, drm in (("uber gauss", SparseGaussianDRM),
+                       ("uber sign", SparseSignDRM)):
+        paths[label] = c.phase_sparse_main(label, u, drm, groups=1)
+    shards, _ = c.split_uber(u)
+    for label, drm in (("uber sum gauss", SparseGaussianDRM),
+                       ("uber sum sign", SparseSignDRM)):
+        calls = {}
+        with c.recording(calls):
+            stream_sketch(shards, 10, 20, seed=0, left_drm_type=drm,
+                          right_drm_type=drm, dtype=torch.float32)
+        paths[label] = {"calls": calls}
+    del shards
+    small = stream_sketch(u, 10, 20, seed=0, left_drm_type=SparseGaussianDRM,
+                          right_drm_type=SparseGaussianDRM,
+                          dtype=torch.float32)
+    calls = {}
+    with c.recording(calls):
+        small.increase_rank(u, 15, 30)
+    paths["uber grow gauss"] = {"calls": calls}
+    del u, small
+    lb = c.load_sparse("lbnl-synthetic")
+    for label, drm in (("lbnl gauss", SparseGaussianDRM),
+                       ("lbnl sign", SparseSignDRM)):
+        paths[label] = c.phase_sparse_main(label, lb, drm, groups=1)
+    del lb
+    shape, idx, ent = c.load_lbnl_host()
+    order = (3, 4, 0, 1, 2)
+    shape = tuple(shape[m] for m in order)
+    idx = np.ascontiguousarray(idx[list(order)])
+    t = SparseTensor(shape, idx, ent, device="cuda").with_psi_plan(
+        indices=idx, entries=ent)
+    for label, lt in (("lbnl rolled gauss", SparseGaussianDRM),
+                      ("lbnl rolled sign x gauss", SparseSignDRM)):
+        calls = {}
+        with c.recording(calls):
+            stream_sketch(t, 10, 20, seed=3, left_drm_type=lt,
+                          right_drm_type=SparseGaussianDRM,
+                          dtype=torch.float32)
+        paths[label] = {"calls": calls}
+    del t
+    _run(variants, SP, names, _keep(paths, names, False))
 
 
 def _run(variants, module, names, paths, ops=None):
