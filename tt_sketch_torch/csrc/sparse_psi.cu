@@ -138,6 +138,23 @@
 // walks its run with the same program, a run of rows crossing chunk
 // boundaries as it crosses tiles.  Ψ leaves the kernel finished.
 //
+// One-sided calls.  A Ψ with one side missing and the other hashed (Ψ_0
+// and Ψ_{d-1}: psi_fused_slabs at uber's last mode and lbnl's first,
+// psi_window_direct at lbnl's giant last mode) spends r samples and r
+// products an nnz, and the program above gave it 3 micro-tiles a group of
+// 256 threads, a round trip of every sample through shared memory and two
+// barriers a tile; the window kernel also a prologue and a zero pass for
+// each of its 3392 blocks of about 500 nnz.  Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md §6): with the hashing replaced by a
+// constant, 0.06-0.10 ms of a call remained, and the window kernel's
+// hashing was 0.02 ms of 0.18.  So these calls, up to ONE_MAX_ROWS rows
+// on the present side (a sign side: of rank), take instances of their own
+// (oneside_kernel, below): a lane a column with its samples in registers,
+// runs summed over the warp's lanes, a sliding output stage, a warp per
+// window and the grid the blocks the card holds.  The dispatch is by shape
+// alone: a two-sided call, or a side of more rows, takes the tiled
+// block program above; a build or launch failure of either raises.
+//
 // Given sides.  The TPU's psi_chunk_slabs is the same one-hot product with the
 // rows read, not hashed.  psi_chunk_slabs (both sides given, or one alone) is
 // bound by bytes: (r1 + r2 + 2) * 4 per nnz against r1 * r2 FMAs;
@@ -1053,11 +1070,529 @@ cudaError_t launch_given(Args a, int64_t n_blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// One-sided instances: a Ψ with one side missing and the other hashed, of at
+// most ONE_MAX_ROWS rows (a sign side: of rank at most ONE_MAX_ROWS).  Each
+// nnz is then r samples and r products; there is nothing to tile.  A lane
+// owns a column: it hashes the column's r samples into registers (acc[],
+// RB of them, r <= RB), folds the entry in, and the warp sums runs of equal
+// loc in a fixed order; no sample goes through shared memory.
+//
+//   - a step is 32 consecutive columns, one a lane (loc, e and the flat
+//     index are coalesced loads);
+//   - a step whose 32 columns continue the open run (loc equal to it on
+//     both ends: loc is non-decreasing) adds into acc: the run's partial is
+//     then spread over the lanes;
+//   - any other step first parks the open run's partial in the warp's carry
+//     (a butterfly over the lanes when it is spread, else the one lane that
+//     holds it), generates acc fresh and sums each run of the step onto the
+//     run's first lane (a segmented suffix sum over the lanes, keyed on
+//     loc); the open run closes (carry plus the step's first run when that
+//     continues it), every run between the first and the last is complete,
+//     and the last run stays open in its first lane;
+//   - a closed run's row goes to the warp's output stage, ONE_STAGE rows of
+//     shared memory that slide over the rows the warp owns in increasing
+//     order: a row past the stage flushes it to the output with coalesced
+//     stores, zeros included, and the stage starts at the next ONE_STAGE
+//     rows.  Every output row is stored once, zeros included: no zero pass.
+//
+// psi_fused_slabs: one block per plan chunk, ONE_WARPS warps over contiguous
+// parts of it.  A warp owns the rows strictly between its part's first row
+// (its head) and its last (its tail); its head and tail runs go to shared
+// memory, and after a barrier warp 0 adds the heads and tails in warp order,
+// stores each of their rows once and zeroes the rows no warp owns.
+// psi_window_direct: a warp owns whole windows (one window's run, all span
+// rows of it: no combine), a block a contiguous run of windows, and the grid
+// the blocks the card holds at once.  A warp finds its window's chunks in the
+// non-decreasing chunk_window by a 32-way search (each lane one probe), and
+// stops at the first step that starts on a pad (loc == span, pads last); the
+// pads of a step that has real columns form the last run, of row span, which
+// is never stored.
+//
+// The sum of a run is the lanes' sums over the continuing steps added by the
+// butterfly, then the carry plus the segmented sums: it differs from the
+// other instances' order within PSI_TOL, and two calls give the same bits.
+constexpr int ONE_WARPS = 4;       // warps a block (fused: a small grid 8)
+constexpr int ONE_WARPS_MAX = 8;
+constexpr int ONE_STAGE = 32;      // rows of a warp's output stage
+constexpr int ONE_MAX_ROWS = 32;   // rows of the present side at most
+// blocks of ONE_WARPS_MAX warps an SM the registers must allow (64
+// registers a thread)
+constexpr int MIN_BLOCKS_ONE = 4;
+constexpr int ONE_ILP = 2;         // samples (sign: draws) hashed side by side
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+struct OneArgs {
+  const int* loc;
+  const float* e;
+  const uint64_t* flat;   // the present side's flat indices
+  const uint64_t* salts;  // its salts (Gaussian: r, sign: sd.nnz)
+  float* out;             // slabs (n_chunks, span, r) or rows (nw * span, r)
+  int64_t nnz;            // fused: nnz; window: n_chunks * chunk
+  int chunk;
+  int span;
+  int r;                  // rows of the present side
+  Side sd;
+  const int* win;         // window: window id per chunk, non-decreasing
+  int n_chunks;
+  int n_windows;
+  int per_block;          // window: windows a block
+};
+
+// The bucket of rows a one-sided call takes (the registers of acc), or 0
+// when the call is not one-sided with at most ONE_MAX_ROWS rows (a sign side:
+// of rank at most ONE_MAX_ROWS): the tiled block program serves it.
+int one_bucket(bool has_l, bool has_r, int r, const Side& sd) {
+  if (has_l == has_r) return 0;
+  const int rows = sd.kind == SIGN ? sd.rank : r;
+  if (r <= 0 || rows > ONE_MAX_ROWS) return 0;
+  return rows <= 8 && sd.kind != SIGN ? 8 : rows <= 16 ? 16 : 32;
+}
+
+// The warp's output stage: rows [b0, b0 + ONE_STAGE) of the output rows
+// [.., hi) it owns, r floats a row, zero where no run lands.
+struct Stage {
+  float* buf;   // ONE_STAGE * r floats of shared memory
+  float* out;   // output row 0
+  int b0, hi, r;
+
+  // rows [b0, min(b0 + ONE_STAGE, hi)) to the output, the stage zeroed for
+  // the next ONE_STAGE rows
+  __device__ __forceinline__ void flush(int lane) {
+    __syncwarp();
+    const int n = (min(b0 + ONE_STAGE, hi) - b0) * r;
+    float* o = out + (int64_t)b0 * r;
+    for (int i = lane; i < n; i += 32) {
+      o[i] = buf[i];
+      buf[i] = 0.f;
+    }
+    b0 += ONE_STAGE;
+    __syncwarp();
+  }
+  // flush until `row` (the same in every lane) lies in the stage
+  __device__ __forceinline__ void reach(int row, int lane) {
+    while (row >= b0 + ONE_STAGE) flush(lane);
+  }
+  __device__ __forceinline__ void finish(int lane) {
+    while (b0 < hi) flush(lane);
+  }
+};
+
+// acc[a] of the lane `src` in lane 0 (a butterfly over the lanes when src <
+// 0: the partial is spread over them); the other lanes' acc are left
+// undefined.
+template <int RB>
+__device__ __forceinline__ void gather_acc(float (&acc)[RB], int r, int src) {
+#pragma unroll
+  for (int a = 0; a < RB; ++a) {
+    if (a >= r) break;
+    float x = acc[a];
+    if (src < 0) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+    } else if (src > 0) {
+      x = __shfl_sync(FULL, x, src);
+    }
+    acc[a] = x;
+  }
+}
+
+template <int RB, int KIND, bool WIN>
+struct OneShared {
+  uint64_t salts[ONE_MAX_ROWS];
+  float stage[WIN ? ONE_WARPS : ONE_WARPS_MAX][ONE_STAGE * RB];
+  float carry[WIN ? ONE_WARPS : ONE_WARPS_MAX][RB];
+  float ht[WIN ? 1 : ONE_WARPS_MAX][2][RB];  // fused: head, tail partials
+  int ht_row[WIN ? 1 : ONE_WARPS_MAX][2];    // their rows (-1: none)
+};
+
+// One warp over the columns [lo, hi) of the stream (a plan chunk's part, or
+// a window's run): runs summed as the comment above says.  `st` owns the
+// rows strictly between the head row and the tail row (fused: `head` and
+// `tail` slots of shared memory; null for the window, whose stage owns every
+// row).  `t_row` is the row of the column hi - 1 (fused), which columns past
+// hi repeat; the window's columns past hi, and its pads, are row span.
+template <int RB, int KIND, bool WIN>
+__device__ __forceinline__ void one_part(const OneArgs& a,
+                                         const uint64_t* salts, int64_t lo,
+                                         int64_t hi, int t_row, Stage& st,
+                                         float* carry, float* head,
+                                         float* tail, int* head_row,
+                                         int* tail_row, int lane) {
+  const int r = a.r, span = a.span;
+  float acc[RB];
+#pragma unroll
+  for (int i = 0; i < RB; ++i) acc[i] = 0.f;
+  int s_cur = a.loc[lo];  // the open run's row
+  int holder = 0;         // the lane that holds its partial, -1: spread
+  bool head_open = !WIN;  // the open run is the part's first (fused)
+  // a step's loc, entry and flat index, loaded a step ahead
+  int n_lc;
+  float n_ek;
+  uint64_t n_fl;
+  auto fetch = [&](int64_t k) {
+    n_lc = WIN ? span : t_row;
+    n_ek = 0.f;
+    n_fl = 0;
+    if (k < hi) {
+      n_lc = a.loc[k];
+      n_ek = a.e[k];
+      n_fl = a.flat[k];
+    }
+  };
+  fetch(lo + lane);
+  for (int64_t k0 = lo; k0 < hi; k0 += 32) {
+    const int lc = n_lc;
+    const float ek = n_ek;
+    const uint64_t fl = n_fl;
+    if (k0 + 32 < hi) fetch(k0 + 32 + lane);
+    const int f = __shfl_sync(FULL, lc, 0), l = __shfl_sync(FULL, lc, 31);
+    if (WIN && f >= span) break;  // the rest are pads
+    const bool cont = f == l && f == s_cur;
+    if (!cont) {
+      // park the open run's partial in the carry
+      gather_acc<RB>(acc, r, holder);
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          if (i >= r) break;
+          carry[i] = acc[i];
+        }
+      }
+    }
+    // generate: acc[i] = e * row i of the column (added to acc if the step
+    // continues the open run)
+    if constexpr (KIND == GAUSS) {
+      // ONE_ILP samples a group, hashed side by side; the salts past r
+      // read as 0 (a sample that is dropped)
+      const uint64_t base = fl + tt_rng::HASH_ADD;
+#pragma unroll
+      for (int i0 = 0; i0 < RB; i0 += ONE_ILP) {
+        if (i0 >= r) break;
+        float p[ONE_ILP];
+#pragma unroll
+        for (int j = 0; j < ONE_ILP; ++j) {
+          p[j] = ek * tt_rng::normal_from_hash(
+                          tt_rng::mix64(base + salts[i0 + j]));
+        }
+#pragma unroll
+        for (int j = 0; j < ONE_ILP; ++j) {
+          if (i0 + j < r) acc[i0 + j] = cont ? acc[i0 + j] + p[j] : p[j];
+        }
+      }
+    } else {
+      const tt_rng::SignWord<RB> w =
+          tt_rng::sign_column_word<RB, ONE_ILP, true>(fl, salts, a.sd.rank,
+                                                      a.sd.nnz) >>
+          (2 * a.sd.rank_min);
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (i >= r) break;
+        const float p = tt_rng::sign_slot((uint32_t)(w >> (2 * i))) * ek;
+        acc[i] = cont ? acc[i] + p : p;
+      }
+    }
+    if (cont) {
+      holder = -1;
+      continue;
+    }
+    // the step's runs: a run's sum onto its first lane, in a fixed order
+    // (a suffix sum over the lanes of equal loc, as many rounds as the
+    // longest run needs)
+    const int up = __shfl_up_sync(FULL, lc, 1);
+    const bool first = lane == 0 || up != lc;
+    const unsigned starts = __ballot_sync(FULL, first);
+    const unsigned above = lane == 31 ? 0u : starts >> (lane + 1);
+    const int run = first ? (above ? __ffs(above) : 32 - lane) : 0;
+    const int longest = __reduce_max_sync(FULL, run);
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const int o = 1 << j;
+      if (o >= longest) break;
+      const bool same = __shfl_down_sync(FULL, lc, o) == lc && lane + o < 32;
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (i >= r) break;
+        const float y = __shfl_down_sync(FULL, acc[i], o);
+        if (same) acc[i] += y;
+      }
+    }
+    // 1. the open run closes: the carry, plus the step's first run when it
+    // continues the open run
+    const bool merge = f == s_cur;
+    __syncwarp();
+    if (!WIN && head_open) {
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          if (i >= r) break;
+          head[i] = carry[i] + (merge ? acc[i] : 0.f);
+        }
+        *head_row = s_cur;
+      }
+    } else if (s_cur < st.hi) {
+      st.reach(s_cur, lane);
+      if (lane == 0) {
+        float* o = st.buf + (s_cur - st.b0) * r;
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          if (i >= r) break;
+          o[i] = carry[i] + (merge ? acc[i] : 0.f);
+        }
+      }
+    }
+    head_open = false;
+    // 2. the runs between the first and the last are complete
+    bool pend = first && lc != l && !(lane == 0 && merge);
+    while (__any_sync(FULL, pend)) {
+      if (pend && lc < st.b0 + ONE_STAGE) {
+        float* o = st.buf + (lc - st.b0) * r;
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          if (i >= r) break;
+          o[i] = acc[i];
+        }
+        pend = false;
+      }
+      if (__any_sync(FULL, pend)) st.flush(lane);
+    }
+    // 3. the last run stays open in its first lane
+    const int last = 31 - __clz(__ballot_sync(FULL, first && lc == l));
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      if (i >= r) break;
+      if (lane != last) acc[i] = 0.f;
+    }
+    holder = last;
+    s_cur = l;
+  }
+  // the part's last run: its head (a part of one run), its tail, or a row of
+  // the window's stage
+  gather_acc<RB>(acc, r, holder);
+  __syncwarp();
+  if (!WIN) {
+    if (lane == 0) {
+      float* o = head_open ? head : tail;
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (i >= r) break;
+        o[i] = acc[i];
+      }
+      *(head_open ? head_row : tail_row) = s_cur;
+    }
+  } else if (s_cur < st.hi) {
+    st.reach(s_cur, lane);
+    if (lane == 0) {
+      float* o = st.buf + (s_cur - st.b0) * r;
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (i >= r) break;
+        o[i] = acc[i];
+      }
+    }
+  }
+  st.finish(lane);
+}
+
+// The first index in [0, n) whose value is >= key in the non-decreasing v
+// (n if none), 32 probes a round, one a lane.
+__device__ __forceinline__ int lower_bound_warp(const int* v, int n, int key,
+                                                int lane) {
+  int lo = 0, hi = n;  // v[i] < key below lo, >= key from hi
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int p = lo + lane * step;
+    const int cnt = __popc(__ballot_sync(FULL, p < hi && v[p] < key));
+    if (cnt == 0) {
+      hi = lo;
+    } else {
+      const int nhi = lo + cnt * step;
+      lo += (cnt - 1) * step + 1;
+      hi = min(hi, nhi);
+    }
+  }
+  return lo;
+}
+
+template <int RB, int KIND, bool WIN>
+__global__ void __launch_bounds__(ONE_WARPS_MAX * 32, MIN_BLOCKS_ONE)
+    oneside_kernel(OneArgs a) {
+  __shared__ OneShared<RB, KIND, WIN> sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int r = a.r, span = a.span;
+  const int n_salts = KIND == SIGN ? a.sd.nnz : r;
+  for (int i = tid; i < ONE_MAX_ROWS; i += blockDim.x) {
+    sh.salts[i] = i < n_salts ? a.salts[i] : 0;
+  }
+  float* const buf = sh.stage[warp];
+  for (int i = lane; i < ONE_STAGE * RB; i += 32) buf[i] = 0.f;
+  __syncthreads();
+  if (WIN) {
+    // this block's windows, one a warp at a time
+    const int w0 = blockIdx.x * a.per_block;
+    const int w1 = min(w0 + a.per_block, a.n_windows);
+    for (int w = w0 + warp; w < w1; w += n_warps) {
+      const int c_lo = lower_bound_warp(a.win, a.n_chunks, w, lane);
+      int c_hi = c_lo;
+      for (;;) {
+        const int c = c_hi + lane;
+        const int cnt = __popc(
+            __ballot_sync(FULL, c < a.n_chunks && a.win[c] == w));
+        c_hi += cnt;
+        if (cnt < 32) break;
+      }
+      Stage st{buf, a.out + (int64_t)w * span * r, 0, span, r};
+      const int64_t lo = (int64_t)c_lo * a.chunk;
+      const int64_t hi = min((int64_t)c_hi * a.chunk, a.nnz);
+      if (lo < hi) {
+        one_part<RB, KIND, WIN>(a, sh.salts, lo, hi, span, st,
+                                sh.carry[warp], nullptr, nullptr, nullptr,
+                                nullptr, lane);
+      } else {
+        st.finish(lane);  // an empty window: span rows of zeros
+      }
+    }
+    return;
+  }
+  // the chunk's range in n_warps contiguous parts of whole steps
+  const int64_t g = blockIdx.x;
+  const int64_t start = g * a.chunk, end = min(start + a.chunk, a.nnz);
+  const int64_t n = end > start ? end - start : 0;
+  const int64_t q = ((n + n_warps - 1) / n_warps + 31) / 32 * 32;
+  const int64_t lo = start + warp * q, hi = min(lo + q, end);
+  float* const slab = a.out + g * span * r;
+  if (lane == 0) sh.ht_row[warp][0] = sh.ht_row[warp][1] = -1;
+  __syncwarp();
+  if (lo < hi) {
+    const int h_row = a.loc[lo], t_row = a.loc[hi - 1];
+    Stage st{buf, slab, h_row + 1, t_row, r};
+    one_part<RB, KIND, WIN>(a, sh.salts, lo, hi, t_row, st, sh.carry[warp],
+                            sh.ht[warp][0], sh.ht[warp][1],
+                            &sh.ht_row[warp][0], &sh.ht_row[warp][1], lane);
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  // warp 0: the heads and tails in warp order, each row stored once, and
+  // zeros on the rows between a warp's tail and the next head
+  int cur = -1;       // the row being summed
+  float sum = 0.f;    // its element `lane` (lane < r)
+  bool owned = false; // the rows after cur up to the next entry are a warp's
+  int done = 0;       // rows below done are stored
+  auto zero_to = [&](int row) {  // rows [done, row) are zero
+    const int64_t z0 = (int64_t)done * r, z1 = (int64_t)row * r;
+    for (int64_t i = z0 + lane; i < z1; i += 32) slab[i] = 0.f;
+  };
+  for (int u = 0; u < 2 * n_warps; ++u) {
+    const int row = sh.ht_row[u >> 1][u & 1];
+    if (row < 0) continue;
+    const float v = lane < r ? sh.ht[u >> 1][u & 1][lane] : 0.f;
+    if (row == cur) {
+      sum += v;
+    } else {
+      if (cur >= 0) {
+        if (lane < r) slab[(int64_t)cur * r + lane] = sum;
+        done = cur + 1;
+      }
+      if (!owned) zero_to(row);
+      cur = row;
+      sum = v;
+    }
+    // a head followed by its own warp's tail: the rows between are the
+    // warp's
+    owned = (u & 1) == 0 && sh.ht_row[u >> 1][1] >= 0;
+    if (!owned) done = row + 1;
+  }
+  if (cur >= 0 && lane < r) slab[(int64_t)cur * r + lane] = sum;
+  done = cur + 1;
+  zero_to(span);
+}
+
+// The grid of a one-sided call: the window kernel takes the blocks of
+// ONE_WARPS warps the card holds at once (at most one a ONE_WARPS windows),
+// each a contiguous run of per_block windows; the fused kernel one block a
+// chunk, of ONE_WARPS_MAX warps where they all fit the card at once, else
+// of ONE_WARPS.
+template <int RB, int KIND, bool WIN>
+cudaError_t one_grid(int64_t n, int64_t* n_blocks, int* warps,
+                     int* per_block) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  *warps = WIN ? ONE_WARPS : ONE_WARPS_MAX;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, oneside_kernel<RB, KIND, WIN>, *warps * 32, 0);
+  if (err != cudaSuccess) return err;
+  const int64_t fit = (int64_t)(n_sm > 0 ? n_sm : 1) * (per_sm > 0 ? per_sm : 1);
+  *per_block = 0;
+  if (!WIN) {
+    *n_blocks = n;
+    if (n > fit) *warps = ONE_WARPS;
+    return cudaSuccess;
+  }
+  const int64_t want = (n + ONE_WARPS - 1) / ONE_WARPS;
+  const int64_t b = want < fit ? want : fit;
+  *per_block = (int)((n + b - 1) / b);
+  *n_blocks = (n + *per_block - 1) / *per_block;
+  return cudaSuccess;
+}
+
+template <int RB, int KIND, bool WIN>
+cudaError_t launch_one_bucket(OneArgs a, int64_t n_blocks,
+                              cudaStream_t stream) {
+  int warps = 0;
+  cudaError_t err = one_grid<RB, KIND, WIN>(WIN ? a.n_windows : n_blocks,
+                                            &n_blocks, &warps, &a.per_block);
+  if (err != cudaSuccess) return err;
+  oneside_kernel<RB, KIND, WIN><<<(unsigned)n_blocks, warps * 32, 0,
+                                  stream>>>(a);
+  return cudaGetLastError();
+}
+
+// A one-sided call on its instance: the bucket of its rows, a Gaussian or a
+// sign side.
+template <bool WIN>
+cudaError_t launch_one(OneArgs a, int bucket, int64_t n_blocks,
+                       cudaStream_t stream) {
+  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFF || bad_side(a.sd, a.r)) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.sd.kind == SIGN) {
+    return bucket == 16 ? launch_one_bucket<16, SIGN, WIN>(a, n_blocks, stream)
+                        : launch_one_bucket<32, SIGN, WIN>(a, n_blocks, stream);
+  }
+  return bucket == 8 ? launch_one_bucket<8, GAUSS, WIN>(a, n_blocks, stream)
+         : bucket == 16
+             ? launch_one_bucket<16, GAUSS, WIN>(a, n_blocks, stream)
+             : launch_one_bucket<32, GAUSS, WIN>(a, n_blocks, stream);
+}
+
 // A side's generator from the caller's int[4] {SIGN, rank, nnz, rank_min}
 // (NULL: lazy-Gaussian).
 Side side_of(const int* spec) {
   if (!spec) return Side{GAUSS, 0, 0, 0};
   return Side{spec[0], spec[1], spec[2], spec[3]};
+}
+
+// A one-sided call's operands: the present side's streams, rows and spec.
+OneArgs one_args(const int* loc, const float* e, const uint64_t* lflat,
+                 const uint64_t* rflat, const uint64_t* lsalts,
+                 const uint64_t* rsalts, float* out, int64_t nnz, int chunk,
+                 int span, int r1, int r2, const int* lspec,
+                 const int* rspec) {
+  const bool left = lflat != nullptr;
+  OneArgs o{};
+  o.loc = loc;
+  o.e = e;
+  o.flat = left ? lflat : rflat;
+  o.salts = left ? lsalts : rsalts;
+  o.out = out;
+  o.nnz = nnz;
+  o.chunk = chunk;
+  o.span = span;
+  o.r = left ? r1 : r2;
+  o.sd = side_of(left ? lspec : rspec);
+  return o;
 }
 
 bool bad_geometry(int64_t nnz, int n_chunks, int span, int chunk) {
@@ -1091,6 +1626,14 @@ int tt_psi_fused_slabs(const int* loc, const float* e, const uint64_t* lflat,
          side_of(lspec), side_of(rspec), side_of(nullptr),
          nullptr, nullptr, n_chunks};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int bucket = one_bucket(lflat, rflat, lflat ? r1 : r2,
+                                lflat ? a.ls : a.rs);
+  if (bucket) {
+    return (int)launch_one<false>(
+        one_args(loc, e, lflat, rflat, lsalts, rsalts, slabs, nnz, chunk,
+                 span, r1, r2, lspec, rspec),
+        bucket, n_chunks, st);
+  }
   cudaError_t err;
   if (lflat && rflat) {
     err = launch<true, true, true, false>(a, n_chunks, st);
@@ -1187,6 +1730,16 @@ int tt_psi_window_direct(const int* win, const int* first, const int* loc,
          side_of(lspec), side_of(rspec), side_of(nullptr),
          win, first, n_chunks};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int bucket = one_bucket(lflat, rflat, lflat ? r1 : r2,
+                                lflat ? a.ls : a.rs);
+  if (bucket) {
+    OneArgs o = one_args(loc, e, lflat, rflat, lsalts, rsalts, psi, a.nnz,
+                         chunk, span, r1, r2, lspec, rspec);
+    o.win = win;
+    o.n_chunks = n_chunks;
+    o.n_windows = n_windows;
+    return (int)launch_one<true>(o, bucket, n_windows, st);
+  }
   cudaError_t err;
   if (lflat && rflat) {
     err = launch<true, true, true, false, true>(a, n_windows, st);
@@ -1195,6 +1748,37 @@ int tt_psi_window_direct(const int* win, const int* first, const int* loc,
   } else {
     err = launch<true, false, true, false, true>(a, n_windows, st);
   }
+  return (int)err;
+}
+
+// The program a call of tt_psi_fused_slabs (window 0; n: its chunks) or of
+// tt_psi_window_direct (window 1; n: its windows) takes with the given sides
+// present (has_l, has_r: 0 or 1): out[4] = {the one-sided instance's bucket
+// of rows (0: the tiled block program), threads a block, blocks, windows a
+// block (the window kernel; else 0)}.
+int tt_psi_oneside_schedule(int window, int has_l, int has_r, int r1, int r2,
+                            const int* lspec, const int* rspec, int n,
+                            int* out) {
+  const Side sd = side_of(has_l ? lspec : rspec);
+  const int bucket = one_bucket(has_l, has_r, has_l ? r1 : r2, sd);
+  int64_t blocks = n;
+  int warps = THREADS / 32, per = 0;
+  cudaError_t err = cudaSuccess;
+  if (bucket) {
+    const bool sign = sd.kind == SIGN;
+#define ONE_GRID(RB, KIND)                                                 \
+  (window ? one_grid<RB, KIND, true>(n, &blocks, &warps, &per)             \
+          : one_grid<RB, KIND, false>(n, &blocks, &warps, &per))
+    err = sign ? (bucket == 16 ? ONE_GRID(16, SIGN) : ONE_GRID(32, SIGN))
+          : bucket == 8  ? ONE_GRID(8, GAUSS)
+          : bucket == 16 ? ONE_GRID(16, GAUSS)
+                         : ONE_GRID(32, GAUSS);
+#undef ONE_GRID
+  }
+  out[0] = bucket;
+  out[1] = warps * 32;
+  out[2] = (int)blocks;
+  out[3] = per;
   return (int)err;
 }
 

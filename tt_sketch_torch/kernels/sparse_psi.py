@@ -19,6 +19,12 @@ etc.), its int64 column salts and a spec, as in the JAX package:
   salts are those of columns ``[0, nnz)`` (not padded to the TPU's
   multiple of 8 rows).
 
+A call with one side missing and the other hashed, of at most 32 rows (a
+sign side: of rank at most 32), takes instances of the kernel of their own
+(``oneside_schedule``): a lane hashes a column's rows into registers and
+the warp sums runs of equal ``loc`` over its lanes, with no tile in shared
+memory; every other call takes the tiled block program.
+
 ``psi_chunk_slabs`` and ``psi_chunk_slabs_genright`` take a side's rows as a
 float32 ``(r, nnz)`` tensor in the plan's sorted order (a sequential
 sketch's chain state, a TT-DRM's rows): instances of the kernel of their
@@ -237,6 +243,9 @@ def _library() -> ctypes.CDLL:
     lib.tt_psi_omega_merged.restype = i32
     lib.tt_psi_given_schedule.argtypes = [i32] * 6 + [spec] * 2
     lib.tt_psi_given_schedule.restype = i32
+    lib.tt_psi_oneside_schedule.argtypes = [i32] * 5 + [spec] * 2 + [i32,
+                                                                   spec]
+    lib.tt_psi_oneside_schedule.restype = i32
     lib.tt_omega_chunk.argtypes = []
     lib.tt_omega_chunk.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
@@ -458,8 +467,9 @@ def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
     ``chunk_first``); ``loc``, ``se`` and the flats are the plan's padded
     streams of ``n_chunks·chunk`` slots (pads: ``loc == span``, entry 0).
     Either side may be None (the one-sided variant of the boundary modes).
-    One block owns one window and writes each of its rows once: no combine
-    follows.  ``psi_window_direct.launches`` counts kernel launches."""
+    A two-sided call gives each window a block, a one-sided one a warp;
+    either writes each of the window's rows once, and no combine follows.
+    ``psi_window_direct.launches`` counts kernel launches."""
     if lflat is None and rflat is None:
         raise ValueError("psi_window_direct needs a left or a right side")
     r1 = _side_rows(lspec, lflat, lsalts)
@@ -504,6 +514,23 @@ def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
 
 
 psi_window_direct.launches = 0
+
+
+def oneside_schedule(window: bool, lflat, rflat, r1: int, r2: int,
+                     lspec=_GAUSS, rspec=_GAUSS, n: int = 1):
+    """``(bucket, threads a block, blocks, windows a block)`` that a call of
+    ``psi_fused_slabs`` (``window`` False, ``n`` its chunks) or of
+    ``psi_window_direct`` (``n`` its windows) takes on the current card:
+    ``bucket`` is the rows the one-sided instance holds in registers, 0
+    where the tiled block program serves the call (two sides, or more than
+    32 rows).  Needs a card."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    err = lib.tt_psi_oneside_schedule(
+        int(window), int(lflat is not None), int(rflat is not None), r1, r2,
+        _c_spec(lspec), _c_spec(rspec), n, out)
+    _raise_on(lib, err, "tt_psi_oneside_schedule")
+    return tuple(out)
 
 
 def omega_fused(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
