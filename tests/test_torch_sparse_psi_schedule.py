@@ -781,14 +781,14 @@ def _store_given(slab, slab_n, s, acc, b, arow, aok, byi, span):
         slab_n[s, i, k] += 1
 
 
-def _given_plan(nnz, chunk, seed=41):
-    """The JAX package's plan of mode 2 of a random tensor with ``nnz``
-    nonzeros, and the port's copy of it."""
+def _given_plan(nnz, chunk, seed=41, mu=2):
+    """The JAX package's plan of mode ``mu`` of a random tensor with
+    ``nnz`` nonzeros, and the port's copy of it."""
     from tt_sketch_torch.interop import mode_plan_from_numpy
     from tt_sketch_tpu.kernels.sparse_plan import build_psi_plan as j_build
 
     idx, ent = _data(nnz=nnz, seed=seed)
-    jp = j_build(idx, SHAPE, entries=ent, threshold=8, chunk=chunk)[2]
+    jp = j_build(idx, SHAPE, entries=ent, threshold=8, chunk=chunk)[mu]
     p = mode_plan_from_numpy(
         np.asarray(jp.perm), np.asarray(jp.local_idx),
         np.asarray(jp.slot_rows), jp.n_chunks, jp.span, jp.chunk,
@@ -1050,3 +1050,411 @@ def test_given_layout_fits_the_wrappers_limit(case):
     one_more = 8 * salts + 4 * (64 + 1) * (rows + 1) + 4 * 64
     if case == "given 892 + 1":
         assert one_more > SMEM_LIMIT and (ts, ns) == (STRIDES[-1], 1)
+
+
+# -- 5. the one-sided instances, emulated ------------------------------------------
+
+ONE_WARPS, ONE_WARPS_MAX, ONE_STAGE, ONE_MAX_ROWS = (
+    _const(n) for n in ("ONE_WARPS", "ONE_WARPS_MAX", "ONE_STAGE",
+                        "ONE_MAX_ROWS"))
+LANES = 32
+
+
+def one_bucket(has_l, has_r, r, spec):
+    """``one_bucket`` of the kernel source: the rows bucket of a one-sided
+    call's instance, 0 where the tiled block program serves the call."""
+    if has_l == has_r:
+        return 0
+    sign = tuple(spec)[0] == "s"
+    rows = spec[1] if sign else r
+    if r <= 0 or rows > ONE_MAX_ROWS:
+        return 0
+    return 8 if rows <= 8 and not sign else 16 if rows <= 16 else 32
+
+
+class OneStage:
+    """A warp's output stage: ONE_STAGE rows from ``b0`` of the rows ``[..,
+    hi)`` it owns, flushed to ``out`` (counting every element stored)."""
+
+    def __init__(self, out, count, b0, hi, r):
+        self.out, self.count, self.b0, self.hi, self.r = out, count, b0, hi, r
+        self.buf = np.zeros((ONE_STAGE, r), np.float32)
+
+    def flush(self):
+        n = min(self.b0 + ONE_STAGE, self.hi) - self.b0
+        if n > 0:
+            self.out[self.b0:self.b0 + n] = self.buf[:n]
+            self.count[self.b0:self.b0 + n] += 1
+        self.buf[:] = 0
+        self.b0 += ONE_STAGE
+
+    def put(self, row, vals):
+        assert self.b0 <= row < self.hi  # rows come in increasing order
+        while row >= self.b0 + ONE_STAGE:
+            self.flush()
+        self.buf[row - self.b0] = vals
+
+    def finish(self):
+        while self.b0 < self.hi:
+            self.flush()
+
+
+def _lane_zero(acc, holder):
+    """``gather_acc``: lane 0's sums, by the xor butterfly when the partial
+    is spread over the lanes (holder < 0), else from the holding lane."""
+    if holder >= 0:
+        return acc[holder].copy()
+    x = acc.copy()
+    for o in (16, 8, 4, 2, 1):
+        x = (x + x[np.arange(LANES) ^ o]).astype(np.float32)
+    return x[0]
+
+
+def one_part(loc, P, lo, hi, t_row, span, win, stage, slots, steps):
+    """One warp over the columns ``[lo, hi)`` as ``one_part`` of the kernel
+    source: ``P`` (N, r) the products e·row of every column (a pad's are
+    0); ``slots`` the head and tail ``[row, sums]`` of a fused part (None:
+    the window, whose stage owns every row); ``steps`` counts the steps that
+    continue the open run and the others."""
+    r = P.shape[1]
+    lanes = np.arange(LANES)
+    acc = np.zeros((LANES, r), np.float32)
+    s_cur, holder, head_open = int(loc[lo]), 0, not win
+    for k0 in range(lo, hi, LANES):
+        k = k0 + lanes
+        inn = k < hi
+        kc = np.minimum(k, hi - 1)
+        lc = np.where(inn, loc[kc], span if win else t_row)
+        f, l = int(lc[0]), int(lc[-1])
+        if win and f >= span:
+            break  # the rest are pads
+        p = np.where(inn[:, None], P[kc], 0).astype(np.float32)
+        cont = f == l == s_cur
+        steps["continue" if cont else "runs"] += 1
+        if cont:
+            acc = (acc + p).astype(np.float32)
+            holder = -1
+            continue
+        carry = _lane_zero(acc, holder)
+        x = p
+        first = np.r_[True, lc[1:] != lc[:-1]]
+        starts = np.r_[np.flatnonzero(first), LANES]
+        longest = int(np.diff(starts).max())
+        o = 1
+        while o < longest:  # a run's sum onto its first lane
+            nb = np.minimum(lanes + o, LANES - 1)
+            same = (lanes + o < LANES) & (lc[nb] == lc)
+            x = np.where(same[:, None], x + x[nb], x).astype(np.float32)
+            o *= 2
+        merge = f == s_cur
+        close = (carry + x[0]).astype(np.float32) if merge else carry
+        if not win and head_open:
+            slots[0] = [s_cur, close]
+        elif s_cur < stage.hi:
+            stage.put(s_cur, close)
+        head_open = False
+        for i in np.flatnonzero(first & (lc != l)):
+            if not (i == 0 and merge):
+                stage.put(int(lc[i]), x[i])
+        last = int(np.flatnonzero(first & (lc == l))[-1])
+        acc = np.zeros((LANES, r), np.float32)
+        acc[last] = x[last]
+        holder, s_cur = last, l
+    tot = _lane_zero(acc, holder)
+    if not win:
+        slots[0 if head_open else 1] = [s_cur, tot]
+    elif s_cur < stage.hi:
+        stage.put(s_cur, tot)
+    stage.finish()
+
+
+def one_fused(loc, P, nnz, n_chunks, span, chunk, warps=ONE_WARPS):
+    """Every block of the fused one-sided instance, of ``warps`` warps
+    (ONE_WARPS_MAX where the grid fits the card at once): ``(slabs
+    (n_chunks, span, r), stores per element, steps)``."""
+    r = P.shape[1]
+    slabs = np.full((n_chunks, span, r), np.nan, np.float32)
+    count = np.zeros((n_chunks, span, r), np.int64)
+    steps = {"continue": 0, "runs": 0}
+    for g in range(n_chunks):
+        start, end = g * chunk, min(g * chunk + chunk, nnz)
+        n = max(end - start, 0)
+        q = -(-(-(-n // warps)) // LANES) * LANES
+        slots = []
+        for w in range(warps):
+            lo, hi = start + w * q, min(start + w * q + q, end)
+            s = [None, None]
+            if lo < hi:
+                h_row, t_row = int(loc[lo]), int(loc[hi - 1])
+                st = OneStage(slabs[g], count[g], h_row + 1, t_row, r)
+                one_part(loc, P, lo, hi, t_row, span, False, st, s, steps)
+            slots.append(s)
+        _one_combine(slots, slabs[g], count[g], span)
+    return slabs, count, steps
+
+
+def _one_combine(slots, slab, count, span):
+    """Warp 0 after the barrier: heads and tails in warp order, each of
+    their rows stored once, zeros on the rows no warp's stage owns."""
+    entries = [(s[u][0], s[u][1], u == 0 and s[1] is not None)
+               for s in slots for u in (0, 1) if s[u] is not None]
+    cur, total, owned, done = -1, None, False, 0
+
+    def zero_to(row):
+        slab[done:row] = 0
+        count[done:row] += 1
+
+    for row, v, head_with_tail in entries:
+        if row == cur:
+            total = (total + v).astype(np.float32)
+        else:
+            if cur >= 0:
+                slab[cur] = total
+                count[cur] += 1
+                done = cur + 1
+            if not owned:
+                zero_to(row)
+            cur, total = row, v.copy()
+        owned = head_with_tail
+        if not owned:
+            done = row + 1
+    if cur >= 0:
+        slab[cur] = total
+        count[cur] += 1
+    done = cur + 1
+    zero_to(span)
+
+
+def one_window(win, loc, P, n_chunks, span, chunk, n_windows, fit):
+    """Every block of the window one-sided instance, ``fit`` blocks on the
+    card at once: ``(psi (n_windows·span, r), stores per element, steps,
+    windows a block)``."""
+    r = P.shape[1]
+    psi = np.full((n_windows * span, r), np.nan, np.float32)
+    count = np.zeros((n_windows * span, r), np.int64)
+    steps = {"continue": 0, "runs": 0}
+    blocks = min(-(-n_windows // ONE_WARPS), fit)
+    per = -(-n_windows // blocks)
+    blocks = -(-n_windows // per)
+    for b in range(blocks):
+        w1 = min(b * per + per, n_windows)
+        for warp in range(ONE_WARPS):
+            for w in range(b * per + warp, w1, ONE_WARPS):
+                c_lo = int(np.searchsorted(win, w, "left"))
+                c_hi = int(np.searchsorted(win, w, "right"))
+                rows = slice(w * span, (w + 1) * span)
+                st = OneStage(psi[rows], count[rows], 0, span, r)
+                lo, hi = c_lo * chunk, c_hi * chunk
+                if lo < hi:
+                    one_part(loc, P, lo, hi, span, span, True, st, None,
+                             steps)
+                else:
+                    st.finish()
+    return psi, count, steps, per
+
+
+def _one_side(kind, r, seed, flat, n, ent, weight):
+    """(spec, salts, products (n, r)) of a present side: Gaussian rows, or
+    sign rows of rank ``r`` (r_out ``r``) from min(r, 5) draws."""
+    if kind == "g":
+        spec, salts = GAUSS, drm_salts(0, r, seed)
+    else:
+        spec, salts = ("s", r, min(r, 5), 0, r), drm_salts(0, min(r, 5), seed)
+    rows = SP._rows(flat, salts, spec, n, ent, ent).numpy()
+    return spec, salts, np.ascontiguousarray(rows.T)
+
+
+ONE_FUSED = {
+    "left gauss 10": ("left", "g", 10, None),
+    "right gauss 10": ("right", "g", 10, None),
+    "left sign 10": ("left", "s", 10, None),
+    "right sign 16": ("right", "s", 16, None),
+    "left gauss 1": ("left", "g", 1, None),
+    "right gauss 31, chunk 100": ("right", "g", 31, 100),
+    "left sign 32": ("left", "s", 32, None),
+    "right sign 1": ("right", "s", 1, None),
+    "left gauss 32, chunk 33": ("left", "g", 32, 33),
+    "right gauss 10, one-column chunks": ("right", "g", 10, 1),
+}
+
+
+@pytest.mark.parametrize("warps", [ONE_WARPS, ONE_WARPS_MAX],
+                         ids=lambda w: f"{w} warps")
+@pytest.mark.parametrize("case", ONE_FUSED, ids=list(ONE_FUSED))
+def test_oneside_fused_schedule_stores_once_and_sums(case, warps):
+    """The fused one-sided instance: each slab element stored once (zeros
+    included), the sums against the plain version; runs that cross lanes,
+    warps and steps, and steps that continue a run."""
+    side, kind, r, chunk = ONE_FUSED[case]
+    plans, nnz = _plans(threshold=8, chunk=chunk)
+    plan = plans[3 if side == "left" else 0]
+    assert isinstance(plan, ModePlan)
+    ent = plan.sorted_entries
+    flat = plan.flat_left if side == "left" else plan.flat_right
+    spec, salts, P = _one_side(kind, r, 5, flat, nnz, ent, ent)
+    assert one_bucket(side == "left", side == "right", r, spec) > 0
+    loc = plan.local_idx.numpy()
+    got, count, steps = one_fused(loc, P, nnz, plan.n_chunks, plan.span,
+                                  plan.chunk, warps)
+    assert (count == 1).all()
+    args = (None, flat, None, salts) if side == "right" else \
+        (flat, None, salts, None)
+    ref = SP.psi_fused_slabs_reference(
+        plan.local_idx, ent, *args, plan.n_chunks, plan.span, plan.chunk,
+        *((GAUSS, spec) if side == "right" else (spec, GAUSS)))
+    assert _rel(got, ref.numpy().reshape(got.shape)) <= PSI_TOL
+    if chunk is None:
+        assert steps["continue"] > 0 and steps["runs"] > 0
+
+
+def _skewed_window_plan(span=32, chunk=64, nnz=3001, seed=31):
+    """A window plan of a skewed mode (3000 rows): a hot window of several
+    chunks (rows of long runs), hot rows spread over windows of one or two
+    chunks (runs of one or two nnz), a gap of empty windows; the JAX
+    package's plan and the port's copy of it."""
+    from tt_sketch_tpu.kernels.sparse_plan import build_window_plan as j_win
+
+    from tt_sketch_torch.kernels.sparse_plan import build_window_plan
+
+    shape, mu = (11, 9, 3000, 25), 2
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.integers(0, s, nnz) for s in shape]).astype(np.int64)
+    u = rng.random(nnz)
+    idx[mu] = np.where(u < 0.25, rng.integers(0, 4, nnz),  # 4 hot rows
+                       np.where(u < 0.6, rng.integers(100, 500, nnz),
+                                rng.integers(2400, 3000, nnz)))
+    ent = rng.standard_normal(nnz).astype(np.float32)
+    kw = dict(span=span, chunk=chunk, full_indices=idx, mu=mu, shape=shape,
+              entries=ent)
+    return (build_window_plan(idx[mu], shape[mu], device="cpu", **kw),
+            j_win(idx[mu], shape[mu], **kw))
+
+
+ONE_WINDOW = {
+    "left gauss 10": ("left", "g", 10, 1 << 20),
+    "right gauss 10": ("right", "g", 10, 1 << 20),
+    "left sign 10": ("left", "s", 10, 1 << 20),
+    "right sign 32": ("right", "s", 32, 1 << 20),
+    "left gauss 1, three windows a block": ("left", "g", 1, 8),
+    "right gauss 31, eleven windows a block": ("right", "g", 31, 3),
+    "left gauss 32": ("left", "g", 32, 1 << 20),
+    "left sign 31": ("left", "s", 31, 1 << 20),
+}
+
+
+@pytest.mark.parametrize("case", ONE_WINDOW, ids=list(ONE_WINDOW))
+def test_oneside_window_schedule_stores_once_and_sums(case):
+    """The window one-sided instance: a warp owns whole windows (empty ones,
+    windows of one to several chunks, runs crossing lanes, steps and chunk
+    boundaries, a window's last step ending in pads), every row of every
+    window stored once, the sums against the plain version."""
+    side, kind, r, fit = ONE_WINDOW[case]
+    p, _ = _skewed_window_plan()
+    n_pad = p.n_chunks * p.chunk
+    ent = p.sorted_entries
+    flat = p.flat_left if side == "left" else p.flat_right
+    spec, salts, P = _one_side(kind, r, 7, flat, n_pad, ent, ent)
+    assert one_bucket(side == "left", side == "right", r, spec) > 0
+    win, loc = p.chunk_window.numpy(), p.local_idx.numpy()
+    per_window = np.bincount(win, minlength=p.n_windows)
+    assert per_window.max() >= 3 and (per_window == 1).any()
+    real = (loc.reshape(p.n_chunks, -1) < p.span).any(1)
+    empty = np.setdiff1d(np.arange(p.n_windows), win[real])
+    assert empty.size > 0  # windows of pads alone
+    got, count, steps, per = one_window(win, loc, P, p.n_chunks, p.span,
+                                        p.chunk, p.n_windows, fit)
+    assert (count == 1).all()
+    assert steps["continue"] > 0 and steps["runs"] > 0
+    if fit < 16:
+        assert per > ONE_WARPS  # a warp takes several windows in turn
+    args = (None, flat, None, salts) if side == "right" else \
+        (flat, None, salts, None)
+    ref = SP.psi_window_direct_reference(
+        p.chunk_window, p.chunk_first, p.local_idx, ent, *args, p.n_chunks,
+        p.span, p.chunk, p.n_windows,
+        *((GAUSS, spec) if side == "right" else (spec, GAUSS)))
+    assert _rel(got, ref.numpy().reshape(got.shape)) <= PSI_TOL
+    assert not got.reshape(p.n_windows, p.span, r)[empty].any()
+
+
+def _jax_salts(spec, n_salts, seed):
+    """The JAX kernels' salts of a side: a sign side's padded to its
+    working range of rows (multiples of 8)."""
+    from tt_sketch_tpu.kernels import pallas_rng as JR
+
+    if tuple(spec) == GAUSS:
+        return JR.drm_salts(0, n_salts, seed)
+    _, rank, _, rank_min, r_out = spec
+    r_full = -(-max(rank, rank_min + -(-max(r_out, 1) // 8) * 8) // 8) * 8
+    return JR.drm_salts(0, r_full, seed)
+
+
+ONE_PALLAS = {
+    "fused, no right side, gauss 10": ("fused", "left", "g", 10),
+    "fused, no left side, sign 13": ("fused", "right", "s", 13),
+    "window, no right side, sign 10": ("window", "left", "s", 10),
+    "window, no left side, gauss 7": ("window", "right", "g", 7),
+}
+
+
+@pytest.mark.parametrize("case", ONE_PALLAS, ids=list(ONE_PALLAS))
+def test_oneside_schedule_matches_pallas(pallas_interpret, case):
+    """The one-sided emulation against the Pallas kernels in interpret mode
+    (``_fused_kernel_noright``, ``_fused_kernel_noleft``,
+    ``_window_kernel_oneside``) on the JAX package's plans."""
+    from tt_sketch_tpu.kernels import pallas_psi as JP
+
+    kernel, side, kind, r = ONE_PALLAS[case]
+    left = side == "left"
+    if kernel == "fused":
+        jp, p = _given_plan(1500, 256, mu=3 if left else 0)
+        n_pad = p.sorted_entries.shape[0]
+    else:
+        p, jp = _skewed_window_plan(span=24, chunk=96, nnz=2000, seed=5)
+        n_pad = p.n_chunks * p.chunk
+    ent = p.sorted_entries
+    flat = p.flat_left if left else p.flat_right
+    spec, salts, P = _one_side(kind, r, 3, flat, n_pad, ent, ent)
+    jsalts = _jax_salts(spec, salts.shape[0], 3)
+    jflats = (jp.flat_left, None) if left else (None, jp.flat_right)
+    jside = dict(lspec=spec, rspec=GAUSS) if left else \
+        dict(lspec=GAUSS, rspec=spec)
+    loc = p.local_idx.numpy()
+    if kernel == "fused":
+        got, count, _ = one_fused(loc, P, n_pad, p.n_chunks, p.span,
+                                  p.chunk)
+        ref = JP.psi_fused_slabs(
+            jp.local_idx, jp.sorted_entries, *jflats,
+            *((jsalts, None) if left else (None, jsalts)),
+            n_chunks=jp.n_chunks, span=jp.span, chunk=jp.chunk,
+            interpret=True, **jside)
+    else:
+        got, count, _, _ = one_window(p.chunk_window.numpy(), loc, P,
+                                      p.n_chunks, p.span, p.chunk,
+                                      p.n_windows, 1 << 20)
+        ref = JP.psi_window_direct(
+            jp.chunk_window, jp.chunk_first, jp.local_idx, jp.sorted_entries,
+            *jflats, *((jsalts, None) if left else (None, jsalts)),
+            n_chunks=jp.n_chunks, span=jp.span, chunk=jp.chunk,
+            n_windows=jp.n_windows, interpret=True, **jside)
+    assert (count == 1).all()
+    ref = np.asarray(ref)[:, :, :r].reshape(got.shape)
+    assert _rel(got, ref) <= PSI_TOL
+
+
+@pytest.mark.parametrize("sides,r,spec,bucket", [
+    ((True, False), 10, GAUSS, 16), ((False, True), 8, GAUSS, 8),
+    ((True, False), 32, GAUSS, 32), ((False, True), 1, GAUSS, 8),
+    ((True, False), 5, ("s", 32, 7, 20, 5), 32),
+    ((False, True), 9, ("s", 16, 16, 0, 9), 16),
+    ((True, False), 33, GAUSS, 0), ((False, True), 3, ("s", 33, 5, 0, 3), 0),
+    ((True, True), 10, GAUSS, 0)],
+    ids=["left 10", "right 8", "left 32", "right 1", "sign 5 of 32",
+         "sign 9 of 16", "rank 33: tiled", "sign rank 33: tiled",
+         "two-sided: tiled"])
+def test_oneside_dispatch_by_shape(sides, r, spec, bucket):
+    """Which calls take the one-sided instances (the bucket of their rows),
+    and which the tiled block program: a side of more than ONE_MAX_ROWS rows
+    (a sign side: of rank), and every two-sided call."""
+    assert one_bucket(*sides, r, spec) == bucket
+    assert ONE_MAX_ROWS == 32
