@@ -1361,7 +1361,93 @@ def path_figures(paths, worst, ops, phase=6):
             if name in ("psi_chunk_slabs", "psi_chunk_slabs_genright"):
                 res[name][label]["per_launch"] = given_launches(
                     name, label, calls, ops, phase)
+            if name in ONESIDE_KERNELS:
+                res[name][label]["per_launch"] = oneside_launches(
+                    name, label, calls, ops, phase)
     return res
+
+
+#: the kernels whose one-sided calls take the one-sided instances of
+#: csrc/sparse_psi.cu (rows 6 and 9 of PERF.md's table)
+ONESIDE_KERNELS = ("psi_fused_slabs", "psi_window_direct")
+
+
+def _oneside_operands(name, args):
+    """``(lflat, rflat, lsalts, rsalts, lspec, rspec, n)`` of a call of
+    ``psi_fused_slabs`` (``n``: its chunks) or ``psi_window_direct``
+    (``n``: its windows); specs left out are Gaussian."""
+    if name == "psi_fused_slabs":
+        lflat, rflat, lsalts, rsalts, n = args[2:7]
+        specs = args[9:]
+    else:
+        lflat, rflat, lsalts, rsalts = args[4:8]
+        n, specs = args[11], args[12:]
+    lspec, rspec = (tuple(specs) + (GAUSS, GAUSS))[:2]
+    return lflat, rflat, lsalts, rsalts, lspec, rspec, n
+
+
+def oneside_schedule(name, args):
+    """``(bucket, threads, blocks, windows a block)`` that a call of
+    ``psi_fused_slabs`` or ``psi_window_direct`` (``args``: its arguments)
+    takes on this card; bucket 0: the tiled block program."""
+    from tt_sketch_torch.kernels import sparse_psi as SP
+
+    lflat, rflat, lsalts, rsalts, lspec, rspec, n = _oneside_operands(
+        name, args)
+    r1 = SP._side_rows(lspec, lflat, lsalts)
+    r2 = SP._side_rows(rspec, rflat, rsalts)
+    return SP.oneside_schedule(name == "psi_window_direct", lflat, rflat, r1,
+                               r2, lspec, rspec, n)
+
+
+def _oneside_expected(name, args):
+    """Whether a call must take a one-sided instance: one side missing and
+    the other of at most 32 rows (a sign side: of rank at most 32)."""
+    lflat, rflat, lsalts, rsalts, lspec, rspec, _ = _oneside_operands(
+        name, args)
+    if (lflat is None) == (rflat is None):
+        return False
+    salts, spec = (lsalts, lspec) if lflat is not None else (rsalts, rspec)
+    return (spec[1] if spec[0] == "s" else salts.shape[0]) <= 32
+
+
+def oneside_launches(name, label, calls, ops, phase=6):
+    """Each recorded launch of ``psi_fused_slabs`` or ``psi_window_direct``
+    (rows 6 and 9 of PERF.md's table) on its own line: its sides, the
+    instance it takes (a one-sided call must take a one-sided instance),
+    its time alone and over ten calls back to back, in phase 6 its device
+    time from the profiler, its bound and the ratios."""
+    kern = _kernel_fns()[name][0]
+    out = []
+    for i, args in enumerate(calls):
+        bucket, threads, blocks, per = oneside_schedule(name, args)
+        if _oneside_expected(name, args) != (bucket > 0):
+            raise AssertionError(f"{name} {label} call {i}: instance bucket "
+                                 f"{bucket} for this call's sides")
+        ms = time_ms(lambda: kern(*args))
+        b2b = time_ms(lambda: [kern(*args) for _ in range(10)]) / 10
+        dev = device_ms(lambda: kern(*args)) if phase == 6 else None
+        b_ms, b_by = sparse_bound(name, args, ops)
+        lflat, rflat = args[2:4] if name == "psi_fused_slabs" else args[4:6]
+        sides = ("two-sided" if lflat is not None and rflat is not None
+                 else "left side only" if rflat is None else
+                 "right side only")
+        how = (f"one-sided instance, {bucket} rows in registers"
+               if bucket else "tiled block program")
+        print(f"# phase {phase}: {name} {label} call {i}: {sides}, {how}, "
+              f"{blocks} blocks of {threads} threads"
+              + (f", {per} windows a block" if per else "") +
+              f": {ms:.3f} ms alone, {b2b:.3f} ms back to back"
+              + (f", device {dev:.4f} ms" if dev is not None else "") +
+              f", bound {b_ms:.4f} ms by {b_by} ({ms / b_ms:.2f}x, "
+              f"{b2b / b_ms:.2f}x"
+              + (f", device {dev / b_ms:.2f}x" if dev is not None else "")
+              + ")")
+        out.append({"call": i, "sides": sides, "bucket": bucket,
+                    "blocks": blocks, "threads": threads,
+                    "windows_a_block": per, "ms": ms, "back_to_back_ms": b2b,
+                    "device_ms": dev, "bound_ms": b_ms, "bound_by": b_by})
+    return out
 
 
 def given_launches(name, label, calls, ops, phase=6):
@@ -1650,6 +1736,97 @@ def phase_window_kernel():
         _check("psi_window_direct", f"skewed, {n} x no right",
                (*streams, p.flat_left, None, salt(1), None, *geom, sp,
                 GAUSS), phase=8)
+    oneside_edges()
+
+
+#: the present side's rows at the one-sided instances' edges: Gaussian and
+#: sign (rank r, min(r, 5) draws); 33 takes the tiled block program
+ONESIDE_EDGE_RANKS = (1, 10, 32, 33)
+
+
+def oneside_edges():
+    """Phase 8 (3): ``psi_fused_slabs`` and ``psi_window_direct`` with one
+    side missing, left-only and right-only, Gaussian and sign, at ranks
+    ``ONESIDE_EDGE_RANKS``, on a skewed mode (runs of hundreds of nnz and
+    of one) and on a skewed window plan of lbnl's span and chunk (empty
+    windows, a window of at least 3 chunks): against the plain versions,
+    the same bits from two calls, each call's instance printed and
+    asserted."""
+    import torch
+
+    from tt_sketch_torch.kernels.sparse_plan import (
+        build_mode_plan,
+        build_window_plan,
+    )
+    from tt_sketch_torch.rng.hash_rng import drm_salts
+
+    rng = np.random.default_rng(37)
+    # a mode of 20,000 rows: 40 hot rows (runs of hundreds) and rows with
+    # one or two nnz
+    nnz, n_mu = 300_001, 20_000
+    rows = np.where(rng.random(nnz) < 0.6, rng.integers(0, 40, nnz),
+                    rng.integers(40, n_mu, nnz))
+    mp = build_mode_plan(rows, n_mu, device="cuda")
+    flat_m = torch.randint(0, 1 << 40, (nnz,), device="cuda")
+    se_m = torch.randn(nnz, device="cuda")
+    # a window plan at lbnl's span 256 and chunk 512 of a last mode (its
+    # left flats serve either side): hot rows make a window of several
+    # chunks, a gap makes empty windows
+    shape, mu, nw_nnz = (7, 5, 60_000), 2, 20_003
+    idx = np.stack([rng.integers(0, n, nw_nnz) for n in shape])
+    u = rng.random(nw_nnz)
+    idx[mu] = np.where(u < 0.1, rng.integers(0, 3, nw_nnz),
+                       np.where(u < 0.5, rng.integers(1000, 9000, nw_nnz),
+                                rng.integers(40_000, 60_000, nw_nnz)))
+    ent = rng.standard_normal(nw_nnz).astype(np.float32)
+    wp = build_window_plan(idx[mu], shape[mu], full_indices=idx, mu=mu,
+                           shape=shape, entries=ent, device="cuda")
+    win = wp.chunk_window.cpu().numpy()
+    real = (wp.local_idx.cpu().numpy().reshape(wp.n_chunks, -1)
+            < wp.span).any(1)
+    per_window = np.bincount(win, minlength=wp.n_windows)
+    empty = wp.n_windows - np.unique(win[real]).shape[0]
+    print(f"# phase 8: one-sided edges on {mp} and {wp}: {empty} empty "
+          f"windows, longest window {per_window.max()} chunks")
+    if not (empty > 0 and per_window.max() >= 3):
+        raise AssertionError("the window plan lacks empty windows or a "
+                             "window of 3 chunks")
+    for r in ONESIDE_EDGE_RANKS:
+        for kind in ("gauss", "sign"):
+            if kind == "gauss":
+                spec, salts = GAUSS, drm_salts(0, r, 41, device="cuda")
+            else:
+                spec = ("s", r, min(r, 5), 0, r)
+                salts = drm_salts(0, min(r, 5), 42, device="cuda")
+            for side in ("left", "right"):
+                left = side == "left"
+                specs = (spec, GAUSS) if left else (GAUSS, spec)
+                cases = (
+                    ("psi_fused_slabs", (
+                        mp.local_idx, se_m, *((flat_m, None) if left
+                                              else (None, flat_m)),
+                        *((salts, None) if left else (None, salts)),
+                        mp.n_chunks, mp.span, mp.chunk, *specs)),
+                    ("psi_window_direct", (
+                        wp.chunk_window, wp.chunk_first, wp.local_idx,
+                        wp.sorted_entries,
+                        *((wp.flat_left, None) if left
+                          else (None, wp.flat_left)),
+                        *((salts, None) if left else (None, salts)),
+                        wp.n_chunks, wp.span, wp.chunk, wp.n_windows,
+                        *specs)))
+                for name, args in cases:
+                    bucket, threads, blocks, per = oneside_schedule(name,
+                                                                    args)
+                    if (bucket > 0) != (r <= 32):
+                        raise AssertionError(f"{name} {side} {kind} {r}: "
+                                             f"bucket {bucket}")
+                    label = (f"one-sided edge, {side} side {kind} {r} "
+                             f"(bucket {bucket}, {blocks} blocks"
+                             + (f", {per} windows a block" if per else "")
+                             + ")")
+                    _check(name, label, args, phase=8)
+                    _same_bits(name, label, args, phase=8)
 
 
 def profile_window(run, n=3):
