@@ -1069,12 +1069,15 @@ def one_bucket(has_l, has_r, r, spec):
     rows = spec[1] if sign else r
     if r <= 0 or rows > ONE_MAX_ROWS:
         return 0
-    return 8 if rows <= 8 and not sign else 16 if rows <= 16 else 32
+    if sign:
+        return 16 if rows <= 16 else 32
+    return next(b for b in (8, 16, 24, 32) if rows <= b)
 
 
 class OneStage:
     """A warp's output stage: ONE_STAGE rows from ``b0`` of the rows ``[..,
-    hi)`` it owns, flushed to ``out`` (counting every element stored)."""
+    hi)`` it owns, open for adds until a row past them comes, then flushed
+    to ``out`` (counting every element stored)."""
 
     def __init__(self, out, count, b0, hi, r):
         self.out, self.count, self.b0, self.hi, self.r = out, count, b0, hi, r
@@ -1088,38 +1091,44 @@ class OneStage:
         self.buf[:] = 0
         self.b0 += ONE_STAGE
 
-    def put(self, row, vals):
+    def add(self, row, vals):
         assert self.b0 <= row < self.hi  # rows come in increasing order
         while row >= self.b0 + ONE_STAGE:
             self.flush()
-        self.buf[row - self.b0] = vals
+        self.buf[row - self.b0] += vals
 
     def finish(self):
         while self.b0 < self.hi:
             self.flush()
 
 
-def _lane_zero(acc, holder):
-    """``gather_acc``: lane 0's sums, by the xor butterfly when the partial
-    is spread over the lanes (holder < 0), else from the holding lane."""
-    if holder >= 0:
-        return acc[holder].copy()
+def _lanes_sum(acc):
+    """``lanes_sum``: lane 0's sums by the xor butterfly over the lanes."""
     x = acc.copy()
     for o in (16, 8, 4, 2, 1):
         x = (x + x[np.arange(LANES) ^ o]).astype(np.float32)
     return x[0]
 
 
-def one_part(loc, P, lo, hi, t_row, span, win, stage, slots, steps):
+def one_part(loc, P, lo, hi, h_row, t_row, span, win, stage, slots, steps):
     """One warp over the columns ``[lo, hi)`` as ``one_part`` of the kernel
     source: ``P`` (N, r) the products e·row of every column (a pad's are
-    0); ``slots`` the head and tail ``[row, sums]`` of a fused part (None:
-    the window, whose stage owns every row); ``steps`` counts the steps that
-    continue the open run and the others."""
+    0); a row's sums are added to ``slots`` (head, tail) for rows ``h_row``
+    and ``t_row`` of a fused part, else to the stage; ``steps`` counts the
+    steps that continue the open run and the others."""
     r = P.shape[1]
     lanes = np.arange(LANES)
     acc = np.zeros((LANES, r), np.float32)
-    s_cur, holder, head_open = int(loc[lo]), 0, not win
+    s_cur, spread = int(loc[lo]), False
+
+    def add(row, vals):
+        if row == h_row:
+            slots[0][1] += vals
+        elif row == t_row:
+            slots[1][1] += vals
+        else:
+            stage.add(row, vals)
+
     for k0 in range(lo, hi, LANES):
         k = k0 + lanes
         inn = k < hi
@@ -1131,11 +1140,13 @@ def one_part(loc, P, lo, hi, t_row, span, win, stage, slots, steps):
         p = np.where(inn[:, None], P[kc], 0).astype(np.float32)
         cont = f == l == s_cur
         steps["continue" if cont else "runs"] += 1
+        if not cont and spread:
+            add(s_cur, _lanes_sum(acc))
+            spread = False
         if cont:
             acc = (acc + p).astype(np.float32)
-            holder = -1
+            spread = True
             continue
-        carry = _lane_zero(acc, holder)
         x = p
         first = np.r_[True, lc[1:] != lc[:-1]]
         starts = np.r_[np.flatnonzero(first), LANES]
@@ -1146,25 +1157,13 @@ def one_part(loc, P, lo, hi, t_row, span, win, stage, slots, steps):
             same = (lanes + o < LANES) & (lc[nb] == lc)
             x = np.where(same[:, None], x + x[nb], x).astype(np.float32)
             o *= 2
-        merge = f == s_cur
-        close = (carry + x[0]).astype(np.float32) if merge else carry
-        if not win and head_open:
-            slots[0] = [s_cur, close]
-        elif s_cur < stage.hi:
-            stage.put(s_cur, close)
-        head_open = False
-        for i in np.flatnonzero(first & (lc != l)):
-            if not (i == 0 and merge):
-                stage.put(int(lc[i]), x[i])
-        last = int(np.flatnonzero(first & (lc == l))[-1])
+        for i in np.flatnonzero(first):
+            if not (win and lc[i] >= span):
+                add(int(lc[i]), x[i])
         acc = np.zeros((LANES, r), np.float32)
-        acc[last] = x[last]
-        holder, s_cur = last, l
-    tot = _lane_zero(acc, holder)
-    if not win:
-        slots[0 if head_open else 1] = [s_cur, tot]
-    elif s_cur < stage.hi:
-        stage.put(s_cur, tot)
+        s_cur = l
+    if spread and not (win and s_cur >= span):
+        add(s_cur, _lanes_sum(acc))
     stage.finish()
 
 
@@ -1186,8 +1185,12 @@ def one_fused(loc, P, nnz, n_chunks, span, chunk, warps=ONE_WARPS):
             s = [None, None]
             if lo < hi:
                 h_row, t_row = int(loc[lo]), int(loc[hi - 1])
+                s = [[h_row, np.zeros(r, np.float32)],
+                     [t_row, np.zeros(r, np.float32)] if t_row != h_row
+                     else None]
                 st = OneStage(slabs[g], count[g], h_row + 1, t_row, r)
-                one_part(loc, P, lo, hi, t_row, span, False, st, s, steps)
+                one_part(loc, P, lo, hi, h_row, t_row, span, False, st, s,
+                         steps)
             slots.append(s)
         _one_combine(slots, slabs[g], count[g], span)
     return slabs, count, steps
@@ -1246,7 +1249,7 @@ def one_window(win, loc, P, n_chunks, span, chunk, n_windows, fit):
                 st = OneStage(psi[rows], count[rows], 0, span, r)
                 lo, hi = c_lo * chunk, c_hi * chunk
                 if lo < hi:
-                    one_part(loc, P, lo, hi, span, span, True, st, None,
+                    one_part(loc, P, lo, hi, -1, -1, span, True, st, None,
                              steps)
                 else:
                     st.finish()
@@ -1445,11 +1448,13 @@ def test_oneside_schedule_matches_pallas(pallas_interpret, case):
 @pytest.mark.parametrize("sides,r,spec,bucket", [
     ((True, False), 10, GAUSS, 16), ((False, True), 8, GAUSS, 8),
     ((True, False), 32, GAUSS, 32), ((False, True), 1, GAUSS, 8),
+    ((False, True), 20, GAUSS, 24), ((True, False), 17, GAUSS, 24),
     ((True, False), 5, ("s", 32, 7, 20, 5), 32),
     ((False, True), 9, ("s", 16, 16, 0, 9), 16),
     ((True, False), 33, GAUSS, 0), ((False, True), 3, ("s", 33, 5, 0, 3), 0),
     ((True, True), 10, GAUSS, 0)],
-    ids=["left 10", "right 8", "left 32", "right 1", "sign 5 of 32",
+    ids=["left 10", "right 8", "left 32", "right 1", "right 20", "left 17",
+         "sign 5 of 32",
          "sign 9 of 16", "rank 33: tiled", "sign rank 33: tiled",
          "two-sided: tiled"])
 def test_oneside_dispatch_by_shape(sides, r, spec, bucket):

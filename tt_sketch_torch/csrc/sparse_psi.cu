@@ -1079,39 +1079,40 @@ cudaError_t launch_given(Args a, int64_t n_blocks, cudaStream_t stream) {
 // loc in a fixed order; no sample goes through shared memory.
 //
 //   - a step is 32 consecutive columns, one a lane (loc, e and the flat
-//     index are coalesced loads);
+//     index are coalesced loads, issued a step ahead);
 //   - a step whose 32 columns continue the open run (loc equal to it on
 //     both ends: loc is non-decreasing) adds into acc: the run's partial is
-//     then spread over the lanes;
-//   - any other step first parks the open run's partial in the warp's carry
-//     (a butterfly over the lanes when it is spread, else the one lane that
-//     holds it), generates acc fresh and sums each run of the step onto the
-//     run's first lane (a segmented suffix sum over the lanes, keyed on
-//     loc); the open run closes (carry plus the step's first run when that
-//     continues it), every run between the first and the last is complete,
-//     and the last run stays open in its first lane;
-//   - a closed run's row goes to the warp's output stage, ONE_STAGE rows of
-//     shared memory that slide over the rows the warp owns in increasing
-//     order: a row past the stage flushes it to the output with coalesced
-//     stores, zeros included, and the stage starts at the next ONE_STAGE
-//     rows.  Every output row is stored once, zeros included: no zero pass.
+//     then spread over the lanes, and the next other step first adds its
+//     butterfly sum to the run's row;
+//   - any other step sums each of its runs onto the run's first lane (a
+//     segmented suffix sum over the lanes, keyed on loc, in as many rounds
+//     as its longest run needs), and that lane adds the sums to the run's
+//     row;
+//   - a row's sums go to the warp's output stage, ONE_STAGE rows of shared
+//     memory that slide over the rows the warp owns in increasing order; a
+//     row stays open for adds until a row past the stage comes, which
+//     flushes the stage to the output with coalesced stores, zeros
+//     included, and moves it on ONE_STAGE rows.  Every output row is stored
+//     once, zeros included: there is no zero pass.
 //
-// psi_fused_slabs: one block per plan chunk, ONE_WARPS warps over contiguous
-// parts of it.  A warp owns the rows strictly between its part's first row
-// (its head) and its last (its tail); its head and tail runs go to shared
-// memory, and after a barrier warp 0 adds the heads and tails in warp order,
-// stores each of their rows once and zeroes the rows no warp owns.
-// psi_window_direct: a warp owns whole windows (one window's run, all span
-// rows of it: no combine), a block a contiguous run of windows, and the grid
-// the blocks the card holds at once.  A warp finds its window's chunks in the
-// non-decreasing chunk_window by a 32-way search (each lane one probe), and
-// stops at the first step that starts on a pad (loc == span, pads last); the
-// pads of a step that has real columns form the last run, of row span, which
-// is never stored.
+// psi_fused_slabs: one block per plan chunk, its warps over contiguous parts
+// of it (ONE_WARPS_MAX warps when the grid fits the card at once, else
+// ONE_WARPS).  A warp owns the rows strictly between its part's first row
+// (its head) and its last (its tail); the sums of those two rows go to
+// slots in shared memory, and after a barrier warp 0 adds the heads and
+// tails in warp order, stores each of their rows once and zeroes the rows
+// no warp owns.  psi_window_direct: a warp owns whole windows (one
+// window's run, all span rows of it: no combine), a block a contiguous run
+// of windows, and the grid the blocks the card holds at once.  A warp finds
+// its window's chunks in the non-decreasing chunk_window by a 32-way search
+// (each lane one probe), and stops at the first step that starts on a pad
+// (loc == span, pads last); the pads of a step that has real columns form
+// its last run, of row span, which is dropped.
 //
-// The sum of a run is the lanes' sums over the continuing steps added by the
-// butterfly, then the carry plus the segmented sums: it differs from the
-// other instances' order within PSI_TOL, and two calls give the same bits.
+// A row's sum is its steps' run sums added in step order (a continuing
+// step's partial by the butterfly), and for a fused head or tail the warps'
+// sums in warp order: it differs from the tiled program's order within
+// PSI_TOL, and two calls give the same bits.
 constexpr int ONE_WARPS = 4;       // warps a block (fused: a small grid 8)
 constexpr int ONE_WARPS_MAX = 8;
 constexpr int ONE_STAGE = 32;      // rows of a warp's output stage
@@ -1146,7 +1147,8 @@ int one_bucket(bool has_l, bool has_r, int r, const Side& sd) {
   if (has_l == has_r) return 0;
   const int rows = sd.kind == SIGN ? sd.rank : r;
   if (r <= 0 || rows > ONE_MAX_ROWS) return 0;
-  return rows <= 8 && sd.kind != SIGN ? 8 : rows <= 16 ? 16 : 32;
+  if (sd.kind == SIGN) return rows <= 16 ? 16 : 32;
+  return rows <= 8 ? 8 : rows <= 16 ? 16 : rows <= 24 ? 24 : 32;
 }
 
 // The warp's output stage: rows [b0, b0 + ONE_STAGE) of the output rows
@@ -1178,22 +1180,15 @@ struct Stage {
   }
 };
 
-// acc[a] of the lane `src` in lane 0 (a butterfly over the lanes when src <
-// 0: the partial is spread over them); the other lanes' acc are left
-// undefined.
+// The sums of acc over the lanes, in lane 0 (a butterfly); the other
+// lanes' acc are left undefined.
 template <int RB>
-__device__ __forceinline__ void gather_acc(float (&acc)[RB], int r, int src) {
+__device__ __forceinline__ void lanes_sum(float (&acc)[RB], int r) {
 #pragma unroll
   for (int a = 0; a < RB; ++a) {
     if (a >= r) break;
-    float x = acc[a];
-    if (src < 0) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-    } else if (src > 0) {
-      x = __shfl_sync(FULL, x, src);
-    }
-    acc[a] = x;
+    for (int o = 16; o > 0; o >>= 1) acc[a] += __shfl_xor_sync(FULL, acc[a], o);
   }
 }
 
@@ -1201,31 +1196,38 @@ template <int RB, int KIND, bool WIN>
 struct OneShared {
   uint64_t salts[ONE_MAX_ROWS];
   float stage[WIN ? ONE_WARPS : ONE_WARPS_MAX][ONE_STAGE * RB];
-  float carry[WIN ? ONE_WARPS : ONE_WARPS_MAX][RB];
-  float ht[WIN ? 1 : ONE_WARPS_MAX][2][RB];  // fused: head, tail partials
+  float ht[WIN ? 1 : ONE_WARPS_MAX][2][RB];  // fused: head, tail sums
   int ht_row[WIN ? 1 : ONE_WARPS_MAX][2];    // their rows (-1: none)
 };
 
 // One warp over the columns [lo, hi) of the stream (a plan chunk's part, or
-// a window's run): runs summed as the comment above says.  `st` owns the
-// rows strictly between the head row and the tail row (fused: `head` and
-// `tail` slots of shared memory; null for the window, whose stage owns every
-// row).  `t_row` is the row of the column hi - 1 (fused), which columns past
-// hi repeat; the window's columns past hi, and its pads, are row span.
+// a window's run): runs summed as the comment above says.  A row's sums are
+// added to its place: the `head` slot for row h_row, the `tail` slot for
+// row t_row (a fused part's first and last rows; -1 for the window), else
+// the stage, whose rows stay open for adds until a row past them comes.
+// Columns past hi repeat t_row (fused); the window's columns past hi, and
+// its pads, are row span, which is dropped.
 template <int RB, int KIND, bool WIN>
 __device__ __forceinline__ void one_part(const OneArgs& a,
                                          const uint64_t* salts, int64_t lo,
-                                         int64_t hi, int t_row, Stage& st,
-                                         float* carry, float* head,
-                                         float* tail, int* head_row,
-                                         int* tail_row, int lane) {
+                                         int64_t hi, int h_row, int t_row,
+                                         Stage& st, float* head, float* tail,
+                                         int lane) {
   const int r = a.r, span = a.span;
   float acc[RB];
 #pragma unroll
   for (int i = 0; i < RB; ++i) acc[i] = 0.f;
   int s_cur = a.loc[lo];  // the open run's row
-  int holder = 0;         // the lane that holds its partial, -1: spread
-  bool head_open = !WIN;  // the open run is the part's first (fused)
+  bool spread = false;    // acc holds a partial of it over the lanes
+  // the place of a row's sums (a stage row must lie in the stage)
+  auto place = [&](int row) {
+    return row == h_row ? head
+           : row == t_row ? tail
+                          : st.buf + (row - st.b0) * r;
+  };
+  auto in_stage = [&](int row) {
+    return row == h_row || row == t_row || row < st.b0 + ONE_STAGE;
+  };
   // a step's loc, entry and flat index, loaded a step ahead
   int n_lc;
   float n_ek;
@@ -1240,6 +1242,20 @@ __device__ __forceinline__ void one_part(const OneArgs& a,
       n_fl = a.flat[k];
     }
   };
+  // the spread partial of the open run added to its place, from lane 0
+  auto settle = [&]() {
+    lanes_sum<RB>(acc, r);
+    if (!in_stage(s_cur)) st.reach(s_cur, lane);
+    if (lane == 0) {
+      float* o = place(s_cur);
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (i >= r) break;
+        o[i] += acc[i];
+      }
+    }
+    spread = false;
+  };
   fetch(lo + lane);
   for (int64_t k0 = lo; k0 < hi; k0 += 32) {
     const int lc = n_lc;
@@ -1249,17 +1265,7 @@ __device__ __forceinline__ void one_part(const OneArgs& a,
     const int f = __shfl_sync(FULL, lc, 0), l = __shfl_sync(FULL, lc, 31);
     if (WIN && f >= span) break;  // the rest are pads
     const bool cont = f == l && f == s_cur;
-    if (!cont) {
-      // park the open run's partial in the carry
-      gather_acc<RB>(acc, r, holder);
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < RB; ++i) {
-          if (i >= r) break;
-          carry[i] = acc[i];
-        }
-      }
-    }
+    if (!cont && spread) settle();
     // generate: acc[i] = e * row i of the column (added to acc if the step
     // continues the open run)
     if constexpr (KIND == GAUSS) {
@@ -1293,12 +1299,12 @@ __device__ __forceinline__ void one_part(const OneArgs& a,
       }
     }
     if (cont) {
-      holder = -1;
+      spread = true;
       continue;
     }
     // the step's runs: a run's sum onto its first lane, in a fixed order
     // (a suffix sum over the lanes of equal loc, as many rounds as the
-    // longest run needs)
+    // longest run needs), then added to the run's row
     const int up = __shfl_up_sync(FULL, lc, 1);
     const bool first = lane == 0 || up != lc;
     const unsigned starts = __ballot_sync(FULL, first);
@@ -1317,80 +1323,24 @@ __device__ __forceinline__ void one_part(const OneArgs& a,
         if (same) acc[i] += y;
       }
     }
-    // 1. the open run closes: the carry, plus the step's first run when it
-    // continues the open run
-    const bool merge = f == s_cur;
-    __syncwarp();
-    if (!WIN && head_open) {
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < RB; ++i) {
-          if (i >= r) break;
-          head[i] = carry[i] + (merge ? acc[i] : 0.f);
-        }
-        *head_row = s_cur;
-      }
-    } else if (s_cur < st.hi) {
-      st.reach(s_cur, lane);
-      if (lane == 0) {
-        float* o = st.buf + (s_cur - st.b0) * r;
-#pragma unroll
-        for (int i = 0; i < RB; ++i) {
-          if (i >= r) break;
-          o[i] = carry[i] + (merge ? acc[i] : 0.f);
-        }
-      }
-    }
-    head_open = false;
-    // 2. the runs between the first and the last are complete
-    bool pend = first && lc != l && !(lane == 0 && merge);
+    bool pend = first && !(WIN && lc >= span);
     while (__any_sync(FULL, pend)) {
-      if (pend && lc < st.b0 + ONE_STAGE) {
-        float* o = st.buf + (lc - st.b0) * r;
+      if (pend && in_stage(lc)) {
+        float* o = place(lc);
 #pragma unroll
         for (int i = 0; i < RB; ++i) {
           if (i >= r) break;
-          o[i] = acc[i];
+          o[i] += acc[i];
         }
         pend = false;
       }
       if (__any_sync(FULL, pend)) st.flush(lane);
     }
-    // 3. the last run stays open in its first lane
-    const int last = 31 - __clz(__ballot_sync(FULL, first && lc == l));
 #pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      if (i >= r) break;
-      if (lane != last) acc[i] = 0.f;
-    }
-    holder = last;
+    for (int i = 0; i < RB; ++i) acc[i] = 0.f;
     s_cur = l;
   }
-  // the part's last run: its head (a part of one run), its tail, or a row of
-  // the window's stage
-  gather_acc<RB>(acc, r, holder);
-  __syncwarp();
-  if (!WIN) {
-    if (lane == 0) {
-      float* o = head_open ? head : tail;
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        if (i >= r) break;
-        o[i] = acc[i];
-      }
-      *(head_open ? head_row : tail_row) = s_cur;
-    }
-  } else if (s_cur < st.hi) {
-    st.reach(s_cur, lane);
-    if (lane == 0) {
-      float* o = st.buf + (s_cur - st.b0) * r;
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        if (i >= r) break;
-        o[i] = acc[i];
-      }
-    }
-  }
+  if (spread && !(WIN && s_cur >= span)) settle();
   st.finish(lane);
 }
 
@@ -1446,8 +1396,7 @@ __global__ void __launch_bounds__(ONE_WARPS_MAX * 32, MIN_BLOCKS_ONE)
       const int64_t lo = (int64_t)c_lo * a.chunk;
       const int64_t hi = min((int64_t)c_hi * a.chunk, a.nnz);
       if (lo < hi) {
-        one_part<RB, KIND, WIN>(a, sh.salts, lo, hi, span, st,
-                                sh.carry[warp], nullptr, nullptr, nullptr,
+        one_part<RB, KIND, WIN>(a, sh.salts, lo, hi, -1, -1, st, nullptr,
                                 nullptr, lane);
       } else {
         st.finish(lane);  // an empty window: span rows of zeros
@@ -1462,14 +1411,18 @@ __global__ void __launch_bounds__(ONE_WARPS_MAX * 32, MIN_BLOCKS_ONE)
   const int64_t q = ((n + n_warps - 1) / n_warps + 31) / 32 * 32;
   const int64_t lo = start + warp * q, hi = min(lo + q, end);
   float* const slab = a.out + g * span * r;
-  if (lane == 0) sh.ht_row[warp][0] = sh.ht_row[warp][1] = -1;
+  const int h_row = lo < hi ? a.loc[lo] : -1;
+  const int t_row = lo < hi ? a.loc[hi - 1] : -1;
+  for (int i = lane; i < 2 * RB; i += 32) sh.ht[warp][i / RB][i % RB] = 0.f;
+  if (lane == 0) {
+    sh.ht_row[warp][0] = h_row;
+    sh.ht_row[warp][1] = t_row != h_row ? t_row : -1;
+  }
   __syncwarp();
   if (lo < hi) {
-    const int h_row = a.loc[lo], t_row = a.loc[hi - 1];
     Stage st{buf, slab, h_row + 1, t_row, r};
-    one_part<RB, KIND, WIN>(a, sh.salts, lo, hi, t_row, st, sh.carry[warp],
-                            sh.ht[warp][0], sh.ht[warp][1],
-                            &sh.ht_row[warp][0], &sh.ht_row[warp][1], lane);
+    one_part<RB, KIND, WIN>(a, sh.salts, lo, hi, h_row, t_row, st,
+                            sh.ht[warp][0], sh.ht[warp][1], lane);
   }
   __syncthreads();
   if (warp != 0) return;
@@ -1564,6 +1517,8 @@ cudaError_t launch_one(OneArgs a, int bucket, int64_t n_blocks,
   return bucket == 8 ? launch_one_bucket<8, GAUSS, WIN>(a, n_blocks, stream)
          : bucket == 16
              ? launch_one_bucket<16, GAUSS, WIN>(a, n_blocks, stream)
+         : bucket == 24
+             ? launch_one_bucket<24, GAUSS, WIN>(a, n_blocks, stream)
              : launch_one_bucket<32, GAUSS, WIN>(a, n_blocks, stream);
 }
 
@@ -1772,6 +1727,7 @@ int tt_psi_oneside_schedule(int window, int has_l, int has_r, int r1, int r2,
     err = sign ? (bucket == 16 ? ONE_GRID(16, SIGN) : ONE_GRID(32, SIGN))
           : bucket == 8  ? ONE_GRID(8, GAUSS)
           : bucket == 16 ? ONE_GRID(16, GAUSS)
+          : bucket == 24 ? ONE_GRID(24, GAUSS)
                          : ONE_GRID(32, GAUSS);
 #undef ONE_GRID
   }
