@@ -5,11 +5,12 @@ Put each variant's full source under ``build/exp/<tag>.cu`` (``build/`` is
 git-ignored), then run from the repo root on a machine with a card::
 
     python3 tools/sparse_psi_ab.py [seq] [LIBRARY[:KERNEL,...]]
-    python3 tools/sparse_psi_ab.py given
-    python3 tools/sparse_psi_ab.py oneside
-    python3 tools/sparse_psi_ab.py others
+    python3 tools/sparse_psi_ab.py given|oneside|others [VARIANT.cu ...]
 
-``LIBRARY`` is ``sparse_psi`` (the default; its six kernels),
+``given``, ``oneside`` and ``others`` take the variants named (default:
+every ``build/exp/*.cu``), so that variants can also be timed in
+processes of their own.  ``LIBRARY`` is ``sparse_psi`` (the default; its
+six kernels),
 ``chain_step`` (``chain_step_t``), ``segment_psi`` (``psi_segment``) or
 ``sparse_sign`` (``sparse_sign_rows``); ``:KERNEL,...`` times only the
 kernels named.  Each variant is built with
@@ -103,8 +104,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = sys.argv[1:]
-    if args in (["given"], ["oneside"], ["others"]):
-        {"given": given, "oneside": oneside, "others": others}[args[0]]()
+    if args and args[0] in ("given", "oneside", "others"):
+        {"given": given, "oneside": oneside, "others": others}[args[0]](
+            args[1:] or sorted(glob.glob("build/exp/*.cu")))
         return
     seq = "seq" in args
     spec = next((a for a in args if a != "seq"), "sparse_psi")
@@ -154,9 +156,8 @@ def main():
     _run(variants, module, names, paths)
 
 
-def given():
+def given(variants):
     """The given-rows kernels at the calls of the paths that launch them."""
-    variants = sorted(glob.glob("build/exp/*.cu"))
     build(variants)
     print(f"# card: {c.phase_build()}")
     ops = {"gauss": c.sass_ops_per_sample(), "sign_draw": c.sass_sign_ops()}
@@ -223,11 +224,10 @@ def frostt_stta_calls(name, rank):
     return {"calls": calls}
 
 
-def oneside():
+def oneside(variants):
     """The one-sided calls of rows 6 and 9 (``psi_fused_slabs``,
     ``psi_window_direct``) at the paths that make them, with each call's
     device time and bound."""
-    variants = sorted(glob.glob("build/exp/*.cu"))
     build(variants)
     print(f"# card: {c.phase_build()}")
     ops = {"gauss": c.sass_ops_per_sample(), "sign_draw": c.sass_sign_ops()}
@@ -260,13 +260,12 @@ def oneside():
     _run(variants, SP, ONESIDE_KERNELS, paths, ops)
 
 
-def others():
+def others(variants):
     """The calls of ``sparse_psi.cu`` that the one-sided instances do not
     serve: rows 6 and 9 two-sided, rows 7 and 8."""
     from tt_sketch_torch import stream_sketch
     from tt_sketch_torch.formats import SparseTensor
 
-    variants = sorted(glob.glob("build/exp/*.cu"))
     build(variants)
     print(f"# card: {c.phase_build()}")
     names = ("psi_fused_slabs", "psi_window_direct",
@@ -316,17 +315,23 @@ def others():
     _run(variants, SP, names, _keep(paths, names, False))
 
 
+def _use(module, v):
+    """Load variant ``v``'s library in place of the package's."""
+    cuda_build.load_library = lambda name, v=v: ctypes.CDLL(v[:-3] + ".so")
+    module._library.cache_clear()
+    SG._blocks.cache_clear()
+
+
 def _run(variants, module, names, paths, ops=None):
     """Every variant in turn, the list forward and back: check and time
-    each kernel of ``names`` at every call recorded in ``paths`` (with
-    ``ops``, also its device time per call under the profiler, and print
-    each call's bound)."""
+    each kernel of ``names`` at every call recorded in ``paths``; then,
+    with ``ops``, print each call's bound and take every variant's device
+    time per call under the profiler in a second pass (forward and back),
+    after the other tables are printed."""
     fns = c._kernel_fns()
     res, per_call = {}, {}
     for v in variants + variants[::-1]:
-        cuda_build.load_library = lambda name, v=v: ctypes.CDLL(v[:-3] + ".so")
-        module._library.cache_clear()
-        SG._blocks.cache_clear()
+        _use(module, v)
         for name in names:
             kern, plain = fns[name]
             for label, m in paths.items():
@@ -351,24 +356,35 @@ def _run(variants, module, names, paths, ops=None):
                         kern(*a)
                     host = (time.perf_counter() - t0) / 20 * 1e3
                     torch.cuda.synchronize()
-                    hows = [("alone", one), ("b2b", b2b), ("host", host)]
-                    if ops is not None:
-                        hows.append(("device", c.device_ms(lambda: kern(*a))))
-                    for how, ms in hows:
+                    for how, ms in (("alone", one), ("b2b", b2b),
+                                    ("host", host)):
                         per_call.setdefault((name, label, i, _shape(a), how),
                                             {}).setdefault(v, []).append(ms)
-    if ops is not None:
-        print("# bounds per recorded call (ms):")
-        for name in names:
-            for label, m in paths.items():
-                for i, a in enumerate(m["calls"].get(name, [])):
-                    b, by = c.sparse_bound(name, a, ops)
-                    print(f"# {name} {label} {i} {_shape(a)}  bound {b:.4f} "
-                          f"by {by}")
     print("# A/B per recorded call (ms, two turns):")
     _table(per_call)
     print("# A/B (ms per sketch's launches, two turns):")
     _table(res)
+    if ops is None:
+        return
+    print("# bounds per recorded call (ms):")
+    for name in names:
+        for label, m in paths.items():
+            for i, a in enumerate(m["calls"].get(name, [])):
+                b, by = c.sparse_bound(name, a, ops)
+                print(f"# {name} {label} {i} {_shape(a)}  bound {b:.4f} "
+                      f"by {by}")
+    device = {}
+    for v in variants + variants[::-1]:
+        _use(module, v)
+        for name in names:
+            kern = fns[name][0]
+            for label, m in paths.items():
+                for i, a in enumerate(m["calls"].get(name, [])):
+                    device.setdefault((name, label, i, _shape(a), "device"),
+                                      {}).setdefault(v, []).append(
+                        c.device_ms(lambda: kern(*a)))
+    print("# A/B device ms per recorded call (profiler, two turns):")
+    _table(device)
 
 
 def _shape(args):
