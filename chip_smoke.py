@@ -1428,7 +1428,7 @@ def oneside_launches(name, label, calls, ops, phase=6):
         ms = time_ms(lambda: kern(*args))
         b2b = time_ms(lambda: [kern(*args) for _ in range(10)]) / 10
         b_ms, b_by = sparse_bound(name, args, ops)
-        lflat, rflat = args[2:4] if name == "psi_fused_slabs" else args[4:6]
+        lflat, rflat = _oneside_operands(name, args)[:2]
         sides = ("two-sided" if lflat is not None and rflat is not None
                  else "left side only" if rflat is None else
                  "right side only")

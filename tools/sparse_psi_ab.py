@@ -9,7 +9,10 @@ git-ignored), then run from the repo root on a machine with a card::
 
 ``given``, ``oneside`` and ``others`` take the variants named (default:
 every ``build/exp/*.cu``), so that variants can also be timed in
-processes of their own.  ``LIBRARY`` is ``sparse_psi`` (the default; its
+processes of their own, in turns: with several builds of
+``sparse_psi.cu`` loaded in one process, a window call has ended in an
+illegal instruction on an NVIDIA H100 80GB HBM3, which one build a
+process never did (PERF.md §7).  ``LIBRARY`` is ``sparse_psi`` (the default; its
 six kernels),
 ``chain_step`` (``chain_step_t``), ``segment_psi`` (``psi_segment``) or
 ``sparse_sign`` (``sparse_sign_rows``); ``:KERNEL,...`` times only the

@@ -1117,9 +1117,11 @@ constexpr int ONE_WARPS = 4;       // warps a block (fused: a small grid 8)
 constexpr int ONE_WARPS_MAX = 8;
 constexpr int ONE_STAGE = 32;      // rows of a warp's output stage
 constexpr int ONE_MAX_ROWS = 32;   // rows of the present side at most
-// blocks of ONE_WARPS_MAX warps an SM the registers must allow (64
-// registers a thread)
-constexpr int MIN_BLOCKS_ONE = 4;
+// blocks of ONE_WARPS_MAX warps an SM the registers must allow: 64
+// registers a thread up to 16 rows, 80 above (where 64 spilled 60-600
+// bytes; 40 and 32 registers measured slower on an NVIDIA H100 80GB HBM3 at
+// 700 W, PERF.md §6)
+constexpr int MIN_BLOCKS_ONE = 4, MIN_BLOCKS_ONE_WIDE = 3;
 constexpr int ONE_ILP = 2;         // samples (sign: draws) hashed side by side
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -1365,7 +1367,9 @@ __device__ __forceinline__ int lower_bound_warp(const int* v, int n, int key,
 }
 
 template <int RB, int KIND, bool WIN>
-__global__ void __launch_bounds__(ONE_WARPS_MAX * 32, MIN_BLOCKS_ONE)
+__global__ void __launch_bounds__(ONE_WARPS_MAX * 32,
+                                  RB > 16 ? MIN_BLOCKS_ONE_WIDE
+                                          : MIN_BLOCKS_ONE)
     oneside_kernel(OneArgs a) {
   __shared__ OneShared<RB, KIND, WIN> sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
