@@ -1415,9 +1415,8 @@ def oneside_launches(name, label, calls, ops, phase=6):
     """Each recorded launch of ``psi_fused_slabs`` or ``psi_window_direct``
     (rows 6 and 9 of PERF.md's table) on its own line: its sides, the
     instance it takes (a one-sided call must take a one-sided instance),
-    its time alone and over ten calls back to back, its bound and the
-    ratios (device times from the profiler: ``tools/sparse_psi_ab.py
-    oneside``)."""
+    its time alone and over ten calls back to back, in phase 6 its device
+    time from the profiler, its bound and the ratios."""
     kern = _kernel_fns()[name][0]
     out = []
     for i, args in enumerate(calls):
@@ -1427,6 +1426,7 @@ def oneside_launches(name, label, calls, ops, phase=6):
                                  f"{bucket} for this call's sides")
         ms = time_ms(lambda: kern(*args))
         b2b = time_ms(lambda: [kern(*args) for _ in range(10)]) / 10
+        dev = device_ms(lambda: kern(*args)) if phase == 6 else None
         b_ms, b_by = sparse_bound(name, args, ops)
         lflat, rflat = _oneside_operands(name, args)[:2]
         sides = ("two-sided" if lflat is not None and rflat is not None
@@ -1437,12 +1437,16 @@ def oneside_launches(name, label, calls, ops, phase=6):
         print(f"# phase {phase}: {name} {label} call {i}: {sides}, {how}, "
               f"{blocks} blocks of {threads} threads"
               + (f", {per} windows a block" if per else "") +
-              f": {ms:.3f} ms alone, {b2b:.3f} ms back to back, bound "
-              f"{b_ms:.4f} ms by {b_by} ({ms / b_ms:.2f}x, {b2b / b_ms:.2f}x)")
+              f": {ms:.3f} ms alone, {b2b:.3f} ms back to back"
+              + (f", device {dev:.4f} ms" if dev is not None else "")
+              + f", bound {b_ms:.4f} ms by {b_by} ({ms / b_ms:.2f}x, "
+              f"{b2b / b_ms:.2f}x"
+              + (f", device {dev / b_ms:.2f}x" if dev is not None else "")
+              + ")")
         out.append({"call": i, "sides": sides, "bucket": bucket,
                     "blocks": blocks, "threads": threads,
                     "windows_a_block": per, "ms": ms, "back_to_back_ms": b2b,
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    "device_ms": dev, "bound_ms": b_ms, "bound_by": b_by})
     return out
 
 
