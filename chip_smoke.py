@@ -572,6 +572,7 @@ def phase_main_path():
 
     from tt_sketch_torch import TensorTrain, TensorTrainDRM
     from tt_sketch_torch.engine.sketch import SketchedTensorTrain
+    from tt_sketch_torch import profiling
     from tt_sketch_torch.formats.tt_ops import tt_to_dense
     from tt_sketch_torch.kernels.dense_engine import (
         dense_stream_sketch_bisect,
@@ -600,7 +601,7 @@ def phase_main_path():
         return tt_to_dense(cores).reshape(slab2d).contiguous()
 
     torch.cuda.synchronize()
-    dual_project.launches = 0
+    profiling.reset_counters()
     t0 = time.perf_counter()
     container = slab_stream_sketch(
         slab_fn, n_slabs, shape, ld.cores, rd.cores, engine="bisect",
@@ -608,7 +609,7 @@ def phase_main_path():
     )
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    launches = dual_project.launches
+    launches = _launch_counts(["dual_project"])["dual_project"]
     rec = SketchedTensorTrain(container, ld, rd).to_tt()
     err = rec.error(data, relative=True)
     n_entries = float(np.prod(shape))
@@ -711,6 +712,15 @@ def phase_stream_sketch():
 
 
 # -- sparse slices -------------------------------------------------------------
+
+def _launch_counts(names):
+    """The launches counted for each kernel wrapper of ``names`` since
+    the counters were last reset."""
+    from tt_sketch_torch import profiling
+
+    counts = profiling.counters()
+    return {name: counts.get(f"launches.{name}", 0) for name in names}
+
 
 def _kernel_fns():
     from tt_sketch_torch.kernels import chain_step as CS
@@ -2071,15 +2081,15 @@ def _counted(run):
     recorded; returns ``(result, launches, calls)``."""
     import torch
 
-    fns = _kernel_fns()
+    from tt_sketch_torch import profiling
+
     calls = {}
     torch.cuda.synchronize()
-    for kern, _ in fns.values():
-        kern.launches = 0
+    profiling.reset_counters()
     with recording(calls):
         out = run()
     torch.cuda.synchronize()
-    return out, {name: fns[name][0].launches for name in SPARSE_KERNELS}, calls
+    return out, _launch_counts(SPARSE_KERNELS), calls
 
 
 def _worst_parts(tag, what, ours, ref, tol):
@@ -2819,7 +2829,7 @@ def phase_projector_diag():
     launch counts set to 0 just before it and read just after."""
     import torch
 
-    from tt_sketch_torch.kernels import dual_project as DP
+    from tt_sketch_torch import profiling
     from tt_sketch_torch.kernels import projector_diag as PD
 
     fns = {"t_only": (PD.t_only, PD.t_only_reference),
@@ -2841,11 +2851,11 @@ def phase_projector_diag():
             kern, plain = fns[name]
             for compute in modes[name]:
                 kw = {} if name == "reduce_read" else {"compute": compute}
-                before = kern.launches
+                before = _launch_counts([name])[name]
                 got = kern(*args[name], **kw)
                 ref = plain(*args[name], **kw)
                 torch.cuda.synchronize()
-                launched = kern.launches - before
+                launched = _launch_counts([name])[name] - before
                 rel = _rel(got, ref)
                 abs_err = float((got - ref).abs().max())
                 print(f"# phase 11: {name} {label} P={P} S={S} r={r} "
@@ -2897,13 +2907,10 @@ def phase_projector_diag():
 
         # the diagnostics' own path
         torch.cuda.synchronize()
-        for name in DIAG_KERNELS:
-            fns[name][0].launches = 0
-        DP.dual_project.launches = 0
+        profiling.reset_counters()
         diag = PD.run_projector_diag(X, R, L, reps=DIAG_REPS)
         torch.cuda.synchronize()
-        launches = {name: fns[name][0].launches for name in DIAG_KERNELS}
-        launches["dual_project"] = DP.dual_project.launches
+        launches = _launch_counts(list(DIAG_KERNELS) + ["dual_project"])
         calls = DIAG_REPS + 1  # one untimed call per tag, then the timed
         want = {"t_only": 2 * calls, "u_only": 2 * calls,
                 "reduce_read": calls, "dual_project": 2 * calls}
@@ -4584,9 +4591,8 @@ def _counting_tasks(rows, kept):
     tensor and its arguments)."""
     import torch
 
+    from tt_sketch_torch import profiling
     from tt_sketch_torch.experiments import tasks
-
-    fns = _kernel_fns()
 
     def wrap(task):
         def run(tensor, **kw):
@@ -4595,14 +4601,12 @@ def _counting_tasks(rows, kept):
             record = (kw["dataset"], rank) == FROSTT_RECORDED
             calls = {}
             torch.cuda.synchronize()
-            for kern, _ in fns.values():
-                kern.launches = 0
+            profiling.reset_counters()
             with recording(calls) if record else contextlib.nullcontext():
                 res = task(tensor, **kw)
             torch.cuda.synchronize()
             rows.append({"key": (kw["dataset"], name, rank, kw["seed"]),
-                         "launches": {n: fns[n][0].launches
-                                      for n in SPARSE_KERNELS}})
+                         "launches": _launch_counts(SPARSE_KERNELS)})
             if record:
                 kept[_label(kw["dataset"], name, rank)] = {
                     "task": task, "tensor": tensor, "kw": kw,

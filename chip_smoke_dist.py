@@ -174,12 +174,12 @@ def dense_path(mesh, X, sketches):
     import torch
     import torch.distributed as dist
 
+    from tt_sketch_torch import profiling
     from tt_sketch_torch.dist import sharded_dense_stream_sketch
-    from tt_sketch_torch.kernels.dual_project import dual_project
 
     runs = []
     for _ in range(2):
-        dual_project.launches = 0
+        profiling.reset_counters()
         sk, *times = _timed(lambda: sharded_dense_stream_sketch(
             X, *DENSE_RANKS, seed=SEED, mesh=mesh, dtype=torch.float32))
         runs.append(times)
@@ -187,7 +187,8 @@ def dense_path(mesh, X, sketches):
         _save(sketches, "dense", sk)
     del sk
     torch.cuda.empty_cache()
-    return {"launches": {"dual_project": dual_project.launches},
+    return {"launches": {"dual_project": profiling.counters().get(
+                "launches.dual_project", 0)},
             "world_ms": [r[0] * 1e3 for r in runs],
             "rank_ms": [r[1] * 1e3 for r in runs],
             "all_reduce_ms": [r[2] * 1e3 for r in runs],

@@ -19,7 +19,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from tt_sketch_torch import config
+from tt_sketch_torch import config, profiling
 from tt_sketch_torch.kernels import dual_project as dp
 from tt_sketch_torch.kernels import projector_diag as PD
 
@@ -30,6 +30,11 @@ TOL = 2e-5
 KERNELS = {"t_only": (PD.t_only, PD.t_only_reference),
            "u_only": (PD.u_only, PD.u_only_reference),
            "reduce_read": (PD.reduce_read, PD.reduce_read_reference)}
+
+
+def _launches(wrapper):
+    """The launches counted for kernel wrapper ``wrapper`` so far."""
+    return profiling.counters().get(f"launches.{wrapper}", 0)
 
 
 @pytest.fixture(autouse=True)
@@ -90,17 +95,17 @@ def test_matches_the_scripts_pallas_kernel(script, name, compute, shape):
     X, R, L = _operands(*shape)
     side = _side(name, R, L)
     ref = _pallas(script, name, X, side, compute)
-    before = KERNELS[name][0].launches
+    before = _launches(name)
     got = _port(name, X, side, compute)
-    assert KERNELS[name][0].launches == before  # CPU: the plain version
+    assert _launches(name) == before  # CPU: the plain version
     assert got.dtype == np.float32 and got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL * np.abs(ref).max())
 
 
 def test_run_projector_diag_on_cpu_takes_the_plain_versions(capsys):
     X, R, L = (torch.from_numpy(a) for a in _operands(64, 256, 5, 9, seed=1))
-    before = {n: f.launches for n, (f, _) in KERNELS.items()}
-    before_dual = dp.dual_project.launches
+    before = {n: _launches(n) for n in KERNELS}
+    before_dual = _launches("dual_project")
     res = PD.run_projector_diag(X, R, L, reps=2)
     assert tuple(res) == PD.TAGS == (
         "read-roofline", "lib-T", "lib-U", "T-f32", "T-bf16", "U-f32",
@@ -126,8 +131,8 @@ def test_run_projector_diag_on_cpu_takes_the_plain_versions(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[0] for ln in lines] == [f"[{t}]" for t in PD.TAGS]
     assert all(ln.split()[2] == "ms" and ln.endswith("GB/s") for ln in lines)
-    assert {n: f.launches for n, (f, _) in KERNELS.items()} == before
-    assert dp.dual_project.launches == before_dual
+    assert {n: _launches(n) for n in KERNELS} == before
+    assert _launches("dual_project") == before_dual
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
@@ -149,7 +154,7 @@ def test_raises_off_cpu_without_kernel(name):
     side = {"t_only": torch.empty((128, 8), device="meta"),
             "u_only": torch.empty((64, 4), device="meta")}.get(name)
     args = (X,) if side is None else (X, side)
-    before = fn.launches
+    before = _launches(name)
     with pytest.raises(ValueError, match="CUDA device"):
         fn(*args)
     if side is not None:
@@ -158,7 +163,7 @@ def test_raises_off_cpu_without_kernel(name):
         # one operand on the CPU and one elsewhere is not the plain path
         with pytest.raises(ValueError, match="CUDA device"):
             fn(torch.zeros((64, 128)), side)
-    assert fn.launches == before
+    assert _launches(name) == before
 
 
 @pytest.mark.parametrize("name, step, dim, width", [

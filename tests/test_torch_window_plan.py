@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import tt_sketch_tpu as jts
-from tt_sketch_torch import config
+from tt_sketch_torch import config, profiling
 from tt_sketch_torch.data.frostt import load_frostt
 from tt_sketch_torch.drm import SparseGaussianDRM, SparseSignDRM
 from tt_sketch_torch.engine.sketch import stream_sketch
@@ -50,6 +50,11 @@ PSI_REL = 3e-5
 ARRAYS = ("local_idx", "chunk_window", "chunk_first", "sorted_entries")
 FLATS = ("flat_left", "flat_right")
 GEOMETRY = ("n_chunks", "span", "chunk", "n_windows")
+
+
+def _launches(wrapper):
+    """The launches counted for kernel wrapper ``wrapper`` so far."""
+    return profiling.counters().get(f"launches.{wrapper}", 0)
 
 
 @pytest.fixture(autouse=True)
@@ -339,10 +344,10 @@ def test_psi_window_direct_checks_its_operands(window_plans):
     with pytest.raises(ValueError, match="win/first"):
         SP.psi_window_direct(p.chunk_window[:-1], *args[1:], p.flat_left,
                              None, H.drm_salts(0, 3, 1), None, *geom)
-    before = SP.psi_window_direct.launches
+    before = _launches("psi_window_direct")
     SP.psi_window_direct(*args, p.flat_left, None, H.drm_salts(0, 3, 1),
                          None, *geom)
-    assert SP.psi_window_direct.launches == before  # CPU: the plain version
+    assert _launches("psi_window_direct") == before  # CPU: the plain version
 
 
 # -- the slice as a whole ----------------------------------------------------------

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.config import DEFAULT_DTYPE, resolve_device
 from tt_sketch_torch.dist.multihost import Mesh, P, make_global
 from tt_sketch_torch.drm.sparse_gaussian_drm import (
@@ -116,13 +117,16 @@ def _mesh_axes(mesh: Mesh, *axes: Optional[str]) -> Tuple[str, ...]:
     return used
 
 
+@profiling.spanned("tt.all_reduce")
 def _all_reduce_sum(mesh: Mesh, parts: Sequence[torch.Tensor]):
     """``parts`` summed over the ranks of ``mesh`` by one ``all_reduce``
     of one flat buffer (every part has one dtype and device); returned as
-    views of that buffer, in the parts' shapes."""
+    views of that buffer, in the parts' shapes.  The buffer's bytes count
+    as ``bytes.all_reduce``."""
     if not dist.is_initialized():
         return list(parts)
     flat = torch.cat([p.reshape(-1) for p in parts])
+    profiling.count("bytes.all_reduce", flat.nbytes)
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
     out, off = [], 0
     for p in parts:

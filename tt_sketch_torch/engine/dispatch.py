@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.drm.tensor_train_drm import (
     chain_step_cp,
     chain_step_dense,
@@ -282,15 +283,16 @@ def general_sketch(
     if method != SketchMethod.hmt:
         omega_method = OMEGA_METHODS[type(tensor)]
         for mu in range(n_dims - 1):
-            Omega_mats.append(
-                omega_method(
-                    _lazy_side(left_contractions, mu),
-                    _lazy_side(right_contractions, mu),
-                    tensor=tensor,
-                    mu=mu,
-                    **omega_kwargs,
+            with profiling.span(f"tt.mode.{mu}"):
+                Omega_mats.append(
+                    omega_method(
+                        _lazy_side(left_contractions, mu),
+                        _lazy_side(right_contractions, mu),
+                        tensor=tensor,
+                        mu=mu,
+                        **omega_kwargs,
+                    )
                 )
-            )
 
     sequential = method in (SketchMethod.hmt, SketchMethod.orthogonal)
     if sequential:
@@ -299,22 +301,23 @@ def general_sketch(
     Psi_cores: List[torch.Tensor] = []
     psi_method = PSI_METHODS[type(tensor)]
     for mu in range(n_dims):
-        if mu == 0:
-            left_sketch = None
-        elif sequential:
-            left_sketch = chain.push(Psi_cores[-1])
-        else:
-            left_sketch = _lazy_side(left_contractions, mu - 1)
-        right_sketch = (_lazy_side(right_contractions, mu)
-                        if mu < n_dims - 1 else None)
-        Psi = psi_method(
-            left_sketch, right_sketch, tensor=tensor, mu=mu, **psi_kwargs
-        )
-        if mu < n_dims - 1:
-            if method == SketchMethod.orthogonal:
-                Psi = orth_step(Psi, Omega_mats[mu])
-            elif method == SketchMethod.hmt:
-                Psi = orth_step(Psi, None)
-        Psi_cores.append(Psi)
+        with profiling.span(f"tt.mode.{mu}"):
+            if mu == 0:
+                left_sketch = None
+            elif sequential:
+                left_sketch = chain.push(Psi_cores[-1])
+            else:
+                left_sketch = _lazy_side(left_contractions, mu - 1)
+            right_sketch = (_lazy_side(right_contractions, mu)
+                            if mu < n_dims - 1 else None)
+            Psi = psi_method(
+                left_sketch, right_sketch, tensor=tensor, mu=mu, **psi_kwargs
+            )
+            if mu < n_dims - 1:
+                if method == SketchMethod.orthogonal:
+                    Psi = orth_step(Psi, Omega_mats[mu])
+                elif method == SketchMethod.hmt:
+                    Psi = orth_step(Psi, None)
+            Psi_cores.append(Psi)
 
     return SketchContainer(Psi_cores, Omega_mats)

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Type
 import numpy as np
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.drm import ALL_DRM, SparseGaussianDRM, TensorTrainDRM
 from tt_sketch_torch.drm.base import (
     DRM,
@@ -77,6 +78,7 @@ def _resolve_drm_types(left_type, right_type):
     return left_type, right_type
 
 
+@profiling.spanned("tt.hmt_sketch")
 def hmt_sketch(
     tensor: Tensor,
     rank: TTRank,
@@ -116,6 +118,7 @@ def hmt_sketch(
     return sketched
 
 
+@profiling.spanned("tt.orthogonal_sketch")
 def orthogonal_sketch(
     tensor: Tensor,
     left_rank: TTRank,
@@ -183,6 +186,7 @@ def orthogonal_sketch(
     return sketched
 
 
+@profiling.spanned("tt.stream_sketch")
 def stream_sketch(
     tensor: Tensor,
     left_rank: TTRank,
@@ -306,6 +310,7 @@ class SketchedTensorTrain(Tensor):
             self.sketch_.T, self.right_drm.T, self.left_drm.T
         )
 
+    @profiling.spanned("tt.to_tt")
     def to_tt(self) -> TensorTrain:
         return TensorTrain(self.C_cores())
 
@@ -387,6 +392,7 @@ class SketchedTensorTrain(Tensor):
         )
 
 
+@profiling.spanned("tt.recover")
 def assemble_sketched_tt(
     sketch: SketchContainer, direction: str = "auto"
 ) -> List[torch.Tensor]:

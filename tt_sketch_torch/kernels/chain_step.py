@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.lazy_gaussian import _raise_on
 
 #: nonzeros per step of the plain version (bounds the gathered
@@ -151,6 +152,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@profiling.spanned("tt.kernel.chain_step_t")
 def chain_step_t(state_t: Optional[torch.Tensor], core: torch.Tensor,
                  indices_mu: torch.Tensor) -> torch.Tensor:
     """One transposed chain step: the ``(r2, nnz)`` state from the
@@ -159,7 +161,7 @@ def chain_step_t(state_t: Optional[torch.Tensor], core: torch.Tensor,
     int64 indices ``indices_mu`` ``(nnz,)`` into the mode.
 
     CPU tensors take ``chain_step_t_reference``; CUDA float32/bfloat16
-    tensors launch the kernel (``chain_step_t.launches`` counts launches).
+    tensors launch the kernel (counted as ``launches.chain_step_t``).
     An index outside ``[0, n)`` gives a zero column on CUDA (the kernel
     reads nothing for it) and raises on the CPU."""
     tensors = [core, indices_mu] + ([] if state_t is None else [state_t])
@@ -216,8 +218,6 @@ def _launch(state_t: Optional[torch.Tensor], core: torch.Tensor,
             sched.stride, sched.r1_bucket, sched.r2_bucket,
             PLACES[sched.place], sched.smem_bytes, sched.state_cols, stream)
     _raise_on(lib, err, "chain_step_t")
-    chain_step_t.launches += 1
+    profiling.launched("chain_step_t", state, core32, idx, out)
     return out.to(core.dtype)
 
-
-chain_step_t.launches = 0

@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.engine.sketch_container import SketchContainer
 from tt_sketch_torch.kernels.dual_project import dual_project
 
@@ -275,6 +276,7 @@ def dense_stream_sketch_container(
     return SketchContainer(Psi_cores, Omega_mats)
 
 
+@profiling.spanned("tt.slab_stream_sketch")
 def slab_stream_sketch(
     slab_fn,
     n_slabs: int,
@@ -319,23 +321,25 @@ def slab_stream_sketch(
     acc_psis = None
     acc_omegas = None
     for i in range(n_slabs):
-        slab = slab_fn(i)
-        cores = [left_cores[0][:, i * slab_size: (i + 1) * slab_size, :]]
-        cores += list(left_cores[1:])
-        if engine == "bisect":
-            psis, omegas = dense_stream_sketch_bisect(
-                slab, cores, right_cores, pivot=pivot, projector=projector,
-                shape=slab_shape,
-            )
-        else:
-            psis, omegas = dense_stream_sketch_fused(slab, cores, right_cores)
-        psi0_rows.append(psis[0])
-        rest = psis[1:]
-        if acc_psis is None:
-            acc_psis, acc_omegas = list(rest), list(omegas)
-        else:
-            acc_psis = [a + b for a, b in zip(acc_psis, rest)]
-            acc_omegas = [a + b for a, b in zip(acc_omegas, omegas)]
+        with profiling.span("tt.slab"):
+            slab = slab_fn(i)
+            cores = [left_cores[0][:, i * slab_size: (i + 1) * slab_size, :]]
+            cores += list(left_cores[1:])
+            if engine == "bisect":
+                psis, omegas = dense_stream_sketch_bisect(
+                    slab, cores, right_cores, pivot=pivot,
+                    projector=projector, shape=slab_shape,
+                )
+            else:
+                psis, omegas = dense_stream_sketch_fused(slab, cores,
+                                                         right_cores)
+            psi0_rows.append(psis[0])
+            rest = psis[1:]
+            if acc_psis is None:
+                acc_psis, acc_omegas = list(rest), list(omegas)
+            else:
+                acc_psis = [a + b for a, b in zip(acc_psis, rest)]
+                acc_omegas = [a + b for a, b in zip(acc_omegas, omegas)]
 
     Psi_cores = [torch.cat(psi0_rows, dim=1)] + acc_psis
     return SketchContainer(Psi_cores, acc_omegas)

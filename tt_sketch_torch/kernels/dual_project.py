@@ -17,6 +17,8 @@ import functools
 
 import torch
 
+from tt_sketch_torch import profiling
+
 _COMPUTE = ("f32", "bf16")
 
 
@@ -118,6 +120,7 @@ def raise_on_error(lib, fn: str, err: int) -> None:
         )
 
 
+@profiling.spanned("tt.kernel.dual_project")
 def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
                  compute: str = "f32"):
     """Return ``(X2d @ R, Lᵀ @ X2d)`` with one pass over ``X2d``.
@@ -129,8 +132,8 @@ def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
     bfloat16, which TF32 holds exactly.  Ranks above
     the kernel's per-launch limit (r ≤ 32, ρ ≤ 64) are split into several
     launches, each reading X once.  CPU tensors take
-    ``dual_project_reference``.  ``dual_project.launches`` counts kernel
-    launches.
+    ``dual_project_reference``.  Each launch counts ``launches.dual_project``
+    and ``bytes.dual_project`` (``profiling.counters``).
     """
     check_compute(compute)
     if all(t.device.type == "cpu" for t in (X2d, R, L)):
@@ -164,12 +167,10 @@ def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
                 int(compute == "bf16"), stream,
             )
             raise_on_error(lib, "dual_project", err)
-            dual_project.launches += 1
+            profiling.launched("dual_project", X2d, Rc, Lc, Tc, Uc)
             T_parts.append(Tc)
             U_parts.append(Uc)
     if n_launch == 1:
         return T_parts[0], U_parts[0]
     return torch.cat(T_parts, dim=1), torch.cat(U_parts, dim=0)
 
-
-dual_project.launches = 0

@@ -17,6 +17,7 @@ import functools
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.rng.hash_rng import hash_int, normal_from_bits
 
 #: (rows of) flat indices processed per step of the plain version
@@ -72,12 +73,13 @@ def _raise_on(lib, err: int, what: str) -> None:
             f"({lib.tt_cuda_error_string(err).decode()})")
 
 
+@profiling.spanned("tt.kernel.lazy_gaussian")
 def lazy_gaussian(flat: torch.Tensor, salts: torch.Tensor) -> torch.Tensor:
     """(R, N) float32 lazy-Gaussian rows for int64 ``flat`` (N,) and int64
     column ``salts`` (R,) (``hash_rng.drm_salts``).
 
     CPU tensors take ``lazy_gaussian_reference``; CUDA tensors launch the
-    kernel (``lazy_gaussian.launches`` counts launches)."""
+    kernel (counted as ``launches.lazy_gaussian``, ``bytes.lazy_gaussian``)."""
     if flat.device.type == "cpu" and salts.device.type == "cpu":
         return lazy_gaussian_reference(flat, salts)
     for name, t in (("flat", flat), ("salts", salts)):
@@ -98,16 +100,15 @@ def lazy_gaussian(flat: torch.Tensor, salts: torch.Tensor) -> torch.Tensor:
         err = lib.tt_lazy_gaussian(flat.data_ptr(), salts.data_ptr(),
                                    out.data_ptr(), N, R, stream)
     _raise_on(lib, err, "lazy_gaussian")
-    lazy_gaussian.launches += 1
+    profiling.launched("lazy_gaussian", flat, salts, out)
     return out
 
 
-lazy_gaussian.launches = 0
 
-
+@profiling.spanned("tt.kernel.hash_bits")
 def hash_bits(x: torch.Tensor) -> torch.Tensor:
     """The 64-bit hash of int64 bit patterns: ``hash_int`` on the CPU, the
-    kernel library's ``tt_hash_bits`` on CUDA (``hash_bits.launches``)."""
+    kernel library's ``tt_hash_bits`` on CUDA (``launches.hash_bits``)."""
     if x.device.type == "cpu":
         return hash_int(x)
     _check_int64("x", x, x.device)
@@ -120,8 +121,6 @@ def hash_bits(x: torch.Tensor) -> torch.Tensor:
         err = lib.tt_hash_bits(x.data_ptr(), out.data_ptr(), x.shape[0],
                                stream)
     _raise_on(lib, err, "hash_bits")
-    hash_bits.launches += 1
+    profiling.launched("hash_bits", x, out)
     return out
 
-
-hash_bits.launches = 0

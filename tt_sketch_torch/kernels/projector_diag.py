@@ -13,7 +13,8 @@ limits); ``reduce_read`` is a kernel of the same library.
 On CUDA tensors each entry point launches its hand-written kernel or
 raises; on CPU tensors it computes the plain version beside it.  There is
 no fallback from one to the other.  Each entry point counts its kernel
-launches in ``.launches``.
+launches and bytes as ``launches.<name>`` and ``bytes.<name>``
+(``profiling.counters``).
 
 Run the diagnostics on the card at one slab's 2-D view (the dense main
 path's shape)::
@@ -30,6 +31,7 @@ import time
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.dual_project import (
     _library,
@@ -78,6 +80,7 @@ def in_rank_blocks(fn, side: torch.Tensor, step: int, dim: int):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
+@profiling.spanned("tt.kernel.t_only")
 def t_only(X2d: torch.Tensor, R: torch.Tensor,
            compute: str = "f32") -> torch.Tensor:
     """Return ``X2d @ R`` (P, ρ) through the T half of ``dual_project``'s
@@ -96,16 +99,15 @@ def t_only(X2d: torch.Tensor, R: torch.Tensor,
         raise_on_error(lib, "t_only", lib.tt_t_only(
             X2d.data_ptr(), Rc.data_ptr(), T.data_ptr(), P, S, Rc.shape[1],
             int(compute == "bf16"), torch.cuda.current_stream().cuda_stream))
-        t_only.launches += 1
+        profiling.launched("t_only", X2d, Rc, T)
         return T
 
     with torch.cuda.device(X2d.device):
         return in_rank_blocks(launch, R, lib.tt_dual_project_max_rho(), dim=1)
 
 
-t_only.launches = 0
 
-
+@profiling.spanned("tt.kernel.u_only")
 def u_only(X2d: torch.Tensor, L: torch.Tensor,
            compute: str = "f32") -> torch.Tensor:
     """Return ``Lᵀ @ X2d`` (r, S) through the U half of ``dual_project``'s
@@ -132,16 +134,15 @@ def u_only(X2d: torch.Tensor, L: torch.Tensor,
             X2d.data_ptr(), Lc.data_ptr(), U.data_ptr(), Upart.data_ptr(), P,
             S, r, int(compute == "bf16"),
             torch.cuda.current_stream().cuda_stream))
-        u_only.launches += 1
+        profiling.launched("u_only", X2d, Lc, U)
         return U
 
     with torch.cuda.device(X2d.device):
         return in_rank_blocks(launch, L, lib.tt_dual_project_max_r(), dim=0)
 
 
-u_only.launches = 0
 
-
+@profiling.spanned("tt.kernel.reduce_read")
 def reduce_read(X2d: torch.Tensor) -> torch.Tensor:
     """Return the (P, 1) row sums of ``X2d`` from one read of it: the
     card's read floor for X.  CPU tensors take ``reduce_read_reference``."""
@@ -156,11 +157,9 @@ def reduce_read(X2d: torch.Tensor) -> torch.Tensor:
         err = lib.tt_reduce_read(X2d.data_ptr(), out.data_ptr(), P, S,
                                  current_stream_handle(device.index))
     raise_on_error(lib, "reduce_read", err)
-    reduce_read.launches += 1
+    profiling.launched("reduce_read", X2d, out)
     return out
 
-
-reduce_read.launches = 0
 
 
 def _diag_calls(X2d, R, L):

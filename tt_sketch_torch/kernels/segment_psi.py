@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
 
@@ -127,6 +128,7 @@ def _blocks(device: int, elem: int, n_mu: int, r1: int, r2: int) -> int:
         return _library().tt_segment_psi_blocks(elem, n_mu, r1, r2)
 
 
+@profiling.spanned("tt.kernel.psi_segment")
 def psi_segment(left, right, entries, indices_mu, n_mu):
     """(n_mu, r1, r2) Ψ of at most ``MAX_CELLS`` values from its sides
     ``left`` (r1, nnz) and ``right`` (r2, nnz) (either may be None: rank 1,
@@ -135,7 +137,7 @@ def psi_segment(left, right, entries, indices_mu, n_mu):
 
     CPU tensors take ``psi_segment_reference``.  CUDA tensors launch the
     kernel in float64 for float64 operands and in float32 otherwise
-    (``psi_segment.launches`` counts launches; no nonzeros, no launch);
+    (counted as ``launches.psi_segment``; no nonzeros, no launch);
     indices outside ``[0, n_mu)`` are dropped there."""
     n_mu = int(n_mu)
     cells = segment_cells(left, right, n_mu)
@@ -184,8 +186,6 @@ def psi_segment(left, right, entries, indices_mu, n_mu):
             out.data_ptr(), nnz, n_mu, r1, r2, chunk, n_chunks,
             current_stream_handle(device.index))
     _raise_on(lib, err, "psi_segment")
-    psi_segment.launches += 1
+    profiling.launched("psi_segment", indices_mu, entries, left, right, out)
     return out.to(dtype)
 
-
-psi_segment.launches = 0

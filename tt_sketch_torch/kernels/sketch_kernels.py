@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian
 from tt_sketch_torch.kernels.segment_psi import MAX_CELLS as SEGMENT_MAX_CELLS
 from tt_sketch_torch.kernels.segment_psi import (
@@ -164,11 +165,16 @@ def _psi_sparse_segment(left, right, entries, indices_mu, n_mu):
     TPU (its one-hot product there is a TPU workaround).  A Ψ of at most
     ``MAX_CELLS`` values takes ``psi_segment`` (the kernel on CUDA, one
     block holding every value); a larger one scatters with ``index_add_``
-    (``psi_segment_reference``) on every device: its atomics then rarely
-    meet on one address.  Returns (r1, n_mu, r2)."""
-    seg = (psi_segment if segment_cells(left, right, n_mu) <= SEGMENT_MAX_CELLS
-           else psi_segment_reference)
-    return seg(left, right, entries, indices_mu, n_mu).permute(1, 0, 2)
+    (``psi_segment_reference``) on every device, inside the span
+    ``tt.psi_index_add``: its atomics then rarely meet on one address.
+    Returns (r1, n_mu, r2)."""
+    if segment_cells(left, right, n_mu) <= SEGMENT_MAX_CELLS:
+        psi = psi_segment(left, right, entries, indices_mu, n_mu)
+    else:
+        with profiling.span("tt.psi_index_add"):
+            psi = psi_segment_reference(left, right, entries, indices_mu,
+                                        n_mu)
+    return psi.permute(1, 0, 2)
 
 
 def _combine_slabs(flat, plan, n_mu):
@@ -438,19 +444,22 @@ def sparse_streaming_sketch_fused(tensor, left_drm, right_drm):
     for mu in range(d):
         p = plans[mu]
         fused_psi = p is not None and p.sorted_entries is not None
-        if fused_psi and mu < d - 1 and p.flat_left_om is not None:
-            psi_mu, Om[mu] = _psi_omega_sparse_merged(
-                tensor, mu, p, tensor.shape[mu], left_drm, right_drm)
-        elif fused_psi:
-            psi_mu = _psi_sparse_fused(tensor, mu, p, tensor.shape[mu],
-                                       left_drm, right_drm)
-        else:
-            ls = _lrows(mu - 1) if mu > 0 else None
-            rs = _rrows(d - 2 - mu) if mu < d - 1 else None
-            psi_mu = _psi_sparse_segment(ls, rs, tensor.entries,
-                                         tensor.indices[mu], tensor.shape[mu])
+        with profiling.span(f"tt.mode.{mu}"):
+            if fused_psi and mu < d - 1 and p.flat_left_om is not None:
+                psi_mu, Om[mu] = _psi_omega_sparse_merged(
+                    tensor, mu, p, tensor.shape[mu], left_drm, right_drm)
+            elif fused_psi:
+                psi_mu = _psi_sparse_fused(tensor, mu, p, tensor.shape[mu],
+                                           left_drm, right_drm)
+            else:
+                ls = _lrows(mu - 1) if mu > 0 else None
+                rs = _rrows(d - 2 - mu) if mu < d - 1 else None
+                psi_mu = _psi_sparse_segment(ls, rs, tensor.entries,
+                                             tensor.indices[mu],
+                                             tensor.shape[mu])
         Psi.append(psi_mu)
     for mu in range(d - 1):
         if Om[mu] is None:
-            Om[mu] = _omega_sparse_fused(tensor, mu, left_drm, right_drm)
+            with profiling.span(f"tt.mode.{mu}"):
+                Om[mu] = _omega_sparse_fused(tensor, mu, left_drm, right_drm)
     return Psi, Om

@@ -59,6 +59,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.lazy_gaussian import (
     _check_int64,
@@ -316,6 +317,7 @@ def _check_geometry(loc, se, n_chunks, span, chunk):
             f"loc of {loc.shape[0]} and {se.shape[0]} entries")
 
 
+@profiling.spanned("tt.kernel.psi_fused_slabs")
 def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
                     span: int, chunk: int, lspec=_GAUSS,
                     rspec=_GAUSS) -> torch.Tensor:
@@ -326,7 +328,7 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
     (nnz,) sorted entries, ``lflat``/``rflat`` (nnz,) int64 flat indices
     (either may be None: boundary modes), ``lsalts``/``rsalts`` int64 column
     salts, ``lspec``/``rspec`` the sides' specs (module docstring).
-    ``psi_fused_slabs.launches`` counts kernel launches."""
+    Counted as ``launches.psi_fused_slabs``."""
     if lflat is None and rflat is None:
         raise ValueError("psi_fused_slabs needs a left or a right side")
     r1 = _side_rows(lspec, lflat, lsalts)
@@ -353,11 +355,12 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
             _c_spec(rspec),
             current_stream_handle(e.device.index))
     _raise_on(lib, err, "psi_fused_slabs")
-    psi_fused_slabs.launches += 1
+    profiling.launched(
+        "psi_fused_slabs", loc, e, lflat, rflat,
+        lsalts if lflat is not None else None,
+        rsalts if rflat is not None else None, slabs)
     return slabs
 
-
-psi_fused_slabs.launches = 0
 
 
 def _check_rows(name: str, nnz: int, **sides) -> None:
@@ -399,9 +402,12 @@ def _launch_chunk_slabs(name, loc, se, sl, sr, rflat, rsalts, rspec,
             None if sr is not None else _c_spec(rspec),
             current_stream_handle(e.device.index))
     _raise_on(lib, err, name)
+    profiling.launched(name, loc, e, sl, sr, rflat,
+                       rsalts if rflat is not None else None, slabs)
     return slabs
 
 
+@profiling.spanned("tt.kernel.psi_chunk_slabs")
 def psi_chunk_slabs(loc, se, sl, sr, n_chunks: int, span: int,
                     chunk: int) -> torch.Tensor:
     """Per-chunk Ψ slabs ``(n_chunks, span, r1, r2)`` float32 from rows that
@@ -411,23 +417,19 @@ def psi_chunk_slabs(loc, se, sl, sr, n_chunks: int, span: int,
     ``loc`` (n_chunks·chunk,) int32 local rows (sentinel ``span``), ``se``
     (nnz,) sorted entries, ``sl`` (r1, nnz) and ``sr`` (r2, nnz) float32
     rows in the plan's sorted order, unpadded; either may be None (a row of
-    ones: ``r1 = 1`` or ``r2 = 1``).  ``psi_chunk_slabs.launches`` counts
-    kernel launches."""
+    ones: ``r1 = 1`` or ``r2 = 1``).  Counted as
+    ``launches.psi_chunk_slabs``."""
     if sl is None and sr is None:
         raise ValueError("psi_chunk_slabs needs a left or a right side")
     _check_rows("psi_chunk_slabs", se.shape[0], sl=sl, sr=sr)
     if _on_cpu(loc, se, sl, sr):
         return psi_chunk_slabs_reference(loc, se, sl, sr, n_chunks, span,
                                          chunk)
-    slabs = _launch_chunk_slabs("psi_chunk_slabs", loc, se, sl, sr, None,
-                                None, _GAUSS, n_chunks, span, chunk)
-    psi_chunk_slabs.launches += 1
-    return slabs
+    return _launch_chunk_slabs("psi_chunk_slabs", loc, se, sl, sr, None,
+                               None, _GAUSS, n_chunks, span, chunk)
 
 
-psi_chunk_slabs.launches = 0
-
-
+@profiling.spanned("tt.kernel.psi_chunk_slabs_genright")
 def psi_chunk_slabs_genright(loc, se, sl, rflat, rsalts, n_chunks: int,
                              span: int, chunk: int,
                              rspec=_GAUSS) -> torch.Tensor:
@@ -437,7 +439,7 @@ def psi_chunk_slabs_genright(loc, se, sl, rflat, rsalts, n_chunks: int,
     int64, ``rsalts`` and ``rspec`` (module docstring).  The swapped case
     (hashed left, given right) is the same call with the roles exchanged
     and each slab block transposed by the caller.
-    ``psi_chunk_slabs_genright.launches`` counts kernel launches."""
+    Counted as ``launches.psi_chunk_slabs_genright``."""
     if rflat is None:
         raise ValueError("psi_chunk_slabs_genright needs the hashed side's "
                          "flat indices")
@@ -446,16 +448,12 @@ def psi_chunk_slabs_genright(loc, se, sl, rflat, rsalts, n_chunks: int,
     if _on_cpu(loc, se, sl, rflat, rsalts):
         return psi_chunk_slabs_genright_reference(
             loc, se, sl, rflat, rsalts, n_chunks, span, chunk, rspec)
-    slabs = _launch_chunk_slabs("psi_chunk_slabs_genright", loc, se, sl,
-                                None, rflat, rsalts, rspec, n_chunks, span,
-                                chunk)
-    psi_chunk_slabs_genright.launches += 1
-    return slabs
+    return _launch_chunk_slabs("psi_chunk_slabs_genright", loc, se, sl,
+                               None, rflat, rsalts, rspec, n_chunks, span,
+                               chunk)
 
 
-psi_chunk_slabs_genright.launches = 0
-
-
+@profiling.spanned("tt.kernel.psi_window_direct")
 def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
                       n_chunks: int, span: int, chunk: int, n_windows: int,
                       lspec=_GAUSS, rspec=_GAUSS) -> torch.Tensor:
@@ -469,7 +467,7 @@ def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
     Either side may be None (the one-sided variant of the boundary modes).
     A two-sided call gives each window a block, a one-sided one a warp;
     either writes each of the window's rows once, and no combine follows.
-    ``psi_window_direct.launches`` counts kernel launches."""
+    Counted as ``launches.psi_window_direct``."""
     if lflat is None and rflat is None:
         raise ValueError("psi_window_direct needs a left or a right side")
     r1 = _side_rows(lspec, lflat, lsalts)
@@ -509,11 +507,11 @@ def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
             _c_spec(rspec),
             current_stream_handle(e.device.index))
     _raise_on(lib, err, "psi_window_direct")
-    psi_window_direct.launches += 1
+    profiling.launched(
+        "psi_window_direct", win, first, loc, e, lflat, rflat,
+        lsalts if lflat is not None else None,
+        rsalts if rflat is not None else None, psi)
     return psi
-
-
-psi_window_direct.launches = 0
 
 
 def oneside_schedule(window: bool, lflat, rflat, r1: int, r2: int,
@@ -533,12 +531,13 @@ def oneside_schedule(window: bool, lflat, rflat, r1: int, r2: int,
     return tuple(out)
 
 
+@profiling.spanned("tt.kernel.omega_fused")
 def omega_fused(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
                 rspec=_GAUSS) -> torch.Tensor:
     """(r1, r2) float32 Ω block ``Σ_k e_k·L[:,k] ⊗ R[:,k]`` with both row
     families hashed in-kernel, in nnz order.  Per-block partials are summed
-    by ``torch.sum`` in a fixed order.  ``omega_fused.launches`` counts
-    kernel launches."""
+    by ``torch.sum`` in a fixed order.  Counted as
+    ``launches.omega_fused``."""
     r1 = _side_rows(lspec, lflat, lsalts)
     r2 = _side_rows(rspec, rflat, rsalts)
     if _on_cpu(e, lflat, rflat, lsalts, rsalts):
@@ -558,13 +557,11 @@ def omega_fused(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
             e.shape[0], r1, r2, _c_spec(lspec), _c_spec(rspec),
             current_stream_handle(e.device.index))
     _raise_on(lib, err, "omega_fused")
-    omega_fused.launches += 1
+    profiling.launched("omega_fused", e, lflat, rflat, lsalts, rsalts, part)
     return part.sum(dim=0)
 
 
-omega_fused.launches = 0
-
-
+@profiling.spanned("tt.kernel.psi_omega_merged_slabs")
 def psi_omega_merged_slabs(loc, se, lflat, rflat, oflat, lsalts, rsalts,
                            osalts, n_chunks: int, span: int, chunk: int,
                            lspec=_GAUSS, rspec=_GAUSS,
@@ -572,8 +569,8 @@ def psi_omega_merged_slabs(loc, se, lflat, rflat, oflat, lsalts, rsalts,
     """One pass computing the Ψ_μ slabs (as ``psi_fused_slabs``) and the
     Ω_μ block ``(r1o, r2)`` from the inclusive-prefix rows ``oflat`` /
     ``osalts`` / ``ospec``, with the right rows hashed once for both.
-    ``lflat`` may be None (μ = 0).  ``psi_omega_merged_slabs.launches``
-    counts launches."""
+    ``lflat`` may be None (μ = 0).  Counted as
+    ``launches.psi_omega_merged_slabs``."""
     r1 = _side_rows(lspec, lflat, lsalts)
     r2 = _side_rows(rspec, rflat, rsalts)
     r1o = _side_rows(ospec, oflat, osalts)
@@ -601,8 +598,7 @@ def psi_omega_merged_slabs(loc, se, lflat, rflat, oflat, lsalts, rsalts,
             _c_spec(lspec), _c_spec(rspec), _c_spec(ospec),
             current_stream_handle(e.device.index))
     _raise_on(lib, err, "psi_omega_merged_slabs")
-    psi_omega_merged_slabs.launches += 1
+    profiling.launched(
+        "psi_omega_merged_slabs", loc, e, lflat, rflat, oflat,
+        lsalts if lflat is not None else None, rsalts, osalts, slabs, part)
     return slabs, part.sum(dim=0)
-
-
-psi_omega_merged_slabs.launches = 0

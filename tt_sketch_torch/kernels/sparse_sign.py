@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
 from tt_sketch_torch.rng.hash_rng import hash_int, sparse_sign_from_bits
@@ -78,6 +79,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@profiling.spanned("tt.kernel.sparse_sign_rows")
 def sparse_sign_rows(flat: torch.Tensor, salts: torch.Tensor, rank: int,
                      nnz: int, rank_min: int, rank_max: int) -> torch.Tensor:
     """(rank_max - rank_min, N) float32 sparse-sign rows for int64 ``flat``
@@ -86,7 +88,7 @@ def sparse_sign_rows(flat: torch.Tensor, salts: torch.Tensor, rank: int,
     ``[rank_min, rank_max)`` returned.
 
     CPU tensors take ``sparse_sign_rows_reference``; CUDA tensors launch
-    the kernel (``sparse_sign_rows.launches`` counts launches)."""
+    the kernel (counted as ``launches.sparse_sign_rows``)."""
     rank, nnz = int(rank), int(nnz)
     rank_min, rank_max = int(rank_min), int(rank_max)
     if flat.device.type == "cpu" and salts.device.type == "cpu":
@@ -111,8 +113,6 @@ def sparse_sign_rows(flat: torch.Tensor, salts: torch.Tensor, rank: int,
             flat.data_ptr(), salts.data_ptr(), out.data_ptr(), N, rank, nnz,
             rank_min, rank_max, current_stream_handle(flat.device.index))
     _raise_on(lib, err, "sparse_sign_rows")
-    sparse_sign_rows.launches += 1
+    profiling.launched("sparse_sign_rows", flat, salts, out)
     return out
 
-
-sparse_sign_rows.launches = 0

@@ -11,18 +11,110 @@ Counterpart of ``tt_sketch_tpu/profiling.py``:
   semantics: each ``stop`` waits for the devices of the tensors it is
   handed, so a stage time means "device finished", not "launch queued".
 - ``memory_stats``: the CUDA caching allocator's statistics.
+- ``span(name)`` (``spanned(name)`` as a decorator): a named range on the
+  profiler's host timeline, which the profiler keeps on the same clock as
+  the device's kernels, so a kernel or an idle gap can be put down to the
+  innermost span open at its launch.  With no profiler recording a span
+  costs one read of a flag and records nothing.  The library's spans:
+
+  - entry and dispatch: ``tt.stream_sketch``, ``tt.hmt_sketch``,
+    ``tt.orthogonal_sketch``, ``tt.slab_stream_sketch``; ``tt.mode.<μ>``
+    around each mode's Ψ and Ω work; ``tt.slab`` around each slab of
+    ``slab_stream_sketch``; ``tt.psi_index_add`` around a Ψ too large for
+    the segment kernel (``index_add_`` of outer products);
+  - kernels: ``tt.kernel.<wrapper>`` around each kernel wrapper;
+  - recovery: ``tt.to_tt``, ``tt.recover`` (``assemble_sketched_tt``),
+    ``tt.lstsq``;
+  - distribution: ``tt.all_reduce``.
+
+- ``count(name, n)``, ``counters()``, ``reset_counters()``: counters that
+  are always on.  Each kernel wrapper counts ``launches.<wrapper>`` and
+  ``bytes.<wrapper>`` (operands read plus outputs written, from their
+  shapes and dtypes); a sharded sketch's reduction counts
+  ``bytes.all_reduce``.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
+from collections import defaultdict
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Set
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from tt_sketch_torch.config import resolve_device
+
+
+class _NoSpan:
+    """The span when no profiler records: it enters, leaves and records
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a ``torch.profiler`` records,
+    else the shared no-op context ``NO_SPAN``.
+
+    >>> with profiling.span("tt.mode.2"):
+    ...     psi = ...
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return NO_SPAN
+    return _autograd_profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``
+    (with no profiler recording, the call costs one flag read more)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _autograd_profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+_COUNTERS: Dict[str, int] = defaultdict(int)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    _COUNTERS[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter (a counter never added to is absent)."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    """Set every counter back to zero."""
+    _COUNTERS.clear()
+
+
+def launched(wrapper: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Count one kernel launch of ``wrapper`` and, as its bytes, those of
+    ``tensors`` (the launch's operands and outputs; None is skipped)."""
+    _COUNTERS["launches." + wrapper] += 1
+    _COUNTERS["bytes." + wrapper] += sum([t.nbytes for t in tensors
+                                          if t is not None])
 
 
 @contextmanager

@@ -16,6 +16,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tt_sketch_torch import profiling
 from tt_sketch_torch.config import DEFAULT_DTYPE, resolve_device
 
 TTRank = Union[int, Tuple[int, ...]]
@@ -59,6 +60,7 @@ def dematricize(A: torch.Tensor, mode: int,
 # Pseudo-inverse products
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("tt.lstsq")
 def _lstsq(A: torch.Tensor, B: torch.Tensor,
            rcond: Optional[float] = None) -> torch.Tensor:
     """Minimum-norm least squares ``argmin_x |A x - B|`` by truncated SVD,
