@@ -50,7 +50,7 @@ failure raises and exits non-zero):
    nothing to compress; with the sign pair each of seeds 0-4 against the
    float64 parity path of the same seed, and their median); median sketch
    time over fresh seeds (CUDA events); the recorded segment reductions
-   (the package's, through ``psi_segment`` for a Ψ of at most 16384 values;
+   (the package's, through ``psi_segment`` for a Ψ that ``segment_fits``;
    its plain ``index_add_``; a one-hot ``torch.matmul`` written here as a
    yardstick) and slab combines replayed and timed; a profiler breakdown.
 6. The sparse kernels against their plain versions: the 64-bit hash bit for
@@ -1516,16 +1516,20 @@ def segment_case(n_mu, r1, r2, nnz, runs=None, dtype="float32", seed=9):
 
 
 #: ``psi_segment`` at shapes no sketch gives it: (label, segment_case
-#: arguments, timed).  uber's two segment shapes (3,309,696 nonzeros) with
-#: their indices in runs and at random; a Ψ of the most values the kernel
-#: takes (float32 and float64: two tiles of bins); no sides; one row;
-#: runs that cross the blocks' ranges with an index outside the mode in
-#: one of them
+#: arguments, timed).  uber's two segment shapes at ranks 10/20 (3,309,696
+#: nonzeros) with their indices in runs and at random, and its mode 1 at
+#: the benchmark's ranks 20/40 in float32 and float64 (bins that squeeze
+#: the ring: the plan within 113 KB); a Ψ of 16384 values in float64 (113
+#: KB too); no sides; one row; runs that cross the blocks' ranges with an
+#: index outside the mode in one of them
 SEGMENT_SHAPES = (
     ("183 rows x 20, sorted", (183, None, 20, 3_309_696, "sorted"), True),
     ("183 rows x 20, random", (183, None, 20, 3_309_696), True),
     ("24 rows x 10 x 20, runs of 2600", (24, 10, 20, 3_309_696, 2600), True),
     ("24 rows x 10 x 20, random", (24, 10, 20, 3_309_696), True),
+    ("24 rows x 20 x 40, runs of 2600", (24, 20, 40, 3_309_696, 2600), True),
+    ("24 rows x 20 x 40, float64, runs of 2600",
+     (24, 20, 40, 3_309_696, 2600, "float64"), True),
     ("81 rows x 10 x 20", (81, 10, 20, 300_001), False),
     ("81 rows x 10 x 20, runs of 5000", (81, 10, 20, 300_001, 5000), False),
     ("512 rows x 4 x 8, float64", (512, 4, 8, 100_003, None, "float64"),
@@ -1538,14 +1542,43 @@ SEGMENT_SHAPES = (
 )
 
 
+#: the segment shapes of the benchmark's uber cells, float32: (label, n_mu,
+#: r1, r2); STTA's mode-1 Ψ takes the plan within 113 KB, the others the
+#: plan they had before it
+SEGMENT_PLANS = (("STTA 20/40 mode 0", 183, 1, 40),
+                 ("STTA 20/40 mode 1", 24, 20, 40),
+                 ("HMT 20 mode 0", 183, 1, 20),
+                 ("HMT 20 mode 1", 24, 20, 20))
+
+
+def segment_plans():
+    """Print the kernel's launch geometry at ``SEGMENT_PLANS``."""
+    from tt_sketch_torch.kernels.segment_psi import segment_plan
+
+    out = {}
+    for label, n_mu, r1, r2 in SEGMENT_PLANS:
+        out[label] = plan = segment_plan(4, n_mu, r1, r2)
+        print(f"# phase 6: psi_segment plan {label} ({n_mu} x {r1} x {r2}): "
+              + ", ".join(f"{k} {v}" for k, v in plan.items()))
+    return out
+
+
+#: the values above which a Ψ took ``index_add_`` before ``segment_fits``
+#: routed it
+INDEX_ADD_CELLS = 16384
+
+
 def phase_segment_shapes():
     """``psi_segment`` against its plain version at ``SEGMENT_SHAPES``, with
     an index outside the mode inside a run of the run-structured cases;
     the same bits from a second call; the timed cases' ms alone and ten
-    back to back, beside their bound."""
+    back to back, beside their bound; at the shapes whose Ψ took
+    ``index_add_`` before the kernel's fit routed it
+    (``INDEX_ADD_CELLS``), the plain version's ms and ``index_add_``'s
+    alone; the launch geometry at ``SEGMENT_PLANS``."""
     import torch
 
-    res = {}
+    res = {"plans": segment_plans()}
     for label, case, timed in SEGMENT_SHAPES:
         args = segment_case(*case)
         if len(case) > 4 and case[4] is not None:
@@ -1564,6 +1597,19 @@ def phase_segment_shapes():
         print(f"# phase 6: psi_segment {label}: {one:.3f} ms alone, "
               f"{b2b:.3f} ms back to back (bound {bound:.3f} ms by bytes; "
               f"{b2b / bound:.2f}x)")
+        if case[0] * (case[1] or 1) * (case[2] or 1) > INDEX_ADD_CELLS:
+            plain = _kernel_fns()["psi_segment"][1]
+            res[label]["plain_ms"] = time_ms(lambda: plain(*args))
+            # the dropped indices go to a row past the last
+            n_mu, idx = args[4], args[3]
+            kept = torch.where((idx >= 0) & (idx < n_mu), idx, n_mu)
+            res[label]["index_add_ms"] = segment_library_ms(
+                [args[:3] + (kept, n_mu + 1)])
+            print(f"# phase 6: psi_segment {label}: plain version (chunked "
+                  f"outer products and index_add_, the path before the "
+                  f"kernel took it) {res[label]['plain_ms']:.3f} ms, "
+                  f"index_add_ of the outer products made beforehand "
+                  f"{res[label]['index_add_ms']:.3f} ms")
         del args
         torch.cuda.empty_cache()
     return res
@@ -1919,7 +1965,8 @@ def segment_library_ms(calls):
     outs = [(_outer(left, right, ent), idx, n_mu)
             for left, right, ent, idx, n_mu in calls]
     ms = time_ms(lambda: [
-        torch.zeros((n_mu, o.shape[1]), device="cuda").index_add_(0, idx, o)
+        torch.zeros((n_mu, o.shape[1]), device="cuda",
+                    dtype=o.dtype).index_add_(0, idx, o)
         for o, idx, n_mu in outs])
     del outs
     torch.cuda.empty_cache()
@@ -1952,7 +1999,7 @@ def segment_onehot(left, right, entries, indices_mu, n_mu):
 
 def replay_segments(segs, tag):
     """Time the recorded segment reductions ``segs`` through the package
-    (``psi_segment``'s kernel for a Ψ of at most 16384 values), through the
+    (``psi_segment``'s kernel for a Ψ that ``segment_fits``), through the
     plain ``index_add_`` (``psi_segment_reference``) and through the
     one-hot yardstick, after holding the last two to the first; returns
     ``(package ms, index_add_ ms, one-hot ms)``."""
@@ -2012,12 +2059,21 @@ def _hash_rows(drm, k):
     return spec[4] if spec[0] == "s" else drm.salts(k).shape[0]
 
 
-def _segment_kernel(n_mu, r1, r2):
+def _segment_kernel(n_mu, r1, r2, *operands):
     """1 if the segment reduction of a Ψ of (r1, n_mu, r2) launches
-    ``psi_segment``'s kernel, else 0 (it scatters with ``index_add_``)."""
-    from tt_sketch_torch.kernels.segment_psi import MAX_CELLS
+    ``psi_segment``'s kernel (it ``segment_fits`` in the dtype that the
+    tensor and DRMs ``operands`` promote to), else 0 (it scatters with
+    ``index_add_``)."""
+    import functools
 
-    return int(n_mu * r1 * r2 <= MAX_CELLS)
+    import torch
+
+    from tt_sketch_torch.kernels.segment_psi import segment_fits
+
+    dtype = functools.reduce(torch.promote_types,
+                             [op.dtype for op in operands])
+    return int(segment_fits(torch.empty((r1, 0)), torch.empty((r2, 0)),
+                            n_mu, dtype))
 
 
 def expected_launches(tensor, ldrm, rdrm, whole=True):
@@ -2026,7 +2082,7 @@ def expected_launches(tensor, ldrm, rdrm, whole=True):
     takes the window kernel, any other plan the Ψ slab kernel; a mode
     without a plan generates its rows; Ω of modes not merged takes the Ω
     kernel; a mode without a plan takes the segment reduction, through its
-    kernel for a Ψ of at most 16384 values.  ``whole=False``: the tensor is
+    kernel for a Ψ that ``segment_fits``.  ``whole=False``: the tensor is
     a summand of a ``TensorSum``, sketched mode by mode as the JAX
     package's dispatch sketches one (no merged kernel: every Ω through the
     Ω kernel)."""
@@ -2043,7 +2099,8 @@ def expected_launches(tensor, ldrm, rdrm, whole=True):
                 n[rows[rdrm.side_spec(d - 2 - mu)[0]]] += 1
             n["psi_segment"] += _segment_kernel(
                 tensor.shape[mu], _hash_rows(ldrm, mu - 1) if mu > 0 else 1,
-                _hash_rows(rdrm, d - 2 - mu) if mu < d - 1 else 1)
+                _hash_rows(rdrm, d - 2 - mu) if mu < d - 1 else 1,
+                tensor, ldrm, rdrm)
         elif isinstance(p, WindowPlan):
             n["psi_window_direct"] += 1
         elif whole and mu < d - 1 and p.flat_left_om is not None:
@@ -2270,7 +2327,7 @@ def expected_seq_launches(tensor, method, rdrm):
     the right DRM hashes, else the grouped kernel; a ``WindowPlan`` the
     window kernel at μ = 0 with a hash DRM and the segment reduction
     otherwise; a mode that takes the segment reduction (through its kernel
-    for a Ψ of at most 16384 values; the chain on the left has the
+    for a Ψ that ``segment_fits``; the chain on the left has the
     sketch's rank, 10 on every path here) has a hash DRM generate its right
     rows.  OTTS adds one fused Ω per mode."""
     from tt_sketch_torch.kernels.sparse_plan import ModePlan, WindowPlan
@@ -2292,7 +2349,7 @@ def expected_seq_launches(tensor, method, rdrm):
             r2 = (1 if mu == d - 1 else _hash_rows(rdrm, d - 2 - mu)
                   if hashes else rdrm.rank[d - 2 - mu])
             n["psi_segment"] += _segment_kernel(
-                tensor.shape[mu], 10 if mu > 0 else 1, r2)
+                tensor.shape[mu], 10 if mu > 0 else 1, r2, tensor, rdrm)
             if right_hashed:
                 n[rows[rdrm.side_spec(d - 2 - mu)[0]]] += 1
     if method == "otts":

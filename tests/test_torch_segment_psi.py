@@ -124,23 +124,71 @@ def test_operands_promote_as_the_plain_version():
 
 
 @pytest.mark.parametrize("n_mu, r1, r2, kernel", [
-    (SG.MAX_CELLS // 6, 2, 3, True), (SG.MAX_CELLS // 6 + 1, 2, 3, False),
-    (SG.MAX_CELLS, None, None, True), (SG.MAX_CELLS // 2 + 1, 2, None, False)])
+    (1470, 10, 20, True), (1471, 10, 20, False),
+    (12160, None, 3, True), (12161, None, 3, False)])
 def test_large_psi_scatters_on_every_device(monkeypatch, n_mu, r1, r2,
                                             kernel):
-    # the sketch sends a Ψ of at most MAX_CELLS values to the wrapper (the
-    # kernel on CUDA) and scatters a larger one with the plain version
+    # the sketch sends a Ψ that segment_fits to the wrapper (the kernel on
+    # CUDA) and scatters a larger one with the plain version, counted as a
+    # fallback.  In float64, 2 x 4 micro-tiles (ranks 10 x 20) hold 1470
+    # rows beside a ring of MIN_TK nonzeros, 1 x 1 (no left side, rank 3)
+    # 12160: 64 or 8 bytes of bins a row, the ring 9216 or 1184 bytes
     routed = []
     monkeypatch.setattr(K, "psi_segment",
                         lambda *a: routed.append(a[4]) or SG.psi_segment(*a))
     ops = _torch(*_operands(n_mu, r1, r2, nnz=500))
+    assert SG.segment_fits(ops[0], ops[1], n_mu, torch.float64) == kernel
+    profiling.reset_counters()
     psi = K._psi_sparse_segment(*ops, n_mu)
     assert routed == ([n_mu] if kernel else [])
+    assert profiling.counters().get("fallbacks.psi_index_add", 0) == (
+        0 if kernel else 1)
     assert torch.equal(psi, SG.psi_segment_reference(*ops, n_mu)
                        .permute(1, 0, 2))
     if not kernel:
-        with pytest.raises(ValueError, match="values outside"):
+        with pytest.raises(ValueError, match="beyond the kernel's fit"):
             SG.psi_segment(*ops, n_mu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ubers_mode_1_psi_takes_the_kernel(monkeypatch, dtype):
+    # uber's mode 1 at the benchmark's ranks 20/40: 24 rows x 20 x 40 =
+    # 19,200 values, 2 x 4 micro-tiles of 32 (float32) or 64 (float64)
+    # bytes of bins a row, far inside the fit
+    n_mu, nnz = 24, 6_001
+    left, right, ent, idx = _torch(*_operands(n_mu, 20, 40, nnz=nnz,
+                                              dtype=np.float64))
+    left, right, ent = (t.to(dtype) for t in (left, right, ent))
+    assert SG.segment_fits(left, right, n_mu, dtype)
+    assert SG.psi_dtype(left, right, ent) == dtype
+    routed = []
+    monkeypatch.setattr(K, "psi_segment",
+                        lambda *a: routed.append(a[4]) or SG.psi_segment(*a))
+    profiling.reset_counters()
+    psi = K._psi_sparse_segment(left, right, ent, idx, n_mu)
+    assert routed == [n_mu]
+    assert "fallbacks.psi_index_add" not in profiling.counters()
+    assert tuple(psi.shape) == (20, n_mu, 40) and psi.dtype == dtype
+    assert torch.equal(psi, SG.psi_segment_reference(left, right, ent, idx,
+                                                     n_mu).permute(1, 0, 2))
+
+
+def test_fit_rule_reads_the_kernels_constants():
+    # segment_fits mirrors the C entry's rule: its constants and its
+    # count of instructions a quad are the kernel source's
+    src = (Path(SG.__file__).parents[1] / "csrc"
+           / "segment_psi.cu").read_text()
+    consts = dict(re.findall(r"constexpr (?:int|size_t) (\w+) = ([^;]+);",
+                             src))
+    assert eval(consts["SMEM_BUDGET"]) == SG.SMEM_BUDGET
+    assert int(consts["MIN_TK"]) == SG.MIN_TK
+    assert int(consts["NSTAGE"]) == SG.NSTAGE
+    assert f"(int64_t)r1 * r2 <= {SG.MAX_PAIRS}" in src
+    assert "warps * (6 + ta + tb + 4 * ta + 4 * ta * tb)" in src
+    # wide tiles where they issue fewer instructions: 20 x 40 and 10 x 20
+    # (uber's modes 1), 1 x 1 for a rank-1 side (uber's mode 0)
+    assert SG._wide_tiles(20, 40) and SG._wide_tiles(10, 20)
+    assert not SG._wide_tiles(1, 40) and not SG._wide_tiles(4, 8)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -235,7 +283,8 @@ def test_raises_off_cpu_without_kernel():
     (512, 20_000, np.float32), (512, 20_000, np.float64)])
 def test_kernel_matches_plain_version_on_the_card(n_mu, nnz, dtype, r1, r2,
                                                   kind):
-    # 512 rows x 4 x 8 pairs: MAX_CELLS values, two tiles of bins in float64
+    # 512 rows x 4 x 8 pairs: 16384 values; in float64 bins that squeeze
+    # the ring, so the plan within 113 KB (two tiles of bins)
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel runs only there")
     ops = _operands(n_mu, r1, r2, nnz=nnz, dtype=dtype)

@@ -1,7 +1,7 @@
 """Spans and counters of ``tt_sketch_torch.profiling`` on the CPU: the no-op
 span without a profiler, the library's spans and their nesting under a CPU
-``torch.profiler``, the ``index_add_`` span of a Ψ too large for the segment
-kernel, and the counter registry."""
+``torch.profiler``, the ``index_add_`` span and counter of a Ψ beyond the
+segment kernel's fit, and the counter registry."""
 from types import SimpleNamespace
 
 import numpy as np
@@ -19,7 +19,7 @@ from tt_sketch_torch.engine.sketch import (
 )
 from tt_sketch_torch.formats import SparseTensor, TensorTrain
 from tt_sketch_torch.kernels.dense_engine import slab_stream_sketch
-from tt_sketch_torch.kernels.segment_psi import MAX_CELLS
+from tt_sketch_torch.kernels.segment_psi import segment_fits
 
 NNZ = 2000
 
@@ -188,14 +188,20 @@ def test_spans_lie_inside_their_root(run):
         assert e.time_range.end <= root.time_range.end
 
 
-@pytest.mark.parametrize("n1, cells, index_add", [(88, 17_600, True),
-                                                   (80, 16_000, False)])
-def test_index_add_span_appears_exactly_above_max_cells(n1, cells,
-                                                        index_add):
-    # mode 1's Ψ is (10, n1, 20): left rank 10 from mode 0, right rank 20;
-    # every other mode's Ψ stays below the segment kernel's limit
-    assert 10 * n1 * 20 == cells and (cells > MAX_CELLS) == index_add
+@pytest.mark.parametrize("n1, index_add", [(88, False), (2990, False),
+                                            (2991, True)])
+def test_index_add_span_appears_exactly_above_max_cells(n1, index_add):
+    # mode 1's Ψ is (10, n1, 20): left rank 10 from mode 0, right rank 20,
+    # so 2 x 4 micro-tiles of 32 bytes of float32 bins a row: 2990 rows fit
+    # the segment kernel beside its smallest ring, 2991 do not (88 rows,
+    # 17,600 values, were above the cap of 16,384 values it replaces);
+    # every other mode's Ψ fits
+    assert segment_fits(torch.empty((10, 0)), torch.empty((20, 0)), n1,
+                        torch.float32) != index_add
+    profiling.reset_counters()
     events = _spans(lambda: _stta(_sparse(n1)))
+    assert profiling.counters().get("fallbacks.psi_index_add", 0) == int(
+        index_add)
     fallback = [e for e in events if e.name == "tt.psi_index_add"]
     assert len(fallback) == int(index_add)
     segments = [_ancestors(e)[0] for e in events

@@ -23,8 +23,11 @@ through the package's own kernels to record their calls; for
 ``chain_step`` the sequential paths that launch the chain step (uber HMT
 Gaussian and TT-DRM, OTTS, lbnl HMT); for ``segment_psi`` every uber path
 (STTA with a Gaussian and a sign pair, HMT Gaussian, OTTS, HMT TT-DRM) and
-the timed cases of ``chip_smoke.SEGMENT_SHAPES`` (uber's two segment
-shapes with their indices in runs and at random), one call each; for
+the timed cases of ``chip_smoke.SEGMENT_SHAPES`` (uber's segment shapes
+with their indices in runs and at random, mode 1 at ranks 20/40 among
+them), one call each (a source without the C queries
+``tt_segment_psi_fits`` and ``tt_segment_psi_plan`` needs stubs of them);
+for
 ``sparse_sign`` the uber STTA path with a sign pair and the cases of
 ``chip_smoke.sign_row_cases`` (odd shapes, the rank buckets' edges, ranks
 above 4096), one call each.  ``given`` times the given-rows kernels of

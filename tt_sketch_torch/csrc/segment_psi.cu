@@ -65,7 +65,12 @@
 // Staged rows are interleaved by micro-tile and bins are [n][quad][tile][4],
 // so the 16-byte reads of a warp's threads fall in distinct banks.  The
 // micro-tiles of a block and its ring must fit SMEM_BUDGET: tk shrinks
-// first (down to MIN_TK), then the block's set of micro-tiles.
+// first (down to MIN_TK), then the block's set of micro-tiles.  A shape
+// whose bins leave that budget a ring of fewer than TK nonzeros a step
+// (uber's mode 1, 24 rows x 20 x 40 in float: a ring of 32 beside 76.8 KB
+// of bins) is planned within SQUEEZED_BUDGET instead, the most shared
+// memory a block may take while two blocks share an H100's SM (there: a
+// ring of 64, 1.7x faster than the ring of 32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +82,8 @@ constexpr size_t SMEM_BUDGET = 96 * 1024;  // opt-in shared memory per block
 constexpr int TK = 128;     // nonzeros a step at most
 constexpr int MIN_TK = 8;
 constexpr int NSTAGE = 2;   // steps in the ring: NSTAGE - 1 in flight
+// 228 KB of shared memory an SM, 1 KB of it reserved a block: two blocks
+constexpr size_t SQUEEZED_BUDGET = 113 * 1024;
 constexpr int REDUCE_WARPS = 32;
 
 // 16 bytes from global to shared memory, in flight until waited for.
@@ -561,17 +568,20 @@ bool wide_tiles(int r1, int r2) {
 
 // A launch's geometry: micro-tiles a block (np), its threads, the left
 // rows it stages (la), the right rows (rb), the step (tk), the extent of
-// the grid in y and the shared memory; 0 threads: the bins of one
-// micro-tile do not fit.
+// the grid in y, the shared memory and the budget it was planned in; 0
+// threads: the bins of one micro-tile do not fit.
 struct Plan {
   int nb, n_tiles, np, threads, la, rb, tk, grid_y;
-  size_t bytes;
+  size_t bytes, budget;
 };
 
+// The plan within `budget` bytes: as many micro-tiles a block as fit
+// beside a ring of MIN_TK nonzeros, then the largest step that fits.
 template <typename T, int TA, int TB>
-Plan plan_of(int n_mu, int r1, int r2) {
+Plan plan_at(int n_mu, int r1, int r2, size_t budget) {
   constexpr int TT = TA * TB;
   Plan g;
+  g.budget = budget;
   g.nb = (r2 + TB - 1) / TB;
   g.rb = g.nb * TB;
   const int na = (r1 + TA - 1) / TA;
@@ -582,20 +592,29 @@ Plan plan_of(int n_mu, int r1, int r2) {
   };
   g.np = g.n_tiles < MAX_TILES ? g.n_tiles : MAX_TILES;
   while (g.np > 1 && block_bytes<T>(n_mu, g.np, TT, la_of(g.np), g.rb,
-                                    MIN_TK) > SMEM_BUDGET) {
+                                    MIN_TK) > budget) {
     --g.np;
   }
   g.la = la_of(g.np);
   g.threads = (g.np + 31) / 32 * 32;
   g.tk = TK;
   while (g.tk > MIN_TK &&
-         block_bytes<T>(n_mu, g.np, TT, g.la, g.rb, g.tk) > SMEM_BUDGET) {
+         block_bytes<T>(n_mu, g.np, TT, g.la, g.rb, g.tk) > budget) {
     g.tk -= 8;
   }
   g.bytes = block_bytes<T>(n_mu, g.np, TT, g.la, g.rb, g.tk);
-  if (g.bytes > SMEM_BUDGET) g.threads = 0;
+  if (g.bytes > budget) g.threads = 0;
   g.grid_y = (g.n_tiles + g.np - 1) / g.np;
   return g;
+}
+
+// The plan within SMEM_BUDGET, which decides the fit; where its ring holds
+// fewer than TK nonzeros a step, the plan within SQUEEZED_BUDGET.
+template <typename T, int TA, int TB>
+Plan plan_of(int n_mu, int r1, int r2) {
+  const Plan g = plan_at<T, TA, TB>(n_mu, r1, r2, SMEM_BUDGET);
+  if (g.threads == 0 || g.tk == TK) return g;
+  return plan_at<T, TA, TB>(n_mu, r1, r2, SQUEEZED_BUDGET);
 }
 
 template <typename T, int TA, int TB>
@@ -604,7 +623,7 @@ cudaError_t prepare(const Plan& g) {
   if (g.bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(segment_run_kernel<T, TA, TB>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)SMEM_BUDGET);
+                              (int)g.budget);
 }
 
 template <typename T, int TA, int TB>
@@ -680,24 +699,37 @@ int blocks_any(int n_mu, int r1, int r2) {
                             : blocks_of<T, 1, 1>(n_mu, r1, r2);
 }
 
+template <typename T>
+Plan plan_any(int n_mu, int r1, int r2) {
+  return wide_tiles(r1, r2) ? plan_of<T, 2, 4>(n_mu, r1, r2)
+                            : plan_of<T, 1, 1>(n_mu, r1, r2);
+}
+
+bool valid_shape(int elem, int n_mu, int r1, int r2) {
+  return (elem == 4 || elem == 8) && n_mu > 0 && r1 > 0 && r2 > 0 &&
+         (int64_t)r1 * r2 <= 65535;  // tiles of rank pairs: grid.y
+}
+
+Plan plan_elem(int elem, int n_mu, int r1, int r2) {
+  return elem == 4 ? plan_any<float>(n_mu, r1, r2)
+                   : plan_any<double>(n_mu, r1, r2);
+}
+
 }  // namespace
 
 extern "C" {
 
 // elem is 4 (float) or 8 (double); nnz > 0; partials holds
-// n_chunks * n_mu * r1 * r2 values, chunk * n_chunks >= nnz and
-// r1 * r2 <= 65535.  The bins of one micro-tile of every row and a ring of
-// MIN_TK-nonzero steps must fit SMEM_BUDGET: about 4096 rows with ranks up to
-// 2000 in float.  Returns the cudaError_t of the launches (0 on success).
+// n_chunks * n_mu * r1 * r2 values, chunk * n_chunks >= nnz, and the shape
+// fits (tt_segment_psi_fits).  Returns the cudaError_t of the launches (0 on
+// success).
 int tt_segment_psi(int elem, const int64_t* idx, const void* ent,
                    const void* left, const void* right, void* partials,
                    void* out, int64_t nnz, int n_mu, int r1, int r2,
                    int64_t chunk, int n_chunks, void* stream) {
-  if ((elem != 4 && elem != 8) || nnz <= 0 || n_mu <= 0 || r1 <= 0 ||
-      r2 <= 0 || (left == nullptr && r1 != 1) ||
-      (right == nullptr && r2 != 1) || n_chunks <= 0 || chunk <= 0 ||
-      chunk * (int64_t)n_chunks < nnz ||
-      (int64_t)r1 * r2 > 65535) {  // tiles of rank pairs: grid.y
+  if (!valid_shape(elem, n_mu, r1, r2) || nnz <= 0 ||
+      (left == nullptr && r1 != 1) || (right == nullptr && r2 != 1) ||
+      n_chunks <= 0 || chunk <= 0 || chunk * (int64_t)n_chunks < nnz) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -708,10 +740,34 @@ int tt_segment_psi(int elem, const int64_t* idx, const void* ent,
                                         s);
 }
 
+// 1 if tt_segment_psi takes a Psi of (n_mu, r1, r2) in elem bytes a value,
+// else 0: r1 * r2 <= 65535, and the bins of one micro-tile (of the shape
+// wide_tiles picks) of every row beside a ring of MIN_TK-nonzero steps fit
+// SMEM_BUDGET (in float about 2,900 rows at ranks 20 x 40 and 24,000 at
+// rank 1 x 20; in double about half).  No card is asked.
+int tt_segment_psi_fits(int elem, int n_mu, int r1, int r2) {
+  return valid_shape(elem, n_mu, r1, r2) &&
+         plan_elem(elem, n_mu, r1, r2).threads > 0;
+}
+
+// The plan of a Psi of (n_mu, r1, r2) into geometry[8]: the micro-tile's
+// rows TA and TB, micro-tiles a block, threads, nonzeros a step, the grid's
+// extent in y, shared memory bytes a block and the micro-tiles of all
+// pairs; returns tt_segment_psi_fits.
+int tt_segment_psi_plan(int elem, int n_mu, int r1, int r2, int* geometry) {
+  if (!valid_shape(elem, n_mu, r1, r2)) return 0;
+  const Plan g = plan_elem(elem, n_mu, r1, r2);
+  const bool wide = wide_tiles(r1, r2);
+  const int v[8] = {wide ? 2 : 1, wide ? 4 : 1, g.np,         g.threads,
+                    g.tk,         g.grid_y,     (int)g.bytes, g.n_tiles};
+  for (int i = 0; i < 8; ++i) geometry[i] = v[i];
+  return g.threads > 0;
+}
+
 // The blocks of one launch's grid.x (its n_chunks) that fill the card once
 // for a Psi of this shape, on the current device; at least 1.
 int tt_segment_psi_blocks(int elem, int n_mu, int r1, int r2) {
-  if ((elem != 4 && elem != 8) || n_mu <= 0 || r1 <= 0 || r2 <= 0) return 1;
+  if (!valid_shape(elem, n_mu, r1, r2)) return 1;
   return elem == 4 ? blocks_any<float>(n_mu, r1, r2)
                    : blocks_any<double>(n_mu, r1, r2);
 }

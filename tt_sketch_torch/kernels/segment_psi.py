@@ -12,12 +12,17 @@ computes the plain version ``psi_segment_reference``: the chunked outer
 products summed with ``index_add_``, the counterpart of ``segment_sum``.
 There is no fallback from one to the other.
 
-The kernel keeps a block's bins of every row and rank pair in shared
-memory and sums in a fixed order, without atomics: it takes a Ψ of at most
-``MAX_CELLS`` values (n_mu · r1 · r2).  A larger Ψ scatters with
-``psi_segment_reference`` on every device
-(``sketch_kernels._psi_sparse_segment``): its atomics then rarely meet on
-one address.
+The kernel sums in a fixed order, without atomics, into bins in shared
+memory: a block holds the bins of every row for a set of micro-tiles of
+rank pairs (all of them where they fit; the grid's second dimension takes
+the sets).  It takes a Ψ when ``segment_fits``: the bins of one micro-tile
+of every row beside a ring of ``MIN_TK`` nonzeros fit ``SMEM_BUDGET``.
+A Ψ beyond that (thousands of rows) scatters with ``psi_segment_reference``
+on every device (``sketch_kernels._psi_sparse_segment``): its atomics then
+spread over that many rows.  A Ψ whose bins leave that budget too short a
+ring (fewer than 128 nonzeros a step) is planned within 113 KB a block,
+two blocks an SM (``segment_plan`` reads a shape's launch geometry from
+the built library).
 """
 from __future__ import annotations
 
@@ -30,9 +35,13 @@ from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
 from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
 
-#: the most values (rows x rank pairs) of a Ψ the kernel takes: 64 KB of
-#: float32 bins, one block holds all of them
-MAX_CELLS = 16384
+#: the kernel's fit (``csrc/segment_psi.cu``, held to it by a test): its
+#: shared memory a block, the nonzeros of its smallest step, the steps of
+#: its ring, and the most rank pairs (tiles of pairs take the grid's y)
+SMEM_BUDGET = 96 * 1024
+MIN_TK = 8
+NSTAGE = 2
+MAX_PAIRS = 65535
 #: nnz per step of the plain version (bounds the outer-product temporary to
 #: a few hundred MB at rank 10 x 20)
 _REF_CHUNK = 1 << 19
@@ -49,13 +58,46 @@ def _ranks(left, right):
             1 if right is None else right.shape[0])
 
 
-def segment_cells(left, right, n_mu: int) -> int:
-    """The number of values of the Ψ: n_mu · r1 · r2."""
+def _wide_tiles(r1: int, r2: int) -> bool:
+    """Whether the kernel takes 2 x 4 micro-tiles of rank pairs (else 1 x
+    1): the fewer warp instructions a quad of nonzeros, as ``wide_tiles``
+    in the kernel's source counts them."""
+    def cost(ta, tb):
+        tiles = -(-r1 // ta) * -(-r2 // tb)
+        return -(-tiles // 32) * (6 + ta + tb + 4 * ta + 4 * ta * tb)
+    return cost(2, 4) < cost(1, 1)
+
+
+@functools.cache
+def _fits(elem: int, n_mu: int, r1: int, r2: int) -> bool:
+    """``segment_fits`` of ranks ``r1``, ``r2`` in ``elem``-byte values:
+    the kernel's block of one micro-tile (its bins of every row) and a ring
+    of ``NSTAGE`` steps of ``MIN_TK`` nonzeros (the staged left rows it can
+    span, the right rows and the entries, ``MIN_TK`` + one 16-byte quad
+    apart, then the step's int64 indices, int rows and quad flags) within
+    ``SMEM_BUDGET``."""
+    if n_mu <= 0 or r1 <= 0 or r2 <= 0 or r1 * r2 > MAX_PAIRS:
+        return False
+    ta, tb = (2, 4) if _wide_tiles(r1, r2) else (1, 1)
+    nb = -(-r2 // tb)
+    la = min(-(-r1 // ta), 1 // nb + 2) * ta
+    bins = -(-n_mu * ta * tb * elem // 16) * 16
+    stage = ((la + nb * tb + 1) * (MIN_TK + 16 // elem) * elem
+             + MIN_TK * 12 + -(-(MIN_TK // 4 * 4) // 16) * 16)
+    return bins + NSTAGE * stage <= SMEM_BUDGET
+
+
+def segment_fits(left, right, n_mu: int, dtype) -> bool:
+    """Whether the kernel takes the (n_mu, r1, r2) Ψ of sides ``left``
+    (r1, nnz) and ``right`` (r2, nnz) (None: rank 1) in ``dtype`` (it sums
+    float64 in float64, anything else in float32): the rule its C entry
+    enforces (``tt_segment_psi_fits``), decided without a card."""
     r1, r2 = _ranks(left, right)
-    return n_mu * r1 * r2
+    return _fits(8 if dtype == torch.float64 else 4, int(n_mu), r1, r2)
 
 
-def _out_dtype(left, right, entries):
+def psi_dtype(left, right, entries):
+    """The dtype of the Ψ: the operands' promoted dtype."""
     dtype = entries.dtype
     for side in (left, right):
         if side is not None:
@@ -70,7 +112,7 @@ def psi_segment_reference(left, right, entries, indices_mu, n_mu):
     ``jax.ops.segment_sum`` drops it): it adds to a row past the last,
     which is cut off.  Returns (n_mu, r1, r2)."""
     r1, r2 = _ranks(left, right)
-    dtype = _out_dtype(left, right, entries)
+    dtype = psi_dtype(left, right, entries)
     psi = torch.zeros((n_mu + 1, r1, r2), dtype=dtype, device=entries.device)
     for k0 in range(0, entries.shape[0], _REF_CHUNK):
         sl = slice(k0, k0 + _REF_CHUNK)
@@ -114,8 +156,11 @@ def _library() -> ctypes.CDLL:
     lib.tt_segment_psi.argtypes = [i32] + [ptr] * 6 + [i64, i32, i32, i32,
                                                       i64, i32, ptr]
     lib.tt_segment_psi.restype = i32
-    lib.tt_segment_psi_blocks.argtypes = [i32] * 4
-    lib.tt_segment_psi_blocks.restype = i32
+    for query in (lib.tt_segment_psi_blocks, lib.tt_segment_psi_fits):
+        query.argtypes = [i32] * 4
+        query.restype = i32
+    lib.tt_segment_psi_plan.argtypes = [i32] * 4 + [ptr]
+    lib.tt_segment_psi_plan.restype = i32
     lib.tt_cuda_error_string.argtypes = [i32]
     lib.tt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -128,22 +173,36 @@ def _blocks(device: int, elem: int, n_mu: int, r1: int, r2: int) -> int:
         return _library().tt_segment_psi_blocks(elem, n_mu, r1, r2)
 
 
+#: the fields of ``segment_plan``, as ``tt_segment_psi_plan`` writes them
+PLAN_FIELDS = ("ta", "tb", "tiles_a_block", "threads", "tk", "grid_y",
+               "smem_bytes", "tiles")
+
+
+def segment_plan(elem: int, n_mu: int, r1: int, r2: int) -> dict:
+    """The kernel's launch geometry for a Ψ of (n_mu, r1, r2) in
+    ``elem``-byte values (``PLAN_FIELDS``, and ``fits``), from the built
+    library; asks no card."""
+    geometry = (ctypes.c_int * len(PLAN_FIELDS))()
+    fits = _library().tt_segment_psi_plan(elem, n_mu, r1, r2, geometry)
+    return dict(zip(PLAN_FIELDS, geometry), fits=bool(fits))
+
+
 @profiling.spanned("tt.kernel.psi_segment")
 def psi_segment(left, right, entries, indices_mu, n_mu):
-    """(n_mu, r1, r2) Ψ of at most ``MAX_CELLS`` values from its sides
-    ``left`` (r1, nnz) and ``right`` (r2, nnz) (either may be None: rank 1,
-    a factor of 1), the ``entries`` (nnz,) and the int64 mode indices
-    (nnz,), in the operands' promoted dtype.
+    """(n_mu, r1, r2) Ψ that ``segment_fits`` from its sides ``left``
+    (r1, nnz) and ``right`` (r2, nnz) (either may be None: rank 1, a factor
+    of 1), the ``entries`` (nnz,) and the int64 mode indices (nnz,), in the
+    operands' promoted dtype.
 
     CPU tensors take ``psi_segment_reference``.  CUDA tensors launch the
     kernel in float64 for float64 operands and in float32 otherwise
     (counted as ``launches.psi_segment``; no nonzeros, no launch);
     indices outside ``[0, n_mu)`` are dropped there."""
     n_mu = int(n_mu)
-    cells = segment_cells(left, right, n_mu)
-    if not 0 < cells <= MAX_CELLS:
-        raise ValueError(f"psi_segment: a Ψ of {cells} values outside "
-                         f"[1, {MAX_CELLS}]")
+    if not segment_fits(left, right, n_mu,
+                        psi_dtype(left, right, entries)):
+        raise ValueError(f"psi_segment: a Ψ of {n_mu} rows and ranks "
+                         f"{_ranks(left, right)} beyond the kernel's fit")
     named = [(n, t) for n, t in (("left", left), ("right", right),
                                  ("entries", entries),
                                  ("indices_mu", indices_mu))
@@ -164,7 +223,7 @@ def psi_segment(left, right, entries, indices_mu, n_mu):
                                              else 1):
             raise ValueError(f"psi_segment: {name} of shape "
                              f"{tuple(t.shape)} for {nnz} nonzeros")
-    dtype = _out_dtype(left, right, entries)
+    dtype = psi_dtype(left, right, entries)
     kdtype = torch.float64 if dtype == torch.float64 else torch.float32
     left, right, entries = (None if t is None else t.to(kdtype).contiguous()
                             for t in (left, right, entries))

@@ -29,11 +29,11 @@ import torch
 
 from tt_sketch_torch import profiling
 from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian
-from tt_sketch_torch.kernels.segment_psi import MAX_CELLS as SEGMENT_MAX_CELLS
 from tt_sketch_torch.kernels.segment_psi import (
+    psi_dtype,
     psi_segment,
     psi_segment_reference,
-    segment_cells,
+    segment_fits,
 )
 from tt_sketch_torch.kernels.sparse_plan import WindowPlan
 from tt_sketch_torch.kernels.sparse_psi import (
@@ -162,15 +162,17 @@ def _materialize(side):
 def _psi_sparse_segment(left, right, entries, indices_mu, n_mu):
     """Σ_k  e_{ind[k]} ⊗ (left[:,k]·entries[k]) ⊗ right[:,k]: the
     counterpart of the ``jax.ops.segment_sum`` the JAX package takes off a
-    TPU (its one-hot product there is a TPU workaround).  A Ψ of at most
-    ``MAX_CELLS`` values takes ``psi_segment`` (the kernel on CUDA, one
-    block holding every value); a larger one scatters with ``index_add_``
-    (``psi_segment_reference``) on every device, inside the span
-    ``tt.psi_index_add``: its atomics then rarely meet on one address.
-    Returns (r1, n_mu, r2)."""
-    if segment_cells(left, right, n_mu) <= SEGMENT_MAX_CELLS:
+    TPU (its one-hot product there is a TPU workaround).  A Ψ that
+    ``segment_fits`` (the kernel's bins of one micro-tile of every row
+    beside its smallest ring fit its shared memory) takes ``psi_segment``
+    (the kernel on CUDA); a larger one, of thousands of rows, scatters with
+    ``index_add_`` (``psi_segment_reference``) on every device, inside the
+    span ``tt.psi_index_add`` and counted as ``fallbacks.psi_index_add``:
+    its atomics then spread over that many rows.  Returns (r1, n_mu, r2)."""
+    if segment_fits(left, right, n_mu, psi_dtype(left, right, entries)):
         psi = psi_segment(left, right, entries, indices_mu, n_mu)
     else:
+        profiling.count("fallbacks.psi_index_add")
         with profiling.span("tt.psi_index_add"):
             psi = psi_segment_reference(left, right, entries, indices_mu,
                                         n_mu)

@@ -20,8 +20,8 @@ Counterpart of ``tt_sketch_tpu/profiling.py``:
   - entry and dispatch: ``tt.stream_sketch``, ``tt.hmt_sketch``,
     ``tt.orthogonal_sketch``, ``tt.slab_stream_sketch``; ``tt.mode.<μ>``
     around each mode's Ψ and Ω work; ``tt.slab`` around each slab of
-    ``slab_stream_sketch``; ``tt.psi_index_add`` around a Ψ too large for
-    the segment kernel (``index_add_`` of outer products);
+    ``slab_stream_sketch``; ``tt.psi_index_add`` around a Ψ beyond the
+    segment kernel's fit (``index_add_`` of outer products);
   - kernels: ``tt.kernel.<wrapper>`` around each kernel wrapper;
   - recovery: ``tt.to_tt``, ``tt.recover`` (``assemble_sketched_tt``),
     ``tt.lstsq``;
@@ -31,7 +31,8 @@ Counterpart of ``tt_sketch_tpu/profiling.py``:
   are always on.  Each kernel wrapper counts ``launches.<wrapper>`` and
   ``bytes.<wrapper>`` (operands read plus outputs written, from their
   shapes and dtypes); a sharded sketch's reduction counts
-  ``bytes.all_reduce``.
+  ``bytes.all_reduce``; a Ψ beyond the segment kernel's fit counts
+  ``fallbacks.psi_index_add``.
 """
 from __future__ import annotations
 
