@@ -10,7 +10,8 @@ and only a run of every phase prints the kernels line.  Phases (the first
 failure raises and exits non-zero):
 
 1. Build the CUDA libraries ``dual_project``, ``lazy_gaussian``,
-   ``sparse_sign``, ``sparse_psi``, ``chain_step`` and ``segment_psi`` from
+   ``sparse_sign``, ``sparse_psi``, ``chain_step``, ``segment_psi`` and
+   ``jacobi_svd`` from
    ``tt_sketch_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once), print each ptxas report
    and the card's name and power limit; count in the built SASS the
@@ -32,7 +33,9 @@ failure raises and exits non-zero):
    streamed in 19 mode-0 slabs kept as their pivot-1 2-D view
    (32768, 16384) through ``slab_stream_sketch`` with TT-DRMs of rank
    32/64; recover with ``SketchedTensorTrain.to_tt()`` and check the error
-   and the kernel's launch count; then time one resident slab streamed
+   and the kernel's launch count, and that the recovery takes one
+   ``jacobi_svd`` launch and no ``fallbacks.lstsq_svd`` (counters set to 0
+   just before it); then time one resident slab streamed
    19 x 3 times.
 4. ``stream_sketch`` on dense and TT input in float64 at a small shape:
    exact recovery and linearity of ``+``.
@@ -45,14 +48,16 @@ failure raises and exits non-zero):
    ``lbnl-synthetic`` with a Gaussian and with a sign pair (merged x 4,
    ``psi_window_direct`` x 1).  Per path: the launch counts, worked out
    from the plans and asserted; every Ψ/Ω against the same sketch with
-   each kernel replaced by its plain version on the card; ``sample_error``
-   of ``to_tt()`` (a guard for uber only: lbnl's scattered support has
-   nothing to compress; with the sign pair each of seeds 0-4 against the
-   float64 parity path of the same seed, and their median); median sketch
-   time over fresh seeds (CUDA events); the recorded segment reductions
-   (the package's, through ``psi_segment`` for a Ψ that ``segment_fits``;
-   its plain ``index_add_``; a one-hot ``torch.matmul`` written here as a
-   yardstick) and slab combines replayed and timed; a profiler breakdown.
+   each kernel replaced by its plain version on the card; ``to_tt()``'s
+   one ``jacobi_svd`` launch and no ``fallbacks.lstsq_svd`` (counted as in
+   phase 3); ``sample_error`` of ``to_tt()`` (a guard for uber only: lbnl's
+   scattered support has nothing to compress; with the sign pair each of
+   seeds 0-4 against the float64 parity path of the same seed, and their
+   median); median sketch time over fresh seeds (CUDA events); the recorded
+   segment reductions (the package's, through ``psi_segment`` for a Ψ that
+   ``segment_fits``; its plain ``index_add_``; a one-hot ``torch.matmul``
+   written here as a yardstick) and slab combines replayed and timed; a
+   profiler breakdown.
 6. The sparse kernels against their plain versions: the 64-bit hash bit for
    bit; every kernel at every call phase 5 recorded (Gaussian and sign
    sides), at the calls of ragged sketches (nnz not a multiple of the
@@ -268,7 +273,23 @@ failure raises and exits non-zero):
     quick FROSTT rows (float64, rank 5, seeds 5063/5064) held to the
     record's float64 rows (``FROSTT_F64_TOL``), every other quick row to the
     port's CPU rows in ``QUICK_CPU_DIR`` (``QUICK_RTOL``).
-17. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
+17. The recovery's batched Jacobi SVD (``kernels/jacobi_svd``) at
+    ``JACOBI_SHAPES``: FROSTT-uber's three Ω (40 x 20 as ``_lstsq``
+    factors them), the dense stream's (64 x 32), both float32, and the
+    uniform engine's 8,190 float64 30 x 30 edges; each well-conditioned
+    and at cond 1e6.  Per shape: the kernel against its plain version on
+    the card and numpy's float64 singular values, the kernel's and the
+    plain version's reconstruction (at most ``100·eps·m`` of σ_max), the
+    sweeps used (at most ``MAX_SWEEPS``); ms per launch, ten back to back
+    and alone (CUDA events), beside the barriers it waits at and the plain
+    version's ms;
+    ``torch.linalg.svd`` per matrix and batched; the host's wall time of
+    one recovery's solves through ``utils.lstsq_each`` against per-mode
+    ``torch.linalg.svd`` solves, and those solves against the ones over
+    ``torch.linalg.svd``'s and over the plain version's factors (within
+    ``SOLVE_LIMITS``); and the launch counts of one ``lstsq_each`` (one
+    ``jacobi_svd``, no ``fallbacks.lstsq_svd``).
+18. Print the ``{"kernels": [...]}`` line (a sparse kernel's figures are
     those of the first main path that launches it; ``by_path`` has them for
     every path, phase 12's, 15's and 16's among them, with each rank's
     launches for phase 15; the diagnostics' launches are those of their
@@ -323,7 +344,19 @@ SHARD_SAMPLE_TOL = 1e-4  # absolute: a sharded uber sketch's sample error vs the
 NCCL_ONE_RANK_TOL = 1e-6  # relative Frobenius: a one-rank NCCL world's sketch vs the single-device one (the same kernels and plans)
 DENSE_RECOVERY_TOL = 1e-3  # relative error of the sharded dense stream's to_tt(), as phase 3's guard
 LIBRARIES = ("dual_project", "lazy_gaussian", "sparse_sign", "sparse_psi",
-             "chain_step", "segment_psi")
+             "chain_step", "segment_psi", "jacobi_svd")
+#: phase 17: (batch, m, n, dtype) of the recovery's SVDs, as ``_lstsq``
+#: factors them, and the right-hand side's columns of one solve
+JACOBI_SHAPES = {"uber stta": (3, 40, 20, "float32", 500),
+                 "dense stream": (3, 64, 32, "float32", 500),
+                 "uniform d=8192": (8190, 30, 30, "float64", 30)}
+#: phase 17: the solves' relative distance from those over
+#: ``torch.linalg.svd``'s factors and over the plain version's, at most
+#: (measured on an H100: float32 1e-6 to 1.2e-5, and 3e-3 to 4.4e-3 at cond
+#: 1e6, where either solve is within about cond·eps of the exact one;
+#: float64 0.9e-11 to 1.7e-11)
+SOLVE_LIMITS = {"float32": {"well": 1e-4, "cond_1e6": 3e-2},
+                "float64": {"well": 1e-9, "cond_1e6": 1e-9}}
 SPARSE_KERNELS = ("lazy_gaussian", "sparse_sign_rows", "omega_fused",
                   "psi_omega_merged_slabs", "psi_fused_slabs",
                   "psi_window_direct", "chain_step_t", "psi_chunk_slabs",
@@ -610,7 +643,8 @@ def phase_main_path():
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     launches = _launch_counts(["dual_project"])["dual_project"]
-    rec = SketchedTensorTrain(container, ld, rd).to_tt()
+    rec, recovery = _recovered("# phase 3:", SketchedTensorTrain(
+        container, ld, rd).to_tt)
     err = rec.error(data, relative=True)
     n_entries = float(np.prod(shape))
     print(f"# phase 3: {n_entries:.3e} entries ({n_entries * 4 / 1e9:.1f} GB "
@@ -678,8 +712,9 @@ def phase_main_path():
     print(f"# phase 3: one slab {slab_ms:.3f} ms = dual_project "
           f"{kernel_ms:.3f} ms + rest {slab_ms - kernel_ms:.3f} ms; the slab "
           f"with projector='matmul' {matmul_slab_ms:.3f} ms")
-    return {"launches": launches, "rel_err": err, "ms_per_slab": ms_per_slab,
-            "gbps": gbps, "entries_per_s": entries_per_s,
+    return {"launches": launches, "recovery": recovery, "rel_err": err,
+            "ms_per_slab": ms_per_slab, "gbps": gbps,
+            "entries_per_s": entries_per_s,
             "slab_ms": slab_ms, "stream_s": stream_s}
 
 
@@ -2149,6 +2184,27 @@ def _counted(run):
     return out, _launch_counts(SPARSE_KERNELS), calls
 
 
+def _recovered(tag, to_tt):
+    """``to_tt()`` with every counter set to 0 just before and read just
+    after: one ``jacobi_svd`` launch for all the Ω of the recovery and no
+    ``fallbacks.lstsq_svd``, else raises; returns ``(tt, counts)``."""
+    import torch
+
+    from tt_sketch_torch import profiling
+
+    torch.cuda.synchronize()
+    profiling.reset_counters()
+    tt = to_tt()
+    torch.cuda.synchronize()
+    counts = {name: profiling.counters().get(name, 0)
+              for name in ("launches.jacobi_svd", "fallbacks.lstsq_svd")}
+    print(f"{tag} to_tt(): {counts}")
+    if counts != {"launches.jacobi_svd": 1, "fallbacks.lstsq_svd": 0}:
+        raise AssertionError(f"{tag} to_tt(): {counts}, expected one "
+                             f"jacobi_svd launch and no fallback")
+    return tt, counts
+
+
 def _worst_parts(tag, what, ours, ref, tol):
     """The worst relative Frobenius error of the parts ``ours`` against
     ``ref`` (shapes equal, every value finite); raises past ``tol``."""
@@ -2230,7 +2286,9 @@ def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
     def run(seed):
         return stream_sketch(tensor, 10, 20, seed=seed, **kw)
 
-    err = sample_error(sk.to_tt(), tensor)
+    tt, recovery = _recovered(tag, sk.to_tt)
+    err = sample_error(tt, tensor)
+    del tt
     if guard is None:
         print(f"{tag} sample_error(to_tt()) = {err:.4f} (printed, no guard: "
               f"scattered support)")
@@ -2282,7 +2340,8 @@ def phase_sparse_main(label, tensor, drm_type, guard=None, groups=3,
           f"ms; segment reductions ({len(segs)} modes) {seg_ms:.3f} ms; "
           f"slab combines ({len(combs)} modes) {comb_ms:.3f} ms; device "
           f"busy {100 * busy:.1f} %")
-    return {"launches": launches, "busy": busy, "ms": med, "times": times,
+    return {"launches": launches, "recovery": recovery, "busy": busy,
+            "ms": med, "times": times,
             "nnz_per_s": nnz_per_s, "sample_error": err, "worst_rel": worst,
             "plain_ms": plain_ms, "enqueue_ms": enqueue_ms, "seg_ms": seg_ms,
             "index_add_ms": add_ms, "onehot_ms": onehot_ms,
@@ -4856,6 +4915,145 @@ def phase_cli(workdir):
             "quick_worst": worst}
 
 
+def _jacobi_matrices(kind, b, m, n, seed=0):
+    """(b, m, n) float64: standard normal (``well``), or ``U
+    diag(logspace(0, -6, n)) V^T`` with random orthonormal U, V
+    (``cond_1e6``)."""
+    rng = np.random.default_rng(seed)
+    if kind == "well":
+        return rng.standard_normal((b, m, n))
+    U = np.linalg.qr(rng.standard_normal((b, m, n)))[0]
+    V = np.linalg.qr(rng.standard_normal((b, n, n)))[0]
+    return (U * np.logspace(0, -6, n)) @ V.transpose(0, 2, 1)
+
+
+def _library_lstsq(A, B):
+    """``_lstsq`` over ``torch.linalg.svd`` (which checks its info
+    on the host), then the same rcond rule and products."""
+    import torch
+    from tt_sketch_torch import utils
+
+    U, s, Vh = torch.linalg.svd(A, full_matrices=False)
+    return utils._solve(U, utils._inverted(s, *A.shape[-2:]), Vh, B)
+
+
+def _wall_ms(fn, reps=20):
+    """Median host wall time of ``fn()`` from a synchronised card to the
+    card done again."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_jacobi_svd():
+    """Phase 17 (see the module docstring); returns the figures by shape."""
+    import torch
+    from tt_sketch_torch import profiling, utils
+    from tt_sketch_torch.kernels import jacobi_svd as JS
+
+    out = {}
+    for label, (b, m, n, dt, k) in JACOBI_SHAPES.items():
+        dtype = getattr(torch, dt)
+        for kind in ("well", "cond_1e6"):
+            host = _jacobi_matrices(kind, b, m, n)
+            A = torch.from_numpy(host).to("cuda", dtype)
+            U, s, Vh, used = JS.jacobi_svd(A, return_sweeps=True)
+            torch.cuda.synchronize()
+            s_np = np.linalg.svd(A.double().cpu().numpy(), compute_uv=False)
+            top = float(s_np.max())
+            pU, ps, pVh = JS.jacobi_svd_reference(A)
+            f = {
+                "vs_plain": float((s - ps).abs().max()) / top,
+                "vs_numpy": float(np.abs(s.double().cpu().numpy() - s_np)
+                                  .max()) / top,
+                "reconstruction": float(((U * s[..., None, :]) @ Vh - A)
+                                        .abs().max()) / top,
+                "plain_reconstruction": float(
+                    ((pU * ps[..., None, :]) @ pVh - A).abs().max()) / top,
+                "sweeps_max": int(used.max()),
+                "sweeps_mean": float(used.double().mean()),
+                "sweeps": torch.bincount(used.long().cpu()).tolist(),
+            }
+            tol = 1e-12 if dtype == torch.float64 else 2e-5
+            rec_tol = 100 * torch.finfo(dtype).eps * m
+            if (f["sweeps_max"] > JS.MAX_SWEEPS or f["vs_numpy"] > tol
+                    or f["vs_plain"] > 2 * tol
+                    or f["reconstruction"] > rec_tol
+                    or f["plain_reconstruction"] > rec_tol):
+                raise AssertionError(f"phase 17 {label} {kind}: {f}")
+            n_p = n + (n & 1)
+            f["barriers"] = 2 * n + (n_p - 1) * f["sweeps_max"] + 9
+            f["ms"] = time_ms(lambda: [JS.jacobi_svd(A)
+                                       for _ in range(10)]) / 10
+            f["event_ms"] = time_ms(lambda: JS.jacobi_svd(A))
+            f["plain_ms"] = time_ms(lambda: JS.jacobi_svd_reference(A),
+                                    reps=3, warmup=1)
+            f["library_batched_ms"] = time_ms(
+                lambda: torch.linalg.svd(A, full_matrices=False))
+            if b <= 3:
+                f["library_per_matrix_ms"] = time_ms(
+                    lambda: [torch.linalg.svd(a, full_matrices=False)
+                             for a in A])
+            B = [torch.randn((m, k), device="cuda", dtype=dtype)
+                 for _ in range(b)]
+            systems = list(zip(A, B)) if b <= 3 else [(A, torch.stack(B))]
+            before = profiling.counters()
+            got = utils.lstsq_each(systems)
+            after = profiling.counters()
+            f["launches"] = {name: after.get(name, 0) - before.get(name, 0)
+                             for name in ("launches.jacobi_svd",
+                                          "fallbacks.lstsq_svd")}
+            if f["launches"] != {"launches.jacobi_svd": 1,
+                                 "fallbacks.lstsq_svd": 0}:
+                raise AssertionError(f"phase 17 {label}: {f['launches']}")
+            ref = [_library_lstsq(a, b_) for a, b_ in systems]
+            f["solve_vs_library"] = max(_rel(x, r) for x, r in zip(got, ref))
+            Bs = torch.stack(B)
+            plain = utils._solve(pU, utils._inverted(ps, m, n), pVh, Bs)
+            f["solve_vs_plain"] = _rel(torch.stack(got) if b <= 3
+                                       else got[0], plain)
+            limit = SOLVE_LIMITS[dt][kind]
+            if not max(f["solve_vs_library"], f["solve_vs_plain"]) <= limit:
+                raise AssertionError(f"phase 17 {label} {kind}: solves "
+                                     f"{f['solve_vs_library']:.2e} from "
+                                     f"the library's, "
+                                     f"{f['solve_vs_plain']:.2e} from the "
+                                     f"plain version's (limit {limit:g})")
+            f["recovery_wall_ms"] = _wall_ms(lambda: utils.lstsq_each(systems))
+            f["library_recovery_wall_ms"] = _wall_ms(
+                lambda: [_library_lstsq(a, b_) for a, b_ in systems])
+            per = (f" per matrix x{b} {f['library_per_matrix_ms']:.4f} ms,"
+                   if "library_per_matrix_ms" in f else "")
+            print(f"# phase 17 {label} {kind} {dt} {b}x{m}x{n}: kernel "
+                  f"{f['ms']:.4f} ms a launch back to back (alone "
+                  f"{f['event_ms']:.4f}), "
+                  f"sweeps max {f['sweeps_max']} mean "
+                  f"{f['sweeps_mean']:.2f}, {f['barriers']} barriers "
+                  f"({1e6 * f['ms'] / f['barriers']:.0f} ns each); plain "
+                  f"{f['plain_ms']:.3f} ms; torch.linalg.svd{per} batched "
+                  f"{f['library_batched_ms']:.4f} ms; |s - plain| "
+                  f"{f['vs_plain']:.2e}, |s - numpy| {f['vs_numpy']:.2e}, "
+                  f"reconstruction {f['reconstruction']:.2e} of s_max "
+                  f"(plain {f['plain_reconstruction']:.2e}, limit "
+                  f"{rec_tol:.1e}); solves vs library "
+                  f"{f['solve_vs_library']:.2e}, vs plain "
+                  f"{f['solve_vs_plain']:.2e} (limit {limit:g}); sweeps "
+                  f"histogram {f['sweeps']}; wall "
+                  f"{f['recovery_wall_ms']:.4f} ms vs library "
+                  f"{f['library_recovery_wall_ms']:.4f} ms; launches "
+                  f"{f['launches']}")
+            out[f"{label} {kind}"] = f
+    return out
+
+
 def phase_experiments(ops, smi):
     """Phase 16: the experiment harness on the card: (a) the FROSTT driver
     at full size, (b) the CLI."""
@@ -4880,7 +5078,7 @@ def phase_experiments(ops, smi):
 #: phases that need another phase's results: 6 checks the calls that 5
 #: and 9 recorded; 12 adds its figures to 6's and compares with 5's paths
 PHASE_NEEDS = {6: {5, 9}, 12: {5, 6, 9}}
-ALL_PHASES = frozenset(range(1, 17))
+ALL_PHASES = frozenset(range(1, 18))
 
 
 def selected_phases(argv):
@@ -4970,6 +5168,7 @@ def main(argv=None):
     sharded = phase_sharded(ops, uber) if run(15) else None
     del uber
     experiments = phase_experiments(ops, smi) if run(16) else None
+    jacobi = phase_jacobi_svd() if run(17) else None
     if phases != ALL_PHASES:
         print(f"# phases {sorted(phases)} ran; the kernels line needs every "
               f"phase")
@@ -5070,6 +5269,31 @@ def main(argv=None):
             **({"turns": d["turns"]} if "turns" in d else {}),
             "card": smi,
         })
+    # launches and fallbacks of the main paths' recoveries (phases 3 and
+    # 5); the kernel's figures at the dense stream's shapes (phase 17)
+    dense = jacobi["dense stream well"]
+    recoveries = {"dense main path": path["recovery"]} | {
+        label: p["recovery"] for label, p in paths.items()
+        if "recovery" in p}
+    entries.append({
+        "name": "jacobi_svd",
+        "route": "cuda",
+        "source": "tt_sketch_torch/csrc/jacobi_svd.cu",
+        "replaces": "tt_sketch_tpu/kernels/accurate_linalg.py:88",
+        "launches": path["recovery"]["launches.jacobi_svd"],
+        "fallbacks": path["recovery"]["fallbacks.lstsq_svd"],
+        "max_rel_err": dense["vs_numpy"],
+        "ms": dense["ms"],
+        "plain_ms": dense["plain_ms"],
+        "bound_ms": None,
+        "bound_by": f"latency: {dense['barriers']} block barriers",
+        "library_ms": dense["library_batched_ms"],
+        "shape": "the dense stream's three 64 x 32 float32 matrices; "
+                 "launches and fallbacks those of the dense main path's "
+                 "to_tt()",
+        "by_path": recoveries | jacobi,
+        "card": smi,
+    })
     for name, ms, lib, what in (
             ("dual_project", kern["f32"]["ms"], kern["library_ms"],
              "two torch.matmul"),

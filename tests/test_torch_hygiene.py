@@ -54,6 +54,7 @@ def test_import_leaves_jax_out():
         "import tt_sketch_torch.kernels.chain_step\n"
         "import tt_sketch_torch.kernels.projector_diag\n"
         "import tt_sketch_torch.kernels.segment_psi\n"
+        "import tt_sketch_torch.kernels.jacobi_svd\n"
         "from tt_sketch_torch import TensorSum, CPTensor, TuckerTensor\n"
         "from tt_sketch_torch import DenseGaussianDRM, ALL_DRM\n"
         "from tt_sketch_torch import blocked_stream_sketch\n"
@@ -101,7 +102,8 @@ def test_kernel_source_is_in_the_package():
     from tt_sketch_torch.kernels.cuda_build import BUILD_DIR, CSRC
 
     for name in ("dual_project.cu", "lazy_gaussian.cu", "sparse_sign.cu",
-                 "sparse_psi.cu", "chain_step.cu", "hash_rng.cuh"):
+                 "sparse_psi.cu", "chain_step.cu", "jacobi_svd.cu",
+                 "hash_rng.cuh"):
         assert (CSRC / name).is_file()
     # builds land under build/, which .gitignore lists
     assert BUILD_DIR.relative_to(ROOT).parts[0] == "build"

@@ -32,12 +32,7 @@ from tt_sketch_torch.engine.sketch_container import SketchContainer
 from tt_sketch_torch.formats.base import Tensor
 from tt_sketch_torch.formats.tensor_train import TensorTrain
 from tt_sketch_torch.rng.hash_rng import hash_int_np
-from tt_sketch_torch.utils import (
-    TTRank,
-    left_mul_pinv,
-    process_tt_rank,
-    right_mul_pinv,
-)
+from tt_sketch_torch.utils import TTRank, lstsq_each, process_tt_rank
 
 DEFAULT_DRM = {
     CansketchDense: TensorTrainDRM,
@@ -397,29 +392,35 @@ def assemble_sketched_tt(
     sketch: SketchContainer, direction: str = "auto"
 ) -> List[torch.Tensor]:
     """Recover TT cores: ``C_μ = Ψ_μ Ω_μ⁺`` (right sweep) or
-    ``Ω_{μ-1}⁺ Ψ_μ`` (left sweep), direction chosen by the bigger side."""
+    ``Ω_{μ-1}⁺ Ψ_μ`` (left sweep), direction chosen by the bigger side.
+
+    Every solve is ``utils._lstsq``'s; the Ω of one shape are factored
+    together (``utils.lstsq_each``), on a card in one launch."""
     if direction == "auto":
         left_bigger = bool(
             np.all(np.array(sketch.left_rank) > np.array(sketch.right_rank))
         )
         direction = "left" if left_bigger else "right"
 
-    tt_cores: List[torch.Tensor] = []
     if direction == "right":
-        for Psi, Omega in zip(sketch.Psi_cores[:-1], sketch.Omega_mats):
-            r1, n, r2 = Psi.shape
-            core = right_mul_pinv(Psi.reshape(r1 * n, r2), Omega)
-            tt_cores.append(core.reshape(r1, n, Omega.shape[0]))
-        tt_cores.append(sketch.Psi_cores[-1])
-    elif direction == "left":
-        tt_cores.append(sketch.Psi_cores[0])
-        for Psi, Omega in zip(sketch.Psi_cores[1:], sketch.Omega_mats):
-            r1, n, r2 = Psi.shape
-            core = left_mul_pinv(Omega, Psi.reshape(r1, n * r2))
-            tt_cores.append(core.reshape(Omega.shape[1], n, r2))
-    else:
-        raise ValueError(f"Unknown direction {direction}")
-    return tt_cores
+        # Ψ Ω⁺ = (Ω^T⁺ Ψ^T)^T
+        Psis, Omegas = sketch.Psi_cores[:-1], sketch.Omega_mats
+        sols = lstsq_each([
+            (Omega.mT, Psi.reshape(Psi.shape[0] * Psi.shape[1],
+                                   Psi.shape[2]).mT)
+            for Psi, Omega in zip(Psis, Omegas)])
+        return [sol.mT.reshape(Psi.shape[0], Psi.shape[1], Omega.shape[0])
+                for sol, Psi, Omega in zip(sols, Psis, Omegas)
+                ] + [sketch.Psi_cores[-1]]
+    if direction == "left":
+        Psis, Omegas = sketch.Psi_cores[1:], sketch.Omega_mats
+        sols = lstsq_each([
+            (Omega, Psi.reshape(Psi.shape[0], Psi.shape[1] * Psi.shape[2]))
+            for Psi, Omega in zip(Psis, Omegas)])
+        return [sketch.Psi_cores[0]] + [
+            sol.reshape(Omega.shape[1], Psi.shape[1], Psi.shape[2])
+            for sol, Psi, Omega in zip(sols, Psis, Omegas)]
+    raise ValueError(f"Unknown direction {direction}")
 
 
 def _blocked_stream_sketch_components(

@@ -13,8 +13,11 @@ batched call:
 
 Each ``lax.scan`` of the JAX package is a Python loop here that writes into
 a preallocated stacked output; a ``reverse=True`` scan runs backwards.  The
-JAX package's Jacobi SVD (a TPU workaround) has no counterpart: the SVD is
-``torch.linalg.svd(full_matrices=False)`` on every device.
+recovery's least squares (``utils._lstsq``) factors on a card with the
+batched Jacobi kernel where the matrices fit it (``kernels/jacobi_svd``:
+every edge of a rank-30 TT in one launch), else with ``torch.linalg.svd``;
+the rounding's SVDs are ``torch.linalg.svd(full_matrices=False)`` on every
+device.
 
 Random cores come from one of two streams: ``"hash"``, the counter-based
 generator of the DRMs (``rng.hash_rng.inds_to_normal``) at the JAX

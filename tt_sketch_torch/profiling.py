@@ -24,7 +24,10 @@ Counterpart of ``tt_sketch_tpu/profiling.py``:
     segment kernel's fit (``index_add_`` of outer products);
   - kernels: ``tt.kernel.<wrapper>`` around each kernel wrapper;
   - recovery: ``tt.to_tt``, ``tt.recover`` (``assemble_sketched_tt``),
-    ``tt.lstsq``;
+    ``tt.lstsq`` (one around all the solves of a recovery),
+    ``tt.kernel.jacobi_svd`` (the batched SVD of its Ω),
+    ``tt.lstsq_svd_fallback`` around a ``torch.linalg.svd`` on a card
+    (matrices beyond the Jacobi kernel's fit);
   - distribution: ``tt.all_reduce``.
 
 - ``count(name, n)``, ``counters()``, ``reset_counters()``: counters that
@@ -32,7 +35,8 @@ Counterpart of ``tt_sketch_tpu/profiling.py``:
   ``bytes.<wrapper>`` (operands read plus outputs written, from their
   shapes and dtypes); a sharded sketch's reduction counts
   ``bytes.all_reduce``; a Ψ beyond the segment kernel's fit counts
-  ``fallbacks.psi_index_add``.
+  ``fallbacks.psi_index_add``; a least-squares SVD on a card beyond the
+  Jacobi kernel's fit counts ``fallbacks.lstsq_svd``.
 """
 from __future__ import annotations
 

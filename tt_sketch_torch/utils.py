@@ -11,13 +11,14 @@ from __future__ import annotations
 
 from functools import reduce
 from operator import mul
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from tt_sketch_torch import profiling
 from tt_sketch_torch.config import DEFAULT_DTYPE, resolve_device
+from tt_sketch_torch.kernels.jacobi_svd import jacobi_fits, jacobi_svd
 
 TTRank = Union[int, Tuple[int, ...]]
 
@@ -60,6 +61,43 @@ def dematricize(A: torch.Tensor, mode: int,
 # Pseudo-inverse products
 # ---------------------------------------------------------------------------
 
+def _svd(A: torch.Tensor):
+    """``(U, s, Vh)`` of ``A`` (..., m, n) as ``torch.linalg.svd(A,
+    full_matrices=False)`` returns them.
+
+    A CUDA tensor whose matrices ``jacobi_fits`` takes the batched Jacobi
+    kernel (``kernels/jacobi_svd``): one launch, no host sync.  A CPU tensor
+    takes ``torch.linalg.svd``, and so does anything else on a card, in the
+    span ``tt.lstsq_svd_fallback``, counted as ``fallbacks.lstsq_svd`` (on
+    CUDA that call checks its info on the host: a sync)."""
+    if A.device.type == "cpu":
+        return torch.linalg.svd(A, full_matrices=False)
+    if A.device.type == "cuda" and jacobi_fits(*A.shape[-2:], A.dtype):
+        return jacobi_svd(A)
+    profiling.count("fallbacks.lstsq_svd")
+    with profiling.span("tt.lstsq_svd_fallback"):
+        return torch.linalg.svd(A, full_matrices=False)
+
+
+def _inverted(s: torch.Tensor, m: int, n: int,
+              rcond: Optional[float] = None) -> torch.Tensor:
+    """``1 / s`` where ``s >= rcond·σ_max`` of its own matrix (the first of
+    its row: ``s`` descends), else 0; LAPACK's default ``rcond =
+    eps(dtype)·max(m, n)`` for m x n matrices (the CPU rule of the JAX
+    package, ``kernels/accurate_linalg._default_rcond``)."""
+    if rcond is None:
+        rcond = torch.finfo(s.dtype).eps * max(m, n)
+    keep = s >= rcond * s[..., :1]
+    return torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                       torch.zeros_like(s))
+
+
+def _solve(U: torch.Tensor, s_inv: torch.Tensor, Vh: torch.Tensor,
+           B: torch.Tensor) -> torch.Tensor:
+    """``V diag(s_inv) U^T B`` of a factored ``A = U diag(s) Vh``."""
+    return Vh.mT @ (s_inv[..., :, None] * (U.mT @ B))
+
+
 @profiling.spanned("tt.lstsq")
 def _lstsq(A: torch.Tensor, B: torch.Tensor,
            rcond: Optional[float] = None) -> torch.Tensor:
@@ -67,21 +105,39 @@ def _lstsq(A: torch.Tensor, B: torch.Tensor,
     over any leading batch dimensions of ``A`` (..., m, n) and ``B``
     (..., m, k).
 
-    Singular values below ``rcond·σ_max`` of their own matrix are dropped,
-    with LAPACK's default ``rcond = eps(dtype)·max(m, n)`` (the CPU rule of
-    the JAX package, ``kernels/accurate_linalg._default_rcond``).
-    ``torch.linalg.lstsq`` is not used: on CUDA its only driver (``gels``)
-    assumes full rank and ignores ``rcond``, and the exact-recovery regime
-    makes Ω rank-deficient on purpose.
+    Singular values below ``rcond·σ_max`` of their own matrix are dropped
+    (``_inverted``).  ``torch.linalg.lstsq`` is not used: on CUDA its only
+    driver (``gels``) assumes full rank and ignores ``rcond``, and the
+    exact-recovery regime makes Ω rank-deficient on purpose.  The SVD is
+    ``_svd``'s: on a card the Jacobi kernel where it fits, so that a
+    non-finite ``A`` gives a non-finite solution (as the JAX package's
+    Jacobi path gives) where ``torch.linalg.svd`` raised; on the CPU
+    ``torch.linalg.svd``, as before.
     """
-    m, n = A.shape[-2:]
-    if rcond is None:
-        rcond = torch.finfo(A.dtype).eps * max(m, n)
-    U, s, Vh = torch.linalg.svd(A, full_matrices=False)
-    keep = s >= rcond * s[..., :1]
-    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
-                        torch.zeros_like(s))
-    return Vh.mT @ (s_inv[..., :, None] * (U.mT @ B))
+    U, s, Vh = _svd(A)
+    return _solve(U, _inverted(s, *A.shape[-2:], rcond), Vh, B)
+
+
+def lstsq_each(systems: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               rcond: Optional[float] = None) -> List[torch.Tensor]:
+    """``_lstsq(A, B, rcond)`` of each ``(A, B)`` of ``systems``.
+
+    The A's of one shape, dtype and device are stacked and factored by one
+    ``_svd`` call (on a card one Jacobi launch for all the Ω of a
+    recovery), then each system is solved with ``_lstsq``'s rule and
+    products.  On the CPU the batched LAPACK SVD gives each matrix the bits
+    of its own call, so the solutions are ``_lstsq``'s, bit for bit."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, (A, _) in enumerate(systems):
+        groups.setdefault((tuple(A.shape), A.dtype, A.device), []).append(i)
+    out: List[Optional[torch.Tensor]] = [None] * len(systems)
+    with profiling.span("tt.lstsq"):
+        for (shape, _, _), members in groups.items():
+            U, s, Vh = _svd(torch.stack([systems[i][0] for i in members]))
+            s_inv = _inverted(s, *shape[-2:], rcond)
+            for k, i in enumerate(members):
+                out[i] = _solve(U[k], s_inv[k], Vh[k], systems[i][1])
+    return out
 
 
 def right_mul_pinv(A: torch.Tensor, B: torch.Tensor,
