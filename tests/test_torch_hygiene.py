@@ -103,7 +103,7 @@ def test_kernel_source_is_in_the_package():
 
     for name in ("dual_project.cu", "lazy_gaussian.cu", "sparse_sign.cu",
                  "sparse_psi.cu", "chain_step.cu", "jacobi_svd.cu",
-                 "hash_rng.cuh"):
+                 "segment_psi.cu", "hash_rng.cuh", "runtime.cuh"):
         assert (CSRC / name).is_file()
     # builds land under build/, which .gitignore lists
     assert BUILD_DIR.relative_to(ROOT).parts[0] == "build"
@@ -169,3 +169,273 @@ def test_dist_touches_no_card_and_no_compiler():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+# -- the binding seam: kernels/cuda_build.py and csrc/runtime.cuh ------------
+
+KERNELS = ROOT / "tt_sketch_torch" / "kernels"
+CSRC = ROOT / "tt_sketch_torch" / "csrc"
+WRAPPER_FILES = sorted(p for p in KERNELS.glob("*.py")
+                       if p.name != "cuda_build.py")
+CUDA_SOURCES = sorted(CSRC.glob("*.cu"))
+#: what only the seam may call or name: loading a library, reading a
+#: stream handle
+SEAM_NAMES = ("CDLL", "load_library", "current_stream", "cuda_stream",
+              "_cuda_getCurrentRawStream", "current_stream_handle")
+#: calls that switch the device, which only the seam makes
+SEAM_CALLS = ("torch.cuda.device", "torch.cuda.set_device",
+              "torch.cuda.current_stream", "ctypes.CDLL")
+#: wrapper module -> the library of csrc/ whose entries its table declares
+WRAPPER_LIBRARIES = {
+    "lazy_gaussian": "lazy_gaussian", "sparse_sign": "sparse_sign",
+    "sparse_psi": "sparse_psi", "segment_psi": "segment_psi",
+    "chain_step": "chain_step", "jacobi_svd": "jacobi_svd",
+    "dual_project": "dual_project", "projector_diag": "dual_project",
+}
+
+
+def _dotted(node):
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+    return ".".join(reversed(parts))
+
+
+@pytest.mark.parametrize("path", WRAPPER_FILES, ids=lambda p: p.name)
+def test_wrapper_binds_only_through_the_seam(path):
+    """A kernel module loads no library, reads no stream handle, switches no
+    device and declares no ``tt_cuda_error_string``: ``cuda_build`` does."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        name = (node.attr if isinstance(node, ast.Attribute)
+                else node.id if isinstance(node, ast.Name)
+                else node.name if isinstance(node, ast.alias) else None)
+        if name in SEAM_NAMES:
+            bad.append(name)
+        if isinstance(node, ast.Call) and _dotted(node.func) in SEAM_CALLS:
+            bad.append(_dotted(node.func))
+        if "tt_cuda_error_string" in (
+                name, getattr(node, "value", None)
+                if isinstance(node, ast.Constant) else None):
+            bad.append("tt_cuda_error_string")
+    assert not bad, f"{path.name} does the seam's work: {sorted(set(bad))}"
+
+
+@pytest.mark.parametrize("path", WRAPPER_FILES, ids=lambda p: p.name)
+def test_wrapper_imports_no_private_name_of_a_sibling(path):
+    """No kernel module reaches into another's private names, by import or
+    through the imported module."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    package = "tt_sketch_torch.kernels"
+    siblings, bad = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (
+                node.module or "").startswith(package):
+            for alias in node.names:
+                if node.module == package:
+                    siblings.add(alias.asname or alias.name)
+                elif alias.name.startswith("_"):
+                    bad.append(f"{node.module}.{alias.name}")
+        elif isinstance(node, ast.Import):
+            for alias in node.names:
+                if alias.name.startswith(package + ".") and alias.asname:
+                    siblings.add(alias.asname)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id in siblings and node.attr.startswith("_")
+                and not node.attr.startswith("__")):
+            bad.append(f"{node.value.id}.{node.attr}")
+    assert not bad, f"{path.name} reaches into {bad}"
+
+
+@pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
+def test_cuda_source_shares_the_runtime_header(path):
+    """A library's source includes ``runtime.cuh`` and neither defines the
+    error string nor asks the device for an attribute itself."""
+    src = path.read_text()
+    assert '#include "runtime.cuh"' in src
+    assert "tt_cuda_error_string" not in src
+    assert "cudaDeviceGetAttribute" not in src
+
+
+def test_runtime_header_holds_the_error_string_and_device_limits():
+    src = (CSRC / "runtime.cuh").read_text()
+    assert src.count('extern "C" const char* tt_cuda_error_string(int err)') \
+        == 1
+    for attr in ("cudaDevAttrMultiProcessorCount",
+                 "cudaDevAttrMaxSharedMemoryPerMultiprocessor",
+                 "cudaDevAttrReservedSharedMemoryPerBlock"):
+        assert attr in src
+    # asked once per device index and kept
+    assert "static int held[MAX_DEVICES]" in src
+
+
+def _c_entries(library):
+    """C entry -> (return type, parameter types) of ``csrc/<library>.cu``."""
+    import re
+
+    src = (CSRC / f"{library}.cu").read_text()
+    out = {}
+    for ret, name, params in re.findall(
+            r"^(int|int64_t) (tt_\w+)\(([^)]*)\)\s*\{", src, re.M):
+        params = [" ".join(p.split()) for p in params.split(",")]
+        out[name] = (ret, [] if params == ["void"] else params)
+    return out
+
+
+class _StandInLibrary:
+    """A library whose every entry is a plain object that takes the
+    ``argtypes`` and ``restype`` declared on it."""
+
+    def __getattr__(self, entry):
+        import types
+
+        fn = types.SimpleNamespace()
+        setattr(self, entry, fn)
+        return fn
+
+
+@pytest.mark.parametrize("module", sorted(WRAPPER_LIBRARIES))
+def test_signature_table_matches_the_c_entries(module, monkeypatch):
+    """Each wrapper's ``_library`` hands ``cuda_build.library`` a table that
+    declares its C entries as the source defines them (pointers as
+    pointers, int64_t as c_int64, int as c_int), and the seam adds the
+    error string."""
+    import ctypes
+    import importlib
+
+    from tt_sketch_torch.kernels import cuda_build
+
+    loaded = []
+
+    def load(name):
+        loaded.append(name)
+        return _StandInLibrary()
+
+    monkeypatch.setattr(cuda_build, "load_library", load)
+    mod = importlib.import_module(f"tt_sketch_torch.kernels.{module}")
+    lib = mod._library.__wrapped__()
+    assert loaded == [WRAPPER_LIBRARIES[module]]
+    declared = {k: v for k, v in vars(lib).items() if k.startswith("tt_")}
+    err = declared.pop("tt_cuda_error_string")
+    assert (err.argtypes, err.restype) == ([ctypes.c_int], ctypes.c_char_p)
+    entries = _c_entries(WRAPPER_LIBRARIES[module])
+    assert declared and set(declared) <= set(entries)
+    scalar = {"int": ctypes.c_int, "int64_t": ctypes.c_int64}
+    for entry, fn in declared.items():
+        ret, params = entries[entry]
+        assert fn.restype is scalar[ret], entry
+        assert len(fn.argtypes) == len(params), entry
+        for ctype, param in zip(fn.argtypes, params):
+            if "*" in param:
+                assert ctype is ctypes.c_void_p or issubclass(
+                    ctype, ctypes._Pointer), (entry, param)
+            else:
+                assert ctype is scalar[param.rsplit(" ", 1)[0]], (entry,
+                                                                  param)
+
+
+def test_library_loads_through_the_swappable_loader(monkeypatch):
+    """``cuda_build.library`` loads through the module-level
+    ``load_library`` at call time (the A/B tool swaps it to load a variant
+    build) and declares every entry of the table."""
+    import ctypes
+
+    from tt_sketch_torch.kernels import cuda_build
+
+    variant = _StandInLibrary()
+    monkeypatch.setattr(cuda_build, "load_library", lambda name: variant)
+    lib = cuda_build.library("anything", {
+        "tt_entry": ([cuda_build.PTR, cuda_build.I64], cuda_build.I32)})
+    assert lib is variant
+    assert lib.tt_entry.argtypes == [ctypes.c_void_p, ctypes.c_int64]
+    assert lib.tt_entry.restype is ctypes.c_int
+
+
+class _FailingLibrary:
+    """A stand-in kernel library whose ``tt_run`` returns CUDA error 700."""
+
+    def __init__(self):
+        self.calls = []
+
+    def tt_run(self, *args):
+        self.calls.append(args)
+        return 700 if args[0] < 0 else 0
+
+    def tt_cuda_error_string(self, err):
+        return f"stand-in error text {err}".encode()
+
+
+def _no_card(monkeypatch):
+    import contextlib
+
+    from tt_sketch_torch.kernels import cuda_build
+
+    switched = []
+    monkeypatch.setattr(
+        cuda_build, "on_device",
+        lambda device: switched.append(device) or contextlib.nullcontext())
+    monkeypatch.setattr(cuda_build, "current_stream_handle",
+                        lambda index: 4242 + index)
+    return cuda_build, switched
+
+
+def test_launch_passes_the_stream_last_on_the_device(monkeypatch):
+    import torch
+
+    cuda_build, switched = _no_card(monkeypatch)
+    lib = _FailingLibrary()
+    device = torch.device("cuda", 1)
+    assert cuda_build.launch(lib, "tt_run", device, 5, None, 7,
+                             what="stand_in") is None
+    assert lib.calls == [(5, None, 7, 4243)]
+    assert switched == [device]
+
+
+def test_launch_raises_naming_the_kernel_and_the_error(monkeypatch):
+    import torch
+
+    cuda_build, _ = _no_card(monkeypatch)
+    with pytest.raises(RuntimeError) as info:
+        cuda_build.launch(_FailingLibrary(), "tt_run", torch.device("cuda", 0),
+                          -1, what="psi_segment")
+    assert str(info.value) == ("psi_segment kernel failed to launch: CUDA "
+                               "error 700 (stand-in error text 700)")
+
+
+def test_check_raises_only_on_an_error_code():
+    from tt_sketch_torch.kernels import cuda_build
+
+    cuda_build.check(_FailingLibrary(), 0, "tt_psi_oneside_schedule")
+    with pytest.raises(RuntimeError, match=r"^tt_psi_oneside_schedule kernel "
+                       r"failed to launch: CUDA error 1 \(stand-in error "
+                       r"text 1\)$"):
+        cuda_build.check(_FailingLibrary(), 1, "tt_psi_oneside_schedule")
+
+
+@pytest.mark.parametrize("case", ["ok", "device", "dtype", "ndim", "strided"])
+def test_check_int64(case):
+    import torch
+
+    from tt_sketch_torch.kernels.cuda_build import check_int64
+
+    t = {"ok": torch.arange(6), "device": torch.arange(6, device="meta"),
+         "dtype": torch.arange(6, dtype=torch.int32),
+         "ndim": torch.arange(6).reshape(2, 3),
+         "strided": torch.arange(12)[::2]}[case]
+    cpu = torch.device("cpu")
+    if case == "ok":
+        check_int64("flat", t, cpu)
+        return
+    message = ("flat lies on meta; all operands must lie on cpu"
+               if case == "device" else
+               "flat must be a contiguous 1-D int64 tensor, got "
+               f"{t.dtype} of shape {tuple(t.shape)}")
+    with pytest.raises(ValueError) as info:
+        check_int64("flat", t, cpu)
+    assert str(info.value) == message

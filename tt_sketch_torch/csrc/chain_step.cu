@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "runtime.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -405,11 +407,8 @@ int tt_chain_step(const float* state, const float* core, float* rows,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  int sms = 0;
+  cudaError_t err = tt_runtime::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const int64_t quads = ((int64_t)n * stride + THREADS - 1) / THREADS;
   pack_rows<<<(unsigned)(quads < 4 * sms ? quads : 4 * sms), THREADS, 0,
@@ -439,10 +438,6 @@ int tt_chain_step(const float* state, const float* core, float* rows,
     case 16: return (int)by_r2<false, 16>(a, r2_bucket, place, smem, sms, st);
     default: return (int)by_r2<false, 32>(a, r2_bucket, place, smem, sms, st);
   }
-}
-
-const char* tt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -95,6 +95,8 @@
 
 #include <type_traits>
 
+#include "runtime.cuh"
+
 namespace {
 
 constexpr int BM = 64;              // rows of X per tile
@@ -620,8 +622,7 @@ int read_blocks() {
   int per_sm = 0, sms = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, reduce_read_kernel<VEC>, READ_THREADS, 0) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
+      tt_runtime::sm_count(&sms) != cudaSuccess) {
     return 0;
   }
   if (dev < MAX_DEVICES) held[dev] = per_sm * sms;
@@ -722,10 +723,6 @@ int tt_reduce_read(const float* X, float* out, int P, int S, void* stream) {
     reduce_read_kernel<false><<<blocks, READ_THREADS, 0, st>>>(X, out, P, S);
   }
   return (int)cudaGetLastError();
-}
-
-const char* tt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -91,6 +91,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "runtime.cuh"
+
 namespace {
 
 constexpr int MAX_SWEEPS = 12;
@@ -596,10 +598,6 @@ int tt_jacobi_svd(int elem, const void* A, int64_t batch, int m, int n,
                                    sweeps, s)
                    : launch<double>(A, batch, m, n, sb, sm, sn, U, S, Vh,
                                     sweeps, s);
-}
-
-const char* tt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

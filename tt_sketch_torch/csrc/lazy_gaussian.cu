@@ -31,6 +31,7 @@
 #include <stdint.h>
 
 #include "hash_rng.cuh"
+#include "runtime.cuh"
 
 namespace {
 
@@ -81,10 +82,6 @@ int tt_hash_bits(const uint64_t* x, uint64_t* out, int64_t N, void* stream) {
   hash_bits_kernel<<<blocks, THREADS, 0,
                      reinterpret_cast<cudaStream_t>(stream)>>>(x, out, N);
   return (int)cudaGetLastError();
-}
-
-const char* tt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -75,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "runtime.cuh"
+
 namespace {
 
 constexpr int MAX_TILES = 256;             // micro-tiles (threads) a block
@@ -663,13 +665,11 @@ template <typename T, int TA, int TB>
 int blocks_of(int n_mu, int r1, int r2) {
   const Plan g = plan_of<T, TA, TB>(n_mu, r1, r2);
   if (prepare<T, TA, TB>(g) != cudaSuccess) return 1;
-  int per_sm = 0, dev = 0, sms = 0;
+  int per_sm = 0, sms = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, segment_run_kernel<T, TA, TB>, g.threads, g.bytes) !=
           cudaSuccess ||
-      cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
+      tt_runtime::sm_count(&sms) != cudaSuccess) {
     return 1;
   }
   const int blocks = per_sm * sms / g.grid_y;
@@ -770,10 +770,6 @@ int tt_segment_psi_blocks(int elem, int n_mu, int r1, int r2) {
   if (!valid_shape(elem, n_mu, r1, r2)) return 1;
   return elem == 4 ? blocks_any<float>(n_mu, r1, r2)
                    : blocks_any<double>(n_mu, r1, r2);
-}
-
-const char* tt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -193,6 +193,7 @@
 #include <stdint.h>
 
 #include "hash_rng.cuh"
+#include "runtime.cuh"
 
 namespace {
 
@@ -1013,13 +1014,10 @@ Sched schedule_given(Args a, int64_t n_blocks) {
   // hashed sign side takes a thread per tile column
   const bool hashed = GV == GV_LEFT && HAS_R;
   const bool sign = hashed && a.rs.kind == SIGN;
-  int dev = 0, n_sm = 0, sm_bytes = 0, reserved = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&sm_bytes,
-                         cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
-                         dev);
+  int n_sm = 0, sm_bytes = 0, reserved = 0;
+  tt_runtime::sm_count(&n_sm);
+  tt_runtime::smem_per_sm(&sm_bytes);
+  tt_runtime::reserved_smem_per_block(&reserved);
   int64_t want = n_sm > 0 ? (n_blocks + n_sm - 1) / n_sm : 1;
   if (want > MIN_BLOCKS_GIVEN) want = MIN_BLOCKS_GIVEN;
   s.SB[0] = s.SB[1] = s.SB[2] = 0;
@@ -1473,9 +1471,8 @@ __global__ void __launch_bounds__(ONE_WARPS_MAX * 32,
 template <int RB, int KIND, bool WIN>
 cudaError_t one_grid(int64_t n, int64_t* n_blocks, int* warps,
                      int* per_block) {
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  int n_sm = 0, per_sm = 0;
+  tt_runtime::sm_count(&n_sm);
   *warps = WIN ? ONE_WARPS : ONE_WARPS_MAX;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, oneside_kernel<RB, KIND, WIN>, *warps * 32, 0);
@@ -1779,10 +1776,6 @@ int tt_psi_omega_merged(const int* loc, const float* e, const uint64_t* lflat,
   cudaError_t err = lflat ? launch<true, true, true, true>(a, n_chunks, st)
                           : launch<false, true, true, true>(a, n_chunks, st);
   return (int)err;
-}
-
-const char* tt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -47,6 +47,7 @@
 #include <stdint.h>
 
 #include "hash_rng.cuh"
+#include "runtime.cuh"
 
 namespace {
 
@@ -166,10 +167,6 @@ int tt_sparse_sign_rows(const uint64_t* flat, const uint64_t* salts,
   sparse_sign_kernel<<<(unsigned)blocks, T, bytes, s>>>(
       flat, salts, out, N, rank, nnz, rank_min, rank_max);
   return (int)cudaGetLastError();
-}
-
-const char* tt_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

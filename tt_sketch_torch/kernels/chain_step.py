@@ -27,7 +27,6 @@ read through the cache above.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -35,7 +34,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from tt_sketch_torch import profiling
-from tt_sketch_torch.kernels.lazy_gaussian import _raise_on
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, I64, PTR
 
 #: nonzeros per step of the plain version (bounds the gathered
 #: ``(r1, block, r2)`` temporary)
@@ -138,18 +138,12 @@ def chain_step_t_reference(state_t: Optional[torch.Tensor],
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signatures declared (once per
     process)."""
-    from tt_sketch_torch.kernels.cuda_build import load_library
-
-    lib = load_library("chain_step")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tt_chain_step.argtypes = [ptr] * 5 + [i64] + [i32] * 9 + [ptr]
-    lib.tt_chain_step.restype = i32
-    lib.tt_cuda_error_string.argtypes = [i32]
-    lib.tt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.library("chain_step", {
+        "tt_chain_step": ([PTR] * 5 + [I64] + [I32] * 9 + [PTR], I32),
+    })
 
 
 @profiling.spanned("tt.kernel.chain_step_t")
@@ -209,15 +203,12 @@ def _launch(state_t: Optional[torch.Tensor], core: torch.Tensor,
     core32 = core.to(torch.float32).contiguous()
     state = (None if state_t is None
              else state_t.to(torch.float32).contiguous())
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tt_chain_step(
-            None if state is None else state.data_ptr(), core32.data_ptr(),
-            rows.data_ptr(), idx.data_ptr(), out.data_ptr(), nnz, n, r1, r2,
-            sched.stride, sched.r1_bucket, sched.r2_bucket,
-            PLACES[sched.place], sched.smem_bytes, sched.state_cols, stream)
-    _raise_on(lib, err, "chain_step_t")
+    cuda_build.launch(
+        _library(), "tt_chain_step", device,
+        None if state is None else state.data_ptr(), core32.data_ptr(),
+        rows.data_ptr(), idx.data_ptr(), out.data_ptr(), nnz, n, r1, r2,
+        sched.stride, sched.r1_bucket, sched.r2_bucket, PLACES[sched.place],
+        sched.smem_bytes, sched.state_cols, what="chain_step_t")
     profiling.launched("chain_step_t", state, core32, idx, out)
     return out.to(core.dtype)
 

@@ -12,12 +12,13 @@ rounding here.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from tt_sketch_torch import profiling
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, PTR
 
 _COMPUTE = ("f32", "bf16")
 
@@ -89,35 +90,18 @@ def check_cuda_operands(fn: str, X2d, R=None, L=None) -> None:
         raise ValueError(f"{fn}: X2d is empty")
 
 
+#: the library's queries of its tile and rank limits (no arguments)
+QUERIES = {f"tt_dual_project_{q}": ([], I32)
+           for q in ("row_block", "col_tile", "max_r", "max_rho")}
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signatures declared (once per
     process)."""
-    from tt_sketch_torch.kernels.cuda_build import load_library
-
-    lib = load_library("dual_project")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tt_dual_project.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.tt_t_only.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-    lib.tt_u_only.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.tt_reduce_read.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
-    for fn in ("dual_project", "t_only", "u_only", "reduce_read"):
-        getattr(lib, f"tt_{fn}").restype = i32
-    for fn in ("row_block", "col_tile", "max_r", "max_rho"):
-        getattr(lib, f"tt_dual_project_{fn}").argtypes = []
-        getattr(lib, f"tt_dual_project_{fn}").restype = i32
-    lib.tt_cuda_error_string.argtypes = [i32]
-    lib.tt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def raise_on_error(lib, fn: str, err: int) -> None:
-    """Raise if a launch of ``fn`` returned a CUDA error."""
-    if err != 0:
-        raise RuntimeError(
-            f"{fn} kernel failed to launch: CUDA error {err} "
-            f"({lib.tt_cuda_error_string(err).decode()})"
-        )
+    return cuda_build.library("dual_project", {
+        "tt_dual_project": ([PTR] * 6 + [I32] * 5 + [PTR], I32), **QUERIES,
+    })
 
 
 @profiling.spanned("tt.kernel.dual_project")
@@ -150,26 +134,23 @@ def dual_project(X2d: torch.Tensor, R: torch.Tensor, L: torch.Tensor,
     s_pad = -(-S // col_tile) * col_tile
     n_launch = max(1, -(-r // max_r), -(-rho // max_rho))
     T_parts, U_parts = [], []
-    with torch.cuda.device(X2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for c in range(n_launch):
-            Lc = L[:, c * max_r:(c + 1) * max_r].contiguous()
-            Rc = R[:, c * max_rho:(c + 1) * max_rho].contiguous()
-            rc, rhoc = Lc.shape[1], Rc.shape[1]
-            Tc = torch.empty((P, rhoc), dtype=torch.float32, device=X2d.device)
-            Uc = torch.empty((rc, S), dtype=torch.float32, device=X2d.device)
-            Upart = torch.empty(
-                (n_blocks, rc, s_pad), dtype=torch.float32, device=X2d.device
-            )
-            err = lib.tt_dual_project(
-                X2d.data_ptr(), Rc.data_ptr(), Lc.data_ptr(), Tc.data_ptr(),
-                Uc.data_ptr(), Upart.data_ptr(), P, S, rc, rhoc,
-                int(compute == "bf16"), stream,
-            )
-            raise_on_error(lib, "dual_project", err)
-            profiling.launched("dual_project", X2d, Rc, Lc, Tc, Uc)
-            T_parts.append(Tc)
-            U_parts.append(Uc)
+    for c in range(n_launch):
+        Lc = L[:, c * max_r:(c + 1) * max_r].contiguous()
+        Rc = R[:, c * max_rho:(c + 1) * max_rho].contiguous()
+        rc, rhoc = Lc.shape[1], Rc.shape[1]
+        Tc = torch.empty((P, rhoc), dtype=torch.float32, device=X2d.device)
+        Uc = torch.empty((rc, S), dtype=torch.float32, device=X2d.device)
+        Upart = torch.empty(
+            (n_blocks, rc, s_pad), dtype=torch.float32, device=X2d.device
+        )
+        cuda_build.launch(
+            lib, "tt_dual_project", X2d.device, X2d.data_ptr(),
+            Rc.data_ptr(), Lc.data_ptr(), Tc.data_ptr(), Uc.data_ptr(),
+            Upart.data_ptr(), P, S, rc, rhoc, int(compute == "bf16"),
+            what="dual_project")
+        profiling.launched("dual_project", X2d, Rc, Lc, Tc, Uc)
+        T_parts.append(Tc)
+        U_parts.append(Uc)
     if n_launch == 1:
         return T_parts[0], U_parts[0]
     return torch.cat(T_parts, dim=1), torch.cat(U_parts, dim=0)

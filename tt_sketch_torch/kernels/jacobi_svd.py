@@ -30,15 +30,14 @@ singular values and vectors, as the JAX function gives.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
 import torch
 
 from tt_sketch_torch import profiling
-from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
-from tt_sketch_torch.kernels.lazy_gaussian import _raise_on
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, I64, PTR
 
 #: the kernel's limits (``csrc/jacobi_svd.cu``, held to it by a card test):
 #: sweeps at most, the shared memory of a block (the default limit), and
@@ -181,23 +180,15 @@ def jacobi_svd_reference(A: torch.Tensor, return_sweeps: bool = False):
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signatures declared (once per
     process)."""
-    from tt_sketch_torch.kernels.cuda_build import load_library
-
-    lib = load_library("jacobi_svd")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tt_jacobi_svd.argtypes = [i32, ptr, i64, i32, i32, i64, i64, i64,
-                                  ptr, ptr, ptr, ptr, ptr]
-    lib.tt_jacobi_svd.restype = i32
-    lib.tt_jacobi_svd_fits.argtypes = [i32, i32, i32]
-    lib.tt_jacobi_svd_fits.restype = i32
-    lib.tt_jacobi_svd_smem.argtypes = [i32, i32, i32]
-    lib.tt_jacobi_svd_smem.restype = i64
-    lib.tt_cuda_error_string.argtypes = [i32]
-    lib.tt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.library("jacobi_svd", {
+        "tt_jacobi_svd": ([I32, PTR, I64, I32, I32, I64, I64, I64]
+                          + [PTR] * 5, I32),
+        "tt_jacobi_svd_fits": ([I32] * 3, I32),
+        "tt_jacobi_svd_smem": ([I32] * 3, I64),
+    })
 
 
 @profiling.spanned("tt.kernel.jacobi_svd")
@@ -230,13 +221,11 @@ def jacobi_svd(A: torch.Tensor, return_sweeps: bool = False):
     Vh = torch.empty((b, cols, cols), dtype=A.dtype, device=device)
     used = torch.empty(b, dtype=torch.int32, device=device)
     if b:
-        lib = _library()
-        with on_device(device):
-            err = lib.tt_jacobi_svd(
-                torch.finfo(A.dtype).bits // 8, X.data_ptr(), b, rows, cols,
-                *X.stride(), U.data_ptr(), s.data_ptr(), Vh.data_ptr(),
-                used.data_ptr(), current_stream_handle(device.index))
-        _raise_on(lib, err, "jacobi_svd")
+        cuda_build.launch(
+            _library(), "tt_jacobi_svd", device,
+            torch.finfo(A.dtype).bits // 8, X.data_ptr(), b, rows, cols,
+            *X.stride(), U.data_ptr(), s.data_ptr(), Vh.data_ptr(),
+            used.data_ptr(), what="jacobi_svd")
         profiling.launched("jacobi_svd", X, U, s, Vh)
     U, s, Vh = (U.reshape(lead + (rows, cols)), s.reshape(lead + (cols,)),
                 Vh.reshape(lead + (cols, cols)))

@@ -12,12 +12,13 @@ holding the device's integer arithmetic against ``hash_rng.hash_int``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from tt_sketch_torch import profiling
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, I64, PTR, check_int64
 from tt_sketch_torch.rng.hash_rng import hash_int, normal_from_bits
 
 #: (rows of) flat indices processed per step of the plain version
@@ -37,40 +38,15 @@ def lazy_gaussian_reference(flat: torch.Tensor,
     return out
 
 
-def _check_int64(name: str, t: torch.Tensor, device) -> None:
-    if t.device != device:
-        raise ValueError(
-            f"{name} lies on {t.device}; all operands must lie on {device}")
-    if t.dtype != torch.int64 or t.ndim != 1 or not t.is_contiguous():
-        raise ValueError(
-            f"{name} must be a contiguous 1-D int64 tensor, got {t.dtype} "
-            f"of shape {tuple(t.shape)}")
-
-
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signatures declared (once per
     process)."""
-    from tt_sketch_torch.kernels.cuda_build import load_library
-
-    lib = load_library("lazy_gaussian")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tt_lazy_gaussian.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
-    lib.tt_lazy_gaussian.restype = i32
-    lib.tt_hash_bits.argtypes = [ptr, ptr, i64, ptr]
-    lib.tt_hash_bits.restype = i32
-    lib.tt_lazy_gaussian_max_rows.argtypes = []
-    lib.tt_lazy_gaussian_max_rows.restype = i32
-    lib.tt_cuda_error_string.argtypes = [i32]
-    lib.tt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} kernel failed to launch: CUDA error {err} "
-            f"({lib.tt_cuda_error_string(err).decode()})")
+    return cuda_build.library("lazy_gaussian", {
+        "tt_lazy_gaussian": ([PTR, PTR, PTR, I64, I32, PTR], I32),
+        "tt_hash_bits": ([PTR, PTR, I64, PTR], I32),
+        "tt_lazy_gaussian_max_rows": ([], I32),
+    })
 
 
 @profiling.spanned("tt.kernel.lazy_gaussian")
@@ -83,7 +59,7 @@ def lazy_gaussian(flat: torch.Tensor, salts: torch.Tensor) -> torch.Tensor:
     if flat.device.type == "cpu" and salts.device.type == "cpu":
         return lazy_gaussian_reference(flat, salts)
     for name, t in (("flat", flat), ("salts", salts)):
-        _check_int64(name, t, flat.device)
+        check_int64(name, t, flat.device)
     if flat.device.type != "cuda":
         raise ValueError(f"lazy_gaussian: no kernel for {flat.device}")
     lib = _library()
@@ -95,14 +71,11 @@ def lazy_gaussian(flat: torch.Tensor, salts: torch.Tensor) -> torch.Tensor:
     out = torch.empty((R, N), dtype=torch.float32, device=flat.device)
     if N == 0 or R == 0:
         return out
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tt_lazy_gaussian(flat.data_ptr(), salts.data_ptr(),
-                                   out.data_ptr(), N, R, stream)
-    _raise_on(lib, err, "lazy_gaussian")
+    cuda_build.launch(lib, "tt_lazy_gaussian", flat.device, flat.data_ptr(),
+                      salts.data_ptr(), out.data_ptr(), N, R,
+                      what="lazy_gaussian")
     profiling.launched("lazy_gaussian", flat, salts, out)
     return out
-
 
 
 @profiling.spanned("tt.kernel.hash_bits")
@@ -111,16 +84,13 @@ def hash_bits(x: torch.Tensor) -> torch.Tensor:
     kernel library's ``tt_hash_bits`` on CUDA (``launches.hash_bits``)."""
     if x.device.type == "cpu":
         return hash_int(x)
-    _check_int64("x", x, x.device)
+    check_int64("x", x, x.device)
     lib = _library()
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tt_hash_bits(x.data_ptr(), out.data_ptr(), x.shape[0],
-                               stream)
-    _raise_on(lib, err, "hash_bits")
+    cuda_build.launch(lib, "tt_hash_bits", x.device, x.data_ptr(),
+                      out.data_ptr(), x.shape[0], what="hash_bits")
     profiling.launched("hash_bits", x, out)
     return out
 

@@ -27,18 +27,19 @@ and its block-size sweep of ``dual_project`` (the port's tiles are fixed).
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
 
 from tt_sketch_torch import profiling
-from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, PTR
 from tt_sketch_torch.kernels.dual_project import (
-    _library,
+    QUERIES,
     check_compute,
     check_cuda_operands,
     dual_project,
-    raise_on_error,
     rounded_operands,
 )
 
@@ -47,6 +48,17 @@ from tt_sketch_torch.kernels.dual_project import (
 MAIN_SHAPE = (32768, 16384, 32, 64)
 TAGS = ("read-roofline", "lib-T", "lib-U", "T-f32", "T-bf16", "U-f32",
         "U-bf16", "dual-f32", "dual-bf16")
+
+
+@functools.cache
+def _library():
+    """The projection library (``dual_project``'s) with the C signatures
+    of the diagnostics' kernels declared (once per process)."""
+    return cuda_build.library("dual_project", {
+        "tt_t_only": ([PTR] * 3 + [I32] * 4 + [PTR], I32),
+        "tt_u_only": ([PTR] * 4 + [I32] * 4 + [PTR], I32),
+        "tt_reduce_read": ([PTR] * 2 + [I32] * 2 + [PTR], I32), **QUERIES,
+    })
 
 
 def t_only_reference(X2d: torch.Tensor, R: torch.Tensor,
@@ -96,15 +108,14 @@ def t_only(X2d: torch.Tensor, R: torch.Tensor,
     def launch(Rc):
         T = torch.empty((P, Rc.shape[1]), dtype=torch.float32,
                         device=X2d.device)
-        raise_on_error(lib, "t_only", lib.tt_t_only(
-            X2d.data_ptr(), Rc.data_ptr(), T.data_ptr(), P, S, Rc.shape[1],
-            int(compute == "bf16"), torch.cuda.current_stream().cuda_stream))
+        cuda_build.launch(
+            lib, "tt_t_only", X2d.device, X2d.data_ptr(), Rc.data_ptr(),
+            T.data_ptr(), P, S, Rc.shape[1], int(compute == "bf16"),
+            what="t_only")
         profiling.launched("t_only", X2d, Rc, T)
         return T
 
-    with torch.cuda.device(X2d.device):
-        return in_rank_blocks(launch, R, lib.tt_dual_project_max_rho(), dim=1)
-
+    return in_rank_blocks(launch, R, lib.tt_dual_project_max_rho(), dim=1)
 
 
 @profiling.spanned("tt.kernel.u_only")
@@ -130,16 +141,14 @@ def u_only(X2d: torch.Tensor, L: torch.Tensor,
         U = torch.empty((r, S), dtype=torch.float32, device=X2d.device)
         Upart = torch.empty((n_blocks, r, s_pad), dtype=torch.float32,
                             device=X2d.device)
-        raise_on_error(lib, "u_only", lib.tt_u_only(
-            X2d.data_ptr(), Lc.data_ptr(), U.data_ptr(), Upart.data_ptr(), P,
-            S, r, int(compute == "bf16"),
-            torch.cuda.current_stream().cuda_stream))
+        cuda_build.launch(
+            lib, "tt_u_only", X2d.device, X2d.data_ptr(), Lc.data_ptr(),
+            U.data_ptr(), Upart.data_ptr(), P, S, r, int(compute == "bf16"),
+            what="u_only")
         profiling.launched("u_only", X2d, Lc, U)
         return U
 
-    with torch.cuda.device(X2d.device):
-        return in_rank_blocks(launch, L, lib.tt_dual_project_max_r(), dim=0)
-
+    return in_rank_blocks(launch, L, lib.tt_dual_project_max_r(), dim=0)
 
 
 @profiling.spanned("tt.kernel.reduce_read")
@@ -153,13 +162,10 @@ def reduce_read(X2d: torch.Tensor) -> torch.Tensor:
     lib = _library()
     P, S = X2d.shape
     out = torch.empty((P, 1), dtype=torch.float32, device=device)
-    with on_device(device):
-        err = lib.tt_reduce_read(X2d.data_ptr(), out.data_ptr(), P, S,
-                                 current_stream_handle(device.index))
-    raise_on_error(lib, "reduce_read", err)
+    cuda_build.launch(lib, "tt_reduce_read", device, X2d.data_ptr(),
+                      out.data_ptr(), P, S, what="reduce_read")
     profiling.launched("reduce_read", X2d, out)
     return out
-
 
 
 def _diag_calls(X2d, R, L):

@@ -32,8 +32,8 @@ import functools
 import torch
 
 from tt_sketch_torch import profiling
-from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
-from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, I64, PTR, check_int64
 
 #: the kernel's fit (``csrc/segment_psi.cu``, held to it by a test): its
 #: shared memory a block, the nonzeros of its smallest step, the steps of
@@ -146,30 +146,23 @@ def segment_chunks(nnz: int, n_mu: int, n_pairs: int,
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signatures declared (once per
     process)."""
-    from tt_sketch_torch.kernels.cuda_build import load_library
-
-    lib = load_library("segment_psi")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tt_segment_psi.argtypes = [i32] + [ptr] * 6 + [i64, i32, i32, i32,
-                                                      i64, i32, ptr]
-    lib.tt_segment_psi.restype = i32
-    for query in (lib.tt_segment_psi_blocks, lib.tt_segment_psi_fits):
-        query.argtypes = [i32] * 4
-        query.restype = i32
-    lib.tt_segment_psi_plan.argtypes = [i32] * 4 + [ptr]
-    lib.tt_segment_psi_plan.restype = i32
-    lib.tt_cuda_error_string.argtypes = [i32]
-    lib.tt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.library("segment_psi", {
+        "tt_segment_psi": ([I32] + [PTR] * 6 + [I64, I32, I32, I32, I64, I32,
+                                                PTR], I32),
+        "tt_segment_psi_blocks": ([I32] * 4, I32),
+        "tt_segment_psi_fits": ([I32] * 4, I32),
+        "tt_segment_psi_plan": ([I32] * 4 + [PTR], I32),
+    })
 
 
 @functools.cache
-def _blocks(device: int, elem: int, n_mu: int, r1: int, r2: int) -> int:
+def _blocks(device: torch.device, elem: int, n_mu: int, r1: int,
+            r2: int) -> int:
     """The kernel's blocks that fill card ``device`` once for this Ψ."""
-    with torch.cuda.device(device):
+    with cuda_build.on_device(device):
         return _library().tt_segment_psi_blocks(elem, n_mu, r1, r2)
 
 
@@ -213,7 +206,7 @@ def psi_segment(left, right, entries, indices_mu, n_mu):
     if device.type != "cuda":
         raise ValueError(f"psi_segment: entries lie on {device}; all operands "
                          f"must lie on one CUDA device")
-    _check_int64("indices_mu", indices_mu, device)
+    check_int64("indices_mu", indices_mu, device)
     nnz = entries.shape[0]
     for name, t in named:
         if t.device != device:
@@ -233,18 +226,16 @@ def psi_segment(left, right, entries, indices_mu, n_mu):
     lib = _library()
     elem = torch.finfo(kdtype).bits // 8
     chunk, n_chunks = segment_chunks(
-        nnz, n_mu, r1 * r2, _blocks(device.index, elem, n_mu, r1, r2))
+        nnz, n_mu, r1 * r2, _blocks(device, elem, n_mu, r1, r2))
     out = torch.empty((n_mu, r1, r2), dtype=kdtype, device=device)
     partials = torch.empty((n_chunks, n_mu, r1 * r2), dtype=kdtype,
                            device=device)
-    with on_device(device):
-        err = lib.tt_segment_psi(
-            elem, indices_mu.data_ptr(), entries.data_ptr(),
-            None if left is None else left.data_ptr(),
-            None if right is None else right.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), nnz, n_mu, r1, r2, chunk, n_chunks,
-            current_stream_handle(device.index))
-    _raise_on(lib, err, "psi_segment")
+    cuda_build.launch(
+        lib, "tt_segment_psi", device, elem, indices_mu.data_ptr(),
+        entries.data_ptr(), None if left is None else left.data_ptr(),
+        None if right is None else right.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), nnz, n_mu, r1, r2, chunk, n_chunks,
+        what="psi_segment")
     profiling.launched("psi_segment", indices_mu, entries, left, right, out)
     return out.to(dtype)
 

@@ -60,14 +60,11 @@ from typing import Optional, Tuple
 import torch
 
 from tt_sketch_torch import profiling
-from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
-from tt_sketch_torch.kernels.lazy_gaussian import (
-    _check_int64,
-    _raise_on,
-    lazy_gaussian_reference,
-)
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, I64, PTR, check_int64
+from tt_sketch_torch.kernels.lazy_gaussian import lazy_gaussian_reference
 from tt_sketch_torch.kernels.sparse_sign import (
-    _check_slice,
+    check_slice,
     sparse_sign_rows_reference,
 )
 
@@ -95,7 +92,7 @@ def _side_rows(spec, flat, salts) -> int:
         return salts.shape[0]
     if len(spec) == 5 and spec[0] == "s":
         _, rank, nnz, rank_min, r_out = spec
-        _check_slice(salts, rank, nnz, rank_min, rank_min + r_out)
+        check_slice(salts, rank, nnz, rank_min, rank_min + r_out)
         return r_out
     raise ValueError(f"side spec {spec!r}: expected ('g',) or "
                      f"('s', rank, nnz, rank_min, r_out)")
@@ -219,39 +216,26 @@ def psi_omega_merged_slabs_reference(loc, se, lflat, rflat, oflat, lsalts,
 # -- kernels -----------------------------------------------------------------
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signatures declared (once per
     process)."""
-    from tt_sketch_torch.kernels.cuda_build import load_library
-
-    lib = load_library("sparse_psi")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     spec = ctypes.POINTER(ctypes.c_int)
-    lib.tt_psi_fused_slabs.argtypes = (
-        [ptr] * 7 + [i64] + [i32] * 5 + [spec] * 2 + [ptr])
-    lib.tt_psi_fused_slabs.restype = i32
-    lib.tt_psi_window_direct.argtypes = (
-        [ptr] * 9 + [i32] * 6 + [spec] * 2 + [ptr])
-    lib.tt_psi_window_direct.restype = i32
-    lib.tt_psi_chunk_slabs.argtypes = (
-        [ptr] * 7 + [i64] + [i32] * 5 + [spec] + [ptr])
-    lib.tt_psi_chunk_slabs.restype = i32
-    lib.tt_omega_fused.argtypes = (
-        [ptr] * 6 + [i64, i32, i32] + [spec] * 2 + [ptr])
-    lib.tt_omega_fused.restype = i32
-    lib.tt_psi_omega_merged.argtypes = (
-        [ptr] * 10 + [i64] + [i32] * 6 + [spec] * 3 + [ptr])
-    lib.tt_psi_omega_merged.restype = i32
-    lib.tt_psi_given_schedule.argtypes = [i32] * 6 + [spec] * 2
-    lib.tt_psi_given_schedule.restype = i32
-    lib.tt_psi_oneside_schedule.argtypes = [i32] * 5 + [spec] * 2 + [i32,
-                                                                   spec]
-    lib.tt_psi_oneside_schedule.restype = i32
-    lib.tt_omega_chunk.argtypes = []
-    lib.tt_omega_chunk.restype = i32
-    lib.tt_cuda_error_string.argtypes = [i32]
-    lib.tt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.library("sparse_psi", {
+        "tt_psi_fused_slabs": (
+            [PTR] * 7 + [I64] + [I32] * 5 + [spec] * 2 + [PTR], I32),
+        "tt_psi_window_direct": (
+            [PTR] * 9 + [I32] * 6 + [spec] * 2 + [PTR], I32),
+        "tt_psi_chunk_slabs": (
+            [PTR] * 7 + [I64] + [I32] * 5 + [spec] + [PTR], I32),
+        "tt_omega_fused": (
+            [PTR] * 6 + [I64, I32, I32] + [spec] * 2 + [PTR], I32),
+        "tt_psi_omega_merged": (
+            [PTR] * 10 + [I64] + [I32] * 6 + [spec] * 3 + [PTR], I32),
+        "tt_psi_given_schedule": ([I32] * 6 + [spec] * 2, I32),
+        "tt_psi_oneside_schedule": ([I32] * 5 + [spec] * 2 + [I32, spec],
+                                    I32),
+        "tt_omega_chunk": ([], I32),
+    })
 
 
 def _c_spec(spec):
@@ -295,7 +279,7 @@ def _prepare(se, loc=None, **int64s):
         raise ValueError(f"sparse_psi: no kernel for {device}")
     for name, t in int64s.items():
         if t is not None:
-            _check_int64(name, t, device)
+            check_int64(name, t, device)
     if loc is not None and (loc.device != device or loc.dtype != torch.int32
                             or not loc.is_contiguous()):
         raise ValueError("loc must be a contiguous int32 tensor on "
@@ -346,21 +330,17 @@ def psi_fused_slabs(loc, se, lflat, rflat, lsalts, rsalts, n_chunks: int,
     lib = _library()
     slabs = torch.empty((n_chunks, span, r1, r2), dtype=torch.float32,
                         device=e.device)
-    with on_device(e.device):
-        err = lib.tt_psi_fused_slabs(
-            loc.data_ptr(), e.data_ptr(), _ptr(lflat), _ptr(rflat),
-            _ptr(lsalts if lflat is not None else None),
-            _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
-            e.shape[0], n_chunks, span, chunk, r1, r2, _c_spec(lspec),
-            _c_spec(rspec),
-            current_stream_handle(e.device.index))
-    _raise_on(lib, err, "psi_fused_slabs")
+    cuda_build.launch(
+        lib, "tt_psi_fused_slabs", e.device, loc.data_ptr(), e.data_ptr(),
+        _ptr(lflat), _ptr(rflat), _ptr(lsalts if lflat is not None else None),
+        _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
+        e.shape[0], n_chunks, span, chunk, r1, r2, _c_spec(lspec),
+        _c_spec(rspec), what="psi_fused_slabs")
     profiling.launched(
         "psi_fused_slabs", loc, e, lflat, rflat,
         lsalts if lflat is not None else None,
         rsalts if rflat is not None else None, slabs)
     return slabs
-
 
 
 def _check_rows(name: str, nnz: int, **sides) -> None:
@@ -394,14 +374,12 @@ def _launch_chunk_slabs(name, loc, se, sl, sr, rflat, rsalts, rspec,
     lib = _library()
     slabs = torch.empty((n_chunks, span, r1, r2), dtype=torch.float32,
                         device=e.device)
-    with on_device(e.device):
-        err = lib.tt_psi_chunk_slabs(
-            loc.data_ptr(), e.data_ptr(), _ptr(sl), _ptr(sr), _ptr(rflat),
-            _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
-            e.shape[0], n_chunks, span, chunk, r1, r2,
-            None if sr is not None else _c_spec(rspec),
-            current_stream_handle(e.device.index))
-    _raise_on(lib, err, name)
+    cuda_build.launch(
+        lib, "tt_psi_chunk_slabs", e.device, loc.data_ptr(), e.data_ptr(),
+        _ptr(sl), _ptr(sr), _ptr(rflat),
+        _ptr(rsalts if rflat is not None else None), slabs.data_ptr(),
+        e.shape[0], n_chunks, span, chunk, r1, r2,
+        None if sr is not None else _c_spec(rspec), what=name)
     profiling.launched(name, loc, e, sl, sr, rflat,
                        rsalts if rflat is not None else None, slabs)
     return slabs
@@ -497,16 +475,13 @@ def psi_window_direct(win, first, loc, se, lflat, rflat, lsalts, rsalts,
     lib = _library()
     psi = torch.empty((n_windows * span, r1, r2), dtype=torch.float32,
                       device=e.device)
-    with on_device(e.device):
-        err = lib.tt_psi_window_direct(
-            win.data_ptr(), first.data_ptr(), loc.data_ptr(), e.data_ptr(),
-            _ptr(lflat), _ptr(rflat),
-            _ptr(lsalts if lflat is not None else None),
-            _ptr(rsalts if rflat is not None else None), psi.data_ptr(),
-            n_chunks, span, chunk, n_windows, r1, r2, _c_spec(lspec),
-            _c_spec(rspec),
-            current_stream_handle(e.device.index))
-    _raise_on(lib, err, "psi_window_direct")
+    cuda_build.launch(
+        lib, "tt_psi_window_direct", e.device, win.data_ptr(),
+        first.data_ptr(), loc.data_ptr(), e.data_ptr(), _ptr(lflat),
+        _ptr(rflat), _ptr(lsalts if lflat is not None else None),
+        _ptr(rsalts if rflat is not None else None), psi.data_ptr(),
+        n_chunks, span, chunk, n_windows, r1, r2, _c_spec(lspec),
+        _c_spec(rspec), what="psi_window_direct")
     profiling.launched(
         "psi_window_direct", win, first, loc, e, lflat, rflat,
         lsalts if lflat is not None else None,
@@ -527,7 +502,7 @@ def oneside_schedule(window: bool, lflat, rflat, r1: int, r2: int,
     err = lib.tt_psi_oneside_schedule(
         int(window), int(lflat is not None), int(rflat is not None), r1, r2,
         _c_spec(lspec), _c_spec(rspec), n, out)
-    _raise_on(lib, err, "tt_psi_oneside_schedule")
+    cuda_build.check(lib, err, "tt_psi_oneside_schedule")
     return tuple(out)
 
 
@@ -550,13 +525,11 @@ def omega_fused(e, lflat, rflat, lsalts, rsalts, lspec=_GAUSS,
     n_blocks = -(-e.shape[0] // lib.tt_omega_chunk())
     part = torch.empty((n_blocks, r1, r2), dtype=torch.float32,
                        device=e.device)
-    with on_device(e.device):
-        err = lib.tt_omega_fused(
-            e.data_ptr(), lflat.data_ptr(), rflat.data_ptr(),
-            lsalts.data_ptr(), rsalts.data_ptr(), part.data_ptr(),
-            e.shape[0], r1, r2, _c_spec(lspec), _c_spec(rspec),
-            current_stream_handle(e.device.index))
-    _raise_on(lib, err, "omega_fused")
+    cuda_build.launch(
+        lib, "tt_omega_fused", e.device, e.data_ptr(), lflat.data_ptr(),
+        rflat.data_ptr(), lsalts.data_ptr(), rsalts.data_ptr(),
+        part.data_ptr(), e.shape[0], r1, r2, _c_spec(lspec), _c_spec(rspec),
+        what="omega_fused")
     profiling.launched("omega_fused", e, lflat, rflat, lsalts, rsalts, part)
     return part.sum(dim=0)
 
@@ -589,15 +562,13 @@ def psi_omega_merged_slabs(loc, se, lflat, rflat, oflat, lsalts, rsalts,
                         device=e.device)
     part = torch.empty((n_chunks, r1o, r2), dtype=torch.float32,
                        device=e.device)
-    with on_device(e.device):
-        err = lib.tt_psi_omega_merged(
-            loc.data_ptr(), e.data_ptr(), _ptr(lflat), rflat.data_ptr(),
-            oflat.data_ptr(), _ptr(lsalts if lflat is not None else None),
-            rsalts.data_ptr(), osalts.data_ptr(), slabs.data_ptr(),
-            part.data_ptr(), e.shape[0], n_chunks, span, chunk, r1, r2, r1o,
-            _c_spec(lspec), _c_spec(rspec), _c_spec(ospec),
-            current_stream_handle(e.device.index))
-    _raise_on(lib, err, "psi_omega_merged_slabs")
+    cuda_build.launch(
+        lib, "tt_psi_omega_merged", e.device, loc.data_ptr(), e.data_ptr(),
+        _ptr(lflat), rflat.data_ptr(), oflat.data_ptr(),
+        _ptr(lsalts if lflat is not None else None), rsalts.data_ptr(),
+        osalts.data_ptr(), slabs.data_ptr(), part.data_ptr(), e.shape[0],
+        n_chunks, span, chunk, r1, r2, r1o, _c_spec(lspec), _c_spec(rspec),
+        _c_spec(ospec), what="psi_omega_merged_slabs")
     profiling.launched(
         "psi_omega_merged_slabs", loc, e, lflat, rflat, oflat,
         lsalts if lflat is not None else None, rsalts, osalts, slabs, part)

@@ -17,22 +17,24 @@ them to a multiple of 8 rows that it hashes and drops).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from tt_sketch_torch import profiling
-from tt_sketch_torch.kernels.cuda_build import current_stream_handle, on_device
-from tt_sketch_torch.kernels.lazy_gaussian import _check_int64, _raise_on
+from tt_sketch_torch.kernels import cuda_build
+from tt_sketch_torch.kernels.cuda_build import I32, I64, PTR, check_int64
 from tt_sketch_torch.rng.hash_rng import hash_int, sparse_sign_from_bits
 
 #: flat indices per step of the plain version (bounds its (rank, N) block)
 _REF_BLOCK = 1 << 20
 
 
-def _check_slice(salts, rank: int, nnz: int, rank_min: int,
-                 rank_max: int) -> None:
+def check_slice(salts, rank: int, nnz: int, rank_min: int,
+                rank_max: int) -> None:
+    """Raise unless ``salts`` are those of columns ``[0, nnz)``, ``nnz`` is
+    in ``[0, rank]`` and ``[rank_min, rank_max)`` is a non-empty slice of
+    the ``rank`` slots."""
     if salts.shape[0] != nnz:
         raise ValueError(f"{salts.shape[0]} salts for {nnz} non-zeros per "
                          f"row: a sign side takes the salts of columns "
@@ -49,7 +51,7 @@ def sparse_sign_rows_reference(flat: torch.Tensor, salts: torch.Tensor,
                                rank_max: int) -> torch.Tensor:
     """Plain PyTorch version: hash, signs from bit 52, Fisher–Yates pass
     with the exact integer swap positions (``hash_rng``), float32."""
-    _check_slice(salts, rank, nnz, rank_min, rank_max)
+    check_slice(salts, rank, nnz, rank_min, rank_max)
     out = torch.empty((rank_max - rank_min, flat.shape[0]),
                       dtype=torch.float32, device=flat.device)
     block = max(1, _REF_BLOCK // max(rank // 16, 1))
@@ -62,21 +64,14 @@ def sparse_sign_rows_reference(flat: torch.Tensor, salts: torch.Tensor,
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library():
     """The built kernel library with its C signatures declared (once per
     process)."""
-    from tt_sketch_torch.kernels.cuda_build import load_library
-
-    lib = load_library("sparse_sign")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tt_sparse_sign_rows.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32,
-                                        i32, ptr]
-    lib.tt_sparse_sign_rows.restype = i32
-    lib.tt_sparse_sign_max_rank.argtypes = []
-    lib.tt_sparse_sign_max_rank.restype = i32
-    lib.tt_cuda_error_string.argtypes = [i32]
-    lib.tt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.library("sparse_sign", {
+        "tt_sparse_sign_rows": ([PTR, PTR, PTR, I64] + [I32] * 4 + [PTR],
+                                I32),
+        "tt_sparse_sign_max_rank": ([], I32),
+    })
 
 
 @profiling.spanned("tt.kernel.sparse_sign_rows")
@@ -95,10 +90,10 @@ def sparse_sign_rows(flat: torch.Tensor, salts: torch.Tensor, rank: int,
         return sparse_sign_rows_reference(flat, salts, rank, nnz, rank_min,
                                           rank_max)
     for name, t in (("flat", flat), ("salts", salts)):
-        _check_int64(name, t, flat.device)
+        check_int64(name, t, flat.device)
     if flat.device.type != "cuda":
         raise ValueError(f"sparse_sign_rows: no kernel for {flat.device}")
-    _check_slice(salts, rank, nnz, rank_min, rank_max)
+    check_slice(salts, rank, nnz, rank_min, rank_max)
     lib = _library()
     if rank > lib.tt_sparse_sign_max_rank():
         raise ValueError(f"sparse_sign_rows: rank {rank} > the kernel's "
@@ -108,11 +103,9 @@ def sparse_sign_rows(flat: torch.Tensor, salts: torch.Tensor, rank: int,
                       device=flat.device)
     if N == 0:
         return out
-    with on_device(flat.device):
-        err = lib.tt_sparse_sign_rows(
-            flat.data_ptr(), salts.data_ptr(), out.data_ptr(), N, rank, nnz,
-            rank_min, rank_max, current_stream_handle(flat.device.index))
-    _raise_on(lib, err, "sparse_sign_rows")
+    cuda_build.launch(lib, "tt_sparse_sign_rows", flat.device,
+                      flat.data_ptr(), salts.data_ptr(), out.data_ptr(), N,
+                      rank, nnz, rank_min, rank_max, what="sparse_sign_rows")
     profiling.launched("sparse_sign_rows", flat, salts, out)
     return out
 
